@@ -1,0 +1,475 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (``src/repro_torch``) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each of which stops the run with a non-zero exit when it fails:
+
+1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+   ``nvcc`` per source, all started together) and print the build time and
+   what ``ptxas`` reports;
+2. run each kernel on the card at the main path's shapes (T = 816,197,
+   the BibSonomy table) and hold it bit for bit against its plain PyTorch
+   version on the same inputs, with a uint32 wraparound case and 1-, 2-word
+   and 64-bit keys; time the kernel, the plain version and one PyTorch
+   library call computing the same function, beside the bound;
+3. mine full-size BibSonomy (816,197 triples; 2,337 x 67,464 x 28,920)
+   with ``BatchMiner(device="cuda")``: launch counts of the run, warm time,
+   and every ``PipelineResult`` leaf against ``sort_backend="lax"`` on the
+   card and, on a small context, against the CPU run;
+4. the same for ``NOACMiner(delta=1.0)`` on the MovieLens-1M shape
+   (1,000,209 ratings; 6,040 x 3,952 x 5 stars);
+5. the CLI twin, ``--dataset imdb --backend batch`` (rc 0) and an unknown
+   backend (rc 2).
+
+Before the last line it prints the card's name and power limit
+(``nvidia-smi``) and one JSON line ``{"kernels": [...]}``; the last line is
+``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the JAX
+package.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+#: H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32 rate
+#: outside the tensor cores, used for the integer ALU work too.
+HBM_BYTES_PER_S = 3.35e12
+ALU_OPS_PER_S = 67e12
+
+BIB_T = 816_197
+ML_T = 1_000_209
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(msg: str) -> None:
+    print(f"[chip_smoke] {msg}", flush=True)
+
+
+def time_ms(fn, iters: int = 20, warm: int = 3) -> float:
+    """Mean ms per call on the card's timeline (CUDA events around
+    ``iters`` back-to-back calls, after ``warm`` calls)."""
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 10):
+    """(device ms per call, {kernel name: device ms per call}) of every
+    kernel, copy and fill that ``iters`` calls of ``fn`` put on the card,
+    from ``torch.profiler``; (None, {}) when it records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+    except RuntimeError as e:          # no CUPTI where this runs
+        log(f"profiler unavailable: {e}")
+        return None, {}
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us = ev.time_range.elapsed_us()
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + us / iters / 1e3
+    total = sum(by_name.values())
+    return (total, by_name) if total > 0 else (None, {})
+
+
+def measure(fn, iters: int = 20) -> dict:
+    """``ms``: the device time per call (profiler), or the CUDA-event time
+    per call where the profiler sees no device time; ``call_ms``: the
+    CUDA-event time per back-to-back call, host launch overhead included."""
+    call = time_ms(fn, iters=iters)
+    dev, _ = device_ms(fn, iters=max(1, iters // 2))
+    return {"ms": call if dev is None else dev, "call_ms": call,
+            "source": "events" if dev is None else "profiler"}
+
+
+def bound(bytes_moved: float, ops: float):
+    """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
+    operations over the ALU rate."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ALU_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_abs_err(got, want) -> int:
+    """Largest |got - want| over int32 outputs read as uint32."""
+    import torch
+    g = got.to(torch.int64) & 0xFFFFFFFF
+    w = want.to(torch.int64) & 0xFFFFFFFF
+    return int((g - w).abs().max().item()) if g.numel() else 0
+
+
+def leaves_equal(a, b, what: str) -> None:
+    import dataclasses
+    import torch
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        check(x.shape == y.shape and x.dtype == y.dtype,
+              f"{what}: leaf {f.name} {tuple(x.shape)}/{x.dtype} vs "
+              f"{tuple(y.shape)}/{y.dtype}")
+        check(torch.equal(x.cpu(), y.cpu()), f"{what}: leaf {f.name} differs")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        raise SmokeFailure("torch.cuda.is_available() is false: this smoke "
+                           "run needs a CUDA card")
+    if not (SRC / "repro_torch" / "__init__.py").is_file():
+        raise SmokeFailure(f"{SRC / 'repro_torch'} not found: run "
+                           "chip_smoke.py from a checkout of the repository")
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    from repro_torch.core import BatchMiner, NOACMiner
+    from repro_torch.core import keys as K
+    from repro_torch.core import pipeline as P
+    from repro_torch.core import radix as RX
+    from repro_torch.data import synthetic as S
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import radix_sort as KR
+    from repro_torch.kernels import segment_reduce as KS
+    from repro_torch.launch import tricluster
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)} "
+        f"count {torch.cuda.device_count()}")
+
+    # -- phase 1: build ----------------------------------------------------
+    t0 = time.perf_counter()
+    report = build.build_all()
+    log(f"phase 1 build: {time.perf_counter() - t0:.2f} s wall for "
+        f"{len(report)} libraries")
+    for name, r in report.items():
+        log(f"  {name}: built={r['built']} nvcc {r['seconds']:.2f} s")
+        for line in r["log"].splitlines():
+            if "Used" in line or "spill" in line or "Compiling" in line:
+                log(f"    {line.strip()}")
+
+    # -- data (set-up) -----------------------------------------------------
+    t0 = time.perf_counter()
+    bib = S.bibsonomy_like()
+    ml = S.movielens_like(n_tuples=ML_T).deduplicated()
+    check(bib.num_tuples == BIB_T, f"bibsonomy T={bib.num_tuples}")
+    log(f"data: bibsonomy {bib.sizes} T={bib.num_tuples}; movielens "
+        f"{ml.sizes} T={ml.num_tuples} ({time.perf_counter() - t0:.2f} s)")
+
+    # -- phase 2: kernels against their plain versions ---------------------
+    T = bib.num_tuples
+    tup = torch.from_numpy(bib.tuples).to(dev)
+    plan0 = K.plan_context_keys(bib.sizes, with_values=False)[0]
+    words2 = plan0.pack_device(tup)                       # 44 bits, 2 words
+    rplan2 = RX.plan_radix(plan0.total_bits, T, RX.HIST_DIGIT_BITS)
+    ml_vals = torch.from_numpy(ml.values).to(dev)
+    dom = torch.from_numpy(K.value_domain_host(ml.values)).to(dev)
+    ml_plan0 = K.plan_context_keys(ml.sizes, True, dom.shape[0])[0]
+    words1 = ml_plan0.pack_device(torch.from_numpy(ml.tuples).to(dev),
+                                  ml_vals, dom)           # 31 bits, 1 word
+    rplan1 = RX.plan_radix(ml_plan0.total_bits, ml.num_tuples,
+                           RX.HIST_DIGIT_BITS)
+    rng = np.random.default_rng(2026)
+    sig = [torch.from_numpy(rng.integers(0, 2**32, T, dtype=np.uint32)
+                            .view(np.int32)).to(dev) for _ in range(2)]
+    rplan64 = RX.plan_radix(64, T, RX.HIST_DIGIT_BITS)
+    check((rplan2.passes, rplan1.passes, rplan64.passes) == (6, 4, 8),
+          f"radix passes {rplan2.passes}/{rplan1.passes}/{rplan64.passes}")
+
+    # Stage-2 inputs of mode 0 as the path makes them
+    sm = P.sort_mode(tup, 0, plan=plan0, sort_backend="lax",
+                     use_kernels=False)
+    vecs = P.hash_vectors_from_numpy(P.mode_hash_vectors(bib.sizes), dev)
+    w_lo = vecs[0][0][sm.sorted_e].contiguous()
+    w_hi = vecs[1][0][sm.sorted_e].contiguous()
+    first = sm.first_occ.contiguous()
+    ones = torch.full((T,), -1, dtype=torch.int32, device=dev)  # 0xFFFFFFFF
+    all_first = torch.ones((T,), dtype=torch.bool, device=dev)
+
+    kernels = []
+    errs = {}
+
+    def entry(name, source, replaces, kernel, plain, library, nbytes, nops,
+              shape, plain_iters=20):
+        k = measure(kernel)
+        p = measure(plain, plain_iters)
+        lib = measure(library)
+        b_ms, b_by = bound(nbytes, nops)
+        return dict(name=name, route="cuda",
+                    source=f"src/repro_torch/kernels/csrc/{source}",
+                    replaces=replaces, ms=k["ms"], plain_ms=p["ms"],
+                    library_ms=lib["ms"], bound_ms=b_ms, bound_by=b_by,
+                    ms_source=k["source"], call_ms=k["call_ms"],
+                    plain_call_ms=p["call_ms"],
+                    library_call_ms=lib["call_ms"], shape=shape)
+
+    # segment_reduce
+    err = 0
+    for label, args in (("bibsonomy mode 0", (w_lo, w_hi, first)),
+                        ("uint32 wraparound", (ones, ones, all_first))):
+        got = KS.segment_reduce(*args)
+        want = ref.segment_reduce_ref(*args)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            e = max_abs_err(g, w)
+            check(e == 0, f"segment_reduce {label}: max |err| {e}")
+            err = max(err, e)
+        log(f"phase 2 segment_reduce {label}: bit-equal")
+    wrap = np.cumsum(np.full(T, 0xFFFFFFFF, np.uint64)).astype(np.uint32)
+    got_wrap = KS.segment_reduce(ones, ones, all_first)[0]
+    check(np.array_equal(got_wrap.cpu().numpy().view(np.uint32), wrap),
+          "segment_reduce wraparound differs from numpy's mod-2^32 cumsum")
+    errs["segment_reduce"] = err
+
+    def seg_library():
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        return (torch.cumsum(torch.where(first, w_lo, zero), 0,
+                             dtype=torch.int32),
+                torch.cumsum(torch.where(first, w_hi, zero), 0,
+                             dtype=torch.int32),
+                torch.cumsum(first.to(torch.int32), 0, dtype=torch.int32))
+
+    kernels.append(entry(
+        "segment_reduce", "segment_reduce.cu",
+        "src/repro/kernels/segment_reduce.py:69",
+        lambda: KS.segment_reduce(w_lo, w_hi, first),
+        lambda: ref.segment_reduce_ref(w_lo, w_hi, first), seg_library,
+        nbytes=21 * T, nops=3 * T, shape=f"T={T}"))
+
+    # radix_histogram
+    err = 0
+    for label, w, rp in (("bibsonomy 2-word 44-bit", words2, rplan2),
+                         ("movielens 1-word 31-bit", words1, rplan1),
+                         ("signature 64-bit", sig, rplan64)):
+        got = KR.radix_histogram(w, rp.shifts, rp.widths)
+        want = ref.radix_histogram_ref(w, rp.shifts, rp.widths)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        check(e == 0, f"radix_histogram {label}: max |err| {e}")
+        check(int(got.sum()) == w[0].shape[0] * rp.passes,
+              f"radix_histogram {label}: counts do not sum to T x passes")
+        err = max(err, e)
+        log(f"phase 2 radix_histogram {label}: bit-equal")
+    errs["radix_histogram"] = err
+
+    def hist_library():
+        return [torch.bincount(RX.extract_digit(words2, s, wd),
+                               minlength=RX.HIST_BUCKETS)
+                for s, wd in zip(rplan2.shifts, rplan2.widths)]
+
+    kernels.append(entry(
+        "radix_histogram", "radix_sort.cu",
+        "src/repro/kernels/radix_sort.py:93",
+        lambda: KR.radix_histogram(words2, rplan2.shifts, rplan2.widths),
+        lambda: ref.radix_histogram_ref(words2, rplan2.shifts,
+                                        rplan2.widths), hist_library,
+        nbytes=4 * 2 * T + 4 * 256 * rplan2.passes,
+        nops=3 * T * rplan2.passes,
+        shape=f"T={T} words=2 passes={rplan2.passes}"))
+
+    # radix_rank
+    hist2 = ref.radix_histogram_ref(words2, rplan2.shifts, rplan2.widths)
+    starts2 = (torch.cumsum(hist2, 1, dtype=torch.int32) - hist2)
+    dig_lo = RX.extract_digit(words2, rplan2.shifts[0], rplan2.widths[0])
+    dig_top = RX.extract_digit(words2, rplan2.shifts[-1], rplan2.widths[-1])
+    dig_rand = torch.from_numpy(rng.integers(0, 256, T).astype(np.int32)
+                                ).to(dev)
+    rand_hist = torch.bincount(dig_rand, minlength=256).to(torch.int32)
+    rand_starts = torch.cumsum(rand_hist, 0, dtype=torch.int32) - rand_hist
+    err = 0
+    for label, d, st in (("bibsonomy pass 0", dig_lo, starts2[0]),
+                         ("bibsonomy top pass", dig_top, starts2[-1]),
+                         ("uniform digits", dig_rand, rand_starts)):
+        st = st.contiguous()
+        got = KR.radix_rank(d, st)
+        want = ref.radix_rank_ref(d, st)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        check(e == 0, f"radix_rank {label}: max |err| {e}")
+        check(torch.equal(torch.sort(got).values,
+                          torch.arange(T, dtype=torch.int32, device=dev)),
+              f"radix_rank {label}: ranks are not a permutation")
+        err = max(err, e)
+        log(f"phase 2 radix_rank {label}: bit-equal")
+    errs["radix_rank"] = err
+    st0 = starts2[0].contiguous()
+    iota = torch.arange(T, dtype=torch.int32, device=dev)
+
+    def rank_library():
+        order = torch.sort(dig_lo, stable=True).indices
+        out = torch.empty_like(iota)
+        out[order] = iota
+        return out
+
+    check(torch.equal(rank_library(), KR.radix_rank(dig_lo, st0)),
+          "radix_rank: stable torch.sort ranks differ")
+    kernels.append(entry(
+        "radix_rank", "radix_sort.cu", "src/repro/kernels/radix_sort.py:133",
+        lambda: KR.radix_rank(dig_lo, st0),
+        lambda: ref.radix_rank_ref(dig_lo, st0), rank_library,
+        nbytes=4 * T + 4 * 256 + 4 * T, nops=4 * T, shape=f"T={T}",
+        plain_iters=4))
+    for k in kernels:
+        log(f"phase 2 {k['name']}: kernel {k['ms']:.5f} ms "
+            f"({k['ms_source']}; {k['call_ms']:.5f} ms per call), plain "
+            f"{k['plain_ms']:.5f} ms, library {k['library_ms']:.5f} ms, "
+            f"bound {k['bound_ms'] * 1e3:.3f} us ({k['bound_by']})")
+
+    # -- phases 3 and 4: the main path --------------------------------------
+    def expected_launches(sizes, with_values, value_slots):
+        plans = K.plan_context_keys(sizes, with_values, value_slots)
+        n = len(sizes)
+        return {"radix_histogram": n + 1,
+                "radix_rank": n * math.ceil(plans[0].total_bits / 8) + 8,
+                "segment_reduce": n}
+
+    def drive(label, miner, lax_miner, args, expect):
+        miner(*args).keep.cpu()                     # first (cold) run
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = miner(*args)
+        res.keep.cpu()
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        counts = ops.launch_counts()
+        log(f"{label}: launches {counts} (expected {expect})")
+        check(all(counts[k] > 0 for k in ops.KERNELS),
+              f"{label}: a kernel of the path was not launched: {counts}")
+        check(counts == expect, f"{label}: launches {counts} != {expect}")
+        times = [warm_ms]
+        for _ in range(2):
+            t0 = time.perf_counter()
+            miner(*args).keep.cpu()
+            times.append((time.perf_counter() - t0) * 1e3)
+        n_t = args[0].shape[0]
+        kept = int(res.keep.sum())
+        check(bool(torch.isfinite(res.density).all()),
+              f"{label}: non-finite density")
+        check(res.perms.shape == (len(miner.sizes), n_t),
+              f"{label}: perms shape {tuple(res.perms.shape)}")
+        check(kept > 0, f"{label}: no cluster kept")
+        leaves_equal(res, lax_miner(*args), f"{label} radix vs lax")
+        log(f"{label}: warm ms {times} (min {min(times):.3f}); "
+            f"{n_t / (min(times) / 1e3):.0f} tuples/s; kept clusters "
+            f"{kept}; all leaves equal to sort_backend='lax' on the card")
+        busy, by_name = device_ms(lambda: miner(*args).keep.cpu(), iters=3)
+        if busy is not None:
+            log(f"{label}: device busy {busy:.3f} ms of the fastest warm "
+                f"{min(times):.3f} ms (idle share "
+                f"{1 - busy / min(times):.3f}); {len(by_name)} device "
+                "activity kinds, the largest:")
+            for kname, kms in sorted(by_name.items(),
+                                     key=lambda kv: -kv[1])[:8]:
+                log(f"    {kms:.4f} ms  {kname[:90]}")
+        return counts, min(times), kept
+
+    # phase 3: batch prime on full-size BibSonomy
+    expect = expected_launches(bib.sizes, False, None)
+    check(expect == {"radix_histogram": 4, "radix_rank": 26,
+                     "segment_reduce": 3}, f"bibsonomy plan {expect}")
+    prime_counts, prime_ms, prime_kept = drive(
+        "phase 3 batch prime bibsonomy",
+        BatchMiner(bib.sizes, device="cuda"),
+        BatchMiner(bib.sizes, sort_backend="lax", device="cuda"),
+        (bib.tuples,), expect)
+    imdb = S.imdb_like()
+    leaves_equal(BatchMiner(imdb.sizes, device="cuda")(imdb.tuples),
+                 BatchMiner(imdb.sizes, device="cpu")(imdb.tuples),
+                 "imdb prime cuda vs cpu")
+    log("phase 3 imdb prime: CUDA result equals the CPU (plain) result")
+
+    # phase 4: batch NOAC on the MovieLens-1M shape
+    expect = expected_launches(ml.sizes, True, dom.shape[0])
+    check(expect == {"radix_histogram": 4, "radix_rank": 20,
+                     "segment_reduce": 3}, f"movielens plan {expect}")
+    noac_counts, noac_ms, noac_kept = drive(
+        "phase 4 batch noac movielens",
+        NOACMiner(ml.sizes, delta=1.0, device="cuda"),
+        NOACMiner(ml.sizes, delta=1.0, sort_backend="lax", device="cuda"),
+        (ml.tuples, ml.values), expect)
+    mls = S.movielens_like(n_tuples=20_000, seed=1).deduplicated()
+    leaves_equal(
+        NOACMiner(mls.sizes, delta=1.0, device="cuda")(mls.tuples,
+                                                         mls.values),
+        NOACMiner(mls.sizes, delta=1.0, device="cpu")(mls.tuples,
+                                                        mls.values),
+        "movielens-20k noac cuda vs cpu")
+    log("phase 4 movielens-20k noac: CUDA result equals the CPU result")
+
+    # -- phase 5: the CLI twin ---------------------------------------------
+    rc = tricluster.main(["--dataset", "imdb", "--backend", "batch",
+                          "--device", "cuda", "--print-top", "1"])
+    check(rc == 0, f"CLI --dataset imdb --backend batch: rc={rc}")
+    rc = tricluster.main(["--dataset", "imdb", "--backend", "distributed",
+                          "--device", "cuda"])
+    check(rc == 2, f"CLI --backend distributed: rc={rc}, expected 2")
+    log("phase 5 CLI: rc=0 for batch, rc=2 for an unknown backend")
+
+    leaked = sorted(m for m in sys.modules
+                    if m == "jax" or m.startswith("jax.")
+                    or m == "repro" or m.startswith("repro."))
+    check(not leaked, f"modules of JAX or the JAX package loaded: {leaked}")
+
+    log(f"end to end: bibsonomy prime warm {prime_ms:.3f} ms "
+        f"({BIB_T / (prime_ms / 1e3):.0f} tuples/s, {prime_kept} kept); "
+        f"movielens noac warm {noac_ms:.3f} ms "
+        f"({ml.num_tuples / (noac_ms / 1e3):.0f} tuples/s, {noac_kept} "
+        "kept)")
+    for k in kernels:
+        k["launches_by_run"] = {"batch_prime_bibsonomy":
+                                prime_counts[k["name"]],
+                                "batch_noac_movielens":
+                                noac_counts[k["name"]]}
+        k["launches"] = sum(k["launches_by_run"].values())
+        k["max_abs_err"] = errs[k["name"]]
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as e:
+        print(f"[chip_smoke] FAIL: {e}", file=sys.stderr, flush=True)
+        sys.exit(1)

@@ -1,0 +1,166 @@
+"""Engine registry: one front-end for every (backend, variant) pair.
+Port of ``repro.core.engines`` for the engines the port has.
+
+``repro_torch.core.mine(ctx, backend=..., variant=...)`` is the single
+entry point.  Engines register themselves under a ``(backend, variant)``
+key; unknown combinations fail with an error that lists every valid
+choice.  The port registers ``batch/prime`` and ``batch/noac``; the
+distributed, streaming and reference backends are later slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Optional
+
+import numpy as np
+
+from .batch import BatchMiner
+from .context import PolyadicContext
+from .manyvalued import NOACMiner
+
+_REGISTRY: dict[tuple[str, str], Callable] = {}
+
+
+def register_engine(backend: str, variant: str):
+    """Class decorator-style registration of an engine runner."""
+    def deco(fn):
+        _REGISTRY[(backend, variant)] = fn
+        return fn
+    return deco
+
+
+def available_engines() -> list[tuple[str, str]]:
+    """Sorted (backend, variant) pairs with a registered engine."""
+    return sorted(_REGISTRY)
+
+
+def resolve_engine(backend: str, variant: str) -> Callable:
+    try:
+        return _REGISTRY[(backend, variant)]
+    except KeyError:
+        valid = ", ".join(f"{b}/{v}" for b, v in available_engines())
+        raise ValueError(
+            f"no engine for backend={backend!r} variant={variant!r}; "
+            f"valid combinations: {valid}") from None
+
+
+@dataclasses.dataclass
+class MineRun:
+    """Outcome of one ``mine()`` call."""
+    backend: str
+    variant: str
+    n_clusters: int              # kept clusters
+    elapsed_s: float             # wall time of the first mining execution
+                                 # (excludes miner construction and
+                                 # materialisation)
+    clusters: Optional[list]     # [(components, density), ...] or None
+    result: Any                  # backend-native result object (or None)
+    miner: Any                   # the engine instance
+    rerun: Any = None            # zero-arg warm re-execution of the mining
+                                 # step; returns the result and records
+                                 # its time in ``rerun.last_s``
+
+    @property
+    def tuples_per_s(self) -> float:
+        return 0.0 if not self.elapsed_s else self._n_tuples / self.elapsed_s
+
+    _n_tuples: int = 0
+
+
+def mine(ctx: PolyadicContext, backend: str = "batch",
+         variant: str = "prime", **params) -> MineRun:
+    """Mine ``ctx`` with the selected backend/variant.
+
+    Common params: ``theta`` (prime min density), ``delta``/``rho_min``/
+    ``minsup`` (noac), ``seed``, ``packed`` (packed-key sort path; None =
+    auto, False = lexsort baseline), ``sort_backend`` ('radix' | 'lax' |
+    'lexsort'), ``use_kernels`` (the CUDA kernels; None = when on CUDA),
+    ``prune_values`` and ``device`` (default CUDA; ``"cpu"`` runs the
+    plain versions on the CPU).  ``variant='noac'`` requires ``delta``.
+    ``chunk_budget``/``window_budget`` (the out-of-core paths) raise
+    ``NotImplementedError`` until the run store is ported.
+    """
+    if variant == "noac" and params.get("delta") is None:
+        raise ValueError("variant='noac' requires delta=<float>")
+    engine = resolve_engine(backend, variant)
+    t0 = time.perf_counter()
+    n_clusters, clusters, result, miner, rerun = engine(ctx, params)
+    total = time.perf_counter() - t0
+    elapsed = getattr(rerun, "last_s", None) or total
+    return MineRun(backend=backend, variant=variant, n_clusters=n_clusters,
+                   elapsed_s=elapsed, clusters=clusters, result=result,
+                   miner=miner, rerun=rerun, _n_tuples=ctx.num_tuples)
+
+
+def _noac_ctx(ctx: PolyadicContext) -> PolyadicContext:
+    """NOAC precondition: deduplicated, with a value column (§3.2: W={0,1},
+    δ=0 degenerates to prime operators when values are absent)."""
+    if ctx.values is None:
+        ctx = PolyadicContext(ctx.sizes, ctx.tuples,
+                              np.zeros(ctx.num_tuples, np.float32), ctx.names)
+    return ctx.deduplicated()
+
+
+# ---------------------------------------------------------------------------
+# Engine runners.  Each returns (n_clusters, clusters, result, miner, rerun)
+# where ``rerun`` re-executes the mining step warm.
+# ---------------------------------------------------------------------------
+
+def _pipe_kw(p):
+    """Pipeline-core params shared by the batch engines."""
+    return {"packed": p.get("packed"),
+            "sort_backend": p.get("sort_backend"),
+            "use_kernels": p.get("use_kernels"),
+            "prune_values": p.get("prune_values", True),
+            "device": p.get("device")}
+
+
+def _timed(step):
+    """Wrap a mining step: each call waits for the device result and
+    records its wall time in ``go.last_s``."""
+    def go():
+        t0 = time.perf_counter()
+        out = step()
+        out.keep.cpu()
+        go.last_s = time.perf_counter() - t0
+        return out
+    go.last_s = None
+    return go
+
+
+def _batch_step(miner, p, tuples, values=None):
+    """One-shot in-core mining.  The out-of-core paths (``chunk_budget``,
+    ``window_budget``) are not ported yet and raise."""
+    if p.get("window_budget"):
+        return lambda: miner.mine_windowed(tuples, values=values,
+                                           window_budget=p["window_budget"])
+    if p.get("chunk_budget"):
+        return lambda: miner.mine_chunked(tuples, values=values,
+                                          chunk_budget=p["chunk_budget"])
+    if values is not None:
+        return lambda: miner(tuples, values)
+    return lambda: miner(tuples)
+
+
+@register_engine("batch", "prime")
+def _batch_prime(ctx, p):
+    miner = BatchMiner(ctx.sizes, theta=p.get("theta", 0.0),
+                       seed=p.get("seed", 0x5EED), **_pipe_kw(p))
+    rerun = _timed(_batch_step(miner, p, ctx.tuples))
+    res = rerun()
+    clusters = miner.materialise(res)
+    return len(clusters), clusters, res, miner, rerun
+
+
+@register_engine("batch", "noac")
+def _batch_noac(ctx, p):
+    ctx = _noac_ctx(ctx)
+    miner = NOACMiner(ctx.sizes, delta=p["delta"],
+                      rho_min=p.get("rho_min", 0.0),
+                      minsup=p.get("minsup", 0), seed=p.get("seed", 0x5EED),
+                      **_pipe_kw(p))
+    rerun = _timed(_batch_step(miner, p, ctx.tuples, ctx.values))
+    res = rerun()
+    clusters = miner.materialise(res)
+    return len(clusters), clusters, res, miner, rerun

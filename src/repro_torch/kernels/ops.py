@@ -1,0 +1,78 @@
+"""Dispatch over the port's kernels: the twin of ``repro.kernels.ops`` for
+the kernels of the mining path.
+
+Each op keeps the JAX op's calling convention and contract.  A CUDA
+tensor goes to the hand-written kernel (``segment_reduce``,
+``radix_sort``), which either launches or raises; a CPU tensor goes to the
+plain version in ``ref``.  ``use_kernels`` is resolved by
+``device.resolve_use_kernels``: ``None`` follows the tensor's device,
+``True`` on a CPU tensor raises, ``False`` runs the plain version.  There
+is no fallback from a kernel that fails to build or launch.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+import torch
+
+from ..device import resolve_use_kernels
+from . import ref
+from . import radix_sort as _radix
+from . import segment_reduce as _segment
+
+#: The kernels of the mining path, by name: each wrapper counts its
+#: launches in ``.launches``.
+KERNELS = {
+    "segment_reduce": _segment.segment_reduce,
+    "radix_histogram": _radix.radix_histogram,
+    "radix_rank": _radix.radix_rank,
+}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Launches of each kernel since the last :func:`reset_launch_counts`."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def segment_reduce(w_lo: torch.Tensor, w_hi: torch.Tensor,
+                   first: torch.Tensor, *,
+                   use_kernels: Optional[bool] = None):
+    """Fused masked prefix sums for Stage-2 segment reductions.
+
+    w_lo/w_hi (T,) int32 hash weights (uint32 bit patterns), first (T,)
+    bool/0-1 mask -> three (T,) int32 inclusive prefix sums of the masked
+    weights (mod 2³²) and of the mask; per-segment (or δ-window) sums are
+    then boundary differences of the prefixes."""
+    if resolve_use_kernels(use_kernels, w_lo):
+        return _segment.segment_reduce(w_lo, w_hi, first)
+    return ref.segment_reduce_ref(w_lo, w_hi, first)
+
+
+def radix_histogram(words: Sequence[torch.Tensor], shifts: Sequence[int],
+                    widths: Sequence[int], *,
+                    use_kernels: Optional[bool] = None) -> torch.Tensor:
+    """One-sweep histograms of every pruned radix digit position.
+
+    words: 1-2 msb-first (T,) int32 packed key words; shifts/widths:
+    per-pass digit bit ranges -> (npass, 256) int32, exact for the T
+    elements (the kernel masks its ragged tail, so no pad count has to be
+    taken back out of bucket 0)."""
+    if resolve_use_kernels(use_kernels, words[0]):
+        return _radix.radix_histogram(words, shifts, widths)
+    return ref.radix_histogram_ref(words, shifts, widths)
+
+
+def radix_rank(digits: torch.Tensor, starts: torch.Tensor, *,
+               use_kernels: Optional[bool] = None) -> torch.Tensor:
+    """Stable radix-pass ranks ``starts[d_i] + occurrence_i``.
+
+    digits (T,) int32 in [0, 256), starts (256,) int32 exclusive bucket
+    starts -> (T,) int32."""
+    if resolve_use_kernels(use_kernels, digits):
+        return _radix.radix_rank(digits, starts)
+    return ref.radix_rank_ref(digits, starts)

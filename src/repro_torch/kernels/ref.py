@@ -1,0 +1,75 @@
+"""Plain PyTorch versions of the port's CUDA kernels.
+
+Port of ``repro.kernels.ref`` for the kernels of the mining path.  Each
+function computes its kernel's result in the obvious way, on any device:
+the CPU path of ``kernels.ops`` runs them, and ``chip_smoke.py`` holds
+each CUDA kernel against them on the card.  uint32 lanes are int32 bit
+patterns (``core.bits``).
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from ..core.radix import HIST_BUCKETS, extract_digit
+
+#: Rows per chunk of :func:`radix_rank_ref`'s one-hot prefix sums: the
+#: (chunk, 256) int32 one-hot stays at 8 MiB whatever T is.
+RANK_CHUNK = 8192
+
+
+def segment_reduce_ref(w_lo: torch.Tensor, w_hi: torch.Tensor,
+                       first: torch.Tensor):
+    """Fused masked prefix sums: inclusive cumsums of first-occurrence-
+    masked uint32 hash weights (mod 2**32) and of the mask itself.
+
+    w_lo, w_hi: (T,) int32 bit patterns; first: (T,) bool/0-1.
+    Returns three (T,) int32 tensors."""
+    f = first.to(torch.bool)
+    zero = torch.zeros((), dtype=torch.int32, device=w_lo.device)
+    lo = torch.cumsum(torch.where(f, w_lo, zero), 0, dtype=torch.int32)
+    hi = torch.cumsum(torch.where(f, w_hi, zero), 0, dtype=torch.int32)
+    cnt = torch.cumsum(f.to(torch.int32), 0, dtype=torch.int32)
+    return lo, hi, cnt
+
+
+def radix_histogram_ref(words: Sequence[torch.Tensor],
+                        shifts: Sequence[int], widths: Sequence[int]
+                        ) -> torch.Tensor:
+    """All pruned digit histograms of the packed key words.
+
+    words: 1-2 msb-first (T,) int32 words; shifts/widths: the radix
+    plan's per-pass digit bit ranges. Returns (npass, 256) int32."""
+    dev = words[0].device
+    rows = []
+    for shift, width in zip(shifts, widths):
+        d = extract_digit(words, shift, width).to(torch.int64)
+        ones = torch.ones_like(d, dtype=torch.int32)
+        rows.append(torch.zeros((HIST_BUCKETS,), dtype=torch.int32,
+                                device=dev).index_add_(0, d, ones))
+    if not rows:
+        return torch.zeros((0, HIST_BUCKETS), dtype=torch.int32, device=dev)
+    return torch.stack(rows)
+
+
+def radix_rank_ref(digits: torch.Tensor, starts: torch.Tensor,
+                   chunk: int = RANK_CHUNK) -> torch.Tensor:
+    """Stable LSD-pass ranks: rank[i] = starts[d_i] + #{j<i : d_j==d_i}.
+
+    digits: (T,) int32 in [0, 256); starts: (256,) int32 exclusive
+    bucket starts. Returns (T,) int32 destination positions.  The one-hot
+    prefix sum runs over ``chunk`` rows at a time, carrying the per-digit
+    counts from chunk to chunk."""
+    cols = torch.arange(HIST_BUCKETS, dtype=torch.int32,
+                        device=digits.device)
+    carry = starts.to(torch.int32).clone()
+    out = torch.empty(digits.shape, dtype=torch.int32, device=digits.device)
+    for lo in range(0, digits.shape[0], chunk):
+        d = digits[lo:lo + chunk]
+        oh = (d[:, None] == cols[None, :]).to(torch.int32)
+        occ = torch.cumsum(oh, 0, dtype=torch.int32) - oh
+        out[lo:lo + chunk] = (oh * (occ + carry[None, :])).sum(
+            1, dtype=torch.int32)
+        carry += oh.sum(0, dtype=torch.int32)
+    return out

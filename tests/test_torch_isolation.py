@@ -1,0 +1,122 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX
+package, runs on CUDA by default (and says so when there is no card), and
+never runs a plain version where a kernel was asked for."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch import device as D
+from repro_torch.core import BatchMiner, NOACMiner, mine
+from repro_torch.data import synthetic as S
+from repro_torch.kernels import ops
+from repro_torch.kernels import radix_sort as KR
+from repro_torch.kernels import segment_reduce as KS
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+_BLOCKED_RUN = r"""
+import importlib, importlib.abc, pkgutil, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke  # the smoke script imports nothing of JAX either
+
+from repro_torch.core import BatchMiner, NOACMiner, mine
+from repro_torch.data import synthetic as S
+ctx = S.random_context((7, 6, 5), 80, seed=1, values=True)
+res = BatchMiner(ctx.sizes, device="cpu")(ctx.tuples)
+nres = NOACMiner(ctx.sizes, delta=50.0, device="cpu")(ctx.tuples, ctx.values)
+run = mine(S.imdb_like(), device="cpu")
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not leaked, leaked
+print("OK", len(names), int(res.keep.sum()), int(nres.keep.sum()),
+      run.n_clusters)
+"""
+
+
+def test_port_imports_without_jax_or_the_jax_package():
+    env = dict(os.environ)
+    root = str(SRC.parent)
+    env["PYTHONPATH"] = os.pathsep.join([str(SRC), root])
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], env=env,
+                         capture_output=True, text=True, timeout=300,
+                         cwd=root)
+    assert out.returncode == 0, out.stderr
+    ok, n_modules, kept, nkept, n_clusters = out.stdout.split()[-5:]
+    assert ok == "OK" and int(n_modules) >= 15
+    assert int(kept) > 0 and int(nkept) > 0 and int(n_clusters) > 0
+
+
+def test_default_device_is_cuda_and_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        BatchMiner((3, 3, 3))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        NOACMiner((3, 3, 3), delta=1.0)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        mine(S.random_context((3, 3, 3), 10, seed=0))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        D.resolve_device()
+    assert D.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_use_kernels_true_on_cpu_tensors_raises():
+    w = torch.zeros(16, dtype=torch.int32)
+    f = torch.ones(16, dtype=torch.bool)
+    starts = torch.zeros(256, dtype=torch.int32)
+    with pytest.raises(ValueError, match="use_kernels=True"):
+        ops.segment_reduce(w, w, f, use_kernels=True)
+    with pytest.raises(ValueError, match="use_kernels=True"):
+        ops.radix_histogram([w], (0,), (8,), use_kernels=True)
+    with pytest.raises(ValueError, match="use_kernels=True"):
+        ops.radix_rank(w, starts, use_kernels=True)
+    ctx = S.random_context((7, 6, 5), 40, seed=2)
+    with pytest.raises(ValueError, match="use_kernels=True"):
+        BatchMiner(ctx.sizes, use_kernels=True, device="cpu")(ctx.tuples)
+    assert D.resolve_use_kernels(None, w) is False
+    assert D.resolve_use_kernels(False, w) is False
+
+
+def test_kernel_wrappers_take_cuda_tensors_only():
+    w = torch.zeros(16, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        KS.segment_reduce(w, w, torch.ones(16, dtype=torch.bool))
+    with pytest.raises(ValueError, match="CUDA"):
+        KR.radix_histogram([w], (0,), (8,))
+    with pytest.raises(ValueError, match="CUDA"):
+        KR.radix_rank(w, torch.zeros(256, dtype=torch.int32))
+
+
+def test_launch_counters_only_count_kernel_launches():
+    ops.reset_launch_counts()
+    ctx = S.random_context((7, 6, 5), 60, seed=3)
+    BatchMiner(ctx.sizes, device="cpu")(ctx.tuples)
+    assert ops.launch_counts() == {"segment_reduce": 0,
+                                   "radix_histogram": 0, "radix_rank": 0}
+
+
+def test_kernel_sources_ship_with_the_package():
+    """The build compiles one library per source in the package, for
+    sm_90a; importing it needs no compiler."""
+    from repro_torch.kernels import build
+    assert build.SOURCES == ("segment_reduce", "radix_sort")
+    for name in build.SOURCES:
+        assert (build.CSRC / f"{name}.cu").is_file()
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
