@@ -8,11 +8,16 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together) and print the build time and
    what ``ptxas`` reports;
-2. run each kernel on the card at the main path's shapes (T = 816,197,
-   the BibSonomy table) and hold it bit for bit against its plain PyTorch
-   version on the same inputs, with a uint32 wraparound case and 1-, 2-word
-   and 64-bit keys; time the kernel, the plain version and one PyTorch
-   library call computing the same function, beside the bound;
+2. run each kernel on the card at the main paths' shapes and hold it
+   against its plain PyTorch version on the same inputs: the mining
+   kernels bit for bit at T = 816,197 (the BibSonomy table), with a uint32
+   wraparound case and 1-, 2-word and 64-bit keys; ``flash_attention``
+   within rtol = atol = 2e-5 (fp32) / atol 4e-3 + rtol 1e-2 (bf16, one
+   bf16 ulp is 2**-8 relative) at granite-moe-3b-a800m's attention
+   shape (B 4 x Hq 24 / Hkv 8 x S 2048 x D 64, causal), at D 128 with GQA
+   group 2, with a window of 512 (causal and not), with q_offset = Skv - Sq
+   and at a ragged S of 200; time the kernel, the plain version and one
+   PyTorch library call computing the same function, beside the bound;
 3. mine full-size BibSonomy (816,197 triples; 2,337 x 67,464 x 28,920)
    with ``BatchMiner(device="cuda")``: launch counts of the run, warm time,
    and every ``PipelineResult`` leaf against ``sort_backend="lax"`` on the
@@ -20,7 +25,16 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 4. the same for ``NOACMiner(delta=1.0)`` on the MovieLens-1M shape
    (1,000,209 ratings; 6,040 x 3,952 x 5 stars);
 5. the CLI twin, ``--dataset imdb --backend batch`` (rc 0) and an unknown
-   backend (rc 2).
+   backend (rc 2);
+6. MoE routing telemetry at full width: granite-moe-3b-a800m (32 layers,
+   3,298,793,472 parameters, random weights from a seeded generator) over
+   4 x 2048 tokens with ``attn_impl="pallas"`` — 32 ``flash_attention``
+   launches — then ``routing_context`` and ``BatchMiner(theta=0.2)``: warm
+   times, device idle share, the share of routes that agree with
+   ``attn_impl="blocked"`` (bf16: an agreement share, not equality), and
+   the mining on the card against the mining on the CPU, leaf for leaf;
+7. the granite-moe and mixtral smoke routing passes in fp32 through the
+   kernel on the card: routes identical to the CPU's plain run.
 
 Before the last line it prints the card's name and power limit
 (``nvidia-smi``) and one JSON line ``{"kernels": [...]}``; the last line is
@@ -39,10 +53,14 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32 rate
-#: outside the tensor cores, used for the integer ALU work too.
+#: H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, float32 rate
+#: outside the tensor cores (used for the integer ALU work too) and the
+#: dense bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989.4e12
+
+GRANITE_PARAMS = 3_298_793_472
 
 BIB_T = 816_197
 ML_T = 1_000_209
@@ -79,9 +97,12 @@ def time_ms(fn, iters: int = 20, warm: int = 3) -> float:
 
 
 def device_ms(fn, iters: int = 10):
-    """(device ms per call, {kernel name: device ms per call}) of every
+    """(device ms per call, {kernel name: device ms per call}, {PyTorch op:
+    device ms per call of the kernels it launched itself}) of every
     kernel, copy and fill that ``iters`` calls of ``fn`` put on the card,
-    from ``torch.profiler``; (None, {}) when it records no device time."""
+    from one ``torch.profiler`` trace; (None, {}, {}) when it records no
+    device time.  Kernels launched outside any PyTorch op (the port's own,
+    through ``ctypes``) appear only by kernel name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -94,14 +115,22 @@ def device_ms(fn, iters: int = 10):
             torch.cuda.synchronize()
     except RuntimeError as e:          # no CUPTI where this runs
         log(f"profiler unavailable: {e}")
-        return None, {}
+        return None, {}, {}
     by_name = {}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             us = ev.time_range.elapsed_us()
             by_name[ev.name] = by_name.get(ev.name, 0.0) + us / iters / 1e3
+    by_op = {}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CPU:
+            continue                   # the kernels themselves: by_name
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if us > 0:
+            by_op[ev.key] = us / iters / 1e3
     total = sum(by_name.values())
-    return (total, by_name) if total > 0 else (None, {})
+    return (total, by_name, by_op) if total > 0 else (None, {}, {})
 
 
 def measure(fn, iters: int = 20) -> dict:
@@ -109,16 +138,16 @@ def measure(fn, iters: int = 20) -> dict:
     per call where the profiler sees no device time; ``call_ms``: the
     CUDA-event time per back-to-back call, host launch overhead included."""
     call = time_ms(fn, iters=iters)
-    dev, _ = device_ms(fn, iters=max(1, iters // 2))
+    dev, _, _ = device_ms(fn, iters=max(1, iters // 2))
     return {"ms": call if dev is None else dev, "call_ms": call,
             "source": "events" if dev is None else "profiler"}
 
 
-def bound(bytes_moved: float, ops: float):
+def bound(bytes_moved: float, ops: float, ops_per_s: float = ALU_OPS_PER_S):
     """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
-    operations over the ALU rate."""
+    operations over ``ops_per_s`` (the ALU rate by default)."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ALU_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -141,6 +170,14 @@ def leaves_equal(a, b, what: str) -> None:
         check(torch.equal(x.cpu(), y.cpu()), f"{what}: leaf {f.name} differs")
 
 
+def route_agreement(a, b):
+    """(share of equal (layer, token, slot) routes, share per layer)."""
+    import numpy as np
+    eq = np.asarray(a) == np.asarray(b)
+    return float(eq.mean()), [float(x) for x in eq.reshape(eq.shape[0], -1)
+                              .mean(1)]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -150,16 +187,26 @@ def main() -> int:
         raise SmokeFailure(f"{SRC / 'repro_torch'} not found: run "
                            "chip_smoke.py from a checkout of the repository")
     sys.path.insert(0, str(SRC))
+    import copy
+    import dataclasses
+
     import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core import BatchMiner, NOACMiner
     from repro_torch.core import keys as K
     from repro_torch.core import pipeline as P
     from repro_torch.core import radix as RX
     from repro_torch.data import synthetic as S
+    from repro_torch.data.tokens import TokenPipeline
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import flash_attention as KF
     from repro_torch.kernels import radix_sort as KR
     from repro_torch.kernels import segment_reduce as KS
     from repro_torch.launch import tricluster
+    from repro_torch.models.api import get_model
+    from repro_torch.models.telemetry import (collect_moe_routing,
+                                              routing_context)
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -221,11 +268,11 @@ def main() -> int:
     errs = {}
 
     def entry(name, source, replaces, kernel, plain, library, nbytes, nops,
-              shape, plain_iters=20):
+              shape, plain_iters=20, ops_per_s=ALU_OPS_PER_S):
         k = measure(kernel)
         p = measure(plain, plain_iters)
         lib = measure(library)
-        b_ms, b_by = bound(nbytes, nops)
+        b_ms, b_by = bound(nbytes, nops, ops_per_s)
         return dict(name=name, route="cuda",
                     source=f"src/repro_torch/kernels/csrc/{source}",
                     replaces=replaces, ms=k["ms"], plain_ms=p["ms"],
@@ -340,6 +387,71 @@ def main() -> int:
         lambda: ref.radix_rank_ref(dig_lo, st0), rank_library,
         nbytes=4 * T + 4 * 256 + 4 * T, nops=4 * T, shape=f"T={T}",
         plain_iters=4))
+    # flash_attention
+    def fa_inputs(shape, dtype, seed):
+        b, hq, hkv, sq, skv, d = shape
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return [torch.randn(s, generator=g, device=dev).to(dtype)
+                for s in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d))]
+
+    full = (4, 24, 8, 2048, 2048, 64)     # granite-moe-3b-a800m attention
+    bf16, fp32 = torch.bfloat16, torch.float32
+    fa_cases = [
+        ("full width causal bf16", full, bf16, dict(causal=True)),
+        ("full width causal fp32", full, fp32, dict(causal=True)),
+        ("D 128 GQA group 2 bf16", (2, 16, 8, 1024, 1024, 128), bf16,
+         dict(causal=True)),
+        ("D 128 GQA group 2 fp32", (2, 16, 8, 1024, 1024, 128), fp32,
+         dict(causal=True)),
+        ("causal window 512 bf16", full, bf16, dict(causal=True,
+                                                    window=512)),
+        ("non-causal window 512 fp32", full, fp32, dict(causal=False,
+                                                         window=512)),
+        ("q_offset = Skv - Sq fp32", (4, 24, 8, 512, 2048, 64), fp32,
+         dict(causal=True, q_offset=2048 - 512)),
+        ("ragged S 200 fp32", (2, 24, 8, 200, 200, 64), fp32,
+         dict(causal=True)),
+    ]
+    fa_errs = {}
+    for i, (label, shape, dtype, kw) in enumerate(fa_cases):
+        q, k, v = fa_inputs(shape, dtype, 100 + i)
+        got = KF.flash_attention(q, k, v, **kw)
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        # bf16: both sides compute in fp32 and round once to bf16, so they
+        # differ by at most one bf16 ulp (2**-8 relative)
+        rtol, atol = (2e-5, 2e-5) if dtype == fp32 else (1e-2, 4e-3)
+        e = float((got.float() - want.float()).abs().max())
+        check(got.dtype == dtype and got.shape == want.shape,
+              f"flash_attention {label}: {got.dtype} {tuple(got.shape)}")
+        check(bool(torch.isfinite(got).all()),
+              f"flash_attention {label}: non-finite output")
+        check(torch.allclose(got.float(), want.float(), rtol=rtol,
+                             atol=atol),
+              f"flash_attention {label}: max |err| {e} beyond atol {atol} "
+              f"+ rtol {rtol}")
+        fa_errs[label] = e
+        log(f"phase 2 flash_attention {label} {shape}: max |err| {e:.3e} "
+            f"(atol {atol} + rtol {rtol})")
+    errs["flash_attention"] = fa_errs["full width causal bf16"]
+    del q, k, v, got, want
+    q, k, v = fa_inputs(full, bf16, 100)
+    b_, hq_, _, s_, _, d_ = full
+    pairs = s_ * (s_ + 1) // 2             # causal (q, k) pairs per head
+    kernels.append(entry(
+        "flash_attention", "flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:102",
+        lambda: KF.flash_attention(q, k, v, causal=True),
+        lambda: ref.flash_attention_ref(q, k, v, causal=True),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                               enable_gqa=True),
+        nbytes=sum(x.numel() * x.element_size() for x in (q, k, v, q)),
+        nops=4 * b_ * hq_ * pairs * d_, shape=f"B={b_} Hq={hq_} Hkv=8 "
+        f"S={s_} D={d_} causal bf16", plain_iters=3,
+        ops_per_s=BF16_TENSOR_OPS_PER_S))
+    kernels[-1]["max_abs_err_by_case"] = fa_errs
+    del q, k, v
+
     for k in kernels:
         log(f"phase 2 {k['name']}: kernel {k['ms']:.5f} ms "
             f"({k['ms_source']}; {k['call_ms']:.5f} ms per call), plain "
@@ -364,9 +476,12 @@ def main() -> int:
         warm_ms = (time.perf_counter() - t0) * 1e3
         counts = ops.launch_counts()
         log(f"{label}: launches {counts} (expected {expect})")
-        check(all(counts[k] > 0 for k in ops.KERNELS),
+        path = {k: counts[k] for k in ops.PATH_KERNELS["mining"]}
+        check(all(n > 0 for n in path.values()),
               f"{label}: a kernel of the path was not launched: {counts}")
-        check(counts == expect, f"{label}: launches {counts} != {expect}")
+        check(path == expect, f"{label}: launches {path} != {expect}")
+        check(all(n == 0 for k, n in counts.items() if k not in path),
+              f"{label}: a kernel of another path was launched: {counts}")
         times = [warm_ms]
         for _ in range(2):
             t0 = time.perf_counter()
@@ -383,7 +498,8 @@ def main() -> int:
         log(f"{label}: warm ms {times} (min {min(times):.3f}); "
             f"{n_t / (min(times) / 1e3):.0f} tuples/s; kept clusters "
             f"{kept}; all leaves equal to sort_backend='lax' on the card")
-        busy, by_name = device_ms(lambda: miner(*args).keep.cpu(), iters=3)
+        busy, by_name, _ = device_ms(lambda: miner(*args).keep.cpu(),
+                                     iters=3)
         if busy is not None:
             log(f"{label}: device busy {busy:.3f} ms of the fastest warm "
                 f"{min(times):.3f} ms (idle share "
@@ -436,6 +552,123 @@ def main() -> int:
     check(rc == 2, f"CLI --backend distributed: rc={rc}, expected 2")
     log("phase 5 CLI: rc=0 for batch, rc=2 for an unknown backend")
 
+    # -- phase 6: MoE routing telemetry at full width ------------------------
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m"),
+                              attn_impl="pallas")
+    check(cfg.n_params() == GRANITE_PARAMS,
+          f"granite-moe parameters {cfg.n_params()}")
+    t0 = time.perf_counter()
+    params = get_model(cfg).init(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    check(sum(p.numel() for p in params.parameters()) == GRANITE_PARAMS,
+          "granite-moe parameter tree size")
+    log(f"phase 6 init {cfg.name}: {GRANITE_PARAMS} parameters fp32 on the "
+        f"card in {time.perf_counter() - t0:.2f} s (set-up)")
+    tokens = TokenPipeline(cfg, 4, 2048, seed=0).batch_at(0)["tokens"]
+    collect_moe_routing(cfg, params, tokens)             # first (cold) run
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    routes = collect_moe_routing(cfg, params, tokens)
+    t1 = time.perf_counter()
+    ctx = routing_context(cfg, tokens, routes)
+    t2 = time.perf_counter()
+    miner = BatchMiner(ctx.sizes, theta=0.2, device="cuda")
+    res = miner(ctx.tuples)
+    res.keep.cpu()
+    t3 = time.perf_counter()
+    routing_counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    route_ms, ctx_ms, mine_ms = ((t1 - t0) * 1e3, (t2 - t1) * 1e3,
+                                 (t3 - t2) * 1e3)
+    expect = expected_launches(ctx.sizes, False, None)
+    log(f"phase 6 routing run: launches {routing_counts} (expected "
+        f"flash_attention {cfg.n_layers}, mining {expect})")
+    check(routing_counts["flash_attention"] == cfg.n_layers,
+          f"flash_attention launched {routing_counts['flash_attention']} "
+          f"times, expected {cfg.n_layers}")
+    check({k: routing_counts[k] for k in ops.PATH_KERNELS["mining"]}
+          == expect, f"routing mining launches {routing_counts}")
+    check(routes.shape == (cfg.n_layers, 4, 2048, cfg.top_k)
+          and routes.min() >= 0 and routes.max() < cfg.n_experts,
+          f"routes {routes.shape} in [{routes.min()}, {routes.max()}]")
+    kept = int(res.keep.sum())
+    check(bool(torch.isfinite(res.density).all()), "routing: density")
+    times, same = [route_ms], True
+    for _ in range(2):
+        t0 = time.perf_counter()
+        again = collect_moe_routing(cfg, params, tokens)
+        times.append((time.perf_counter() - t0) * 1e3)
+        same &= bool(np.array_equal(again, routes))
+    mine_times, ctx_times = [mine_ms], [ctx_ms]
+    for _ in range(2):
+        t0 = time.perf_counter()
+        miner(ctx.tuples).keep.cpu()
+        mine_times.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        routing_context(cfg, tokens, routes)
+        ctx_times.append((time.perf_counter() - t0) * 1e3)
+    route_ms, mine_ms = min(times), min(mine_times)
+    log(f"phase 6 routing pass: warm ms {times} (min {route_ms:.3f}; "
+        f"{4 * 2048 / (route_ms / 1e3):.0f} tokens/s); peak device memory "
+        f"{peak_gb:.2f} GB; routing_context ms {ctx_times}; context "
+        f"{ctx.sizes} |I| = {ctx.num_tuples} (density {ctx.density:.3e}); "
+        f"mining warm ms {mine_times} (min {mine_ms:.3f}); "
+        f"{int(res.is_unique.sum())} clusters, {kept} with density >= 0.2; "
+        f"routes of the three warm passes identical: {same}")
+    busy, by_name, by_op = device_ms(
+        lambda: collect_moe_routing(cfg, params, tokens), iters=2)
+    route_busy = busy
+    if busy is not None:
+        log(f"phase 6 routing pass: device busy {busy:.3f} ms of the "
+            f"fastest warm {route_ms:.3f} ms (idle share "
+            f"{1 - busy / route_ms:.3f}); the largest device activities:")
+        for kname, kms in sorted(by_name.items(),
+                                 key=lambda kv: -kv[1])[:16]:
+            log(f"    {kms:.4f} ms  {kname[:90]}")
+        log(f"phase 6 routing pass: device ms by the PyTorch op that "
+            f"launched it, the largest (ops {sum(by_op.values()):.3f} ms of "
+            f"the {busy:.3f} busy ms; the rest launched outside any op):")
+        for oname, oms in sorted(by_op.items(), key=lambda kv: -kv[1])[:16]:
+            log(f"    {oms:.4f} ms  {oname[:90]}")
+    blocked = dataclasses.replace(cfg, attn_impl="blocked")
+    share, per_layer = route_agreement(
+        routes, collect_moe_routing(blocked, params, tokens))
+    log(f"phase 6 routes agreeing with attn_impl='blocked' (bf16): "
+        f"{share:.6f} of (layer, token, slot); per layer "
+        f"{[round(x, 4) for x in per_layer]}")
+    check(per_layer[0] >= 0.9,
+          f"layer-0 routes agree with the plain attention only "
+          f"{per_layer[0]:.4f}")
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res_cpu = BatchMiner(ctx.sizes, theta=0.2, device="cpu")(ctx.tuples)
+    leaves_equal(res, res_cpu, "routing context mining cuda vs cpu")
+    log(f"phase 6 routing context mining: CUDA result equals the CPU result "
+        f"({time.perf_counter() - t0:.1f} s on the CPU)")
+
+    # -- phase 7: the smoke routing passes in fp32, card against CPU ----------
+    for arch in ("granite-moe-3b-a800m", "mixtral-8x7b"):
+        scfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
+                                   attn_impl="pallas")
+        cpu_params = get_model(scfg).init(
+            scfg, torch.Generator().manual_seed(0), device="cpu")
+        card_params = copy.deepcopy(cpu_params).to(dev)
+        stoks = TokenPipeline(scfg, 4, 64, seed=0).batch_at(0)["tokens"]
+        before = KF.flash_attention.launches
+        got = collect_moe_routing(scfg, card_params, stoks)
+        check(KF.flash_attention.launches - before == scfg.n_layers,
+              f"{scfg.name}: flash_attention launches")
+        want = collect_moe_routing(scfg, cpu_params, stoks)
+        check(np.array_equal(got, want),
+              f"{scfg.name} fp32 routes on the card differ from the CPU's "
+              f"(agreement {route_agreement(got, want)[0]:.6f})")
+        log(f"phase 7 {scfg.name} fp32: routes through the kernel equal the "
+            f"CPU plain run ({got.size} routes)")
+
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
                     or m == "repro" or m.startswith("repro."))
@@ -445,12 +678,16 @@ def main() -> int:
         f"({BIB_T / (prime_ms / 1e3):.0f} tuples/s, {prime_kept} kept); "
         f"movielens noac warm {noac_ms:.3f} ms "
         f"({ml.num_tuples / (noac_ms / 1e3):.0f} tuples/s, {noac_kept} "
-        "kept)")
+        f"kept); granite-moe routing pass warm {route_ms:.3f} ms (device "
+        f"busy {route_busy if route_busy is None else round(route_busy, 3)}"
+        f" ms), its context mined in {mine_ms:.3f} ms")
     for k in kernels:
         k["launches_by_run"] = {"batch_prime_bibsonomy":
                                 prime_counts[k["name"]],
                                 "batch_noac_movielens":
-                                noac_counts[k["name"]]}
+                                noac_counts[k["name"]],
+                                "moe_routing_granite":
+                                routing_counts[k["name"]]}
         k["launches"] = sum(k["launches_by_run"].values())
         k["max_abs_err"] = errs[k["name"]]
 

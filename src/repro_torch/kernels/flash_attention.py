@@ -1,0 +1,115 @@
+"""Wrapper of the CUDA kernel ``csrc/flash_attention.cu``: causal /
+sliding-window GQA flash attention, forward only.
+
+    q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D) -> o (B, Hq, Sq, D)
+
+The port of ``repro.kernels.flash_attention``; the plain version is
+``kernels.ref.flash_attention_ref`` and ``kernels.ops.flash_attention``
+picks between them.  This wrapper takes contiguous CUDA tensors in fp32 or
+bf16 with a head dim of 16, 32, 64 or 128.  There is no backward kernel,
+so it refuses inputs that require a gradient.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import build
+
+_NAME = "flash_attention"
+#: Head dims the kernel is instantiated for.
+HEAD_DIMS = (16, 32, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_argtypes_set = False
+
+
+def _lib() -> ctypes.CDLL:
+    global _argtypes_set
+    lib = build.load(_NAME)
+    if not _argtypes_set:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.flash_attention_launch.argtypes = (
+            [vp] * 4 + [ci] * 11 + [ctypes.c_float, vp])
+        lib.flash_attention_launch.restype = ci
+        _argtypes_set = True
+    return lib
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if any(x.requires_grad for x in (q, k, v)):
+        raise ValueError("flash_attention: there is no backward kernel; "
+                         "call it on tensors that do not require a gradient "
+                         "(for example under torch.no_grad())")
+    for x, what in ((k, "k"), (v, "v")):
+        if x.dtype != q.dtype:
+            raise ValueError(f"flash_attention: {what} must be {q.dtype}, "
+                             f"got {x.dtype}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"flash_attention: dtype {q.dtype} not supported "
+                         "(float32 or bfloat16)")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: q (B,Hq,Sq,D) and k, v "
+                         f"(B,Hkv,Skv,D) expected, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, hq, _, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} disagree on batch or head dim")
+    if k.shape[1] == 0 or hq % k.shape[1] != 0:
+        raise ValueError(f"flash_attention: Hq={hq} is not a multiple of "
+                         f"Hkv={k.shape[1]}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {d} not supported "
+                         f"(one of {HEAD_DIMS})")
+    if k.shape[2] == 0:
+        raise ValueError("flash_attention: no keys (Skv = 0)")
+    if b * hq >= 2**16:
+        raise ValueError(f"flash_attention: B*Hq={b * hq} exceeds the grid")
+    for x, what in ((q, "q"), (k, "k"), (v, "v")):
+        if not x.is_contiguous():
+            raise ValueError(f"flash_attention: {what} must be contiguous")
+        if x.numel() >= 2**31:
+            raise ValueError(f"flash_attention: {what} exceeds the int32 "
+                             "index")
+    if not q.is_cuda:
+        raise ValueError("flash_attention: the CUDA kernel needs CUDA "
+                         f"tensors, got {q.device}")
+    for x, what in ((k, "k"), (v, "v")):
+        if x.device != q.device:
+            raise ValueError(f"flash_attention: {what} must lie on "
+                             f"{q.device}, got {x.device}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Attention computed on the card; ``q_offset`` (the key position of
+    q row 0) defaults to Skv - Sq and ``scale`` to D**-0.5."""
+    _check(q, k, v)
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if q_offset is None:
+        q_offset = skv - sq
+    if scale is None:
+        scale = d ** -0.5
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
+            hkv, sq, skv, d, _DTYPES[q.dtype], int(bool(causal)),
+            int(window is not None), int(window or 0), int(q_offset),
+            float(scale), stream)
+    build.check(lib, _NAME, err)
+    flash_attention.launches += 1
+    return out
+
+
+#: Launches of the kernel since the last reset (``kernels.ops``).
+flash_attention.launches = 0

@@ -1,13 +1,13 @@
 """Dispatch over the port's kernels: the twin of ``repro.kernels.ops`` for
-the kernels of the mining path.
+the kernels the port has.
 
 Each op keeps the JAX op's calling convention and contract.  A CUDA
 tensor goes to the hand-written kernel (``segment_reduce``,
-``radix_sort``), which either launches or raises; a CPU tensor goes to the
-plain version in ``ref``.  ``use_kernels`` is resolved by
-``device.resolve_use_kernels``: ``None`` follows the tensor's device,
-``True`` on a CPU tensor raises, ``False`` runs the plain version.  There
-is no fallback from a kernel that fails to build or launch.
+``radix_sort``, ``flash_attention``), which either launches or raises; a
+CPU tensor goes to the plain version in ``ref``.  ``use_kernels`` is
+resolved by ``device.resolve_use_kernels``: ``None`` follows the tensor's
+device, ``True`` on a CPU tensor raises, ``False`` runs the plain version.
+There is no fallback from a kernel that fails to build or launch.
 """
 from __future__ import annotations
 
@@ -17,15 +17,25 @@ import torch
 
 from ..device import resolve_use_kernels
 from . import ref
+from . import flash_attention as _flash
 from . import radix_sort as _radix
 from . import segment_reduce as _segment
 
-#: The kernels of the mining path, by name: each wrapper counts its
-#: launches in ``.launches``.
+#: Every kernel of the port, by name: each wrapper counts its launches in
+#: ``.launches``.
 KERNELS = {
     "segment_reduce": _segment.segment_reduce,
     "radix_histogram": _radix.radix_histogram,
     "radix_rank": _radix.radix_rank,
+    "flash_attention": _flash.flash_attention,
+}
+
+#: The kernels each path of the port launches: ``mining`` is a
+#: ``BatchMiner``/``NOACMiner`` call, ``routing`` the MoE routing pass
+#: (``models.telemetry.collect_moe_routing``) that feeds it.
+PATH_KERNELS = {
+    "mining": ("segment_reduce", "radix_histogram", "radix_rank"),
+    "routing": ("flash_attention",),
 }
 
 
@@ -76,3 +86,22 @@ def radix_rank(digits: torch.Tensor, starts: torch.Tensor, *,
     if resolve_use_kernels(use_kernels, digits):
         return _radix.radix_rank(digits, starts)
     return ref.radix_rank_ref(digits, starts)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: Optional[int] = None,
+                    scale: Optional[float] = None,
+                    use_kernels: Optional[bool] = None) -> torch.Tensor:
+    """Batched GQA attention. q (B, Hq, Sq, D); k, v (B, Hkv, Skv, D) ->
+    (B, Hq, Sq, D) in q's dtype.  ``q_offset`` is the key position of q
+    row 0 (default Skv - Sq); ``window`` keeps keys with
+    ``kpos > qpos - window``.  The kernel takes fp32 or bf16 and head dims
+    16-128 (``kernels.flash_attention.HEAD_DIMS``)."""
+    if resolve_use_kernels(use_kernels, q):
+        return _flash.flash_attention(q.contiguous(), k.contiguous(),
+                                      v.contiguous(), causal=causal,
+                                      window=window, q_offset=q_offset,
+                                      scale=scale)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset, scale=scale)

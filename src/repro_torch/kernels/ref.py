@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the port's CUDA kernels.
 
-Port of ``repro.kernels.ref`` for the kernels of the mining path.  Each
+Port of ``repro.kernels.ref`` for the kernels the port has.  Each
 function computes its kernel's result in the obvious way, on any device:
 the CPU path of ``kernels.ops`` runs them, and ``chip_smoke.py`` holds
 each CUDA kernel against them on the card.  uint32 lanes are int32 bit
@@ -8,7 +8,7 @@ patterns (``core.bits``).
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -73,3 +73,43 @@ def radix_rank_ref(digits: torch.Tensor, starts: torch.Tensor,
             1, dtype=torch.int32)
         carry += oh.sum(0, dtype=torch.int32)
     return out
+
+
+def _attn_mask(sq: int, skv: int, q_offset: int, causal: bool,
+               window: Optional[int], device) -> torch.Tensor:
+    qpos = torch.arange(sq, device=device)[:, None] + q_offset
+    kpos = torch.arange(skv, device=device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        window: Optional[int] = None,
+                        q_offset: Optional[int] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Reference attention. q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D);
+    GQA via head-group broadcast (query head h reads kv head h // group).
+    fp32 softmax; ``q_offset`` (the position of q row 0) defaults to
+    Skv - Sq.  Output in q's dtype."""
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    group = hq // hkv
+    if q_offset is None:
+        q_offset = skv - sq
+    if scale is None:
+        scale = d ** -0.5
+    qf = q.to(torch.float32) * scale
+    kf = k.to(torch.float32)
+    vf = v.to(torch.float32)
+    qf = qf.reshape(b, hkv, group, sq, d)
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf)
+    mask = _attn_mask(sq, skv, q_offset, causal, window, q.device)
+    logits = logits.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, vf)
+    return out.reshape(b, hq, sq, d).to(q.dtype)

@@ -1,0 +1,293 @@
+"""Shared model primitives: norms, RoPE, attention (train/prefill), SwiGLU
+MLP, and the capacity-dispatch MoE layer.  Port of
+``repro.models.common``.
+
+All functions are pure; parameters are the nested trees of
+``params.init_params`` (``ParamTree``) or plain dicts of tensors.  Each
+function rounds where the JAX function rounds: an einsum in the working
+dtype (bf16 on the model path) stays in it, and one with
+``preferred_element_type=float32`` runs on fp32 copies of its operands,
+whose products of bf16 values are exact.  The MoE dispatch is the same
+fixed-capacity sort-and-route pattern as the triclustering shuffle engine
+(DESIGN.md §3).
+
+Not ported yet: ``attention_decode`` (the serving slice, ROADMAP A13a),
+the ``shard_map`` branch of ``moe_ffn`` (ROADMAP A13c) and the RMSNorm
+kernel (ROADMAP B8).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+from ..kernels import ops
+
+_NEG = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Norms / RoPE
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5,
+            use_pallas: bool = False) -> torch.Tensor:
+    if use_pallas:
+        raise NotImplementedError(
+            "the RMSNorm kernel is not ported yet (ROADMAP B8); call "
+            "rmsnorm with use_pallas=False")
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.to(torch.float32)
+            ).to(x.dtype)
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int,
+                theta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables (..., head_dim/2) for integer positions."""
+    half = head_dim // 2
+    exps = -torch.arange(0, half, dtype=torch.float32,
+                         device=positions.device) / half
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                   device=positions.device), exps)
+    ang = positions.to(torch.float32)[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x (..., S, H, hd); cos/sin (..., S, hd/2) — llama half-rotation."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    c, s = cos[..., None, :], sin[..., None, :]
+    out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def _qkv(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor):
+    """Project + (optional) per-head QK-norm + RoPE.
+    x (B,S,D) -> q (B,S,H,hd), k/v (B,S,KV,hd)."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    return q, k, v
+
+
+def _mask(q_pos, k_pos, window: Optional[int]) -> torch.Tensor:
+    """(..., Sq, Sk) causal/window mask from position arrays."""
+    m = k_pos[..., None, :] <= q_pos[..., :, None]
+    if window is not None:
+        m &= k_pos[..., None, :] > q_pos[..., :, None] - window
+    return m
+
+
+def _sdpa(q, k, v, mask, scale: float) -> torch.Tensor:
+    """q (B,Sq,H,hd), k/v (B,Sk,H,hd), mask (B or 1, Sq, Sk).
+    Scores from fp32 copies of the operands (the JAX function's
+    ``preferred_element_type=float32``), fp32 softmax, probabilities
+    rounded to v's dtype before the second product."""
+    f32 = torch.float32
+    s = torch.einsum("bqhk,bthk->bhqt", q.to(f32), k.to(f32)) * scale
+    s = torch.where(mask[:, None], s, torch.tensor(_NEG, dtype=f32,
+                                                   device=s.device))
+    a = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqt,bthk->bqhk", a.to(v.dtype).to(f32),
+                        v.to(f32)).to(q.dtype)
+
+
+def blocked_sdpa(q, k, v, positions, window, scale: float,
+                 q_block: int) -> torch.Tensor:
+    """Tiled attention: one q block at a time, so the live scores are one
+    (B,H,q_block,S) tile.  q/k/v are (B,S,H,hd) with H already
+    GQA-expanded; a ragged tail block is the last, shorter tile."""
+    s = q.shape[1]
+    out = []
+    for lo in range(0, s, q_block):
+        qi = q[:, lo:lo + q_block]
+        mask = _mask(positions[lo:lo + q_block][None], positions[None],
+                     window)
+        out.append(_sdpa(qi, k, v, mask, scale))
+    return torch.cat(out, 1)
+
+
+def attention(cfg: ModelConfig, p, x: torch.Tensor,
+              positions: torch.Tensor, *, impl: str = "einsum",
+              q_block: int = 2048) -> torch.Tensor:
+    """Full-sequence causal/SWA GQA attention (train / prefill).
+
+    impl:
+      einsum  — materialised (B,H,S,S) scores (baseline).
+      blocked — q blocks one at a time, peak scores (B,H,q_block,S).
+      pallas  — ``kernels.ops.flash_attention``: the CUDA kernel on CUDA
+                tensors, its plain version on CPU tensors.
+    """
+    b, s, d = x.shape
+    q, k, v = _qkv(cfg, p, x, positions)
+    scale = cfg.head_dim ** -0.5
+    group = cfg.n_heads // cfg.n_kv_heads
+    if impl == "pallas":
+        o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=True,
+                                window=cfg.window, scale=scale)
+        o = o.transpose(1, 2)
+    else:
+        k = torch.repeat_interleave(k, group, dim=2)   # GQA expand
+        v = torch.repeat_interleave(v, group, dim=2)
+        if impl == "einsum" or s <= q_block:
+            mask = _mask(positions[None], positions[None], cfg.window)
+            o = _sdpa(q, k, v, mask, scale)
+        elif impl == "blocked":
+            o = blocked_sdpa(q, k, v, positions, cfg.window, scale, q_block)
+        else:
+            raise ValueError(impl)
+    o = o.reshape(b, s, cfg.n_heads * cfg.head_dim)
+    return torch.einsum("bse,ed->bsd", o, p["wo"].to(x.dtype).reshape(-1, d))
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def swiglu(p, x: torch.Tensor) -> torch.Tensor:
+    g = torch.einsum("bsd,df->bsf", x, p["w_gate"].to(x.dtype))
+    u = torch.einsum("bsd,df->bsf", x, p["w_up"].to(x.dtype))
+    return torch.einsum("bsf,fd->bsd", F.silu(g) * u,
+                        p["w_down"].to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# MoE (fixed-capacity sort-and-dispatch; per-sequence capacity)
+# ---------------------------------------------------------------------------
+
+def top_k(x: torch.Tensor, k: int):
+    """(values, indices) of the k largest entries of the last axis, the
+    lower index first among equal values (``jax.lax.top_k``'s order)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _dispatch_row(x, eid, tok, n_experts: int, cap: int):
+    """Every sequence at once: route its S·k (token, expert) slots into
+    (E, cap) buffers.  x (B,S,D), eid/tok (B,L) -> buf (B,E·cap,D) and
+    per row the slot, order and ok of each sorted route.  Routes beyond
+    an expert's capacity go to a trash slot E·cap, which is dropped."""
+    b, l = eid.shape
+    order = torch.sort(eid, dim=1, stable=True).indices
+    sorted_eid = torch.gather(eid, 1, order)
+    first = torch.searchsorted(sorted_eid, sorted_eid, side="left")
+    rank = (torch.arange(l, device=eid.device)[None, :] - first)
+    ok = rank < cap
+    slot = torch.where(ok, sorted_eid * cap + rank,
+                       torch.full_like(rank, n_experts * cap))
+    rows = n_experts * cap + 1
+    flat = (torch.arange(b, device=x.device)[:, None] * rows + slot)
+    src = torch.gather(tok, 1, order)
+    buf = x.new_zeros((b * rows, x.shape[-1]))
+    buf[flat[ok]] = x[torch.arange(b, device=x.device)[:, None]
+                      .expand(b, l)[ok], src[ok]]
+    return buf.view(b, rows, -1)[:, :-1], slot, order, ok
+
+
+def _moe_dispatch_ffn(cfg: ModelConfig, p, x, top_e, top_w):
+    """Dispatch → expert SwiGLU → combine, on one device.
+
+    The combine sums each token's k contributions in the order the JAX
+    package's scatter-add applies them — its routes sorted stably by
+    expert id, starting from zero — rounding in the working dtype after
+    each add, so the sum does not depend on the order atomics land in."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    cap = int(math.ceil(s * k / e * cfg.capacity_factor))
+    eid = top_e.reshape(b, s * k)
+    tok = torch.arange(s, device=x.device).repeat_interleave(k)
+    tok = tok[None, :].expand(b, s * k)
+    w = top_w.reshape(b, s * k)
+
+    buf, slot, order, ok = _dispatch_row(x, eid, tok, e, cap)
+    buf = buf.reshape(b, e, cap, d)
+    g = torch.einsum("becd,edf->becf", buf, p["w_gate"].to(x.dtype))
+    u = torch.einsum("becd,edf->becf", buf, p["w_up"].to(x.dtype))
+    y_buf = torch.einsum("becf,efd->becd", F.silu(g) * u,
+                         p["w_down"].to(x.dtype)).reshape(b, e * cap, d)
+    y_buf = torch.cat([y_buf, y_buf.new_zeros((b, 1, d))], 1)
+
+    gain = torch.where(ok, torch.gather(w, 1, order),
+                       torch.zeros((), dtype=w.dtype, device=w.device))
+    contrib = (torch.gather(y_buf, 1, slot[..., None].expand(b, s * k, d))
+               * gain[..., None].to(y_buf.dtype))      # sorted route order
+    # back to (token, slot) order, then each token's routes by expert id
+    pos = torch.empty_like(order)
+    pos.scatter_(1, order, torch.arange(s * k, device=x.device)
+                 .expand(b, s * k))
+    pos = torch.sort(pos.reshape(b, s, k), dim=-1).values
+    parts = torch.gather(contrib, 1, pos.reshape(b, s * k, 1)
+                         .expand(b, s * k, d)).reshape(b, s, k, d)
+    y = torch.zeros((b, s, d), dtype=y_buf.dtype, device=x.device)
+    for j in range(k):
+        y = y + parts[:, :, j]
+    return y
+
+
+def moe_ffn(cfg: ModelConfig, p, x: torch.Tensor, rules=None):
+    """Top-k MoE with per-sequence capacity. x (B,S,D) -> (y, aux_loss).
+
+    S == 1 (decode) uses the dense all-expert combine.  The ``shard_map``
+    dispatch of the JAX package (``rules`` given) is not ported yet
+    (ROADMAP A13c)."""
+    if rules is not None:
+        raise NotImplementedError(
+            "moe_ffn over a device mesh (the JAX package's shard_map "
+            "dispatch) is not ported yet (ROADMAP A13c); pass rules=None")
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    logits = torch.einsum("bsd,de->bse", x, p["router"].to(x.dtype)
+                          ).to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_e = top_k(probs, k)                          # (B,S,k)
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    # load-balancing aux (switch-style)
+    sel = F.one_hot(top_e, e).to(torch.float32).sum(2)      # (B,S,E)
+    frac_tokens = sel.mean((0, 1)) / k
+    frac_prob = probs.mean((0, 1))
+    aux = e * torch.sum(frac_tokens * frac_prob)
+
+    if s == 1:
+        # dense all-expert combine
+        g = torch.einsum("bqd,edf->beqf", x, p["w_gate"].to(x.dtype))
+        u = torch.einsum("bqd,edf->beqf", x, p["w_up"].to(x.dtype))
+        y_all = torch.einsum("beqf,efd->beqd", F.silu(g) * u,
+                             p["w_down"].to(x.dtype))
+        comb = torch.zeros((b, e), dtype=torch.float32, device=x.device)
+        comb.scatter_add_(1, top_e[:, 0], top_w[:, 0])
+        y = torch.einsum("beld,be->bld", y_all.to(torch.float32), comb)
+        return y.to(x.dtype), aux
+
+    y = _moe_dispatch_ffn(cfg, p, x, top_e, top_w.to(x.dtype))
+    return y.to(x.dtype), aux
+
+
+def moe_dropped_fraction(cfg: ModelConfig, p, x: torch.Tensor):
+    """Diagnostics: fraction of (token, slot) routes dropped by capacity."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    logits = torch.einsum("bsd,de->bse", x, p["router"].to(x.dtype))
+    _, top_e = top_k(logits.to(torch.float32), k)
+    cap = int(math.ceil(s * k / e * cfg.capacity_factor))
+    eid = top_e.reshape(b, s * k)
+    counts = torch.zeros((b, e), dtype=torch.int64, device=x.device)
+    counts.scatter_add_(1, eid, torch.ones_like(eid))
+    dropped = torch.clamp(counts - cap, min=0).sum()
+    return dropped / (b * s * k)

@@ -80,7 +80,10 @@ def test_pipeline_on_the_card_equals_the_cpu(cuda):
     ctx = S.imdb_like()
     ops.reset_launch_counts()
     got = BatchMiner(ctx.sizes, device="cuda")(ctx.tuples)
-    assert min(ops.launch_counts().values()) > 0
+    counts = ops.launch_counts()
+    assert all(counts[k] > 0 for k in ops.PATH_KERNELS["mining"]), counts
+    assert all(n == 0 for k, n in counts.items()
+               if k not in ops.PATH_KERNELS["mining"]), counts
     want = BatchMiner(ctx.sizes, device="cpu")(ctx.tuples)
     for f in got.__dataclass_fields__:
         assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
@@ -91,3 +94,62 @@ def test_pipeline_on_the_card_equals_the_cpu(cuda):
                                                           mctx.values)
     for f in got.__dataclass_fields__:
         assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+
+
+FA_CASES = [  # b, hq, hkv, sq, skv, d, causal, window, q_offset
+    (1, 4, 4, 128, 128, 64, True, None, None),
+    (2, 8, 2, 128, 256, 64, True, None, None),
+    (1, 4, 1, 64, 128, 128, True, None, None),
+    (1, 2, 2, 200, 200, 32, True, None, None),
+    (2, 6, 2, 96, 96, 16, True, None, None),
+    (1, 2, 2, 256, 256, 64, False, 32, None),
+    (1, 2, 2, 256, 256, 64, True, 128, None),
+    (1, 2, 2, 256, 256, 64, False, None, None),
+    (1, 4, 2, 64, 300, 128, True, 48, 236),
+    (1, 3, 1, 130, 70, 32, False, None, -10),
+]
+
+
+@pytest.mark.parametrize("case", FA_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel(cuda, case, dtype):
+    from repro_torch.kernels import flash_attention as KF
+    b, hq, hkv, sq, skv, d, causal, window, q_offset = case
+    rng = np.random.default_rng(sq + skv + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(cuda, dtype) for s in ((b, hq, sq, d), (b, hkv, skv, d),
+                                          (b, hkv, skv, d)))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = KF.flash_attention.launches
+    got = KF.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert KF.flash_attention.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    # bf16: both sides compute in fp32 and round once, so they differ by at
+    # most one bf16 ulp (2**-8 relative)
+    rtol, atol = (2e-5, 2e-5) if dtype == torch.float32 else (1e-2, 4e-3)
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "mixtral-8x7b"])
+def test_routing_on_the_card_equals_the_cpu(cuda, arch):
+    """fp32 smoke routing pass through the kernel: the same routes as the
+    plain CPU run."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models.api import get_model
+    from repro_torch.models.telemetry import collect_moe_routing
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
+                              attn_impl="pallas")
+    cpu = get_model(cfg).init(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    toks = TokenPipeline(cfg, 4, 64, seed=0).batch_at(0)["tokens"]
+    ops.reset_launch_counts()
+    got = collect_moe_routing(cfg, card, toks)
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    np.testing.assert_array_equal(got, collect_moe_routing(cfg, cpu, toks))

@@ -1,20 +1,28 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
 package, runs on CUDA by default (and says so when there is no card), and
-never runs a plain version where a kernel was asked for."""
+never runs a plain version where a kernel was asked for.  Its two paths —
+mining and the MoE routing pass that feeds it — each have their own
+kernel set."""
 import os
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from repro_torch import device as D
+from repro_torch.configs import get_smoke_config
 from repro_torch.core import BatchMiner, NOACMiner, mine
 from repro_torch.data import synthetic as S
+from repro_torch.kernels import flash_attention as KF
 from repro_torch.kernels import ops
 from repro_torch.kernels import radix_sort as KR
 from repro_torch.kernels import segment_reduce as KS
+from repro_torch.launch import mine_moe_routing
+from repro_torch.models.api import get_model
+from repro_torch.models.params import from_jax_params
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -42,11 +50,26 @@ ctx = S.random_context((7, 6, 5), 80, seed=1, values=True)
 res = BatchMiner(ctx.sizes, device="cpu")(ctx.tuples)
 nres = NOACMiner(ctx.sizes, delta=50.0, device="cpu")(ctx.tuples, ctx.values)
 run = mine(S.imdb_like(), device="cpu")
+
+# the smoke MoE routing path, attention through the kernel op
+import dataclasses, torch
+from repro_torch.configs import get_smoke_config
+from repro_torch.data.tokens import TokenPipeline
+from repro_torch.models.api import get_model
+from repro_torch.models.telemetry import collect_moe_routing, routing_context
+cfg = dataclasses.replace(get_smoke_config("granite-moe-3b-a800m"),
+                          attn_impl="pallas")
+params = get_model(cfg).init(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+toks = TokenPipeline(cfg, 2, 32, seed=0).batch_at(0)["tokens"]
+rctx = routing_context(cfg, toks, collect_moe_routing(cfg, params, toks))
+rres = BatchMiner(rctx.sizes, theta=0.2, device="cpu")(rctx.tuples)
+
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not leaked, leaked
 print("OK", len(names), int(res.keep.sum()), int(nres.keep.sum()),
-      run.n_clusters)
+      run.n_clusters, rctx.num_tuples, int(rres.is_unique.sum()))
 """
 
 
@@ -58,9 +81,11 @@ def test_port_imports_without_jax_or_the_jax_package():
                          capture_output=True, text=True, timeout=300,
                          cwd=root)
     assert out.returncode == 0, out.stderr
-    ok, n_modules, kept, nkept, n_clusters = out.stdout.split()[-5:]
-    assert ok == "OK" and int(n_modules) >= 15
+    ok, n_modules, kept, nkept, n_clusters, n_routes, n_routing = \
+        out.stdout.split()[-7:]
+    assert ok == "OK" and int(n_modules) >= 40
     assert int(kept) > 0 and int(nkept) > 0 and int(n_clusters) > 0
+    assert int(n_routes) > 0 and int(n_routing) > 0
 
 
 def test_default_device_is_cuda_and_raises_without_a_card():
@@ -74,6 +99,13 @@ def test_default_device_is_cuda_and_raises_without_a_card():
         mine(S.random_context((3, 3, 3), 10, seed=0))
     with pytest.raises(RuntimeError, match='device="cpu"'):
         D.resolve_device()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        mine_moe_routing.main([])
+    cfg = get_smoke_config("granite-moe-3b-a800m")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        get_model(cfg).init(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        from_jax_params({"w": np.zeros(3, np.float32)})
     assert D.resolve_device("cpu") == torch.device("cpu")
 
 
@@ -87,6 +119,9 @@ def test_use_kernels_true_on_cpu_tensors_raises():
         ops.radix_histogram([w], (0,), (8,), use_kernels=True)
     with pytest.raises(ValueError, match="use_kernels=True"):
         ops.radix_rank(w, starts, use_kernels=True)
+    q = torch.zeros(1, 2, 8, 16)
+    with pytest.raises(ValueError, match="use_kernels=True"):
+        ops.flash_attention(q, q, q, use_kernels=True)
     ctx = S.random_context((7, 6, 5), 40, seed=2)
     with pytest.raises(ValueError, match="use_kernels=True"):
         BatchMiner(ctx.sizes, use_kernels=True, device="cpu")(ctx.tuples)
@@ -102,21 +137,33 @@ def test_kernel_wrappers_take_cuda_tensors_only():
         KR.radix_histogram([w], (0,), (8,))
     with pytest.raises(ValueError, match="CUDA"):
         KR.radix_rank(w, torch.zeros(256, dtype=torch.int32))
+    q = torch.zeros(1, 2, 8, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        KF.flash_attention(q, q, q)
 
 
 def test_launch_counters_only_count_kernel_launches():
     ops.reset_launch_counts()
     ctx = S.random_context((7, 6, 5), 60, seed=3)
     BatchMiner(ctx.sizes, device="cpu")(ctx.tuples)
+    mine_moe_routing.main(["--device", "cpu", "--attn-impl", "pallas",
+                           "--batch", "2", "--seq", "16"])
     assert ops.launch_counts() == {"segment_reduce": 0,
-                                   "radix_histogram": 0, "radix_rank": 0}
+                                   "radix_histogram": 0, "radix_rank": 0,
+                                   "flash_attention": 0}
 
 
 def test_kernel_sources_ship_with_the_package():
     """The build compiles one library per source in the package, for
     sm_90a; importing it needs no compiler."""
     from repro_torch.kernels import build
-    assert build.SOURCES == ("segment_reduce", "radix_sort")
+    assert build.SOURCES == ("segment_reduce", "radix_sort",
+                             "flash_attention")
+    assert ops.PATH_KERNELS == {
+        "mining": ("segment_reduce", "radix_histogram", "radix_rank"),
+        "routing": ("flash_attention",)}
+    on_paths = [k for ks in ops.PATH_KERNELS.values() for k in ks]
+    assert sorted(on_paths) == sorted(ops.KERNELS)
     for name in build.SOURCES:
         assert (build.CSRC / f"{name}.cu").is_file()
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
