@@ -18,14 +18,17 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    group 2, with a window of 512 (causal and not), with q_offset = Skv - Sq
    and at a ragged S of 200; time the kernel, the plain version and one
    PyTorch library call computing the same function, beside the bound;
+   ``signature`` and ``tricluster_density`` bit for bit at the JAX
+   package's test shapes, with a uint32 wraparound case;
 3. mine full-size BibSonomy (816,197 triples; 2,337 x 67,464 x 28,920)
    with ``BatchMiner(device="cuda")``: launch counts of the run, warm time,
    and every ``PipelineResult`` leaf against ``sort_backend="lax"`` on the
    card and, on a small context, against the CPU run;
 4. the same for ``NOACMiner(delta=1.0)`` on the MovieLens-1M shape
    (1,000,209 ratings; 6,040 x 3,952 x 5 stars);
-5. the CLI twin, ``--dataset imdb --backend batch`` (rc 0) and an unknown
-   backend (rc 2);
+5. the CLI twin, ``--dataset imdb --backend batch`` and ``--backend
+   reference`` (rc 0, the same cluster count) and an unknown backend
+   (rc 2);
 6. MoE routing telemetry at full width: granite-moe-3b-a800m (32 layers,
    3,298,793,472 parameters, random weights from a seeded generator) over
    4 x 2048 tokens with ``attn_impl="pallas"`` — 32 ``flash_attention``
@@ -34,7 +37,21 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    ``attn_impl="blocked"`` (bf16: an agreement share, not equality), and
    the mining on the card against the mining on the CPU, leaf for leaf;
 7. the granite-moe and mixtral smoke routing passes in fp32 through the
-   kernel on the card: routes identical to the CPU's plain run.
+   kernel on the card: routes identical to the CPU's plain run;
+8. the dense validation path: ``BatchMiner(device="cuda")`` (prime), then
+   ``dense_tensor`` -> ``fibers`` -> ``set_signature`` (the ``signature``
+   kernel) and ``exact_density_dense`` (the ``tricluster_density``
+   kernel) on the IMDB shape (250 x 700 x 22), K1 (60^3 minus the
+   diagonal) and the MovieLens-1M shape (356,877 distinct rows over
+   6,040 x 3,952 x 5), all at full size: the fibers' signatures mix to
+   the pipeline's ``sig_lo``/``sig_hi`` for every tuple and their sums are
+   its cardinalities; the kernels equal their plain versions on the card
+   bit for bit; every kept IMDB and K1 cluster's exact numerator equals
+   ``core.reference.exact_density`` x volume (numpy, on the host) and its
+   density matches within rel 1e-5; at the MovieLens shape every
+   numerator is at least the generating-tuple count, and the phase times
+   both kernels (the JSON line's entries), their plain versions and the
+   whole dense path, beside the bounds and the peak device memory.
 
 Before the last line it prints the card's name and power limit
 (``nvidia-smi``) and one JSON line ``{"kernels": [...]}``; the last line is
@@ -43,6 +60,8 @@ package.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import subprocess
@@ -55,10 +74,12 @@ SRC = ROOT / "src"
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, float32 rate
 #: outside the tensor cores (used for the integer ALU work too) and the
-#: dense bf16 tensor-core rate.
+#: dense bf16 and int8 tensor-core rates (the int8 rate bounds work on
+#: 0/1 operands, which int8 products with int32 sums compute exactly).
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
 BF16_TENSOR_OPS_PER_S = 989.4e12
+INT8_TENSOR_OPS_PER_S = 1978.9e12
 
 GRANITE_PARAMS = 3_298_793_472
 
@@ -96,13 +117,49 @@ def time_ms(fn, iters: int = 20, warm: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+#: Clock cycles of the first sleep kernel that ``queued_ms`` puts ahead of
+#: the timed calls (about 10 ms on an H100), quadrupled on each retry.
+SLEEP_CYCLES = 20_000_000
+
+
+def queued_ms(fn, iters: int = 20):
+    """(mean device ms per call, queued) of ``iters`` back-to-back calls
+    timed by CUDA events behind a sleep kernel: the host enqueues every
+    call while the card sleeps, so the interval holds the calls' device
+    work and no host launch gaps.  ``queued`` says whether the host did
+    finish enqueueing before the card reached the start event (a call
+    that waits for the card cannot); the sleep is lengthened up to three
+    times when it did not."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    cycles = SLEEP_CYCLES
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        queued = not start.query()
+        end.record()
+        end.synchronize()
+        if queued:
+            break
+        cycles *= 4
+    return start.elapsed_time(end) / iters, queued
+
+
 def device_ms(fn, iters: int = 10):
     """(device ms per call, {kernel name: device ms per call}, {PyTorch op:
-    device ms per call of the kernels it launched itself}) of every
-    kernel, copy and fill that ``iters`` calls of ``fn`` put on the card,
-    from one ``torch.profiler`` trace; (None, {}, {}) when it records no
-    device time.  Kernels launched outside any PyTorch op (the port's own,
-    through ``ctypes``) appear only by kernel name."""
+    device ms per call of the kernels it launched itself}, complete) of
+    every kernel, copy and fill that ``iters`` calls of ``fn`` put on the
+    card, from one ``torch.profiler`` trace; (None, {}, {}, False) when it
+    records no device time.  Kernels launched outside any PyTorch op (the
+    port's own, through ``ctypes``) appear only by kernel name.
+    ``complete`` says whether every activity appears a whole number of
+    times per call: the trace has been seen to lose records of the port's
+    kernels (2 of 10 kept), and an incomplete trace understates."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -115,12 +172,14 @@ def device_ms(fn, iters: int = 10):
             torch.cuda.synchronize()
     except RuntimeError as e:          # no CUPTI where this runs
         log(f"profiler unavailable: {e}")
-        return None, {}, {}
-    by_name = {}
+        return None, {}, {}, False
+    by_name, seen = {}, {}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             us = ev.time_range.elapsed_us()
             by_name[ev.name] = by_name.get(ev.name, 0.0) + us / iters / 1e3
+            seen[ev.name] = seen.get(ev.name, 0) + 1
+    complete = all(n % iters == 0 for n in seen.values())
     by_op = {}
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CPU:
@@ -130,17 +189,23 @@ def device_ms(fn, iters: int = 10):
         if us > 0:
             by_op[ev.key] = us / iters / 1e3
     total = sum(by_name.values())
-    return (total, by_name, by_op) if total > 0 else (None, {}, {})
+    return ((total, by_name, by_op, complete) if total > 0
+            else (None, {}, {}, False))
 
 
-def measure(fn, iters: int = 20) -> dict:
-    """``ms``: the device time per call (profiler), or the CUDA-event time
-    per call where the profiler sees no device time; ``call_ms``: the
-    CUDA-event time per back-to-back call, host launch overhead included."""
-    call = time_ms(fn, iters=iters)
-    dev, _, _ = device_ms(fn, iters=max(1, iters // 2))
-    return {"ms": call if dev is None else dev, "call_ms": call,
-            "source": "events" if dev is None else "profiler"}
+def measure(fn, iters: int = 20, warm: int = 3) -> dict:
+    """``ms``: the device time per call, by CUDA events around calls
+    queued behind a sleep (:func:`queued_ms`; ``source`` says whether the
+    host kept ahead).  Not the profiler: its traces have lost records of
+    the port's ctypes-launched kernels (2 of 10 ``signature`` launches
+    kept; of ``tricluster_density``'s two kernels only the small one).
+    ``call_ms``: CUDA events around back-to-back calls, host launch
+    overhead included."""
+    call = time_ms(fn, iters=iters, warm=warm)
+    dev, queued = queued_ms(fn, iters)
+    return {"ms": dev, "call_ms": call,
+            "source": "queued events" if queued
+            else "events, host not ahead"}
 
 
 def bound(bytes_moved: float, ops: float, ops_per_s: float = ALU_OPS_PER_S):
@@ -193,8 +258,10 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
     from repro_torch.configs import get_config, get_smoke_config
-    from repro_torch.core import BatchMiner, NOACMiner
+    from repro_torch.core import (BatchMiner, NOACMiner, dense_tensor,
+                                  exact_density_dense, fibers)
     from repro_torch.core import keys as K
+    from repro_torch.core import reference as R
     from repro_torch.core import pipeline as P
     from repro_torch.core import radix as RX
     from repro_torch.data import synthetic as S
@@ -203,6 +270,8 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as KF
     from repro_torch.kernels import radix_sort as KR
     from repro_torch.kernels import segment_reduce as KS
+    from repro_torch.kernels import signature as KSig
+    from repro_torch.kernels import tricluster_density as KTD
     from repro_torch.launch import tricluster
     from repro_torch.models.api import get_model
     from repro_torch.models.telemetry import (collect_moe_routing,
@@ -268,16 +337,22 @@ def main() -> int:
     errs = {}
 
     def entry(name, source, replaces, kernel, plain, library, nbytes, nops,
-              shape, plain_iters=20, ops_per_s=ALU_OPS_PER_S):
-        k = measure(kernel)
-        p = measure(plain, plain_iters)
-        lib = measure(library)
+              shape, plain_iters=20, ops_per_s=ALU_OPS_PER_S, iters=20,
+              warm=3):
+        """One kernel's line of the JSON: kernel, plain version and (where
+        one PyTorch call computes the same function) library times, and
+        the bound.  ``library=None``: there is no such call."""
+        k = measure(kernel, iters, warm)
+        p = measure(plain, plain_iters, min(warm, plain_iters))
+        lib = (measure(library) if library is not None
+               else {"ms": None, "call_ms": None})
         b_ms, b_by = bound(nbytes, nops, ops_per_s)
         return dict(name=name, route="cuda",
                     source=f"src/repro_torch/kernels/csrc/{source}",
                     replaces=replaces, ms=k["ms"], plain_ms=p["ms"],
                     library_ms=lib["ms"], bound_ms=b_ms, bound_by=b_by,
                     ms_source=k["source"], call_ms=k["call_ms"],
+                    plain_ms_source=p["source"],
                     plain_call_ms=p["call_ms"],
                     library_call_ms=lib["call_ms"], shape=shape)
 
@@ -452,6 +527,41 @@ def main() -> int:
     kernels[-1]["max_abs_err_by_case"] = fa_errs
     del q, k, v
 
+    # signature and tricluster_density at the JAX package's test shapes
+    # (tests/test_kernels.py), bit for bit; timed at full size in phase 8
+    sig_err = 0
+    for t_, e_ in ((8, 128), (16, 512), (256, 1024), (3, 77)):
+        m_ = torch.from_numpy(rng.integers(0, 2, (t_, e_))).to(dev,
+                                                                torch.uint8)
+        r_ = torch.from_numpy(rng.integers(1, 2**32, e_, dtype=np.uint32)
+                              .view(np.int32)).to(dev)
+        for label, mm in (("uint8", m_), ("bool", m_.bool())):
+            e = max_abs_err(KSig.signature(mm, r_), ref.signature_ref(mm, r_))
+            check(e == 0, f"signature ({t_}, {e_}) {label}: max |err| {e}")
+            sig_err = max(sig_err, e)
+        log(f"phase 2 signature ({t_}, {e_}): bit-equal (uint8 and bool)")
+    r_wrap = torch.full((1000,), -1, dtype=torch.int32, device=dev)
+    m_wrap = torch.ones((7, 1000), dtype=torch.bool, device=dev)
+    got = KSig.signature(m_wrap, r_wrap)
+    check(max_abs_err(got, ref.signature_ref(m_wrap, r_wrap)) == 0 and
+          int(got[0].item()) & 0xFFFFFFFF == (1000 * 0xFFFFFFFF) % 2**32,
+          "signature uint32 wraparound")
+    log("phase 2 signature uint32 wraparound: bit-equal, mod 2^32")
+    errs["signature"] = sig_err
+    td_err = 0.0
+    for g_, m_n, b_, t_ in ((8, 16, 16, 8), (16, 8, 32, 128), (7, 5, 9, 3)):
+        args = [torch.from_numpy(rng.integers(0, 2, s_)).to(dev, torch.bool)
+                for s_ in ((g_, m_n, b_), (t_, g_), (t_, m_n), (t_, b_))]
+        got = KTD.tricluster_density(*args)
+        want = ref.tricluster_density_ref(*args)
+        torch.cuda.synchronize()
+        td_err = max(td_err, float((got - want).abs().max()))
+        check(torch.equal(got, want),
+              f"tricluster_density {(g_, m_n, b_, t_)}: differs")
+        log(f"phase 2 tricluster_density (G, M, B, T) = "
+            f"{(g_, m_n, b_, t_)}: bit-equal")
+    errs["tricluster_density"] = td_err
+
     for k in kernels:
         log(f"phase 2 {k['name']}: kernel {k['ms']:.5f} ms "
             f"({k['ms_source']}; {k['call_ms']:.5f} ms per call), plain "
@@ -498,13 +608,16 @@ def main() -> int:
         log(f"{label}: warm ms {times} (min {min(times):.3f}); "
             f"{n_t / (min(times) / 1e3):.0f} tuples/s; kept clusters "
             f"{kept}; all leaves equal to sort_backend='lax' on the card")
-        busy, by_name, _ = device_ms(lambda: miner(*args).keep.cpu(),
-                                     iters=3)
+        busy, by_name, _, complete = device_ms(
+            lambda: miner(*args).keep.cpu(), iters=3)
         if busy is not None:
-            log(f"{label}: device busy {busy:.3f} ms of the fastest warm "
+            log(f"{label}: " + (
+                f"device busy {busy:.3f} ms of the fastest warm "
                 f"{min(times):.3f} ms (idle share "
-                f"{1 - busy / min(times):.3f}); {len(by_name)} device "
-                "activity kinds, the largest:")
+                f"{1 - busy / min(times):.3f})" if complete else
+                "device busy and idle share not measured (profiler trace "
+                "incomplete)") + f"; {len(by_name)} device activity kinds "
+                "traced, the largest:")
             for kname, kms in sorted(by_name.items(),
                                      key=lambda kv: -kv[1])[:8]:
                 log(f"    {kms:.4f} ms  {kname[:90]}")
@@ -544,13 +657,26 @@ def main() -> int:
     log("phase 4 movielens-20k noac: CUDA result equals the CPU result")
 
     # -- phase 5: the CLI twin ---------------------------------------------
-    rc = tricluster.main(["--dataset", "imdb", "--backend", "batch",
-                          "--device", "cuda", "--print-top", "1"])
-    check(rc == 0, f"CLI --dataset imdb --backend batch: rc={rc}")
+    def cli_clusters(backend):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = tricluster.main(["--dataset", "imdb", "--backend", backend,
+                                  "--device", "cuda", "--print-top", "1"])
+        out = buf.getvalue()
+        print(out, end="", flush=True)
+        check(rc == 0, f"CLI --dataset imdb --backend {backend}: rc={rc}")
+        line = [ln for ln in out.splitlines() if "unique clusters" in ln]
+        check(len(line) == 1, f"CLI --backend {backend}: no cluster count")
+        return int(line[0].split(":")[1].split()[0])
+
+    n_batch, n_ref = cli_clusters("batch"), cli_clusters("reference")
+    check(n_batch == n_ref, f"CLI cluster counts: batch {n_batch}, "
+          f"reference {n_ref}")
     rc = tricluster.main(["--dataset", "imdb", "--backend", "distributed",
                           "--device", "cuda"])
     check(rc == 2, f"CLI --backend distributed: rc={rc}, expected 2")
-    log("phase 5 CLI: rc=0 for batch, rc=2 for an unknown backend")
+    log(f"phase 5 CLI: rc=0 for batch and reference ({n_batch} clusters "
+        "each), rc=2 for an unknown backend")
 
     # -- phase 6: MoE routing telemetry at full width ------------------------
     cfg = dataclasses.replace(get_config("granite-moe-3b-a800m"),
@@ -618,19 +744,21 @@ def main() -> int:
         f"mining warm ms {mine_times} (min {mine_ms:.3f}); "
         f"{int(res.is_unique.sum())} clusters, {kept} with density >= 0.2; "
         f"routes of the three warm passes identical: {same}")
-    busy, by_name, by_op = device_ms(
+    busy, by_name, by_op, complete = device_ms(
         lambda: collect_moe_routing(cfg, params, tokens), iters=2)
-    route_busy = busy
+    route_busy = busy if complete else None
     if busy is not None:
-        log(f"phase 6 routing pass: device busy {busy:.3f} ms of the "
-            f"fastest warm {route_ms:.3f} ms (idle share "
-            f"{1 - busy / route_ms:.3f}); the largest device activities:")
+        log("phase 6 routing pass: " + (
+            f"device busy {busy:.3f} ms of the fastest warm {route_ms:.3f} "
+            f"ms (idle share {1 - busy / route_ms:.3f})" if complete else
+            "device busy and idle share not measured (profiler trace "
+            "incomplete)") + "; the largest device activities traced:")
         for kname, kms in sorted(by_name.items(),
                                  key=lambda kv: -kv[1])[:16]:
             log(f"    {kms:.4f} ms  {kname[:90]}")
         log(f"phase 6 routing pass: device ms by the PyTorch op that "
             f"launched it, the largest (ops {sum(by_op.values()):.3f} ms of "
-            f"the {busy:.3f} busy ms; the rest launched outside any op):")
+            f"the {busy:.3f} traced ms; the rest launched outside any op):")
         for oname, oms in sorted(by_op.items(), key=lambda kv: -kv[1])[:16]:
             log(f"    {oms:.4f} ms  {oname[:90]}")
     blocked = dataclasses.replace(cfg, attn_impl="blocked")
@@ -669,6 +797,188 @@ def main() -> int:
         log(f"phase 7 {scfg.name} fp32: routes through the kernel equal the "
             f"CPU plain run ({got.size} routes)")
 
+    # -- phase 8: the dense validation path ----------------------------------
+    def dense_path(miner, tup, sizes):
+        """dense_tensor -> fibers -> per-mode, per-lane set signatures (the
+        ``signature`` kernel), mixed -> exact densities (the
+        ``tricluster_density`` kernel)."""
+        tens = dense_tensor(tup, sizes)
+        masks = fibers(tens, tup)
+        sig = P.mix_signatures(
+            [ops.set_signature(m, r) for m, r in zip(masks, miner._lo)],
+            [ops.set_signature(m, r) for m, r in zip(masks, miner._hi)])
+        return tens, masks, sig, exact_density_dense(tens, masks)
+
+    dense_counts = {}
+
+    def drive_dense(label, ctx, rows=None):
+        """Mine ``ctx`` on the card and run the dense path over it (cold,
+        then counted); check the signature identity, the cardinalities
+        and the kernels against their plain versions (on the first
+        ``rows`` tuples where given).  Returns the pieces for the checks
+        that follow."""
+        miner = BatchMiner(ctx.sizes, device="cuda")
+        tup = torch.from_numpy(ctx.tuples).to(dev)
+        miner(ctx.tuples).keep.cpu()                       # cold
+        dense_path(miner, tup, ctx.sizes)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = miner(ctx.tuples)
+        tens, masks, (sig_lo, sig_hi), dens = dense_path(miner, tup,
+                                                         ctx.sizes)
+        torch.cuda.synchronize()
+        path_ms = (time.perf_counter() - t0) * 1e3
+        counts = ops.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        dense_counts[label] = counts
+        n = len(ctx.sizes)
+        log(f"{label}: launches {counts} (expected signature {2 * n}, "
+            "tricluster_density 1, and the mining kernels)")
+        check(all(counts[k] > 0 for k in ops.PATH_KERNELS["mining"]
+                  + ops.PATH_KERNELS["dense"]),
+              f"{label}: a kernel of the path was not launched: {counts}")
+        check(counts["signature"] == 2 * n
+              and counts["tricluster_density"] == 1
+              and counts["flash_attention"] == 0,
+              f"{label}: launches {counts}")
+        check(torch.equal(sig_lo, res.sig_lo)
+              and torch.equal(sig_hi, res.sig_hi),
+              f"{label}: the fibers' signatures differ from the pipeline's "
+              f"({int((sig_lo != res.sig_lo).sum())} lo, "
+              f"{int((sig_hi != res.sig_hi).sum())} hi of "
+              f"{sig_lo.shape[0]} tuples)")
+        card = torch.stack([ref.row_counts(m).to(torch.int32) for m in masks])
+        check(torch.equal(card, res.cardinalities),
+              f"{label}: fiber sizes differ from the cardinalities")
+        sel = slice(None) if rows is None else slice(0, rows)
+        err = 0
+        for k in range(n):
+            for r in (miner._lo[k], miner._hi[k]):
+                m_ = masks[k][sel]
+                e = max_abs_err(KSig.signature(m_, r),
+                                ref.signature_ref(m_, r))
+                check(e == 0, f"{label}: signature mode {k}: max |err| {e}")
+                err = max(err, e)
+        errs["signature"] = max(errs["signature"], err)
+        sub = [m[sel] for m in masks]
+        num = KTD.tricluster_density(tens, *sub)
+        num_plain = ref.tricluster_density_ref(tens, *sub)
+        check(torch.equal(num, num_plain),
+              f"{label}: tricluster_density differs from its plain version "
+              f"(max |err| {float((num - num_plain).abs().max())})")
+        if rows is None:
+            check(torch.equal(dens, exact_density_dense(tens, masks,
+                                                        use_kernels=False)),
+                  f"{label}: exact_density_dense differs from its plain "
+                  "version")
+        log(f"{label}: T={ctx.num_tuples} sizes {ctx.sizes}; signatures "
+            f"of every tuple equal the pipeline's sig_lo/sig_hi; fiber "
+            f"sizes equal the cardinalities; both kernels bit-equal to "
+            f"their plain versions"
+            + ("" if rows is None else f" (tricluster_density on the first "
+               f"{rows} rows)") + f"; path {path_ms:.3f} ms (first warm "
+            f"run), peak device memory {peak_gb:.3f} GB")
+        return miner, tup, res, tens, masks, num, dens
+
+    def check_kept_against_reference(label, ctx, res, miner, num, dens):
+        """Every kept cluster's exact numerator against
+        ``core.reference.exact_density`` x volume, on the host."""
+        t0 = time.perf_counter()
+        idx = np.nonzero(res.keep.cpu().numpy())[0]
+        clusters = miner.materialise(res)
+        check(len(clusters) == len(idx), f"{label}: materialised clusters")
+        num_h, dens_h = num.cpu().numpy(), dens.cpu().numpy()
+        vol_h = res.volume.cpu().numpy()
+        for i, (comps, _) in zip(idx, clusters):
+            d_ref = R.exact_density(ctx, comps)
+            check(round(d_ref * float(vol_h[i])) == num_h[i],
+                  f"{label}: tuple {i}: numerator {num_h[i]} vs reference "
+                  f"{d_ref * float(vol_h[i])}")
+            check(abs(float(dens_h[i]) - d_ref) <= 1e-5 * d_ref,
+                  f"{label}: tuple {i}: density {dens_h[i]} vs {d_ref}")
+        log(f"{label}: {len(idx)} kept clusters: exact numerators equal "
+            f"reference.exact_density x volume, densities within rel 1e-5 "
+            f"({time.perf_counter() - t0:.1f} s on the host)")
+
+    for label, ctx8 in (("phase 8 dense imdb", S.imdb_like()),
+                        ("phase 8 dense k1", S.k1_dense_cube())):
+        miner8, _, res8, tens8, masks8, num8, dens8 = drive_dense(label, ctx8)
+        check_kept_against_reference(label, ctx8, res8, miner8, num8, dens8)
+        del tens8, masks8
+
+    # the MovieLens-1M shape, prime, at full size
+    label = "phase 8 dense movielens"
+    check(ml.num_tuples == 356_877, f"movielens T={ml.num_tuples}")
+    ml_tup = torch.from_numpy(ml.tuples).to(dev)
+    ml_tens = dense_tensor(ml_tup, ml.sizes)
+    ml_masks = fibers(ml_tens, ml_tup)
+    torch.cuda.synchronize()
+    t_one = time.perf_counter()
+    KTD.tricluster_density(ml_tens, *ml_masks)
+    torch.cuda.synchronize()
+    t_one = time.perf_counter() - t_one
+    cut = t_one > 30.0
+    td_rows = 65_536 if cut else ml.num_tuples
+    log(f"{label}: one tricluster_density call at full T took {t_one:.3f} s"
+        + (f" > 30 s: timed and compared on the first {td_rows} rows"
+           if cut else ""))
+    del ml_masks, ml_tens
+    mlm, ml_tup, ml_res, ml_tens, ml_masks, ml_num, ml_dens = drive_dense(
+        label, ml, rows=td_rows if cut else None)
+    if not cut:
+        check(bool((ml_num >= ml_res.gen_count.to(torch.float32)).all()),
+              f"{label}: a numerator below the generating-tuple count")
+        log(f"{label}: every numerator >= gen_count; "
+            f"{int(ml_res.is_unique.sum())} unique clusters")
+    path_times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dense_path(mlm, ml_tup, ml.sizes)
+        torch.cuda.synchronize()
+        path_times.append((time.perf_counter() - t0) * 1e3)
+    T8 = ml.num_tuples
+    G8, M8, B8 = ml.sizes
+    sig_bytes_all = 2 * sum(T8 * n + 4 * n + 4 * T8 for n in ml.sizes)
+    sig_all_ms = time_ms(lambda: [ops.set_signature(m, r)
+                                  for lane in (mlm._lo, mlm._hi)
+                                  for m, r in zip(ml_masks, lane)],
+                         iters=5, warm=1)
+    sig_all_bound = sig_bytes_all / HBM_BYTES_PER_S * 1e3
+    log(f"{label}: dense path (dense_tensor, fibers, 6 signatures, "
+        f"exact_density_dense) warm ms {[round(x, 3) for x in path_times]} "
+        f"(min {min(path_times):.3f}); the 6 signature launches "
+        f"{sig_all_ms:.5f} ms against a {sig_all_bound:.5f} ms bound "
+        f"({sig_bytes_all} bytes)")
+    m0, r0 = ml_masks[0], mlm._lo[0]
+    kernels.append(entry(
+        "signature", "signature.cu", "src/repro/kernels/signature.py:42",
+        lambda: KSig.signature(m0, r0), lambda: ref.signature_ref(m0, r0),
+        None, nbytes=T8 * G8 + 4 * G8 + 4 * T8, nops=2 * T8 * G8,
+        shape=f"T={T8} E={G8} (movielens mode 0, one lane)",
+        plain_iters=3))
+    td_masks = [m[:td_rows] for m in ml_masks]
+    kernels.append(entry(
+        "tricluster_density", "tricluster_density.cu",
+        "src/repro/kernels/tricluster_density.py:62",
+        lambda: KTD.tricluster_density(ml_tens, *td_masks),
+        lambda: ref.tricluster_density_ref(ml_tens, *td_masks), None,
+        nbytes=G8 * M8 * B8 + td_rows * (G8 + M8 + B8) + 4 * td_rows,
+        nops=2 * td_rows * G8 * M8 * B8,
+        shape=f"T={td_rows} G={G8} M={M8} B={B8}"
+        + (" (cut from 356877: one call took over 30 s)" if cut else ""),
+        plain_iters=1, ops_per_s=INT8_TENSOR_OPS_PER_S, iters=2, warm=1))
+    for k in kernels[-2:]:
+        log(f"{label} {k['name']}: kernel {k['ms']:.5f} ms "
+            f"({k['ms_source']}; {k['call_ms']:.5f} ms per call by "
+            f"events), plain "
+            f"{k['plain_ms']:.5f} ms, no library call, bound "
+            f"{k['bound_ms']:.5f} ms ({k['bound_by']}) at {k['shape']}")
+    del ml_masks, td_masks, ml_tens, m0
+    torch.cuda.empty_cache()
+
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
                     or m == "repro" or m.startswith("repro."))
@@ -679,8 +989,10 @@ def main() -> int:
         f"movielens noac warm {noac_ms:.3f} ms "
         f"({ml.num_tuples / (noac_ms / 1e3):.0f} tuples/s, {noac_kept} "
         f"kept); granite-moe routing pass warm {route_ms:.3f} ms (device "
-        f"busy {route_busy if route_busy is None else round(route_busy, 3)}"
-        f" ms), its context mined in {mine_ms:.3f} ms")
+        "busy " + ("not measured" if route_busy is None
+                   else f"{route_busy:.3f} ms")
+        + f"), its context mined in {mine_ms:.3f} ms; movielens-shape "
+        f"dense path warm {min(path_times):.3f} ms")
     for k in kernels:
         k["launches_by_run"] = {"batch_prime_bibsonomy":
                                 prime_counts[k["name"]],
@@ -688,6 +1000,9 @@ def main() -> int:
                                 noac_counts[k["name"]],
                                 "moe_routing_granite":
                                 routing_counts[k["name"]]}
+        for run, counts in dense_counts.items():
+            k["launches_by_run"][run.replace("phase 8 ", "").replace(
+                " ", "_")] = counts[k["name"]]
         k["launches"] = sum(k["launches_by_run"].values())
         k["max_abs_err"] = errs[k["name"]]
 

@@ -4,8 +4,10 @@ Port of ``repro.core.engines`` for the engines the port has.
 ``repro_torch.core.mine(ctx, backend=..., variant=...)`` is the single
 entry point.  Engines register themselves under a ``(backend, variant)``
 key; unknown combinations fail with an error that lists every valid
-choice.  The port registers ``batch/prime`` and ``batch/noac``; the
-distributed, streaming and reference backends are later slices.
+choice.  The port registers ``batch`` (one device) and ``reference`` (the
+pure-python oracle of ``core.reference``), each in the ``prime`` and
+``noac`` variants; the distributed and streaming backends are later
+slices.
 """
 from __future__ import annotations
 
@@ -56,7 +58,7 @@ class MineRun:
                                  # materialisation)
     clusters: Optional[list]     # [(components, density), ...] or None
     result: Any                  # backend-native result object (or None)
-    miner: Any                   # the engine instance
+    miner: Any                   # the engine instance (None for reference)
     rerun: Any = None            # zero-arg warm re-execution of the mining
                                  # step; returns the result and records
                                  # its time in ``rerun.last_s``
@@ -117,12 +119,14 @@ def _pipe_kw(p):
 
 
 def _timed(step):
-    """Wrap a mining step: each call waits for the device result and
-    records its wall time in ``go.last_s``."""
+    """Wrap a mining step: each call waits for the device result (when it
+    has one: a ``PipelineResult``'s ``keep``) and records its wall time in
+    ``go.last_s``."""
     def go():
         t0 = time.perf_counter()
         out = step()
-        out.keep.cpu()
+        if hasattr(out, "keep"):
+            out.keep.cpu()
         go.last_s = time.perf_counter() - t0
         return out
     go.last_s = None
@@ -164,3 +168,26 @@ def _batch_noac(ctx, p):
     res = rerun()
     clusters = miner.materialise(res)
     return len(clusters), clusters, res, miner, rerun
+
+
+@register_engine("reference", "prime")
+def _reference_prime(ctx, p):
+    from . import reference as R
+    rerun = _timed(lambda: R.multimodal_clusters(ctx,
+                                                 theta=p.get("theta", 0.0)))
+    _, _, density, kept = rerun()
+    clusters = [(cl, density[tuple(tuple(sorted(c)) for c in cl)])
+                for cl in kept]
+    return len(clusters), clusters, None, None, rerun
+
+
+@register_engine("reference", "noac")
+def _reference_noac(ctx, p):
+    from . import reference as R
+    ctx = _noac_ctx(ctx)
+    rerun = _timed(lambda: R.noac(ctx, p["delta"],
+                                  rho_min=p.get("rho_min", 0.0),
+                                  minsup=p.get("minsup", 0)))
+    kept = rerun()
+    clusters = [(cl, float("nan")) for cl in kept]
+    return len(clusters), clusters, None, None, rerun

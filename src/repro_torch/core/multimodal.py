@@ -1,0 +1,61 @@
+"""Public API: multimodal (N-ary) OAC clustering with selectable backend.
+Port of ``repro.core.multimodal`` for the backends the port has.
+
+Mirrors the paper's naming: the three M/R stages of §4.1 correspond to
+
+  Stage 1 (Alg. 2+3)  -> per-mode sort/segment + set hashing
+  Stage 2 (Alg. 4+5)  -> gather cumuli back to generating tuples
+  Stage 3 (Alg. 6+7)  -> signature dedup + density (θ) filtering
+
+All engines compose the shared pipeline core (``core.pipeline``); backend
+and variant selection goes through the engine registry
+(``core.engines.mine`` / ``make_miner``).
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+from .batch import BatchMiner, MiningResult
+from .context import PolyadicContext, from_named_triples, tricontext
+from .engines import MineRun, available_engines, mine, resolve_engine
+from .manyvalued import NOACMiner, NOACResult
+from .pipeline import PipelineResult
+
+__all__ = [
+    "BatchMiner", "NOACMiner", "MiningResult", "NOACResult",
+    "PipelineResult", "PolyadicContext", "tricontext", "from_named_triples",
+    "make_miner", "mine", "MineRun", "available_engines", "resolve_engine",
+]
+
+#: Backends of the JAX package that the port has not ported yet, with the
+#: ROADMAP item that brings each.
+_UNPORTED = {"streaming": "A7 (core/runs.py and core/streaming.py)",
+             "distributed": "A9 (core/distributed.py)"}
+
+
+def make_miner(sizes: Sequence[int], backend: str = "batch",
+               theta: float = 0.0, mesh=None, axes="data",
+               strategy: str = "replicate", delta: Optional[float] = None,
+               rho_min: float = 0.0, minsup: int = 0, **kw):
+    """Factory selecting the backend (the paper's algorithm variants).
+
+    Thin compatibility wrapper over the engine registry; prefer
+    ``repro_torch.core.mine(ctx, backend=..., variant=...)`` for one-shot
+    runs.  ``kw`` goes to the miner (``seed``, ``sort_backend``,
+    ``use_kernels``, ``device``, ...).  The streaming and distributed
+    backends raise ``NotImplementedError`` until they are ported;
+    ``mesh``, ``axes`` and ``strategy`` are theirs."""
+    if backend in _UNPORTED:
+        raise NotImplementedError(
+            f"the {backend} backend is not ported to the PyTorch port yet; "
+            f"see ROADMAP.md queue A, item {_UNPORTED[backend]}")
+    variant = "noac" if delta is not None else "prime"
+    resolve_engine(backend, variant)  # clear error on unknown combinations
+    if backend == "reference":
+        raise ValueError("the reference oracle has no miner object; "
+                         "use repro_torch.core.mine(ctx, "
+                         "backend='reference')")
+    if variant == "noac":
+        return NOACMiner(sizes, delta=delta, rho_min=rho_min, minsup=minsup,
+                         **kw)
+    return BatchMiner(sizes, theta=theta, **kw)

@@ -3,7 +3,8 @@ the kernels the port has.
 
 Each op keeps the JAX op's calling convention and contract.  A CUDA
 tensor goes to the hand-written kernel (``segment_reduce``,
-``radix_sort``, ``flash_attention``), which either launches or raises; a
+``radix_sort``, ``flash_attention``, ``signature``,
+``tricluster_density``), which either launches or raises; a
 CPU tensor goes to the plain version in ``ref``.  ``use_kernels`` is
 resolved by ``device.resolve_use_kernels``: ``None`` follows the tensor's
 device, ``True`` on a CPU tensor raises, ``False`` runs the plain version.
@@ -20,6 +21,8 @@ from . import ref
 from . import flash_attention as _flash
 from . import radix_sort as _radix
 from . import segment_reduce as _segment
+from . import signature as _signature
+from . import tricluster_density as _density
 
 #: Every kernel of the port, by name: each wrapper counts its launches in
 #: ``.launches``.
@@ -28,14 +31,19 @@ KERNELS = {
     "radix_histogram": _radix.radix_histogram,
     "radix_rank": _radix.radix_rank,
     "flash_attention": _flash.flash_attention,
+    "signature": _signature.signature,
+    "tricluster_density": _density.tricluster_density,
 }
 
 #: The kernels each path of the port launches: ``mining`` is a
 #: ``BatchMiner``/``NOACMiner`` call, ``routing`` the MoE routing pass
-#: (``models.telemetry.collect_moe_routing``) that feeds it.
+#: (``models.telemetry.collect_moe_routing``) that feeds it, ``dense`` the
+#: dense validation path (``core.batch.fibers`` masks hashed by
+#: :func:`set_signature`, and ``core.batch.exact_density_dense``).
 PATH_KERNELS = {
     "mining": ("segment_reduce", "radix_histogram", "radix_rank"),
     "routing": ("flash_attention",),
+    "dense": ("signature", "tricluster_density"),
 }
 
 
@@ -105,3 +113,46 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                       scale=scale)
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset, scale=scale)
+
+
+def _as_bytes(a: torch.Tensor) -> torch.Tensor:
+    """A 0/1 tensor as the kernels read it: bool or uint8 as it is
+    (contiguous), any other dtype as ``a != 0`` (inputs are 0/1)."""
+    if a.dtype not in (torch.bool, torch.uint8):
+        a = a != 0
+    return a.contiguous()
+
+
+def set_signature(mask: torch.Tensor, r: torch.Tensor, *,
+                  use_kernels: Optional[bool] = None) -> torch.Tensor:
+    """Order-independent set signatures: (T, E) 0/1 × (E,) uint32 ->
+    (T,) uint32, as int32 bit patterns.  ``mask`` holds 0/1 (bool, uint8,
+    int32 or float32; the kernel reads bool/uint8 bytes and other dtypes
+    are converted first); any T and E, ragged edges masked in the kernel."""
+    if resolve_use_kernels(use_kernels, mask):
+        return _signature.signature(_as_bytes(mask),
+                                    r.to(torch.int32).contiguous())
+    return ref.signature_ref(mask, r)
+
+
+def tricluster_density(tensor: torch.Tensor, x: torch.Tensor,
+                       y: torch.Tensor, z: torch.Tensor, *,
+                       use_kernels: Optional[bool] = None) -> torch.Tensor:
+    """Exact box-count numerators |X×Y×Z ∩ I| for T triclusters.
+
+    tensor (G, M, B) 0/1; x (T, G); y (T, M); z (T, B) -> (T,) float32,
+    exact for counts below 2**24.  The exact-density estimator (beyond the
+    paper: its Alg. 7 uses the generating-tuple count approximation)."""
+    if resolve_use_kernels(use_kernels, tensor):
+        return _density.tricluster_density(
+            _as_bytes(tensor), _as_bytes(x), _as_bytes(y), _as_bytes(z))
+    return ref.tricluster_density_ref(tensor, x, y, z)
+
+
+def exact_density(tensor: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                  z: torch.Tensor, *,
+                  use_kernels: Optional[bool] = None) -> torch.Tensor:
+    """Exact densities: numerator / volume (0 if any component empty)."""
+    num = tricluster_density(tensor, x, y, z, use_kernels=use_kernels)
+    vol = ref.row_counts(x) * ref.row_counts(y) * ref.row_counts(z)
+    return num / torch.clamp(vol, min=1.0)

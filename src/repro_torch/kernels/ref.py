@@ -18,6 +18,11 @@ from ..core.radix import HIST_BUCKETS, extract_digit
 #: (chunk, 256) int32 one-hot stays at 8 MiB whatever T is.
 RANK_CHUNK = 8192
 
+#: Elements of the largest intermediate of :func:`signature_ref` (int64)
+#: and :func:`tricluster_density_ref` (float32): 2**25 of them, at most
+#: 256 MiB, whatever the shapes.
+CHUNK_ELEMS = 1 << 25
+
 
 def segment_reduce_ref(w_lo: torch.Tensor, w_hi: torch.Tensor,
                        first: torch.Tensor):
@@ -113,3 +118,73 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, vf)
     return out.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def signature_ref(mask: torch.Tensor, r: torch.Tensor,
+                  chunk_elems: int = CHUNK_ELEMS) -> torch.Tensor:
+    """Order-independent set signatures: sig[t] = Σ_e mask[t,e]·r[e]
+    mod 2**32.
+
+    mask: (T, E) 0/1 of bool, uint8, int32 or float32; r: (E,) int32 bit
+    patterns.  Returns (T,) int32 bit patterns.  The sum is taken in int64
+    (each term is below 2**32, so E < 2**31 terms cannot overflow) and
+    reduced mod 2**32 at the end, over row chunks of at most
+    ``chunk_elems`` mask elements."""
+    t, e = mask.shape
+    r64 = r.to(torch.int64) & 0xFFFFFFFF
+    out = torch.empty((t,), dtype=torch.int32, device=mask.device)
+    rows = max(1, chunk_elems // max(e, 1))
+    for lo in range(0, t, rows):
+        m = mask[lo:lo + rows].to(torch.int64)
+        s = (m * r64[None, :]).sum(1) & 0xFFFFFFFF
+        out[lo:lo + rows] = torch.where(s >= 1 << 31, s - (1 << 32),
+                                        s).to(torch.int32)
+    return out
+
+
+def tricluster_density_ref(tensor: torch.Tensor, x: torch.Tensor,
+                           y: torch.Tensor, z: torch.Tensor,
+                           chunk_elems: int = CHUNK_ELEMS) -> torch.Tensor:
+    """Exact tricluster box-count numerators |X_t × Y_t × Z_t ∩ I|.
+
+    tensor: (G, M, B) 0/1; x: (T, G); y: (T, M); z: (T, B), any dtype
+    holding 0/1.  Returns (T,) float32.  Factored as the Pallas kernel
+    factors it — ``C = Y @ I[g]`` (a float32 matrix product), then the sum
+    over b weighted by Z, then the sum over g weighted by X — over chunks of
+    T and G whose intermediates hold at most ``chunk_elems`` elements.
+    Exact while the counts stay below 2**24."""
+    g, m, b = tensor.shape
+    t = x.shape[0]
+    dev = tensor.device
+    out = torch.zeros((t,), dtype=torch.float32, device=dev)
+    if t == 0 or g == 0:
+        return out
+    rows = max(1, min(t, chunk_elems // max(m, b * 16, 1)))
+    gc = max(1, min(g, chunk_elems // max(rows * b, m * b, 1)))
+    for t0 in range(0, t, rows):
+        yf = y[t0:t0 + rows].to(torch.float32)
+        zf = z[t0:t0 + rows].to(torch.float32)
+        xf = x[t0:t0 + rows].to(torch.float32)
+        acc = torch.zeros((yf.shape[0],), dtype=torch.float32, device=dev)
+        for g0 in range(0, g, gc):
+            blk = tensor[g0:g0 + gc].to(torch.float32)      # (gc, M, B)
+            n = blk.shape[0]
+            c = yf @ blk.permute(1, 0, 2).reshape(m, n * b)  # (rows, gc*B)
+            s = (c.reshape(-1, n, b) * zf[:, None, :]).sum(2)
+            acc += (s * xf[:, g0:g0 + n]).sum(1)
+        out[t0:t0 + rows] = acc
+    return out
+
+
+def row_counts(mask: torch.Tensor,
+               chunk_elems: int = CHUNK_ELEMS) -> torch.Tensor:
+    """(T, n) 0/1 mask -> (T,) float32 row sums, over row chunks of at
+    most ``chunk_elems`` elements: a sum over a whole bool mask would
+    first widen it to int64 (17 GB for the MovieLens-1M shape's mode-0
+    fibers)."""
+    t, n = mask.shape
+    rows = max(1, chunk_elems // max(n, 1))
+    out = torch.empty((t,), dtype=torch.float32, device=mask.device)
+    for lo in range(0, t, rows):
+        out[lo:lo + rows] = mask[lo:lo + rows].sum(-1).to(torch.float32)
+    return out

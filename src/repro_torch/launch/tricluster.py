@@ -2,11 +2,14 @@
 ``python -m repro_torch.launch.tricluster --dataset imdb --backend batch``.
 
 The twin of ``repro.launch.tricluster`` for the engines the port has
-(``batch`` in the prime and NOAC variants), with the flags that apply to
-them and ``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain
-versions).  Prints timings, cluster counts, and §5.2-formatted top
-patterns.  An unknown backend/variant returns 2 with the valid
-combinations on stderr.
+(``batch`` on one device and ``reference``, the pure-python oracle, each
+in the prime and NOAC variants), with the flags that apply to them and
+``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain versions;
+the reference backend runs on the host either way).  Prints timings,
+cluster counts, and §5.2-formatted top patterns
+(``core.postprocess.format_cluster``).  An unknown backend/variant returns
+2 with the valid combinations on stderr.  ``--top-k`` and ``--query-*``
+wait for the serving layer (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -34,20 +37,6 @@ def load_dataset(name: str, n_tuples: int, seed: int):
     if name == "random":
         return S.random_context((64, 48, 32), n_tuples or 4096, seed=seed)
     raise ValueError(f"unknown dataset {name!r}")
-
-
-def format_cluster(components, names=None, density=None) -> str:
-    """Paper §5.2 output format: one '{...}' line per modality."""
-    lines = ["{"]
-    for k, comp in enumerate(components):
-        items = sorted(comp)
-        items = [str(names[k][e]) if names is not None else str(e)
-                 for e in items]
-        lines.append("{" + ", ".join(items) + "}")
-    if density is not None:
-        lines.append(f"# density={density:.4f}")
-    lines.append("}")
-    return "\n".join(lines)
 
 
 def main(argv=None):
@@ -91,6 +80,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from ..core import available_engines, mine
+    from ..core import postprocess as PP
 
     variant = args.variant or ("noac" if args.delta is not None else "prime")
     ctx = load_dataset(args.dataset, args.n_tuples, args.seed)
@@ -135,8 +125,8 @@ def main(argv=None):
                                                      if cd[1] == cd[1] else 0))
         names = ctx.names if getattr(ctx, "names", None) else None
         for comps, dens in mats[:args.print_top]:
-            print(format_cluster(comps, names=names,
-                                 density=None if dens != dens else dens))
+            print(PP.format_cluster(comps, names=names,
+                                    density=None if dens != dens else dens))
     return 0
 
 

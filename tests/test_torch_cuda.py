@@ -153,3 +153,113 @@ def test_routing_on_the_card_equals_the_cpu(cuda, arch):
     got = collect_moe_routing(cfg, card, toks)
     assert ops.launch_counts()["flash_attention"] == cfg.n_layers
     np.testing.assert_array_equal(got, collect_moe_routing(cfg, cpu, toks))
+
+
+SIG_SHAPES = [(8, 128), (16, 512), (256, 1024), (3, 77), (1, 1), (33, 15),
+              (70, 6040), (9, 4099), (1000, 22),
+              (5, 60_001)]    # above SMEM_COLS: r read from global memory
+
+
+@pytest.mark.parametrize("t,e", SIG_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bool, torch.uint8])
+def test_signature_kernel(cuda, t, e, dtype):
+    from repro_torch.kernels import signature as KSig
+    rng = np.random.default_rng(t * e)
+    mask = torch.from_numpy(rng.integers(0, 2, (t, e))).to(cuda, dtype)
+    r = _i32(rng.integers(1, 2**32, e, dtype=np.uint64), cuda)
+    before = KSig.signature.launches
+    got = KSig.signature(mask, r)
+    torch.cuda.synchronize()
+    assert KSig.signature.launches == before + 1
+    assert torch.equal(got, ref.signature_ref(mask, r))
+
+
+def test_signature_kernel_wraparound_and_unaligned_rows(cuda):
+    """uint32 wraparound, and rows that start off a 16-byte boundary (a
+    slice of a wider mask keeps its row stride; a contiguous copy of an
+    odd-width mask starts each row at t * E bytes)."""
+    from repro_torch.kernels import signature as KSig
+    rng = np.random.default_rng(1)
+    e = 1001
+    r_np = (2**32 - 1 - rng.integers(0, 8, e)).astype(np.uint64)
+    r = _i32(r_np, cuda)
+    mask = torch.ones((67, e), dtype=torch.bool, device=cuda)
+    mask[5, ::3] = False
+    got = KSig.signature(mask, r)
+    want = (mask.cpu().numpy().astype(np.uint64) * r_np).sum(1) % 2**32
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32),
+                                  want.astype(np.uint32))
+    assert torch.equal(got, ref.signature_ref(mask, r))
+    sub = mask[:, 3:].contiguous()
+    assert torch.equal(KSig.signature(sub, r[3:].contiguous()),
+                       ref.signature_ref(sub, r[3:]))
+
+
+def test_signature_kernel_past_int32_offsets(cuda):
+    """T·E above 2**31: the row offsets are 64-bit."""
+    from repro_torch.kernels import signature as KSig
+    t, e = 262_200, 8192                    # 2,147,942,400 mask bytes
+    if torch.cuda.mem_get_info()[0] < 12 * 2**30:
+        pytest.skip("needs 12 GiB of free device memory")
+    g = torch.Generator(device=cuda).manual_seed(0)
+    mask = torch.randint(0, 2, (t, e), generator=g, device=cuda,
+                         dtype=torch.uint8)
+    r = torch.randint(-2**31, 2**31 - 1, (e,), generator=g, device=cuda,
+                      dtype=torch.int32)
+    got = KSig.signature(mask, r)
+    assert t * e > 2**31
+    assert torch.equal(got, ref.signature_ref(mask, r))
+    assert torch.equal(got[-3:], ref.signature_ref(mask[-3:], r))
+
+
+TD_SHAPES = [(8, 16, 16, 8), (16, 8, 32, 128), (7, 5, 9, 3),
+             (70, 4100, 3, 33), (65, 40, 33, 97), (250, 700, 22, 64),
+             (1, 1, 1, 1), (6, 7, 8, 1000)]
+
+
+@pytest.mark.parametrize("g,m,b,t", TD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bool, torch.uint8])
+def test_tricluster_density_kernel(cuda, g, m, b, t, dtype):
+    from repro_torch.kernels import tricluster_density as KTD
+    rng = np.random.default_rng(g + m + b + t)
+    tensor, x, y, z = (torch.from_numpy(rng.integers(0, 2, s)).to(cuda, dtype)
+                       for s in ((g, m, b), (t, g), (t, m), (t, b)))
+    before = KTD.tricluster_density.launches
+    got = KTD.tricluster_density(tensor, x, y, z)
+    torch.cuda.synchronize()
+    assert KTD.tricluster_density.launches == before + 1
+    assert got.dtype == torch.float32
+    assert torch.equal(got, ref.tricluster_density_ref(tensor, x, y, z))
+
+
+def test_dense_path_on_the_card(cuda):
+    """IMDB: the dense path launches both dense kernels and no mining
+    kernel, the mining path neither dense kernel; the kernel signatures of
+    the fibers mix to the pipeline's, and the exact densities through the
+    kernel equal the plain version's and the CPU's."""
+    from repro_torch.core import dense_tensor, exact_density_dense, fibers
+    from repro_torch.core import pipeline as P
+    ctx = S.imdb_like()
+    miner = BatchMiner(ctx.sizes, device="cuda")
+    ops.reset_launch_counts()
+    res = miner(ctx.tuples)
+    counts = ops.launch_counts()
+    assert all(counts[k] == 0 for k in ops.PATH_KERNELS["dense"]), counts
+    ops.reset_launch_counts()
+    tup = torch.from_numpy(ctx.tuples).to(cuda)
+    tens = dense_tensor(tup, ctx.sizes)
+    masks = fibers(tens, tup)
+    sig = P.mix_signatures(
+        [ops.set_signature(m, r) for m, r in zip(masks, miner._lo)],
+        [ops.set_signature(m, r) for m, r in zip(masks, miner._hi)])
+    dens = exact_density_dense(tens, masks)
+    counts = ops.launch_counts()
+    assert counts["signature"] == 6 and counts["tricluster_density"] == 1
+    assert all(counts[k] == 0 for k in ops.PATH_KERNELS["mining"]), counts
+    assert torch.equal(sig[0], res.sig_lo) and torch.equal(sig[1], res.sig_hi)
+    assert torch.equal(dens, exact_density_dense(tens, masks,
+                                                 use_kernels=False))
+    cpu = torch.from_numpy(ctx.tuples)
+    ctens = dense_tensor(cpu, ctx.sizes)
+    assert torch.equal(dens.cpu(), exact_density_dense(ctens,
+                                                       fibers(ctens, cpu)))

@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
 package, runs on CUDA by default (and says so when there is no card), and
-never runs a plain version where a kernel was asked for.  Its two paths —
-mining and the MoE routing pass that feeds it — each have their own
-kernel set."""
+never runs a plain version where a kernel was asked for.  Its three paths —
+mining, the MoE routing pass that feeds it, and the dense validation
+path — each have their own kernel set."""
 import os
 import subprocess
 import sys
@@ -20,6 +20,8 @@ from repro_torch.kernels import flash_attention as KF
 from repro_torch.kernels import ops
 from repro_torch.kernels import radix_sort as KR
 from repro_torch.kernels import segment_reduce as KS
+from repro_torch.kernels import signature as KSig
+from repro_torch.kernels import tricluster_density as KTD
 from repro_torch.launch import mine_moe_routing
 from repro_torch.models.api import get_model
 from repro_torch.models.params import from_jax_params
@@ -50,6 +52,18 @@ ctx = S.random_context((7, 6, 5), 80, seed=1, values=True)
 res = BatchMiner(ctx.sizes, device="cpu")(ctx.tuples)
 nres = NOACMiner(ctx.sizes, delta=50.0, device="cpu")(ctx.tuples, ctx.values)
 run = mine(S.imdb_like(), device="cpu")
+assert mine(S.imdb_like(), backend="reference").n_clusters == run.n_clusters
+
+# the dense validation path
+import torch
+from repro_torch.core import dense_tensor, exact_density_dense, fibers
+from repro_torch.kernels import ops
+tup = torch.from_numpy(ctx.tuples)
+masks = fibers(dense_tensor(tup, ctx.sizes), tup)
+dens = exact_density_dense(dense_tensor(tup, ctx.sizes), masks)
+sigs = [ops.set_signature(m, r) for m, r in
+        zip(masks, BatchMiner(ctx.sizes, device="cpu")._lo)]
+assert dens.shape == (ctx.num_tuples,) and len(sigs) == 3
 
 # the smoke MoE routing path, attention through the kernel op
 import dataclasses, torch
@@ -122,6 +136,14 @@ def test_use_kernels_true_on_cpu_tensors_raises():
     q = torch.zeros(1, 2, 8, 16)
     with pytest.raises(ValueError, match="use_kernels=True"):
         ops.flash_attention(q, q, q, use_kernels=True)
+    mask = torch.ones((4, 8), dtype=torch.bool)
+    with pytest.raises(ValueError, match="use_kernels=True"):
+        ops.set_signature(mask, w[:8], use_kernels=True)
+    tens = torch.ones((8, 8, 8), dtype=torch.bool)
+    with pytest.raises(ValueError, match="use_kernels=True"):
+        ops.tricluster_density(tens, mask, mask, mask, use_kernels=True)
+    with pytest.raises(ValueError, match="use_kernels=True"):
+        ops.exact_density(tens, mask, mask, mask, use_kernels=True)
     ctx = S.random_context((7, 6, 5), 40, seed=2)
     with pytest.raises(ValueError, match="use_kernels=True"):
         BatchMiner(ctx.sizes, use_kernels=True, device="cpu")(ctx.tuples)
@@ -140,17 +162,30 @@ def test_kernel_wrappers_take_cuda_tensors_only():
     q = torch.zeros(1, 2, 8, 16)
     with pytest.raises(ValueError, match="CUDA"):
         KF.flash_attention(q, q, q)
+    mask = torch.ones((4, 8), dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA"):
+        KSig.signature(mask, torch.zeros(8, dtype=torch.int32))
+    tens = torch.ones((8, 8, 8), dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA"):
+        KTD.tricluster_density(tens, mask, mask, mask)
 
 
 def test_launch_counters_only_count_kernel_launches():
+    from repro_torch.core import dense_tensor, exact_density_dense, fibers
     ops.reset_launch_counts()
     ctx = S.random_context((7, 6, 5), 60, seed=3)
     BatchMiner(ctx.sizes, device="cpu")(ctx.tuples)
     mine_moe_routing.main(["--device", "cpu", "--attn-impl", "pallas",
                            "--batch", "2", "--seq", "16"])
+    tup = torch.from_numpy(ctx.tuples)
+    tens = dense_tensor(tup, ctx.sizes)
+    masks = fibers(tens, tup)
+    exact_density_dense(tens, masks)
+    ops.set_signature(masks[0], torch.ones(7, dtype=torch.int32))
     assert ops.launch_counts() == {"segment_reduce": 0,
                                    "radix_histogram": 0, "radix_rank": 0,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0, "signature": 0,
+                                   "tricluster_density": 0}
 
 
 def test_kernel_sources_ship_with_the_package():
@@ -158,10 +193,12 @@ def test_kernel_sources_ship_with_the_package():
     sm_90a; importing it needs no compiler."""
     from repro_torch.kernels import build
     assert build.SOURCES == ("segment_reduce", "radix_sort",
-                             "flash_attention")
+                             "flash_attention", "signature",
+                             "tricluster_density")
     assert ops.PATH_KERNELS == {
         "mining": ("segment_reduce", "radix_histogram", "radix_rank"),
-        "routing": ("flash_attention",)}
+        "routing": ("flash_attention",),
+        "dense": ("signature", "tricluster_density")}
     on_paths = [k for ks in ops.PATH_KERNELS.values() for k in ks]
     assert sorted(on_paths) == sorted(ops.KERNELS)
     for name in build.SOURCES:

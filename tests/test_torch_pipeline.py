@@ -161,10 +161,13 @@ def test_mine_registry_cluster_sets(case):
 
 def test_mine_registry_errors():
     ctx = TS.random_context((4, 4, 4), 30, seed=1)
-    assert available_engines() == [("batch", "noac"), ("batch", "prime")]
-    for backend in ("distributed", "streaming", "reference"):
+    assert available_engines() == [("batch", "noac"), ("batch", "prime"),
+                                   ("reference", "noac"),
+                                   ("reference", "prime")]
+    for backend in ("distributed", "streaming"):
         with pytest.raises(ValueError, match="valid combinations: "
-                           "batch/noac, batch/prime"):
+                           "batch/noac, batch/prime, reference/noac, "
+                           "reference/prime"):
             mine(ctx, backend=backend, device="cpu")
     with pytest.raises(ValueError, match="requires delta"):
         mine(ctx, variant="noac", device="cpu")
@@ -248,7 +251,10 @@ def _count(out: str) -> int:
 
 @pytest.mark.parametrize("args", [
     ["--dataset", "imdb", "--backend", "batch"],
+    ["--dataset", "imdb", "--backend", "reference"],
     ["--dataset", "movielens", "--n-tuples", "600", "--delta", "1.0"],
+    ["--dataset", "movielens", "--n-tuples", "600", "--delta", "1.0",
+     "--backend", "reference"],
     ["--dataset", "random", "--n-tuples", "300", "--sort-backend", "lax",
      "--theta", "0.5"],
 ])
