@@ -51,7 +51,29 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    density matches within rel 1e-5; at the MovieLens shape every
    numerator is at least the generating-tuple count, and the phase times
    both kernels (the JSON line's entries), their plain versions and the
-   whole dense path, beside the bounds and the peak device memory.
+   whole dense path, beside the bounds and the peak device memory;
+9. LM serving.  (a) ``decode_attention`` and ``rmsnorm`` against their
+   plain versions at every shape of the JAX package's kernel tests in
+   fp32 and bf16 (fp32 rtol = atol = 2e-5, its tolerance; bf16 one ulp of
+   each output, rtol 2**-7 + atol 1e-5, tighter than its 2e-2) and at the
+   serving run's shapes (decode B 4 x Hq 24 / Hkv 8 x D 64 over a
+   (B, 4096, Hkv, D) ring view, kv_len 2049 and 4096; RMSNorm 4 x 2046
+   and 4 rows of D 1536), each timed beside its bound, its plain version
+   and one PyTorch call (SDPA over the kv_len slice with
+   ``enable_gqa``; ``F.rms_norm``).  (b) granite-moe-3b-a800m at full
+   width and depth, random fp32 weights from a seeded generator, bf16,
+   ``attn_impl="pallas"`` and ``use_pallas=True``: ``ServeEngine``
+   (max_len 4096) over 4 ragged prompts of about 2048 tokens, 32 new
+   tokens greedy — launch counts (32 decode launches a step; 65 RMSNorm
+   launches in the prefill and 65 a step), prefill and decode ms,
+   tokens/s, idle share, peak memory, the decode step's profile, the
+   bf16 tokens' agreement with the plain path (reported); then the fp32
+   gate: kernels on against off (``attn_impl="blocked"``,
+   ``use_pallas=False``), teacher-forced on the same tokens, every
+   step's logits within 1e-3 of the step's max |logit|.  (c) ring wrap:
+   danube-smoke and mixtral-smoke (window 32) in fp32, 40-token prompts
+   and 48 decode steps, kernels on against off within rtol = atol = 2e-5
+   at every step.
 
 Before the last line it prints the card's name and power limit
 (``nvidia-smi``) and one JSON line ``{"kernels": [...]}``; the last line is
@@ -82,6 +104,17 @@ BF16_TENSOR_OPS_PER_S = 989.4e12
 INT8_TENSOR_OPS_PER_S = 1978.9e12
 
 GRANITE_PARAMS = 3_298_793_472
+
+#: Depth of phase 9b's end-to-end fp32 logits gate.  At full depth an ulp
+#: of difference flips MoE top-k routes (15 of 65,472 prefill routes at
+#: layer 1, 61,860 at layer 31, on an H100) and the flips cascade, so the
+#: logits of two correct implementations part.  In a two-layer model a
+#: flip in the last layer changes only that token's own output, so it can
+#: reach the logits only at the positions they read (the last prompt
+#: position, the decoded tokens).  The gate relies on no near-tied route
+#: falling on those positions for this seed; the per-launch float64 checks
+#: at full depth are the guarantee.
+GATE_LAYERS = 2
 
 BIB_T = 816_197
 ML_T = 1_000_209
@@ -272,7 +305,10 @@ def main() -> int:
     from repro_torch.kernels import segment_reduce as KS
     from repro_torch.kernels import signature as KSig
     from repro_torch.kernels import tricluster_density as KTD
+    from repro_torch.kernels import decode_attention as KD
+    from repro_torch.kernels import rmsnorm as KN
     from repro_torch.launch import tricluster
+    from repro_torch.serve import ServeEngine
     from repro_torch.models.api import get_model
     from repro_torch.models.telemetry import (collect_moe_routing,
                                               routing_context)
@@ -979,6 +1015,421 @@ def main() -> int:
     del ml_masks, td_masks, ml_tens, m0
     torch.cuda.empty_cache()
 
+    # -- phase 9: LM serving ---------------------------------------------------
+    # 9a: both serving kernels against their plain versions, at every shape
+    # of the JAX package's kernel tests (tests/test_kernels.py) and at the
+    # slice's.  fp32: rtol = atol = 2e-5, the JAX tests'.  bf16: one bf16 ulp
+    # of each output (rtol 2**-7 >= ulp(|want|) / |want|) plus atol 1e-5 for
+    # the order of the fp32 sums near zero; both sides compute in fp32 and
+    # round once, so they differ by at most that rounding.  The JAX tests'
+    # bf16 2e-2 is as large as a typical decode output (~0.03 at kv_len
+    # 2049) and would pass a kernel that drops a 64-key tile.
+    def close(got, want, dtype):
+        rtol, atol = (2e-5, 2e-5) if dtype == fp32 else (2 ** -7, 1e-5)
+        return (got.dtype == want.dtype and got.shape == want.shape
+                and bool(torch.isfinite(got).all())
+                and torch.allclose(got.float(), want.float(), rtol=rtol,
+                                   atol=atol)), \
+            float((got.float() - want.float()).abs().max())
+
+    def randn(g, shape, dtype):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    g9 = torch.Generator(device=dev).manual_seed(9)
+    dec_errs, norm_errs = {}, {}
+    dec_cases = [((2, 4, 2, 512, 64), 512, None, "contiguous"),
+                 ((1, 8, 8, 1024, 64), 700, None, "contiguous"),
+                 ((2, 4, 1, 512, 128), 512, 128, "contiguous"),
+                 ((1, 2, 2, 300, 32), 300, None, "contiguous"),
+                 ((4, 24, 8, 4096, 64), 2049, None, "ring view"),
+                 ((4, 24, 8, 4096, 64), 4096, None, "ring view")]
+    for (b_, hq_, hkv_, s_, d_), kv_len, window, layout in dec_cases:
+        for dtype in (fp32, bf16):
+            q9 = randn(g9, (b_, hq_, d_), dtype)
+            if layout == "ring view":    # (B, S, Hkv, D), as the cache is
+                k9, v9 = (randn(g9, (b_, s_, hkv_, d_), dtype)
+                          .permute(0, 2, 1, 3) for _ in range(2))
+            else:
+                k9, v9 = (randn(g9, (b_, hkv_, s_, d_), dtype)
+                          for _ in range(2))
+            got = KD.decode_attention(q9, k9, v9, kv_len=kv_len,
+                                      window=window)
+            want = ref.decode_attention_ref(q9, k9, v9, kv_len=kv_len,
+                                            window=window)
+            torch.cuda.synchronize()
+            ok, e = close(got, want, dtype)
+            label = (f"decode_attention B {b_} Hq {hq_} Hkv {hkv_} S {s_} "
+                     f"D {d_} kv_len {kv_len} window {window} {layout} "
+                     f"{str(dtype)[6:]}")
+            check(ok, f"phase 9a {label}: max |err| {e}")
+            dec_errs[label] = e
+            log(f"phase 9a {label}: max |err| {e:.3e}")
+    for shape, dtype in [(s, t) for s in ((4, 64), (2, 3, 128), (256, 512),
+                                          (5, 96)) for t in (fp32, bf16)] + [
+            ((4 * 2046, 1536), bf16), ((4, 1536), bf16)]:
+        x9 = randn(g9, shape, dtype)
+        w9 = torch.randn(shape[-1:], generator=g9, device=dev) + 1.0
+        ok, e = close(KN.rmsnorm(x9.reshape(-1, shape[-1]), w9, 1e-5)
+                      .reshape(shape), ref.rmsnorm_ref(x9, w9, 1e-5), dtype)
+        label = f"rmsnorm {shape} {str(dtype)[6:]}"
+        check(ok, f"phase 9a {label}: max |err| {e}")
+        norm_errs[label] = e
+        log(f"phase 9a {label}: max |err| {e:.3e}")
+    del q9, k9, v9, x9, got, want
+
+    # timed at the serving run's shapes: a decode step's attention at
+    # pos = 2048 over the bf16 ring view, and a prefill RMSNorm (fp32 weight)
+    b_, hq_, hkv_, d_, sc_, kvl = 4, 24, 8, 64, 4096, 2049
+    q9 = randn(g9, (b_, hq_, d_), bf16)
+    k9, v9 = (randn(g9, (b_, sc_, hkv_, d_), bf16).permute(0, 2, 1, 3)
+              for _ in range(2))
+    q4 = q9[:, :, None]
+    kernels.append(entry(
+        "decode_attention", "decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:81",
+        lambda: KD.decode_attention(q9, k9, v9, kv_len=kvl),
+        lambda: ref.decode_attention_ref(q9, k9, v9, kv_len=kvl),
+        lambda: F.scaled_dot_product_attention(
+            q4, k9[:, :, :kvl], v9[:, :, :kvl], enable_gqa=True),
+        nbytes=2 * 2 * b_ * hkv_ * kvl * d_ + 2 * 2 * b_ * hq_ * d_,
+        nops=4 * b_ * hq_ * kvl * d_, ops_per_s=BF16_TENSOR_OPS_PER_S,
+        shape=f"B={b_} Hq={hq_} Hkv={hkv_} D={d_} kv_len={kvl} over a "
+        f"(B, Sc={sc_}, Hkv, D) bf16 ring view"))
+    check(torch.allclose(F.scaled_dot_product_attention(
+        q4, k9[:, :, :kvl], v9[:, :, :kvl], enable_gqa=True)[:, :, 0].float(),
+        KD.decode_attention(q9, k9, v9, kv_len=kvl).float(), rtol=2e-2,
+        atol=2e-2), "decode_attention: SDPA computes another function")
+    kernels[-1]["max_abs_err_by_case"] = dec_errs
+    errs["decode_attention"] = dec_errs[
+        "decode_attention B 4 Hq 24 Hkv 8 S 4096 D 64 kv_len 2049 window "
+        "None ring view bfloat16"]
+    rows_, dn_ = 4 * 2046, 1536
+    x9 = randn(g9, (rows_, dn_), bf16)
+    w9 = torch.randn((dn_,), generator=g9, device=dev) + 1.0
+    kernels.append(entry(
+        "rmsnorm", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:24",
+        lambda: KN.rmsnorm(x9, w9, 1e-5),
+        lambda: ref.rmsnorm_ref(x9, w9, 1e-5),
+        lambda: F.rms_norm(x9, (dn_,), w9, 1e-5),
+        nbytes=2 * 2 * rows_ * dn_ + 4 * dn_, nops=4 * rows_ * dn_,
+        shape=f"R={rows_} D={dn_} bf16, fp32 weight (a prefill norm)"))
+    kernels[-1]["max_abs_err_by_case"] = norm_errs
+    errs["rmsnorm"] = norm_errs[f"rmsnorm {(rows_, dn_)} bfloat16"]
+    for k in kernels[-2:]:
+        log(f"phase 9a {k['name']}: kernel {k['ms']:.5f} ms "
+            f"({k['ms_source']}; {k['call_ms']:.5f} ms per call), plain "
+            f"{k['plain_ms']:.5f} ms, library {k['library_ms']:.5f} ms, "
+            f"bound {k['bound_ms'] * 1e3:.3f} us ({k['bound_by']}) at "
+            f"{k['shape']}")
+    del q9, q4, k9, v9, x9
+
+    # 9b: full-width granite-moe-3b-a800m serving through both kernels
+    cfg9 = dataclasses.replace(get_config("granite-moe-3b-a800m"),
+                               attn_impl="pallas", use_pallas=True)
+    check(cfg9.dtype == "bfloat16", f"granite-moe dtype {cfg9.dtype}")
+    model9 = get_model(cfg9)
+    params = model9.init(cfg9, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    prompts = TokenPipeline(cfg9, 4, 2048, seed=0).prompts(4, 2048)
+    lens9 = [len(p) for p in prompts]
+    check(lens9 == [2048, 2047, 2046, 2048], f"prompt lengths {lens9}")
+    n_new, max_len9 = 32, 4096
+    engine = ServeEngine(cfg9, params, max_len=max_len9)
+    engine.generate(prompts, n_new)                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    run_a = engine.generate(prompts, n_new)
+    serving_counts = ops.launch_counts()
+    peak9 = torch.cuda.max_memory_allocated() / 1e9
+    run_b = engine.generate(prompts, n_new)
+    steps = run_a.steps
+    n_norm = 2 * cfg9.n_layers + 1
+    expect9 = {"decode_attention": cfg9.n_layers * steps,
+               "rmsnorm": n_norm * (1 + steps)}
+    log(f"phase 9b serving run: launches {serving_counts} (expected "
+        f"{expect9}, nothing else)")
+    check(all(serving_counts[k] > 0 for k in ops.PATH_KERNELS["serving"]),
+          f"phase 9b: a kernel of the path was not launched: "
+          f"{serving_counts}")
+    check({k: serving_counts[k] for k in expect9} == expect9
+          and all(n == 0 for k, n in serving_counts.items()
+                  if k not in expect9),
+          f"phase 9b launches {serving_counts} != {expect9}")
+    check(steps == run_b.steps == max(lens9) - min(lens9) + n_new,
+          f"phase 9b steps {steps} / {run_b.steps}")
+    for res9 in (run_a, run_b):
+        check([len(t) for t in res9.tokens] == [n_new] * 4 and all(
+            0 <= t < cfg9.vocab_size for ts in res9.tokens for t in ts),
+            f"phase 9b generated tokens {[len(t) for t in res9.tokens]}")
+    same9 = run_a.tokens == run_b.tokens
+    prefill_ms = min(run_a.prefill_s, run_b.prefill_s) * 1e3
+    decode_ms = min(run_a.decode_s, run_b.decode_s) * 1e3
+    tok_s = 4 * n_new / (decode_ms / 1e3)
+    cache_gb = 2 * cfg9.n_layers * 4 * max_len9 * cfg9.n_kv_heads \
+        * cfg9.head_dim * 2 / 1e9
+    log(f"phase 9b {cfg9.name} serving (bf16, attn_impl pallas, use_pallas; "
+        f"4 prompts {lens9}, {n_new} new tokens each, max_len {max_len9}): "
+        f"prefill ms {[round(r.prefill_s * 1e3, 3) for r in (run_a, run_b)]}"
+        f" (min {prefill_ms:.3f}); decode ms "
+        f"{[round(r.decode_s * 1e3, 3) for r in (run_a, run_b)]} (min "
+        f"{decode_ms:.3f}) over {steps} steps ({decode_ms / steps:.3f} ms a "
+        f"step; {tok_s:.1f} tokens/s); peak device memory {peak9:.3f} GB "
+        f"(bf16 cache {cache_gb:.3f} GB); the two runs' tokens identical: "
+        f"{same9}; request 0 starts {run_a.tokens[0][:8]}")
+    gen_ms = (run_a.prefill_s + run_a.decode_s) * 1e3
+    busy9, by_name9, by_op9, complete9 = device_ms(
+        lambda: engine.generate(prompts, n_new), iters=2)
+    serve_busy = busy9 if complete9 else None
+    if busy9 is not None:
+        log("phase 9b generate: " + (
+            f"device busy {busy9:.3f} ms of {gen_ms:.3f} ms (idle share "
+            f"{1 - busy9 / gen_ms:.3f})" if complete9 else
+            "device busy and idle share not measured (profiler trace "
+            "incomplete)"))
+    # where a decode step's time goes: one step at a time, after a prefill
+    pad9 = np.array([p[:min(lens9)] for p in prompts])
+    cache9, logits9 = model9.prefill(cfg9, params, {"tokens": pad9},
+                                     max_len9)
+    check(bool(torch.isfinite(logits9).all())
+          and logits9.shape == (4, cfg9.vocab_size),
+          f"phase 9b prefill logits {tuple(logits9.shape)}")
+    feed9 = torch.argmax(logits9, -1)
+    state9 = {"cache": cache9, "feed": feed9}
+
+    def decode_one():
+        state9["cache"], lg = model9.decode_step(cfg9, params,
+                                                 state9["cache"],
+                                                 state9["feed"])
+        state9["feed"] = torch.argmax(lg, -1)
+        state9["feed"].cpu()
+
+    step_times = []
+    for _ in range(8):
+        t0 = time.perf_counter()
+        decode_one()
+        step_times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = min(step_times)
+    busy, by_name, by_op, complete = device_ms(decode_one, iters=8)
+    if busy is not None:
+        log(f"phase 9b decode step: warm ms {min(step_times):.3f} (min of "
+            f"8); " + (f"device busy {busy:.3f} ms (idle share "
+                       f"{1 - busy / step_ms:.3f})" if complete else
+                       "device busy and idle share not measured (profiler "
+                       "trace incomplete)")
+            + "; the largest device activities traced:")
+        for kname, kms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+            log(f"    {kms:.4f} ms  {kname[:90]}")
+        log(f"phase 9b decode step: device ms by the PyTorch op that "
+            f"launched it, the largest (ops {sum(by_op.values()):.3f} ms of "
+            f"the {busy:.3f} traced ms; the rest launched outside any op):")
+        for oname, oms in sorted(by_op.items(), key=lambda kv: -kv[1])[:12]:
+            log(f"    {oms:.4f} ms  {oname[:90]}")
+    del cache9, state9
+
+    def forced(cfg_, params_, prompts_, gen_, max_len_):
+        """Every step's logits of ``prompts_`` decoded as the engine does,
+        feeding the prompt and then the tokens ``gen_`` (teacher forcing):
+        [prefill logits, step 1, ...]."""
+        m_ = get_model(cfg_)
+        lens_ = np.array([len(p) for p in prompts_])
+        s0, s1 = int(lens_.min()), int(lens_.max())
+        pad_ = np.zeros((len(prompts_), s1), np.int64)
+        for i, p in enumerate(prompts_):
+            pad_[i, :len(p)] = p
+        cache_, lg = m_.prefill(cfg_, params_, {"tokens": pad_[:, :s0]},
+                                max_len_)
+        out_ = [lg]
+        n_steps = s1 - s0 + max(len(t) for t in gen_)
+        for t in range(n_steps):
+            cur = s0 + t
+            feed_ = [int(pad_[i, cur]) if cur < lens_[i] else
+                     (gen_[i][cur - lens_[i]]
+                      if cur - lens_[i] < len(gen_[i]) else 0)
+                     for i in range(len(prompts_))]
+            cache_, lg = m_.decode_step(cfg_, params_, cache_, feed_)
+            out_.append(lg)
+        return out_
+
+    # bf16: kernels against the plain path, reported (routes in bf16 do not
+    # reproduce across attention implementations; ROADMAP queue C)
+    plain9 = dataclasses.replace(cfg9, attn_impl="blocked", use_pallas=False)
+    plain_tokens = ServeEngine(plain9, params, max_len=max_len9).generate(
+        prompts, n_new).tokens
+    agree = np.mean([a == b for ta, tb in zip(run_a.tokens, plain_tokens)
+                     for a, b in zip(ta, tb)])
+    log(f"phase 9b bf16 greedy tokens agreeing with the plain path "
+        f"(attn_impl blocked, use_pallas False): {agree:.4f} of "
+        f"{4 * n_new} (reported, not gated)")
+
+    # fp32 gate.  At full depth the kernels' rounding (an ulp) flips top-k
+    # routes and the flips cascade (ROADMAP queue C), so: (1) at full depth,
+    # teacher-forced on the plain path's greedy tokens, every launch of both
+    # kernels is held, on its own inputs, against a float64 evaluation of
+    # the same function, within 1e-4 of the output's max |exact| (the real
+    # activations' scores reach the hundreds, and an fp32 score of that
+    # size carries an absolute error ~1e-4 in any order of its sums, which
+    # the softmax passes on: the fp32 plain version errs by a few 1e-5 of
+    # max |exact|, printed beside), and the end-to-end difference and the
+    # per-layer route divergence are reported; (2) at a depth of
+    # GATE_LAYERS, where a flip reaches the logits only through a near-tied
+    # route at a position they read (none at this seed), every step's logits,
+    # kernels on against off, within 1e-3 of the step's max |logit|
+    on32 = dataclasses.replace(cfg9, dtype="float32")
+    off32 = dataclasses.replace(plain9, dtype="float32")
+    t0 = time.perf_counter()
+    gen32 = ServeEngine(off32, params, max_len=max_len9).generate(
+        prompts, n_new).tokens
+    def decode_f64(q, k, v, *, window=None, kv_len=None, scale=None):
+        b, hq, d = q.shape
+        hi = k.shape[2] if kv_len is None else kv_len
+        lo = 0 if window is None else max(0, hi - window)
+        qd = q.double().reshape(b, k.shape[1], -1, d) * (
+            d ** -0.5 if scale is None else scale)
+        sc = torch.einsum("bhgd,bhkd->bhgk", qd, k[:, :, lo:hi].double())
+        return torch.einsum("bhgk,bhkd->bhgd", torch.softmax(sc, -1),
+                            v[:, :, lo:hi].double()).reshape(b, hq, d)
+
+    def rmsnorm_f64(x, w, eps=1e-6):
+        xd = x.double()
+        return xd * torch.rsqrt((xd * xd).mean(-1, keepdim=True) + eps) \
+            * w.double()
+
+    def forced_checked(label, *args):
+        """``forced(*args)`` with every launch of both serving kernels held
+        against a float64 evaluation on its own inputs, within 1e-4 of
+        its max |exact|; -> (logits, {kernel: [launches, max relative
+        error, the plain version's]})."""
+        errs_ = {"decode_attention": [0, 0.0, 0.0], "rmsnorm": [0, 0.0, 0.0]}
+        real_ops = (ops.decode_attention, ops.rmsnorm)
+
+        def checked(name, real, plain, exact):
+            def run(*a, **kw):
+                out = real(*a, **kw)
+                want = exact(*a, **kw)
+                scale_ = float(want.abs().max())
+                e_k = float((out.double() - want).abs().max()) / scale_
+                e_p = float((plain(*a, **kw).double() - want).abs().max()) \
+                    / scale_
+                n = errs_[name][0]
+                check(e_k <= 1e-4,
+                      f"{label} {name} launch {n}: max |err| {e_k:.3e} of "
+                      f"max |exact| against float64 (limit 1e-4; the plain "
+                      f"version's {e_p:.3e})")
+                errs_[name] = [n + 1, max(errs_[name][1], e_k),
+                               max(errs_[name][2], e_p)]
+                return out
+            return run
+
+        ops.decode_attention = checked("decode_attention", real_ops[0],
+                                       ref.decode_attention_ref, decode_f64)
+        ops.rmsnorm = checked("rmsnorm", real_ops[1], ref.rmsnorm_ref,
+                              rmsnorm_f64)
+        try:
+            return forced(*args), errs_
+        finally:
+            ops.decode_attention, ops.rmsnorm = real_ops
+
+    ops.reset_launch_counts()
+    lg_on, launch_errs = forced_checked("phase 9b fp32", on32, params,
+                                        prompts, gen32, max_len9)
+    gate_counts = ops.launch_counts()
+    lg_off = forced(off32, params, prompts, gen32, max_len9)
+    check(gate_counts["decode_attention"] == cfg9.n_layers * (len(lg_on) - 1)
+          == launch_errs["decode_attention"][0]
+          and gate_counts["rmsnorm"] == n_norm * len(lg_on)
+          == launch_errs["rmsnorm"][0],
+          f"phase 9b fp32 launches {gate_counts}, checked {launch_errs}")
+    full_rel = max(float((a - b).abs().max()) / float(b.abs().max())
+                   for a, b in zip(lg_on, lg_off))
+    full_agree = float(torch.stack([(a.argmax(-1) == b.argmax(-1)).float()
+                                    .mean() for a, b in zip(lg_on, lg_off)])
+                       .mean())
+    pad32 = np.array([p[:min(lens9)] for p in prompts])
+    r_on, r_off = (collect_moe_routing(dataclasses.replace(
+        c, attn_impl="blocked"), params, pad32) for c in (on32, off32))
+    flips = [int(x) for x in (r_on != r_off).reshape(cfg9.n_layers, -1)
+             .sum(1)]
+    log(f"phase 9b fp32, full depth ({cfg9.n_layers} layers), kernels on, "
+        f"teacher-forced over {len(lg_on)} steps: all "
+        f"{launch_errs['decode_attention'][0]} decode_attention launches "
+        f"(max |err| against float64 {launch_errs['decode_attention'][1]:.3e}"
+        f" of max |exact|; the plain version's "
+        f"{launch_errs['decode_attention'][2]:.3e}) and "
+        f"{launch_errs['rmsnorm'][0]} rmsnorm launches ("
+        f"{launch_errs['rmsnorm'][1]:.3e}; plain "
+        f"{launch_errs['rmsnorm'][2]:.3e}) within 1e-4; end to end against the "
+        f"plain path (reported): worst max |d logit| / max |logit| "
+        f"{full_rel:.3e}, greedy agreement {full_agree:.4f}; prefill routes "
+        f"differing per layer (of {r_on[0].size}), use_pallas on vs off: "
+        f"{flips}")
+    del lg_on, lg_off, r_on, r_off
+    g_on = dataclasses.replace(on32, n_layers=GATE_LAYERS)
+    g_off = dataclasses.replace(off32, n_layers=GATE_LAYERS)
+    gen_g = ServeEngine(g_off, params, max_len=max_len9).generate(
+        prompts, n_new).tokens
+    ops.reset_launch_counts()
+    lg_on = forced(g_on, params, prompts, gen_g, max_len9)
+    gate_counts = ops.launch_counts()
+    lg_off = forced(g_off, params, prompts, gen_g, max_len9)
+    check(gate_counts["decode_attention"] == GATE_LAYERS * (len(lg_on) - 1)
+          and gate_counts["rmsnorm"] == (2 * GATE_LAYERS + 1) * len(lg_on),
+          f"phase 9b fp32 gate launches {gate_counts}")
+    worst_rel, argmax_eq = 0.0, []
+    for i, (a, b) in enumerate(zip(lg_on, lg_off)):
+        rel = float((a - b).abs().max()) / float(b.abs().max())
+        worst_rel = max(worst_rel, rel)
+        argmax_eq.append((a.argmax(-1) == b.argmax(-1)).float().mean())
+        check(bool(torch.isfinite(a).all()) and rel <= 1e-3,
+              f"phase 9b fp32 gate step {i}: max |d logit| {rel:.3e} of "
+              f"max |logit| (limit 1e-3)")
+    share32 = float(torch.stack(argmax_eq).mean())
+    log(f"phase 9b fp32 gate ({GATE_LAYERS} of {cfg9.n_layers} layers, full "
+        f"width): {len(lg_on)} steps (prefill + {len(lg_on) - 1} decode), "
+        f"kernels on vs off: worst max |d logit| / max |logit| "
+        f"{worst_rel:.3e} (limit 1e-3); greedy-token agreement "
+        f"{share32:.4f}; phase 9b fp32 checks {time.perf_counter() - t0:.1f} "
+        "s")
+    del params, lg_on, lg_off, engine
+    torch.cuda.empty_cache()
+
+    # 9c: ring wrap on the card, windowed smoke configs in fp32: every
+    # kernel launch against float64 (as above), and every step's logits,
+    # kernels on against off, within 2e-5 of the step's max |logit| (an
+    # fp32 tolerance on the logits' scale: the smoke weights' scores reach
+    # ~50, so elementwise 2e-5 does not bound fp32 sums in another order)
+    for arch in ("h2o-danube-1.8b", "mixtral-8x7b"):
+        base = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        on = dataclasses.replace(base, attn_impl="pallas", use_pallas=True)
+        off = dataclasses.replace(base, attn_impl="blocked",
+                                  use_pallas=False)
+        sp = get_model(base).init(
+            base, torch.Generator(device=dev).manual_seed(0), device=dev)
+        sprompts = TokenPipeline(base, 4, 40, seed=0).batch_at(0)[
+            "tokens"].tolist()
+        sgen = ServeEngine(off, sp, max_len=64).generate(sprompts, 48).tokens
+        ops.reset_launch_counts()
+        a_, errs_c = forced_checked(f"phase 9c {base.name}", on, sp,
+                                    sprompts, sgen, 64)
+        counts = ops.launch_counts()
+        b_ = forced(off, sp, sprompts, sgen, 64)
+        check(counts["decode_attention"] == 48 * base.n_layers
+              and counts["rmsnorm"] == 49 * (2 * base.n_layers + 1),
+              f"phase 9c {base.name} launches {counts}")
+        worst = 0.0
+        for i, (x_, y_) in enumerate(zip(a_, b_)):
+            rel = float((x_ - y_).abs().max()) / float(y_.abs().max())
+            worst = max(worst, rel)
+            check(rel <= 2e-5, f"phase 9c {base.name} step {i}: max |d "
+                  f"logit| {rel:.3e} of max |logit| (limit 2e-5)")
+        log(f"phase 9c {base.name} fp32, window {base.window}: 40-token "
+            f"prompts, 48 decode steps (the ring wraps past position "
+            f"{base.window}): every launch within 1e-4 of float64 "
+            f"(decode_attention {errs_c['decode_attention'][1]:.3e}, plain "
+            f"{errs_c['decode_attention'][2]:.3e}; rmsnorm "
+            f"{errs_c['rmsnorm'][1]:.3e}); kernels on vs off within 2e-5 of "
+            f"max |logit| at every step (worst {worst:.3e})")
+
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
                     or m == "repro" or m.startswith("repro."))
@@ -992,14 +1443,19 @@ def main() -> int:
         "busy " + ("not measured" if route_busy is None
                    else f"{route_busy:.3f} ms")
         + f"), its context mined in {mine_ms:.3f} ms; movielens-shape "
-        f"dense path warm {min(path_times):.3f} ms")
+        f"dense path warm {min(path_times):.3f} ms; granite-moe serving "
+        f"prefill {prefill_ms:.3f} ms, decode {decode_ms:.3f} ms over {steps} "
+        f"steps ({tok_s:.1f} tokens/s; device busy "
+        + ("not measured" if serve_busy is None
+           else f"{serve_busy:.3f} ms of a generate") + ")")
     for k in kernels:
         k["launches_by_run"] = {"batch_prime_bibsonomy":
                                 prime_counts[k["name"]],
                                 "batch_noac_movielens":
                                 noac_counts[k["name"]],
                                 "moe_routing_granite":
-                                routing_counts[k["name"]]}
+                                routing_counts[k["name"]],
+                                "serving_granite": serving_counts[k["name"]]}
         for run, counts in dense_counts.items():
             k["launches_by_run"][run.replace("phase 8 ", "").replace(
                 " ", "_")] = counts[k["name"]]

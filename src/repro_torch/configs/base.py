@@ -9,9 +9,14 @@ registry defines the four input shapes; ``cells()`` enumerates the
 (architecture × shape) grid with applicability rules (DESIGN.md §5).
 
 ``attn_impl`` keeps the JAX package's values.  In the port ``"pallas"``
-selects the hand-written CUDA kernel ``kernels/csrc/flash_attention.cu``
-(its plain PyTorch version on CPU tensors); ``"einsum"`` and
-``"blocked"`` are plain PyTorch.  ``n_params()`` resolves through the
+selects the hand-written CUDA kernels ``kernels/csrc/flash_attention.cu``
+(full-sequence ``common.attention``) and ``decode_attention.cu`` (serving
+decode, ``common.attention_decode``), each its plain PyTorch version on
+CPU tensors; ``"einsum"`` and ``"blocked"`` are plain PyTorch.
+``use_pallas=True`` sends every RMSNorm of the LM path (forward, prefill,
+decode) to ``kernels/csrc/rmsnorm.cu`` (its plain version on CPU
+tensors); the default ``False`` computes exactly what the JAX package
+computes.  ``n_params()`` resolves through the
 port's ``models.api``, which declares the dense and MoE families so far.
 The knobs that nothing in the port reads yet (:data:`UNPORTED_KNOBS`)
 are kept for that parity, and the port's entry points reject a config
@@ -68,7 +73,7 @@ class ModelConfig:
     # numerics / performance knobs (the hillclimb surface)
     dtype: str = "bfloat16"
     remat: str = "block"           # none | block
-    use_pallas: bool = False       # True: Pallas kernels on the hot paths
+    use_pallas: bool = False       # True: the RMSNorm kernel on the LM path
     microbatch: int = 1            # grad-accumulation inside train_step
     logits_fp32: bool = True
     fsdp: bool = False             # shard params over data axis (ZeRO-3-ish)
@@ -144,7 +149,6 @@ class ModelConfig:
 #: reject a config that sets one away from its default rather than ignore
 #: it, through :func:`check_ported`.
 UNPORTED_KNOBS = {
-    "use_pallas": "B8",            # the rmsnorm kernel
     "remat": "A13b",               # training
     "microbatch": "A13b",
     "router_aux_weight": "A13b",   # a term of the loss

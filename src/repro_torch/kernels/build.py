@@ -25,7 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 #: Sources, one shared library each.
 SOURCES = ("segment_reduce", "radix_sort", "flash_attention", "signature",
-           "tricluster_density")
+           "tricluster_density", "decode_attention", "rmsnorm")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

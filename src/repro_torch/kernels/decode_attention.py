@@ -1,0 +1,142 @@
+"""Wrapper of the CUDA kernel ``csrc/decode_attention.cu``: single-token
+GQA decode attention over a KV cache, forward only.
+
+    q (B, Hq, D), k and v (B, Hkv, S, D) -> o (B, Hq, D)
+
+The query sits at position ``kv_len - 1``: it attends to the keys
+``[max(0, kv_len - window), kv_len)``.  The port of
+``repro.kernels.decode_attention``; the plain version is
+``kernels.ref.decode_attention_ref`` and ``kernels.ops.decode_attention``
+picks between them.  This wrapper takes CUDA tensors in fp32 or bf16: a
+contiguous q, and k and v with the same strides and a unit stride on D,
+read where they lie (a permuted view of a (B, S, Hkv, D) ring cache needs
+no copy).  Head dims: those of the flash kernel, and 80.  There is no
+backward kernel, so it refuses inputs that require a gradient.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import build
+from .flash_attention import HEAD_DIMS as _FLASH_HEAD_DIMS
+
+_NAME = "decode_attention"
+#: Head dims the wrapper takes.
+HEAD_DIMS = tuple(sorted(_FLASH_HEAD_DIMS + (80,)))
+#: Shared memory a block may use on Hopper.
+MAX_SMEM_BYTES = 232_448
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_argtypes_set = False
+
+
+def _lib() -> ctypes.CDLL:
+    global _argtypes_set
+    lib = build.load(_NAME)
+    if not _argtypes_set:
+        vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.decode_attention_launch.argtypes = (
+            [vp] * 4 + [ci] * 5 + [ll] * 3 + [ci] * 3 + [ctypes.c_float]
+            + [ci] * 2 + [vp])
+        lib.decode_attention_launch.restype = ci
+        lib.decode_attention_smem_bytes.argtypes = [ci, ci]
+        lib.decode_attention_smem_bytes.restype = ll
+        _argtypes_set = True
+    return lib
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           kv_len: int, window: Optional[int]) -> None:
+    if any(x.requires_grad for x in (q, k, v)):
+        raise ValueError("decode_attention: there is no backward kernel; "
+                         "call it on tensors that do not require a gradient "
+                         "(for example under torch.no_grad())")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"decode_attention: dtype {q.dtype} not supported "
+                         "(float32 or bfloat16)")
+    for x, what in ((k, "k"), (v, "v")):
+        if x.dtype != q.dtype:
+            raise ValueError(f"decode_attention: {what} must be {q.dtype}, "
+                             f"got {x.dtype}")
+    if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"decode_attention: q (B,Hq,D) and k, v "
+                         f"(B,Hkv,S,D) expected, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, hq, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"decode_attention: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} disagree on batch or head dim")
+    if hkv == 0 or hq % hkv != 0:
+        raise ValueError(f"decode_attention: Hq={hq} is not a multiple of "
+                         f"Hkv={hkv}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"decode_attention: head dim {d} not supported "
+                         f"(one of {HEAD_DIMS})")
+    if not 1 <= kv_len <= s:
+        raise ValueError(f"decode_attention: kv_len={kv_len} outside "
+                         f"[1, S={s}]")
+    if window is not None and window < 1:
+        raise ValueError(f"decode_attention: window={window} must be >= 1")
+    if not q.is_contiguous():
+        raise ValueError("decode_attention: q must be contiguous")
+    if k.stride() != v.stride() or k.stride(3) != 1:
+        raise ValueError(f"decode_attention: k and v need the same strides "
+                         f"and a unit stride on D, got {k.stride()} and "
+                         f"{v.stride()}")
+    if not q.is_cuda:
+        raise ValueError("decode_attention: the CUDA kernel needs CUDA "
+                         f"tensors, got {q.device}")
+    for x, what in ((k, "k"), (v, "v")):
+        if x.device != q.device:
+            raise ValueError(f"decode_attention: {what} must lie on "
+                             f"{q.device}, got {x.device}")
+
+
+def _vec16(k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether the kernel may read K and V rows as 16-byte vectors."""
+    es = k.element_size()
+    return (all(p % 16 == 0 for p in (k.data_ptr(), v.data_ptr()))
+            and all(st * es % 16 == 0 for st in k.stride()[:3])
+            and k.shape[3] * es % 16 == 0)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     window: Optional[int] = None,
+                     kv_len: Optional[int] = None,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """Decode attention computed on the card; ``kv_len`` defaults to S and
+    ``scale`` to D**-0.5."""
+    if kv_len is None:
+        kv_len = k.shape[2] if k.dim() == 4 else 0
+    _check(q, k, v, kv_len, window)
+    b, hq, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = d ** -0.5
+    lib = _lib()
+    smem = lib.decode_attention_smem_bytes(hq // hkv, d)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"decode_attention: GQA group {hq // hkv} x head "
+                         f"dim {d} needs {smem} bytes of shared memory, "
+                         f"more than {MAX_SMEM_BYTES}")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    sb, sh, ss, _ = k.stride()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.decode_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
+            hkv, s, d, sb, sh, ss, int(kv_len), int(window is not None),
+            int(window or 0), float(scale), _DTYPES[q.dtype],
+            int(_vec16(k, v)), stream)
+    build.check(lib, _NAME, err)
+    decode_attention.launches += 1
+    return out
+
+
+#: Launches of the kernel since the last reset (``kernels.ops``).
+decode_attention.launches = 0

@@ -4,7 +4,8 @@ the kernels the port has.
 Each op keeps the JAX op's calling convention and contract.  A CUDA
 tensor goes to the hand-written kernel (``segment_reduce``,
 ``radix_sort``, ``flash_attention``, ``signature``,
-``tricluster_density``), which either launches or raises; a
+``tricluster_density``, ``decode_attention``, ``rmsnorm``), which either
+launches or raises; a
 CPU tensor goes to the plain version in ``ref``.  ``use_kernels`` is
 resolved by ``device.resolve_use_kernels``: ``None`` follows the tensor's
 device, ``True`` on a CPU tensor raises, ``False`` runs the plain version.
@@ -18,8 +19,10 @@ import torch
 
 from ..device import resolve_use_kernels
 from . import ref
+from . import decode_attention as _decode
 from . import flash_attention as _flash
 from . import radix_sort as _radix
+from . import rmsnorm as _rmsnorm
 from . import segment_reduce as _segment
 from . import signature as _signature
 from . import tricluster_density as _density
@@ -33,17 +36,22 @@ KERNELS = {
     "flash_attention": _flash.flash_attention,
     "signature": _signature.signature,
     "tricluster_density": _density.tricluster_density,
+    "decode_attention": _decode.decode_attention,
+    "rmsnorm": _rmsnorm.rmsnorm,
 }
 
 #: The kernels each path of the port launches: ``mining`` is a
 #: ``BatchMiner``/``NOACMiner`` call, ``routing`` the MoE routing pass
 #: (``models.telemetry.collect_moe_routing``) that feeds it, ``dense`` the
 #: dense validation path (``core.batch.fibers`` masks hashed by
-#: :func:`set_signature`, and ``core.batch.exact_density_dense``).
+#: :func:`set_signature`, and ``core.batch.exact_density_dense``),
+#: ``serving`` LM prefill and ring-cache decode (``serve.engine``) with
+#: ``attn_impl="pallas"`` and ``use_pallas=True``.
 PATH_KERNELS = {
     "mining": ("segment_reduce", "radix_histogram", "radix_rank"),
     "routing": ("flash_attention",),
     "dense": ("signature", "tricluster_density"),
+    "serving": ("decode_attention", "rmsnorm"),
 }
 
 
@@ -113,6 +121,36 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                       scale=scale)
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset, scale=scale)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     window: Optional[int] = None,
+                     kv_len: Optional[int] = None,
+                     scale: Optional[float] = None,
+                     use_kernels: Optional[bool] = None) -> torch.Tensor:
+    """Single-token decode. q (B, Hq, D); k, v (B, Hkv, S, D) -> (B, Hq,
+    D) in q's dtype.  The query sits at position ``kv_len - 1`` (default
+    S - 1) and attends to keys ``[max(0, kv_len - window), kv_len)``.  k
+    and v may be strided views (the kernel reads them where they lie);
+    the kernel takes fp32 or bf16 and head dims
+    ``kernels.decode_attention.HEAD_DIMS``."""
+    if resolve_use_kernels(use_kernels, q):
+        return _decode.decode_attention(q.contiguous(), k, v, window=window,
+                                        kv_len=kv_len, scale=scale)
+    return ref.decode_attention_ref(q, k, v, window=window, kv_len=kv_len,
+                                    scale=scale)
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6, *,
+            use_kernels: Optional[bool] = None) -> torch.Tensor:
+    """RMSNorm over the last axis with fp32 statistics, in x's dtype; any
+    leading shape (folded into the kernel's rows, none padded)."""
+    if resolve_use_kernels(use_kernels, x):
+        d = x.shape[-1]
+        out = _rmsnorm.rmsnorm(x.reshape(-1, d).contiguous(),
+                               w.contiguous(), eps)
+        return out.reshape(x.shape)
+    return ref.rmsnorm_ref(x, w, eps)
 
 
 def _as_bytes(a: torch.Tensor) -> torch.Tensor:

@@ -120,6 +120,30 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, hq, sq, d).to(q.dtype)
 
 
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, window: Optional[int] = None,
+                         kv_len: Optional[int] = None,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """Single-token decode. q: (B, Hq, D); k, v: (B, Hkv, S, D), any
+    strides. The query position is kv_len-1 (attends to keys
+    [max(0, kv_len-window), kv_len))."""
+    s = k.shape[2]
+    if kv_len is None:
+        kv_len = s
+    out = flash_attention_ref(q[:, :, None, :], k, v, causal=True,
+                              window=window, q_offset=kv_len - 1,
+                              scale=scale)
+    return out[:, :, 0, :]
+
+
+def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor,
+                eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm rows of x (..., D) with fp32 statistics, in x's dtype."""
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * w.to(torch.float32)).to(x.dtype)
+
+
 def signature_ref(mask: torch.Tensor, r: torch.Tensor,
                   chunk_elems: int = CHUNK_ELEMS) -> torch.Tensor:
     """Order-independent set signatures: sig[t] = Σ_e mask[t,e]·r[e]

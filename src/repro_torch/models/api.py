@@ -4,10 +4,13 @@ family.  Port of ``repro.models.api``.
   model = get_model(cfg)
   params = model.init(cfg, generator, device=device)
   logits, aux = model.forward(cfg, params, batch)
+  cache, logits = model.prefill(cfg, params, inputs, max_len)
+  cache, logits = model.decode_step(cfg, params, cache, tokens)
 
-``loss``, ``prefill`` and ``decode_step`` raise ``NotImplementedError``
-until the training (ROADMAP A13b) and serving (A13a) slices land; so do
-the families other than ``dense`` and ``moe`` (A13d-f).
+``loss`` raises ``NotImplementedError`` until the training slice lands
+(ROADMAP A13b); so do the families other than ``dense`` and ``moe``
+(A13d-f).  ``cache_structs`` (sharded dry-run inputs) comes with the mesh
+(A13c).
 """
 from __future__ import annotations
 
@@ -26,6 +29,8 @@ class Model(NamedTuple):
     loss: Callable             # (cfg, params, batch, rules) -> (loss, metrics)
     prefill: Callable          # (cfg, params, inputs, max_len, rules) -> (cache, logits)
     decode_step: Callable      # (cfg, params, cache, tokens, rules) -> (cache, logits)
+    cache_defs: Callable       # (cfg, batch, max_len, dtype) -> declarations
+    init_cache: Callable       # (cfg, batch, max_len, dtype, rules, device)
 
     def init(self, cfg: ModelConfig, generator: torch.Generator,
              dtype: torch.dtype = torch.float32, device=None) -> ParamTree:
@@ -51,6 +56,8 @@ _LM = Model(
     loss=lm.loss_fn,
     prefill=_lm_prefill,
     decode_step=lm.decode_step,
+    cache_defs=lm.cache_defs,
+    init_cache=lm.init_cache,
 )
 
 

@@ -1,9 +1,10 @@
-"""Shared model primitives: norms, RoPE, attention (train/prefill), SwiGLU
-MLP, and the capacity-dispatch MoE layer.  Port of
+"""Shared model primitives: norms, RoPE, attention (train/prefill/decode),
+SwiGLU MLP, and the capacity-dispatch MoE layer.  Port of
 ``repro.models.common``.
 
-All functions are pure; parameters are the nested trees of
-``params.init_params`` (``ParamTree``) or plain dicts of tensors.  Each
+All functions but ``attention_decode`` are pure; parameters are the
+nested trees of ``params.init_params`` (``ParamTree``) or plain dicts of
+tensors.  Each
 function rounds where the JAX function rounds: an einsum in the working
 dtype (bf16 on the model path) stays in it, and one with
 ``preferred_element_type=float32`` runs on fp32 copies of its operands,
@@ -11,9 +12,14 @@ whose products of bf16 values are exact.  The MoE dispatch is the same
 fixed-capacity sort-and-route pattern as the triclustering shuffle engine
 (DESIGN.md §3).
 
-Not ported yet: ``attention_decode`` (the serving slice, ROADMAP A13a),
-the ``shard_map`` branch of ``moe_ffn`` (ROADMAP A13c) and the RMSNorm
-kernel (ROADMAP B8).
+Two switches pick the hand-written kernels, as the JAX package's config
+documents them: ``rmsnorm(use_pallas=True)`` runs ``kernels.ops.rmsnorm``
+and ``attention_decode`` with ``cfg.attn_impl == "pallas"`` runs
+``kernels.ops.decode_attention`` (each the CUDA kernel on CUDA tensors,
+its plain version on CPU tensors).  ``attention_decode`` writes the ring
+cache in place.
+
+Not ported yet: the ``shard_map`` branch of ``moe_ffn`` (ROADMAP A13c).
 """
 from __future__ import annotations
 
@@ -24,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from ..kernels import ops
+from ..kernels import ops, ref
 
 _NEG = -1e30
 
@@ -36,23 +42,20 @@ _NEG = -1e30
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5,
             use_pallas: bool = False) -> torch.Tensor:
     if use_pallas:
-        raise NotImplementedError(
-            "the RMSNorm kernel is not ported yet (ROADMAP B8); call "
-            "rmsnorm with use_pallas=False")
-    xf = x.to(torch.float32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * scale.to(torch.float32)
-            ).to(x.dtype)
+        return ops.rmsnorm(x, scale, eps)
+    return ref.rmsnorm_ref(x, scale, eps)
 
 
 def rope_tables(positions: torch.Tensor, head_dim: int,
                 theta: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """cos/sin tables (..., head_dim/2) for integer positions."""
+    """cos/sin tables (..., head_dim/2) for integer positions.  The base
+    goes to ``torch.pow`` as a Python number: the kernel reads it as a
+    float32 argument, where a tensor on the card would be a blocking copy
+    (a host sync per layer)."""
     half = head_dim // 2
     exps = -torch.arange(0, half, dtype=torch.float32,
                          device=positions.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=positions.device), exps)
+    freqs = torch.pow(float(theta), exps)
     ang = positions.to(torch.float32)[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
 
@@ -78,8 +81,8 @@ def _qkv(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor):
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
     if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
-        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps, cfg.use_pallas)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps, cfg.use_pallas)
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
@@ -155,6 +158,62 @@ def attention(cfg: ModelConfig, p, x: torch.Tensor,
             raise ValueError(impl)
     o = o.reshape(b, s, cfg.n_heads * cfg.head_dim)
     return torch.einsum("bse,ed->bsd", o, p["wo"].to(x.dtype).reshape(-1, d))
+
+
+def attention_decode(cfg: ModelConfig, p, x: torch.Tensor,
+                     k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     slot_pos: torch.Tensor, pos: int):
+    """One-token decode with a ring-buffer KV cache.
+
+    x (B,1,D); k_cache/v_cache (B,Sc,KV,hd); slot_pos (Sc,) stored
+    position per slot (-1 = empty); ``pos`` (a Python int) = current
+    absolute position.  Writes the new K/V into slot ``pos % Sc`` of the
+    caches and ``pos`` into ``slot_pos``, in place, and returns
+    (out (B,1,D), k_cache, v_cache, slot_pos).
+
+    GQA reads the cache without repeating it.  With ``cfg.attn_impl ==
+    "pallas"`` the attention is ``ops.decode_attention`` over the ring
+    with ``kv_len = min(pos + 1, Sc)`` and no window: the ring holds
+    exactly the last ``min(pos + 1, Sc)`` positions (prefill fills slots
+    ``0..s-1``, or all of them; decode writes slot ``pos % Sc``; ``Sc =
+    min(max_len, window)``), which are the slots the JAX function's
+    ``slot_pos``/window mask keeps, and the softmax does not depend on
+    their order.  Otherwise the JAX function's einsum over the masked
+    ring."""
+    b = x.shape[0]
+    kv, group, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, \
+        cfg.head_dim
+    positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _qkv(cfg, p, x, positions)
+    sc = k_cache.shape[1]
+    slot = pos % sc
+    k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
+    v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
+    slot_pos[slot:slot + 1].fill_(pos)   # a fill: item assignment syncs
+    scale = hd ** -0.5
+    if cfg.attn_impl == "pallas":
+        o = ops.decode_attention(q[:, 0].to(k_cache.dtype),
+                                 k_cache.permute(0, 2, 1, 3),
+                                 v_cache.permute(0, 2, 1, 3),
+                                 kv_len=min(pos + 1, sc), scale=scale)
+        o = o.to(x.dtype).reshape(b, 1, cfg.n_heads * hd)
+    else:
+        f32 = torch.float32
+        q5 = q.reshape(b, 1, kv, group, hd).to(k_cache.dtype).to(f32)
+        s = torch.einsum("bqkgh,btkh->bkgqt", q5,
+                         k_cache.to(f32)) * scale           # (B,KV,G,1,Sc)
+        valid = (slot_pos >= 0) & (slot_pos <= pos)
+        if cfg.window is not None:
+            valid &= slot_pos > pos - cfg.window
+        s = torch.where(valid[None, None, None, None, :], s,
+                        torch.tensor(_NEG, dtype=f32, device=s.device))
+        a = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgqt,btkh->bqkgh",
+                         a.to(v_cache.dtype).to(f32), v_cache.to(f32))
+        o = o.to(x.dtype).reshape(b, 1, cfg.n_heads * hd)
+    out = torch.einsum("bse,ed->bsd", o,
+                       p["wo"].to(x.dtype).reshape(-1, x.shape[-1]))
+    return out, k_cache, v_cache, slot_pos
 
 
 # ---------------------------------------------------------------------------

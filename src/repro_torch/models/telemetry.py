@@ -25,10 +25,10 @@ def routing_layer(cfg: ModelConfig, p, x: torch.Tensor,
                   positions: torch.Tensor):
     """One MoE layer of the routing pass: x (B,S,D) -> (x after the
     layer, router logits (B,S,E) in fp32, routes (B,S,k) int32)."""
-    h = common.rmsnorm(x, p["attn_norm"], cfg.norm_eps)
+    h = common.rmsnorm(x, p["attn_norm"], cfg.norm_eps, cfg.use_pallas)
     x = x + common.attention(cfg, p["attn"], h, positions,
                              impl=cfg.attn_impl, q_block=cfg.q_block)
-    h = common.rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
+    h = common.rmsnorm(x, p["mlp_norm"], cfg.norm_eps, cfg.use_pallas)
     logits = torch.einsum("bsd,de->bse", h,
                           p["moe"]["router"].to(h.dtype)).to(torch.float32)
     _, top_e = common.top_k(logits, cfg.top_k)

@@ -263,3 +263,115 @@ def test_dense_path_on_the_card(cuda):
     ctens = dense_tensor(cpu, ctx.sizes)
     assert torch.equal(dens.cpu(), exact_density_dense(ctens,
                                                        fibers(ctens, cpu)))
+
+
+DECODE_CASES = [  # b, hq, hkv, s, d, kv_len, window
+    (2, 4, 2, 512, 64, 512, None),
+    (1, 8, 8, 1024, 64, 700, None),
+    (2, 4, 1, 512, 128, 512, 128),
+    (1, 2, 2, 300, 32, 300, None),
+    (2, 6, 2, 100, 16, 37, 8),
+    (1, 32, 8, 200, 80, 200, 64),
+    (4, 24, 8, 4096, 64, 2049, None),
+    (1, 64, 1, 70, 128, 1, None),
+]
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["contiguous", "ring view"])
+def test_decode_attention_kernel(cuda, case, dtype, layout):
+    from repro_torch.kernels import decode_attention as KD
+    b, hq, hkv, s, d, kv_len, window = case
+    rng = np.random.default_rng(s + d + kv_len)
+    q = torch.from_numpy(rng.standard_normal((b, hq, d)).astype(np.float32)
+                         ).to(cuda, dtype)
+    if layout == "contiguous":
+        k, v = (torch.from_numpy(rng.standard_normal((b, hkv, s, d))
+                                 .astype(np.float32)).to(cuda, dtype)
+                for _ in range(2))
+    else:   # a (B, S, Hkv, D) cache read through a permuted view
+        k, v = (torch.from_numpy(rng.standard_normal((b, s, hkv, d))
+                                 .astype(np.float32)).to(cuda, dtype)
+                .permute(0, 2, 1, 3) for _ in range(2))
+    before = KD.decode_attention.launches
+    got = KD.decode_attention(q, k, v, kv_len=kv_len, window=window)
+    torch.cuda.synchronize()
+    assert KD.decode_attention.launches == before + 1
+    want = ref.decode_attention_ref(q, k, v, kv_len=kv_len, window=window)
+    rtol, atol = (2e-5, 2e-5) if dtype == torch.float32 else (1e-2, 4e-3)
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("shape", [(4, 64), (2, 3, 128), (256, 512),
+                                   (5, 96), (8184, 1536), (3, 8192),
+                                   (7, 1025), (1000, 24, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel(cuda, shape, dtype, w_dtype):
+    from repro_torch.kernels import rmsnorm as KN
+    rng = np.random.default_rng(sum(shape))
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                         ).to(cuda, dtype)
+    w = (torch.from_numpy(rng.standard_normal(shape[-1:]).astype(np.float32))
+         + 1.0).to(cuda, w_dtype)
+    before = KN.rmsnorm.launches
+    got = ops.rmsnorm(x, w, 1e-5)
+    torch.cuda.synchronize()
+    assert KN.rmsnorm.launches == before + 1
+    want = ref.rmsnorm_ref(x, w, 1e-5)
+    rtol, atol = (2e-5, 2e-5) if dtype == torch.float32 else (1e-2, 4e-3)
+    assert got.dtype == dtype and got.shape == shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "qwen3-0.6b",
+                                  "h2o-danube-1.8b", "mixtral-8x7b"])
+def test_serving_on_the_card_equals_the_cpu(cuda, arch):
+    """fp32 smoke serving with both kernel switches on.  The prefill, and
+    each of 48 decode steps started on the card from a copy of the CPU's
+    cache (the windowed rings wrap), give the CPU's logits and cache
+    within the model-parity tolerance (rtol 2e-4, atol 2e-4 or 2e-5 of
+    the largest logit: fp32 sums in another order on each side); the card
+    launches both kernels at every layer; ``ServeEngine`` on the card
+    generates the CPU's greedy tokens."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.api import get_model
+    from repro_torch.serve import ServeEngine
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
+                              attn_impl="pallas", use_pallas=True)
+    model = get_model(cfg)
+    cpu = model.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(1, cfg.vocab_size, (3, 40))
+
+    def close(got, want):
+        atol = max(2e-4, 2e-5 * float(want.float().abs().max()))
+        torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=atol)
+
+    ops.reset_launch_counts()
+    cache_c, lc = model.prefill(cfg, card, {"tokens": toks}, 128)
+    cache_h, lh = model.prefill(cfg, cpu, {"tokens": toks}, 128)
+    close(lc, lh)
+    for _ in range(48):
+        t = rng.integers(1, cfg.vocab_size, 3)
+        cache_c = {k: v.to(cuda) for k, v in cache_h.items()}
+        cache_c, lc = model.decode_step(cfg, card, cache_c, t)
+        cache_h, lh = model.decode_step(cfg, cpu, cache_h, t)
+        close(lc, lh)
+        for k in cache_h:
+            close(cache_c[k], cache_h[k])
+    counts = ops.launch_counts()
+    assert counts["decode_attention"] == 48 * cfg.n_layers
+    norms = cfg.n_layers * (2 + 2 * cfg.qk_norm) + 1
+    assert counts["rmsnorm"] == 49 * norms
+    prompts = [list(range(1, 30)), [5, 6, 7], list(range(9, 20))]
+    got = ServeEngine(cfg, card, max_len=128).generate(prompts, 12)
+    want = ServeEngine(cfg, cpu, max_len=128).generate(prompts, 12)
+    assert got.tokens == want.tokens

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
 package, runs on CUDA by default (and says so when there is no card), and
-never runs a plain version where a kernel was asked for.  Its three paths —
-mining, the MoE routing pass that feeds it, and the dense validation
-path — each have their own kernel set."""
+never runs a plain version where a kernel was asked for.  Its four paths —
+mining, the MoE routing pass that feeds it, the dense validation path and
+LM serving — each have their own kernel set."""
+import dataclasses
 import os
 import subprocess
 import sys
@@ -16,15 +17,18 @@ from repro_torch import device as D
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import BatchMiner, NOACMiner, mine
 from repro_torch.data import synthetic as S
+from repro_torch.kernels import decode_attention as KD
 from repro_torch.kernels import flash_attention as KF
 from repro_torch.kernels import ops
 from repro_torch.kernels import radix_sort as KR
+from repro_torch.kernels import rmsnorm as KN
 from repro_torch.kernels import segment_reduce as KS
 from repro_torch.kernels import signature as KSig
 from repro_torch.kernels import tricluster_density as KTD
-from repro_torch.launch import mine_moe_routing
+from repro_torch.launch import mine_moe_routing, serve
 from repro_torch.models.api import get_model
 from repro_torch.models.params import from_jax_params
+from repro_torch.serve import ServeEngine
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -79,11 +83,17 @@ toks = TokenPipeline(cfg, 2, 32, seed=0).batch_at(0)["tokens"]
 rctx = routing_context(cfg, toks, collect_moe_routing(cfg, params, toks))
 rres = BatchMiner(rctx.sizes, theta=0.2, device="cpu")(rctx.tuples)
 
+# LM serving with both kernel switches on (their plain versions here)
+from repro_torch.serve import ServeEngine
+scfg = dataclasses.replace(cfg, use_pallas=True)
+gen = ServeEngine(scfg, params, max_len=64).generate([[1, 2, 3], [4, 5]], 5)
+
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not leaked, leaked
 print("OK", len(names), int(res.keep.sum()), int(nres.keep.sum()),
-      run.n_clusters, rctx.num_tuples, int(rres.is_unique.sum()))
+      run.n_clusters, rctx.num_tuples, int(rres.is_unique.sum()),
+      sum(len(t) for t in gen.tokens))
 """
 
 
@@ -95,11 +105,11 @@ def test_port_imports_without_jax_or_the_jax_package():
                          capture_output=True, text=True, timeout=300,
                          cwd=root)
     assert out.returncode == 0, out.stderr
-    ok, n_modules, kept, nkept, n_clusters, n_routes, n_routing = \
-        out.stdout.split()[-7:]
-    assert ok == "OK" and int(n_modules) >= 40
+    ok, n_modules, kept, nkept, n_clusters, n_routes, n_routing, n_gen = \
+        out.stdout.split()[-8:]
+    assert ok == "OK" and int(n_modules) >= 44
     assert int(kept) > 0 and int(nkept) > 0 and int(n_clusters) > 0
-    assert int(n_routes) > 0 and int(n_routing) > 0
+    assert int(n_routes) > 0 and int(n_routing) > 0 and int(n_gen) == 10
 
 
 def test_default_device_is_cuda_and_raises_without_a_card():
@@ -120,6 +130,10 @@ def test_default_device_is_cuda_and_raises_without_a_card():
         get_model(cfg).init(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match='device="cpu"'):
         from_jax_params({"w": np.zeros(3, np.float32)})
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        get_model(cfg).init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        serve.main(["--arch", "granite-moe-3b-a800m", "--smoke"])
     assert D.resolve_device("cpu") == torch.device("cpu")
 
 
@@ -144,6 +158,10 @@ def test_use_kernels_true_on_cpu_tensors_raises():
         ops.tricluster_density(tens, mask, mask, mask, use_kernels=True)
     with pytest.raises(ValueError, match="use_kernels=True"):
         ops.exact_density(tens, mask, mask, mask, use_kernels=True)
+    with pytest.raises(ValueError, match="use_kernels=True"):
+        ops.decode_attention(q[:, :, 0], q, q, use_kernels=True)
+    with pytest.raises(ValueError, match="use_kernels=True"):
+        ops.rmsnorm(q, torch.ones(16), use_kernels=True)
     ctx = S.random_context((7, 6, 5), 40, seed=2)
     with pytest.raises(ValueError, match="use_kernels=True"):
         BatchMiner(ctx.sizes, use_kernels=True, device="cpu")(ctx.tuples)
@@ -168,6 +186,10 @@ def test_kernel_wrappers_take_cuda_tensors_only():
     tens = torch.ones((8, 8, 8), dtype=torch.bool)
     with pytest.raises(ValueError, match="CUDA"):
         KTD.tricluster_density(tens, mask, mask, mask)
+    with pytest.raises(ValueError, match="CUDA"):
+        KD.decode_attention(q[:, :, 0].contiguous(), q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        KN.rmsnorm(q[0, 0], torch.ones(16))
 
 
 def test_launch_counters_only_count_kernel_launches():
@@ -182,10 +204,18 @@ def test_launch_counters_only_count_kernel_launches():
     masks = fibers(tens, tup)
     exact_density_dense(tens, masks)
     ops.set_signature(masks[0], torch.ones(7, dtype=torch.int32))
+    serve.main(["--arch", "mixtral-8x7b", "--smoke", "--device", "cpu",
+                "--attn-impl", "pallas", "--new-tokens", "3"])
+    scfg = dataclasses.replace(get_smoke_config("qwen3-0.6b"),
+                               attn_impl="pallas", use_pallas=True)
+    sp = get_model(scfg).init(scfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+    ServeEngine(scfg, sp, max_len=32).generate([[1, 2, 3]], 3)
     assert ops.launch_counts() == {"segment_reduce": 0,
                                    "radix_histogram": 0, "radix_rank": 0,
                                    "flash_attention": 0, "signature": 0,
-                                   "tricluster_density": 0}
+                                   "tricluster_density": 0,
+                                   "decode_attention": 0, "rmsnorm": 0}
 
 
 def test_kernel_sources_ship_with_the_package():
@@ -194,11 +224,13 @@ def test_kernel_sources_ship_with_the_package():
     from repro_torch.kernels import build
     assert build.SOURCES == ("segment_reduce", "radix_sort",
                              "flash_attention", "signature",
-                             "tricluster_density")
+                             "tricluster_density", "decode_attention",
+                             "rmsnorm")
     assert ops.PATH_KERNELS == {
         "mining": ("segment_reduce", "radix_histogram", "radix_rank"),
         "routing": ("flash_attention",),
-        "dense": ("signature", "tricluster_density")}
+        "dense": ("signature", "tricluster_density"),
+        "serving": ("decode_attention", "rmsnorm")}
     on_paths = [k for ks in ops.PATH_KERNELS.values() for k in ks]
     assert sorted(on_paths) == sorted(ops.KERNELS)
     for name in build.SOURCES:

@@ -199,8 +199,10 @@ def test_rmsnorm_and_rope_match(dtype):
     np.testing.assert_allclose(
         _np32(C.apply_rope(tx, tcos, tsin)),
         _np32(JC.apply_rope(jx, jcos, jsin)), **TOL[dtype])
-    with pytest.raises(NotImplementedError, match="ROADMAP B8"):
-        C.rmsnorm(tx, _t(sc), use_pallas=True)
+    # use_pallas=True runs ops.rmsnorm: on a CPU tensor its plain version
+    np.testing.assert_allclose(
+        _np32(C.rmsnorm(tx, _t(sc), 1e-5, use_pallas=True)),
+        _np32(JC.rmsnorm(jx, jnp.asarray(sc), 1e-5)), **TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -312,10 +314,10 @@ def test_unported_entry_points_name_their_roadmap_item():
     model = get_model(tc)
     with pytest.raises(NotImplementedError, match="ROADMAP A13b"):
         model.loss(tc, None, {})
-    with pytest.raises(NotImplementedError, match="ROADMAP A13a"):
-        model.prefill(tc, None, {"tokens": None}, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13a"):
-        model.decode_step(tc, None, None, None)
+    with pytest.raises(NotImplementedError, match="ROADMAP A13c"):
+        model.prefill(tc, None, {"tokens": None}, 8, rules=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP A13c"):
+        model.decode_step(tc, None, None, None, rules=object())
     with pytest.raises(NotImplementedError, match="ROADMAP A13f"):
         get_model(tcfg.get_smoke_config("seamless-m4t-large-v2"))
     with pytest.raises(NotImplementedError, match="ROADMAP A13d"):
@@ -325,7 +327,7 @@ def test_unported_entry_points_name_their_roadmap_item():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("use_pallas", True), ("remat", "none"), ("microbatch", 2),
+    ("remat", "none"), ("microbatch", 2),
     ("router_aux_weight", 0.0), ("scan_layers", False), ("fsdp", True),
     ("hier_allreduce", True), ("moe_impl", "gspmd")])
 def test_unported_knobs_are_rejected_naming_their_roadmap_item(knob, value):
@@ -337,6 +339,35 @@ def test_unported_knobs_are_rejected_naming_their_roadmap_item(knob, value):
         get_model(bad)
     with pytest.raises(NotImplementedError, match=f"{knob}="):
         T.collect_moe_routing(bad, None, np.zeros((1, 4), np.int32))
+
+
+def test_use_pallas_is_accepted_and_reaches_the_rmsnorm_op(monkeypatch):
+    """``use_pallas=True`` is a ported knob: the entry points take it, and
+    every RMSNorm of the layers goes through ``kernels.ops.rmsnorm`` (its
+    plain version on the CPU, so the fp32 routes do not change)."""
+    from repro_torch.kernels import ops
+    tc = dataclasses.replace(tcfg.get_smoke_config("granite-moe-3b-a800m"),
+                             dtype="float32")
+    on = dataclasses.replace(tc, use_pallas=True)
+    assert "use_pallas" not in UNPORTED_KNOBS
+    get_model(on)
+    params = get_model(tc).init(tc, torch.Generator().manual_seed(0),
+                                device="cpu")
+    toks = TokenPipeline(tc, 2, 16, seed=0).batch_at(0)["tokens"]
+    want = T.collect_moe_routing(tc, params, toks)
+    calls = []
+    real = ops.rmsnorm
+
+    def counted(*args, **kw):
+        calls.append(args[0].shape)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(ops, "rmsnorm", counted)
+    assert not calls and T.collect_moe_routing(tc, params, toks).size
+    assert not calls
+    np.testing.assert_array_equal(T.collect_moe_routing(on, params, toks),
+                                  want)
+    assert len(calls) == 2 * tc.n_layers
 
 
 # ---------------------------------------------------------------------------
