@@ -12,30 +12,59 @@
 // sequential grid axis and carries the online-softmax state (m, l, acc)
 // from step to step in VMEM scratch.  Hopper runs blocks in no order, so
 // here the KV walk is a loop inside the block and the state lives in
-// registers.  Like the TPU kernel it skips KV tiles that no (query, key)
-// pair of the block can use (beyond Skv, after the causal diagonal, before
-// the window), masks scores with the finite -1e30 (never -inf: a row whose
-// scores in one tile are all masked would compute -inf - -inf = NaN; with
-// -1e30 the next real tile's alpha = exp(-1e30 - m) = 0 wipes that tile's
-// contribution), and clamps the final l to 1e-30.  Ragged Sq and Skv are
-// masked in the kernel: nothing is padded; out-of-range K and V rows are
-// read as zeros.
+// registers.  Like the TPU kernel both designs below skip KV tiles that no
+// (query, key) pair of the block can use (beyond Skv, after the causal
+// diagonal, before the window), mask scores with the finite -1e30 (never
+// -inf: a row whose scores in one tile are all masked would compute -inf -
+// -inf = NaN; with -1e30 the next real tile's alpha = exp(-1e30 - m) = 0
+// wipes that tile's contribution), and clamp the final l to 1e-30.  Ragged
+// Sq and Skv are masked in the kernel: nothing is padded; out-of-range K
+// and V rows are read as zeros.
 //
 // Bound on an H100 SXM: 4 * B * Hq * Sq * Skv * D / 2 flops for a causal
 // run (two products, half the score matrix), against 989 TFLOP/s of bf16
 // tensor cores; at B 4 x Hq 24 x S 2048 x D 64 that is 51.5 GFLOP, 52 us,
 // while Q, K, V and O move 67 MB (20 us at 3.35 TB/s): operations bound.
 //
-// Design, the simple one: CUDA cores in fp32 (no wgmma, no TMA).  A block
-// of 256 threads takes 64 query rows of one (batch, head); each thread
-// owns 4 rows x 4 keys of each 64 x 64 score tile and 4 rows x D/16 output
-// columns (rows ty + 16 i, columns tx + 16 j, so a warp reads its K and V
-// columns from 16 distinct banks).  Q (pre-scaled), K and V tiles sit in
-// shared memory as fp32 (stride D + 1 for Q and K); the probability tile P
-// goes through shared memory between the two products.  Statistics and the
-// accumulator are fp32; the output is rounded to the input type once.
-// Shared memory is 29-115 KB by head dim, above the 48 KB default from
-// D = 64 on, so the launch raises the block's limit first.
+// The kernel is picked by dtype.
+//
+// bf16: tensor cores (flash_fwd_bf16).  A block of 4 warps takes 64 query
+// rows of one (batch, head), 16 rows a warp; the warp's Q fragments are
+// loaded once (ldmatrix) and stay in registers for the whole KV walk.  K
+// and V tiles of 64 keys arrive as bf16 by 16-byte cp.async.cg copies into
+// a two-stage ring, so tile t+1 loads while tile t computes (one barrier a
+// tile); rows are padded by 16 bytes, which puts the 8 rows of every
+// ldmatrix on distinct banks.  S = Q K^T is mma.sync m16n8k16 (bf16 in,
+// fp32 sums); the scale (times log2 e) multiplies the fp32 scores, never a
+// bf16 copy of Q, and the online softmax (exp2) stays in registers, rows
+// reduced over the quad of lanes that share them.  P is rounded to bf16 in
+// registers and is the A operand of the P V mma.sync as it stands: the
+// m16n8 accumulator layout of two neighbouring key tiles is the m16n8k16 A
+// layout, so P never touches shared memory; V fragments come from
+// ldmatrix.trans.  l sums the fp32 P.  Causal launches put the last
+// (heaviest) query tiles first, so the tail of the grid is short.  The
+// output goes through the warp's own Q rows of shared memory and out in
+// 16-byte stores.  Rounding P to bf16 is what sets the tolerance: an
+// output errs by about 2^-8 (P V)/l on top of its own rounding
+// (chip_smoke.py phase 2 and tests/test_torch_cuda.py state the gate).
+// Measured by chip_smoke.py on one H100 80GB HBM3 at 700 W, at the shape
+// above: 0.231 ms (223 TFLOP/s, 23% of the bound's rate), against 0.142 ms
+// for PyTorch's SDPA.  mma.sync is expected to reach about 2/3 of the
+// wgmma rate on this card; wgmma with TMA loads and a warp-specialised
+// producer is the next step.
+//
+// fp32: CUDA cores (flash_fwd_f32), the simple design.  No bf16 or TF32
+// tensor-core product holds fp32's 2e-5 tolerance, so fp32 keeps it: a
+// block of 256 threads takes 64 query rows; each thread owns 4 rows x 4
+// keys of each 64 x 64 score tile and 4 rows x D/16 output columns (rows
+// ty + 16 i, columns tx + 16 j, so a warp reads its K and V columns from
+// 16 distinct banks).  Q (pre-scaled), K and V tiles sit in shared memory
+// as fp32 (stride D + 1 for Q and K); the probability tile P goes through
+// shared memory between the two products.
+//
+// Statistics and accumulators are fp32 in both; the output is rounded to
+// the input type once.  Shared memory: bf16 46-87 KB, fp32 29-115 KB by
+// head dim, so the launch raises the block's limit first.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -43,11 +72,6 @@
 
 namespace {
 
-constexpr int BQ = 64;    // query rows per block
-constexpr int BK = 64;    // keys per KV tile
-constexpr int NT = 256;   // threads per block, a 16 x 16 grid
-constexpr int RPT = BQ / 16;  // score rows per thread
-constexpr int CPT = BK / 16;  // score columns per thread
 constexpr float NEG = -1e30f;
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
@@ -61,21 +85,14 @@ struct Args {
   float scale;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+// ---------------------------------------------------------------- fp32 ---
+namespace f32 {
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
+constexpr int BQ = 64;    // query rows per block
+constexpr int BK = 64;    // keys per KV tile
+constexpr int NT = 256;   // threads per block, a 16 x 16 grid
+constexpr int RPT = BQ / 16;  // score rows per thread
+constexpr int CPT = BK / 16;  // score columns per thread
 
 // reductions over the 16 threads that share a row (lanes differing in
 // their low 4 bits)
@@ -94,12 +111,13 @@ __device__ __forceinline__ float row_sum(float x) {
 }
 
 template <int D>
-constexpr int smem_floats() {
-  return BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1);
+constexpr size_t smem_bytes() {
+  return sizeof(float) *
+         (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) flash_fwd(Args a) {
+template <int D>
+__global__ void __launch_bounds__(NT) flash_fwd_f32(Args a) {
   constexpr int QS = D + 1;      // row stride of the Q and K tiles
   constexpr int PS = BK + 1;     // row stride of the P tile
   constexpr int DPT = D / 16;    // output columns per thread
@@ -112,23 +130,22 @@ __global__ void __launch_bounds__(NT) flash_fwd(Args a) {
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
-  const int bh = blockIdx.y;               // b * Hq + h
+  const int bh = blockIdx.x;               // b * Hq + h
   const int b = bh / a.hq;
   const int h = bh - b * a.hq;
   const long long kvh = (long long)b * a.hkv + h / a.group;
-  const T* Q = (const T*)a.q + (long long)bh * a.sq * D;
-  const T* K = (const T*)a.k + kvh * a.skv * D;
-  const T* V = (const T*)a.v + kvh * a.skv * D;
-  T* O = (T*)a.o + (long long)bh * a.sq * D;
+  const float* Q = (const float*)a.q + (long long)bh * a.sq * D;
+  const float* K = (const float*)a.k + kvh * a.skv * D;
+  const float* V = (const float*)a.v + kvh * a.skv * D;
+  float* O = (float*)a.o + (long long)bh * a.sq * D;
 
-  const int q0 = blockIdx.x * BQ;          // first q row of the block
+  const int q0 = blockIdx.y * BQ;          // first q row of the block
   const int q_start = q0 + a.q_offset;     // its position among the keys
 
   for (int i = tid; i < BQ * D; i += NT) {
     const int r = i / D;
     const int c = i - r * D;
-    const float x =
-        q0 + r < a.sq ? to_f32(Q[(long long)(q0 + r) * D + c]) : 0.f;
+    const float x = q0 + r < a.sq ? Q[(long long)(q0 + r) * D + c] : 0.f;
     qs[r * QS + c] = x * a.scale;
   }
 
@@ -156,8 +173,8 @@ __global__ void __launch_bounds__(NT) flash_fwd(Args a) {
       const int c = i - r * D;
       const bool in = k_start + r < a.skv;
       const long long g = (long long)(k_start + r) * D + c;
-      ks[r * QS + c] = in ? to_f32(K[g]) : 0.f;
-      vs[r * D + c] = in ? to_f32(V[g]) : 0.f;
+      ks[r * QS + c] = in ? K[g] : 0.f;
+      vs[r * D + c] = in ? V[g] : 0.f;
     }
     __syncthreads();
 
@@ -229,31 +246,324 @@ __global__ void __launch_bounds__(NT) flash_fwd(Args a) {
     const float li = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < DPT; ++j)
-      O[(long long)r * D + tx + 16 * j] = from_f32<T>(acc[i][j] / li);
+      O[(long long)r * D + tx + 16 * j] = acc[i][j] / li;
   }
 }
 
-template <typename T, int D>
+}  // namespace f32
+
+// ---------------------------------------------------------------- bf16 ---
+namespace bf16 {
+
+constexpr int BQ = 64;        // query rows per block, 16 a warp
+constexpr int BK = 64;        // keys per KV tile
+constexpr int NW = BQ / 16;   // warps per block
+constexpr int NT = 32 * NW;
+constexpr int PAD = 8;        // bf16 elements (16 bytes) of row padding
+constexpr float LOG2E = 1.4426950408889634f;
+
+using bf = __nv_bfloat16;
+
+template <int D>
+constexpr size_t smem_bytes() {   // Q, and two stages of K and of V
+  return sizeof(bf) * (size_t)(BQ + 4 * BK) * (D + PAD);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16-byte asynchronous copy; zero-fills the destination when !in (src
+// must still be a valid address)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0,
+                                        uint32_t& r1, uint32_t& r2,
+                                        uint32_t& r3) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t& r0,
+                                              uint32_t& r1, uint32_t& r2,
+                                              uint32_t& r3) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(addr));
+}
+
+// c += a (16 x 16, row) * b (16 x 8, col), bf16 in, fp32 sums
+__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(FULL_MASK, x, 1));
+  return fmaxf(x, __shfl_xor_sync(FULL_MASK, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(FULL_MASK, x, 1);
+  return x + __shfl_xor_sync(FULL_MASK, x, 2);
+}
+
+// rows [row0, row0 + rows) of a (n, D) bf16 matrix into shared memory
+// (row stride D + PAD) by 16-byte cp.async; rows at or past n read zeros
+template <int D>
+__device__ __forceinline__ void load_rows(bf* dst, const bf* src, int row0,
+                                          int rows, int n) {
+  constexpr int CH = D / 8;        // 16-byte chunks per row
+  for (int i = threadIdx.x; i < rows * CH; i += NT) {
+    const int r = i / CH;
+    const int c = (i - r * CH) * 8;
+    const bool in = row0 + r < n;
+    const bf* g = src + (long long)(in ? row0 + r : 0) * D + c;
+    cp_async16(smem_addr(dst + r * (D + PAD) + c), g, in);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT) flash_fwd_bf16(Args a) {
+  constexpr int RS = D + PAD;      // shared-memory row stride
+  constexpr int KD = D / 16;       // k-steps of Q K^T
+  constexpr int NS = BK / 8;       // 8-key column tiles of S
+  constexpr int NO = D / 8;        // 8-column tiles of O
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf* qs = reinterpret_cast<bf*>(smem_raw);    // [BQ][RS]
+  bf* ks = qs + BQ * RS;                       // [2][BK][RS]
+  bf* vs = ks + 2 * BK * RS;                   // [2][BK][RS]
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int bh = blockIdx.x;                   // b * Hq + h
+  const int b = bh / a.hq;
+  const int h = bh - b * a.hq;
+  // causal: the last, heaviest query tiles first
+  const int qt = a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const long long kvh = (long long)b * a.hkv + h / a.group;
+  const bf* Q = (const bf*)a.q + (long long)bh * a.sq * D;
+  const bf* K = (const bf*)a.k + kvh * a.skv * D;
+  const bf* V = (const bf*)a.v + kvh * a.skv * D;
+  bf* O = (bf*)a.o + (long long)bh * a.sq * D;
+  const int q0 = qt * BQ;
+  const int q_start = q0 + a.q_offset;         // key position of q row q0
+
+  // the KV tiles that some (q, k) pair of the block can use: [t_lo, t_hi]
+  int t_hi = (a.skv + BK - 1) / BK - 1;
+  if (a.causal) {
+    const int last = q_start + BQ - 1;
+    t_hi = min(t_hi, last >= 0 ? last / BK : -1);
+  }
+  int t_lo = 0;
+  if (a.has_window) {
+    const int x = q_start - a.window - BK + 2;   // k_start + BK - 1 > q - w
+    if (x > 0) t_lo = (x + BK - 1) / BK;
+  }
+
+  load_rows<D>(qs, Q, q0, BQ, a.sq);
+  if (t_lo <= t_hi) {
+    load_rows<D>(ks, K, t_lo * BK, BK, a.skv);
+    load_rows<D>(vs, V, t_lo * BK, BK, a.skv);
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  // the warp's 16 query rows as m16n8k16 A fragments, for the whole walk
+  uint32_t qf[KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk)
+    ldsm_x4(smem_addr(qs + (warp * 16 + (lane & 15)) * RS + kk * 16 +
+                      (lane >> 4) * 8),
+            qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3]);
+
+  // this thread's rows of the warp's 16: g and g + 8; columns 2 * tig + {0,1}
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  const int qpos0 = q_start + warp * 16 + g;
+  const float sl2 = a.scale * LOG2E;
+
+  float o[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {NEG, NEG};                     // running max, log2 units
+  float l[2] = {0.f, 0.f};                     // this thread's partial sums
+
+  for (int t = t_lo; t <= t_hi; ++t) {
+    const int st = (t - t_lo) & 1;
+    if (t > t_lo) {
+      cp_async_wait_all();     // tile t (issued last iteration) landed
+      __syncthreads();         // ... for every thread; stage st ^ 1 is free
+    }
+    if (t < t_hi) {            // tile t + 1 loads while tile t computes
+      load_rows<D>(ks + (st ^ 1) * BK * RS, K, (t + 1) * BK, BK, a.skv);
+      load_rows<D>(vs + (st ^ 1) * BK * RS, V, (t + 1) * BK, BK, a.skv);
+    }
+    cp_async_commit();
+    const bf* kst = ks + st * BK * RS;
+    const bf* vst = vs + st * BK * RS;
+
+    // S = Q K^T for the warp's 16 rows x 64 keys
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4(smem_addr(kst + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) *
+                                    RS + kk * 16 + ((lane >> 3) & 1) * 8),
+                b0, b1, b2, b3);
+        mma(s[2 * np], qf[kk], b0, b1);
+        mma(s[2 * np + 1], qf[kk], b2, b3);
+      }
+    }
+
+    // mask (only tiles that cross an edge of the mask), online softmax;
+    // the scale enters exp2's argument, p = 2^(s sl2 - m sl2), one fma
+    const int k_start = t * BK;
+    const bool full =
+        k_start + BK <= a.skv && (!a.causal || k_start + BK - 1 <= q_start) &&
+        (!a.has_window || k_start > q_start + BQ - 1 - a.window);
+    float mx[2] = {NEG, NEG};
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * sl2;
+        if (!full) {
+          const int kpos = k_start + j * 8 + 2 * tig + (e & 1);
+          const int qpos = qpos0 + (e >> 1) * 8;
+          bool keep = kpos < a.skv;
+          if (a.causal) keep &= kpos <= qpos;
+          if (a.has_window) keep &= kpos > qpos - a.window;
+          x = keep ? x : NEG;
+        }
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      alpha[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2f(s[j][e] - m[e >> 1]);
+        sum[e >> 1] += s[j][e];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+
+    // O += P V: P (bf16, in registers) is the A operand, V by ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t pa[4] = {pack(s[2 * kk][0], s[2 * kk][1]),
+                              pack(s[2 * kk][2], s[2 * kk][3]),
+                              pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4_trans(smem_addr(vst + (kk * 16 + (lane & 7) +
+                                       ((lane >> 3) & 1) * 8) * RS +
+                                dp * 16 + (lane >> 4) * 8),
+                      b0, b1, b2, b3);
+        mma(o[2 * dp], pa, b0, b1);
+        mma(o[2 * dp + 1], pa, b2, b3);
+      }
+    }
+  }
+
+  // O / l, through the warp's own 16 rows of qs, out in 16-byte stores
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) inv[r] = 1.f / fmaxf(quad_sum(l[r]), 1e-30f);
+  bf* ow = qs + warp * 16 * RS;   // only this warp read these rows
+#pragma unroll
+  for (int j = 0; j < NO; ++j) {
+    const int c = j * 8 + 2 * tig;
+    *reinterpret_cast<uint32_t*>(ow + g * RS + c) =
+        pack(o[j][0] * inv[0], o[j][1] * inv[0]);
+    *reinterpret_cast<uint32_t*>(ow + (g + 8) * RS + c) =
+        pack(o[j][2] * inv[1], o[j][3] * inv[1]);
+  }
+  __syncwarp();
+  constexpr int CH = D / 8;
+  for (int i = lane; i < 16 * CH; i += 32) {
+    const int r = i / CH;
+    const int c = (i - r * CH) * 8;
+    const int row = q0 + warp * 16 + r;
+    if (row < a.sq)
+      *reinterpret_cast<uint4*>(O + (long long)row * D + c) =
+          *reinterpret_cast<const uint4*>(ow + r * RS + c);
+  }
+}
+
+}  // namespace bf16
+
+template <int D, bool IS_BF16>
 cudaError_t launch(const Args& a, int batch, cudaStream_t stream) {
-  constexpr size_t bytes = smem_floats<D>() * sizeof(float);
+  constexpr int BQ = IS_BF16 ? bf16::BQ : f32::BQ;
+  constexpr int NT = IS_BF16 ? bf16::NT : f32::NT;
+  constexpr size_t bytes =
+      IS_BF16 ? bf16::smem_bytes<D>() : f32::smem_bytes<D>();
+  void (*kernel)(Args) = IS_BF16 ? bf16::flash_fwd_bf16<D>
+                                 : f32::flash_fwd_f32<D>;
   // The limit is a per-device attribute: set it on every launch (cheap)
   // so that a launch on any card of the process may use it.
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.sq + BQ - 1) / BQ, batch * a.hq);
-  flash_fwd<T, D><<<grid, NT, bytes, stream>>>(a);
+  const dim3 grid(batch * a.hq, (a.sq + BQ - 1) / BQ);
+  kernel<<<grid, NT, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <bool IS_BF16>
 cudaError_t launch_dim(const Args& a, int batch, int d, cudaStream_t s) {
   switch (d) {
-    case 16: return launch<T, 16>(a, batch, s);
-    case 32: return launch<T, 32>(a, batch, s);
-    case 64: return launch<T, 64>(a, batch, s);
-    case 128: return launch<T, 128>(a, batch, s);
+    case 16: return launch<16, IS_BF16>(a, batch, s);
+    case 32: return launch<32, IS_BF16>(a, batch, s);
+    case 64: return launch<64, IS_BF16>(a, batch, s);
+    case 128: return launch<128, IS_BF16>(a, batch, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -263,9 +573,10 @@ cudaError_t launch_dim(const Args& a, int batch, int d, cudaStream_t s) {
 extern "C" {
 
 // q: (batch, hq, sq, d); k, v: (batch, hkv, skv, d); o like q; all
-// contiguous, fp32 (is_bf16 = 0) or bf16 (is_bf16 = 1); d in {16, 32, 64,
-// 128}; hq a multiple of hkv.  window is read only when has_window.
-// Launches on `stream` and returns cudaGetLastError() (0 when taken).
+// contiguous, fp32 (is_bf16 = 0) or bf16 (is_bf16 = 1, and every pointer
+// on 16 bytes); d in {16, 32, 64, 128}; hq a multiple of hkv; ceil(sq /
+// 64) < 65536.  window is read only when has_window.  Launches on
+// `stream` and returns cudaGetLastError() (0 when taken).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int batch, int hq, int hkv, int sq,
                            int skv, int d, int is_bf16, int causal,
@@ -277,8 +588,8 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   Args a{q, k, v, o, hq, hkv, hq / hkv, sq, skv,
          causal, has_window, window, q_offset, scale};
   cudaStream_t s = (cudaStream_t)stream;
-  return (int)(is_bf16 ? launch_dim<__nv_bfloat16>(a, batch, d, s)
-                       : launch_dim<float>(a, batch, d, s));
+  return (int)(is_bf16 ? launch_dim<true>(a, batch, d, s)
+                       : launch_dim<false>(a, batch, d, s));
 }
 
 const char* flash_attention_error_string(int err) {

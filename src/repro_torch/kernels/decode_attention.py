@@ -12,11 +12,19 @@ contiguous q, and k and v with the same strides and a unit stride on D,
 read where they lie (a permuted view of a (B, S, Hkv, D) ring cache needs
 no copy).  Head dims: those of the flash kernel, and 80.  There is no
 backward kernel, so it refuses inputs that require a gradient.
+
+The kernel splits the key range (flash-decoding): :func:`split_plan`
+cuts ``[lo, kv_len)`` into ranges of whole 64-key tiles so that the
+(B·Hkv, n_split) grid holds about two blocks per SM, and a second, small
+CUDA kernel combines the splits' partial softmax states from an fp32
+scratch that the wrapper allocates.  One call is one launch in
+``decode_attention.launches``, whether it runs one CUDA kernel
+(``n_split = 1``) or two.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -28,8 +36,46 @@ _NAME = "decode_attention"
 HEAD_DIMS = tuple(sorted(_FLASH_HEAD_DIMS + (80,)))
 #: Shared memory a block may use on Hopper.
 MAX_SMEM_BYTES = 232_448
+#: Keys per tile of the kernel; a split takes whole tiles.
+KEY_TILE = 64
+#: Blocks per SM that the split count aims the grid at.
+BLOCKS_PER_SM = 2
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _argtypes_set = False
+_sm_counts: Dict[int, int] = {}
+
+
+def split_plan(kv_len: int, window: Optional[int], kv_blocks: int,
+               sm_count: int) -> Tuple[int, int, int]:
+    """(first tile, tiles per split, number of splits) for a query at
+    ``kv_len - 1`` over ``kv_blocks = B·Hkv`` (batch, kv head) blocks on a
+    card of ``sm_count`` SMs.
+
+    The keys ``[lo, kv_len)`` (``lo = max(0, kv_len - window)``) lie in the
+    tiles ``lo // 64 .. (kv_len - 1) // 64``.  The grid aims at
+    ``BLOCKS_PER_SM · sm_count`` blocks: one split when ``kv_blocks`` fills
+    that alone, else the tiles are dealt in equal runs to about
+    ``ceil(target / kv_blocks)`` splits, the last run possibly shorter and
+    none empty."""
+    lo = 0 if window is None else max(0, kv_len - window)
+    t_first, t_last = lo // KEY_TILE, (kv_len - 1) // KEY_TILE
+    n_tiles = t_last - t_first + 1
+    target = BLOCKS_PER_SM * sm_count
+    if kv_blocks >= target:
+        return t_first, n_tiles, 1
+    want = min(-(-target // kv_blocks), n_tiles)
+    per = -(-n_tiles // want)
+    return t_first, per, -(-n_tiles // per)
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of ``device``'s card, read once."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sm_counts[index]
 
 
 def _lib() -> ctypes.CDLL:
@@ -38,10 +84,10 @@ def _lib() -> ctypes.CDLL:
     if not _argtypes_set:
         vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.decode_attention_launch.argtypes = (
-            [vp] * 4 + [ci] * 5 + [ll] * 3 + [ci] * 3 + [ctypes.c_float]
-            + [ci] * 2 + [vp])
+            [vp] * 5 + [ci] * 5 + [ll] * 3 + [ci] * 3 + [ctypes.c_float]
+            + [ci] * 5 + [vp])
         lib.decode_attention_launch.restype = ci
-        lib.decode_attention_smem_bytes.argtypes = [ci, ci]
+        lib.decode_attention_smem_bytes.argtypes = [ci, ci, ci]
         lib.decode_attention_smem_bytes.restype = ll
         _argtypes_set = True
     return lib
@@ -117,7 +163,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if scale is None:
         scale = d ** -0.5
     lib = _lib()
-    smem = lib.decode_attention_smem_bytes(hq // hkv, d)
+    smem = lib.decode_attention_smem_bytes(hq // hkv, d, _DTYPES[q.dtype])
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"decode_attention: GQA group {hq // hkv} x head "
                          f"dim {d} needs {smem} bytes of shared memory, "
@@ -126,13 +172,19 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if out.numel() == 0:
         return out
     sb, sh, ss, _ = k.stride()
+    t_first, per, n_split = split_plan(int(kv_len), window, b * hkv,
+                                       sm_count(q.device))
+    # the splits' partial (acc, m, l), combined by the second kernel
+    part = (torch.empty((b, hq, n_split, d + 2), dtype=torch.float32,
+                        device=q.device) if n_split > 1 else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.decode_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
-            hkv, s, d, sb, sh, ss, int(kv_len), int(window is not None),
-            int(window or 0), float(scale), _DTYPES[q.dtype],
-            int(_vec16(k, v)), stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(), b, hq, hkv, s, d, sb,
+            sh, ss, int(kv_len), int(window is not None), int(window or 0),
+            float(scale), _DTYPES[q.dtype], int(_vec16(k, v)), t_first, per,
+            n_split, stream)
     build.check(lib, _NAME, err)
     decode_attention.launches += 1
     return out

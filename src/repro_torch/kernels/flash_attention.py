@@ -8,6 +8,13 @@ The port of ``repro.kernels.flash_attention``; the plain version is
 picks between them.  This wrapper takes contiguous CUDA tensors in fp32 or
 bf16 with a head dim of 16, 32, 64 or 128.  There is no backward kernel,
 so it refuses inputs that require a gradient.
+
+The source holds one kernel for each dtype, and the dtype picks it: bf16
+runs on the tensor cores (``mma.sync``, bf16 products with fp32 sums, P
+rounded to bf16 before the P·V product, K/V tiles by ``cp.async``); fp32
+runs on the CUDA cores in fp32 throughout, since no bf16 or TF32
+tensor-core product holds fp32's 2e-5 tolerance.  Neither stands in for
+the other.
 """
 from __future__ import annotations
 
@@ -21,6 +28,8 @@ from . import build
 _NAME = "flash_attention"
 #: Head dims the kernel is instantiated for.
 HEAD_DIMS = (16, 32, 64, 128)
+#: Query rows a block of either kernel takes.
+QUERY_TILE = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _argtypes_set = False
 
@@ -65,8 +74,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"(one of {HEAD_DIMS})")
     if k.shape[2] == 0:
         raise ValueError("flash_attention: no keys (Skv = 0)")
-    if b * hq >= 2**16:
-        raise ValueError(f"flash_attention: B*Hq={b * hq} exceeds the grid")
+    if -(-q.shape[2] // QUERY_TILE) >= 2**16:
+        raise ValueError(f"flash_attention: Sq={q.shape[2]} exceeds the "
+                         "grid")
     for x, what in ((q, "q"), (k, "k"), (v, "v")):
         if not x.is_contiguous():
             raise ValueError(f"flash_attention: {what} must be contiguous")
@@ -95,6 +105,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q_offset = skv - sq
     if scale is None:
         scale = d ** -0.5
+    if q.dtype == torch.bfloat16:
+        # the bf16 kernel copies 16-byte chunks: a view that starts off a
+        # 16-byte boundary is copied to a fresh (aligned) allocation
+        q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone()
+                   for x in (q, k, v))
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

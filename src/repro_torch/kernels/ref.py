@@ -120,6 +120,47 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, hq, sq, d).to(q.dtype)
 
 
+#: The bf16 flash gate, elementwise against a float64 evaluation on the
+#: same bf16 inputs: |o - o64| <= RTOL (|o64| + (P64 |V|) / l64) + ATOL.
+#: The terms: P rounded to bf16 before the P·V product (unit roundoff
+#: 2**-8, relative to P |V|), the output's own rounding (2**-8 of |o|),
+#: and a factor 2 for the fp32 sums and exp.
+BF16_FLASH_RTOL = 2.0 ** -7
+BF16_FLASH_ATOL = 1e-5
+
+
+def flash_bf16_gate(got: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor, *, causal: bool = True,
+                    window: Optional[int] = None,
+                    q_offset: Optional[int] = None,
+                    scale: Optional[float] = None) -> float:
+    """max over the elements of |got - o64| / (BF16_FLASH_RTOL (|o64| +
+    (P64 |V|) / l64) + BF16_FLASH_ATOL), where o64 and P64 |V| / l64 come
+    from a float64 evaluation of :func:`flash_attention_ref`'s function
+    on the same inputs (one batch and kv head at a time).  ``got`` passes
+    the gate when this is at most 1; NaN anywhere gives NaN."""
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    group = hq // hkv
+    if q_offset is None:
+        q_offset = skv - sq
+    if scale is None:
+        scale = d ** -0.5
+    mask = _attn_mask(sq, skv, q_offset, causal, window, q.device)
+    worst = torch.zeros((), dtype=torch.float64, device=q.device)
+    for i in range(b):
+        for j in range(hkv):
+            heads = slice(j * group, (j + 1) * group)
+            s = (q[i, heads].double() * scale) @ k[i, j].double().T
+            p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+            vd = v[i, j].double()
+            o, o_abs = p @ vd, p @ vd.abs()
+            err = (got[i, heads].double() - o).abs() / (
+                BF16_FLASH_RTOL * (o.abs() + o_abs) + BF16_FLASH_ATOL)
+            worst = torch.maximum(worst, err.max())
+    return float(worst)
+
+
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, window: Optional[int] = None,
                          kv_len: Optional[int] = None,

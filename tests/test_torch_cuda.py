@@ -107,6 +107,11 @@ FA_CASES = [  # b, hq, hkv, sq, skv, d, causal, window, q_offset
     (1, 2, 2, 256, 256, 64, False, None, None),
     (1, 4, 2, 64, 300, 128, True, 48, 236),
     (1, 3, 1, 130, 70, 32, False, None, -10),
+    # Sq not a multiple of the 64-row query tile, at each head dim
+    (1, 4, 2, 100, 100, 16, True, None, None),
+    (2, 4, 4, 190, 300, 32, True, None, None),
+    (1, 6, 2, 257, 257, 64, True, 100, None),
+    (1, 4, 1, 65, 65, 128, False, None, None),
 ]
 
 
@@ -125,12 +130,29 @@ def test_flash_attention_kernel(cuda, case, dtype):
     torch.cuda.synchronize()
     assert KF.flash_attention.launches == before + 1
     want = ref.flash_attention_ref(q, k, v, **kw)
-    # bf16: both sides compute in fp32 and round once, so they differ by at
-    # most one bf16 ulp (2**-8 relative)
-    rtol, atol = (2e-5, 2e-5) if dtype == torch.float32 else (1e-2, 4e-3)
     assert got.dtype == dtype and got.shape == want.shape
-    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
-                               atol=atol)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    else:   # P enters the tensor cores as bf16: the float64 gate
+        assert ref.flash_bf16_gate(got, q, k, v, **kw) <= 1.0
+
+
+def test_flash_attention_kernel_bf16_views_off_16_bytes(cuda):
+    """The bf16 kernel copies 16-byte chunks: contiguous views that start
+    one element past a 16-byte boundary are copied by the wrapper and give
+    the aligned inputs' result."""
+    from repro_torch.kernels import flash_attention as KF
+    rng = np.random.default_rng(7)
+    shapes = ((2, 6, 130, 64), (2, 2, 130, 64), (2, 2, 130, 64))
+    flat = [torch.from_numpy(rng.standard_normal(int(np.prod(sh)) + 1)
+                             .astype(np.float32)).to(cuda, torch.bfloat16)
+            for sh in shapes]
+    q, k, v = (f[1:].view(sh) for f, sh in zip(flat, shapes))
+    assert all(x.data_ptr() % 16 and x.is_contiguous() for x in (q, k, v))
+    got = KF.flash_attention(q, k, v)
+    assert torch.equal(got, KF.flash_attention(q.clone(), k.clone(),
+                                               v.clone()))
+    assert ref.flash_bf16_gate(got, q, k, v) <= 1.0
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "mixtral-8x7b"])
@@ -274,6 +296,8 @@ DECODE_CASES = [  # b, hq, hkv, s, d, kv_len, window
     (1, 32, 8, 200, 80, 200, 64),
     (4, 24, 8, 4096, 64, 2049, None),
     (1, 64, 1, 70, 128, 1, None),
+    (33, 16, 8, 512, 64, 500, None),      # B·Hkv 264: one split
+    (2, 32, 8, 2048, 80, 2000, 1500),     # D 80, split, window mid-tile
 ]
 
 
@@ -301,6 +325,52 @@ def test_decode_attention_kernel(cuda, case, dtype, layout):
     want = ref.decode_attention_ref(q, k, v, kv_len=kv_len, window=window)
     rtol, atol = (2e-5, 2e-5) if dtype == torch.float32 else (1e-2, 4e-3)
     assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("k_splits,offset", [(8, -1), (8, 1), (1, -1),
+                                             (1, 1), (3, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_at_split_boundaries(cuda, k_splits, offset,
+                                                     dtype):
+    """kv_len = k·splitlen ± 1 over the serving shape's ring view, where
+    splitlen is the key span of one split on this card (256 on an H100):
+    the last split holds one key, or one tile falls one key short."""
+    from repro_torch.kernels import decode_attention as KD
+    b, hq, hkv, s, d = 4, 24, 8, 4096, 64
+    _, per, _ = KD.split_plan(2049, None, b * hkv, KD.sm_count(cuda))
+    kv_len = k_splits * per * KD.KEY_TILE + offset
+    rng = np.random.default_rng(kv_len)
+    q = torch.from_numpy(rng.standard_normal((b, hq, d)).astype(np.float32)
+                         ).to(cuda, dtype)
+    k, v = (torch.from_numpy(rng.standard_normal((b, s, hkv, d))
+                             .astype(np.float32)).to(cuda, dtype)
+            .permute(0, 2, 1, 3) for _ in range(2))
+    got = KD.decode_attention(q, k, v, kv_len=kv_len)
+    want = ref.decode_attention_ref(q, k, v, kv_len=kv_len)
+    rtol, atol = (2e-5, 2e-5) if dtype == torch.float32 else (2 ** -7, 1e-5)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_unaligned_cache_view(cuda, dtype):
+    """A cache view that starts one element past a 16-byte boundary takes
+    the kernel's scalar copy path into the same ring, across splits."""
+    from repro_torch.kernels import decode_attention as KD
+    b, hq, hkv, s, d, kv_len = 4, 24, 8, 1024, 64, 1000
+    rng = np.random.default_rng(11)
+    q = torch.from_numpy(rng.standard_normal((b, hq, d)).astype(np.float32)
+                         ).to(cuda, dtype)
+    k, v = (torch.from_numpy(rng.standard_normal(b * s * hkv * d + 1)
+                             .astype(np.float32)).to(cuda, dtype)[1:]
+            .view(b, s, hkv, d).permute(0, 2, 1, 3) for _ in range(2))
+    assert not KD._vec16(k, v)
+    assert KD.split_plan(kv_len, None, b * hkv, KD.sm_count(cuda))[2] > 1
+    got = KD.decode_attention(q, k, v, kv_len=kv_len)
+    want = ref.decode_attention_ref(q, k, v, kv_len=kv_len)
+    rtol, atol = (2e-5, 2e-5) if dtype == torch.float32 else (2 ** -7, 1e-5)
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=atol)
 

@@ -121,3 +121,138 @@ def test_decode_attention_kernel_refuses_what_it_does_not_take():
         KD.decode_attention(q, k.bfloat16(), k)
     assert KD.HEAD_DIMS == (16, 32, 64, 80, 128)
     assert KD.decode_attention.launches == 0
+
+
+H100_SMS = 132
+
+
+def _split_ranges(kv_len, window, kv_blocks, sm_count):
+    """The key ranges [start, end) of ``split_plan``'s splits, as the
+    kernel walks them: split i from tile t_first + i·per, clipped to
+    [lo, kv_len)."""
+    t_first, per, n = KD.split_plan(kv_len, window, kv_blocks, sm_count)
+    lo = 0 if window is None else max(0, kv_len - window)
+    return [(max(lo, (t_first + i * per) * 64),
+             min(kv_len, (t_first + (i + 1) * per) * 64)) for i in range(n)]
+
+
+@pytest.mark.parametrize("kv_len", [1, 64, 65, 2049, 4096])
+@pytest.mark.parametrize("window", [None, 1, 16, 512])
+@pytest.mark.parametrize("kv_blocks", [1, 32, 263, 264, 1000])
+def test_split_plan_covers_the_keys_in_whole_tiles(kv_len, window,
+                                                   kv_blocks):
+    """The wrapper's split policy on a 132-SM card: ranges in order that
+    cover [lo, kv_len) exactly, each starting on a tile boundary (or at
+    lo) and none empty, all but the last of equal whole tiles; one split
+    when B·Hkv fills two blocks per SM alone, and the grid never far past
+    that target otherwise."""
+    lo = 0 if window is None else max(0, kv_len - window)
+    t_first, per, n = KD.split_plan(kv_len, window, kv_blocks, H100_SMS)
+    ranges = _split_ranges(kv_len, window, kv_blocks, H100_SMS)
+    assert len(ranges) == n and t_first == lo // 64 and per >= 1
+    assert ranges[0][0] == lo and ranges[-1][1] == kv_len
+    for (s0, e0), (s1, _) in zip(ranges, ranges[1:]):
+        assert e0 == s1 and s1 % 64 == 0
+    assert all(e > s for s, e in ranges)
+    assert all((s1 - s0 + s0 % 64) == per * 64 for s0, s1 in ranges[:-1])
+    n_tiles = (kv_len - 1) // 64 - lo // 64 + 1
+    if kv_blocks >= 2 * H100_SMS:
+        assert n == 1 and per == n_tiles
+    else:
+        assert n <= n_tiles
+        assert kv_blocks * n < 2 * 2 * H100_SMS + kv_blocks * per
+
+
+def test_split_plan_at_granite_moe_decode():
+    """B 4 x Hkv 8 at kv_len 2049: 33 tiles in 9 splits of 4 (the last
+    holds tile 32 alone, one key); 2047 gives 8 splits of 4."""
+    assert KD.split_plan(2049, None, 32, H100_SMS) == (0, 4, 9)
+    assert _split_ranges(2049, None, 32, H100_SMS)[-1] == (2048, 2049)
+    assert KD.split_plan(2047, None, 32, H100_SMS) == (0, 4, 8)
+    assert KD.split_plan(2049, None, 33 * 8, H100_SMS) == (0, 33, 1)
+
+
+def _split_emulation(q, k, v, *, kv_len, window=None, scale=None,
+                     sm_count=H100_SMS):
+    """A plain emulation of the split-KV kernel's arithmetic in fp32: each
+    split of ``_split_ranges`` walks its whole 64-key tiles (keys past the
+    cache read as zeros), masks with -1e30 and weighs a masked key 0, and
+    keeps (acc, m, l); the combine forms sum_s e^(m_s - m*) acc_s /
+    max(sum_s e^(m_s - m*) l_s, 1e-30).  One split divides directly."""
+    b, hq, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = d ** -0.5 if scale is None else scale
+    qf = q.float().reshape(b, hkv, g, d) * scale
+    lo = 0 if window is None else max(0, kv_len - window)
+    parts = []
+    for start, end in _split_ranges(kv_len, window, b * hkv, sm_count):
+        m = torch.full((b, hkv, g), -1e30)
+        l = torch.zeros((b, hkv, g))
+        acc = torch.zeros((b, hkv, g, d))
+        for t in range(start // 64 * 64, end, 64):
+            kt, vt = (torch.nn.functional.pad(
+                x[:, :, t:t + 64].float(), (0, 0, 0, max(0, t + 64 - s)))
+                for x in (k, v))
+            kpos = torch.arange(t, t + 64)
+            keep = (kpos < kv_len) & (kpos >= lo)
+            sc = torch.where(keep, torch.einsum("bhgd,bhkd->bhgk", qf, kt),
+                             torch.tensor(-1e30))
+            m_new = torch.maximum(m, sc.amax(-1))
+            p = torch.where(keep, torch.exp(sc - m_new[..., None]),
+                            torch.tensor(0.0))
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum("bhgk,bhkd->bhgd",
+                                                        p, vt)
+            m = m_new
+        parts.append((acc, m, l))
+    if len(parts) == 1:
+        acc, _, l = parts[0]
+        out = acc / l.clamp_min(1e-30)[..., None]
+    else:
+        m_star = torch.stack([m for _, m, _ in parts]).amax(0)
+        w = [torch.exp(m - m_star) for _, m, _ in parts]
+        num = sum(wi[..., None] * acc for wi, (acc, _, _) in zip(w, parts))
+        den = sum(wi * l for wi, (_, _, l) in zip(w, parts))
+        out = num / den.clamp_min(1e-30)[..., None]
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,kv_len,window,sm_count", [
+    (4, 24, 8, 2176, 64, 2049, None, H100_SMS),   # 9 splits, last 1 key
+    (4, 24, 8, 2176, 64, 2047, None, H100_SMS),   # 8 splits, last 1 short
+    (1, 4, 2, 300, 32, 300, 100, H100_SMS),       # window from mid-tile
+    (2, 6, 2, 700, 16, 650, 333, H100_SMS),       # window over splits
+    (1, 8, 1, 1024, 128, 1, None, H100_SMS),      # one key
+    (2, 8, 2, 512, 80, 500, None, 2),             # few splits, D 80
+    (33, 16, 8, 130, 64, 129, None, H100_SMS),    # B·Hkv 264: one split
+])
+def test_split_combine_emulation_matches_the_reference(b, hq, hkv, s, d,
+                                                       kv_len, window,
+                                                       sm_count):
+    (jq, jk, jv), (q, k, v) = _inputs(kv_len + d, b, hq, hkv, s, d,
+                                      "float32")
+    got = _split_emulation(q, k, v, kv_len=kv_len, window=window,
+                           sm_count=sm_count)
+    _check(got, jref.decode_attention_ref(jq, jk, jv, kv_len=kv_len,
+                                          window=window), "float32")
+
+
+@pytest.mark.parametrize("shift", [0, 1, 100, 4095])
+def test_split_combine_emulation_over_a_wrapped_ring(shift):
+    """A full ring whose slots hold the positions rotated by ``shift`` (as
+    decode leaves it after the ring wraps), read through the permuted
+    view: the split-and-combine emulation over the ring equals the JAX
+    reference over the positions in order."""
+    rng = np.random.default_rng(shift)
+    b, hq, hkv, sc, d = 4, 24, 8, 4096, 64
+    q = rng.standard_normal((b, hq, d)).astype(np.float32)
+    cache = [rng.standard_normal((b, sc, hkv, d)).astype(np.float32)
+             for _ in range(2)]
+    ring = [torch.from_numpy(np.roll(c, shift, axis=1)).permute(0, 2, 1, 3)
+            for c in cache]
+    got = _split_emulation(torch.from_numpy(q), *ring, kv_len=sc)
+    jk, jv = (jnp.asarray(c).transpose(0, 2, 1, 3) for c in cache)
+    _check(got, jref.decode_attention_ref(jnp.asarray(q), jk, jv,
+                                          kv_len=sc), "float32")

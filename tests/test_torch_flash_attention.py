@@ -6,7 +6,11 @@ the Pallas kernel in interpret mode, as ``tests/test_kernels.py`` runs it
 seed, at the tolerances of ``tests/test_kernels.py`` (fp32 2e-5, bf16
 2e-2).  The CUDA kernel itself is held against the plain version on the
 card (``tests/test_torch_cuda.py``, ``chip_smoke.py``); here its wrapper's
-argument checks run."""
+argument checks run, and the float64 gate that holds the bf16 kernel
+there (``ref.flash_bf16_gate``) is held against a plain emulation of the
+kernel's arithmetic and against planted faults."""
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -115,3 +119,61 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="must be torch.float32"):
         KF.flash_attention(q, k.bfloat16(), k)
     assert KF.flash_attention.launches == 0
+
+
+def _emulate_bf16_kernel(q, k, v, *, scale_err=1.0, drop_tile=None):
+    """A plain emulation of the bf16 CUDA kernel's arithmetic (causal,
+    q_offset = Skv - Sq): fp32 scores, scaled (times log2 e) in fp32; the
+    online softmax over 64-key tiles in exp2; P rounded to bf16 before the
+    P·V product, whose sums are fp32; l summed from the fp32 P; the output
+    rounded to bf16 once.  ``scale_err`` and ``drop_tile`` plant faults."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    kf = k.float().repeat_interleave(hq // hkv, 1)
+    vf = v.float().repeat_interleave(hq // hkv, 1)
+    sl2 = d ** -0.5 * scale_err * math.log2(math.e)
+    qpos = torch.arange(sq)[:, None] + (skv - sq)
+    m = torch.full((b, hq, sq, 1), -1e30)
+    l = torch.zeros((b, hq, sq, 1))
+    acc = torch.zeros((b, hq, sq, d))
+    for t in range(0, skv, 64):
+        if drop_tile == t // 64:
+            continue
+        s = (q.float() @ kf[:, :, t:t + 64].transpose(-1, -2)) * sl2
+        s = s.masked_fill(torch.arange(t, min(t + 64, skv))[None] > qpos,
+                          -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha, p = torch.exp2(m - m_new), torch.exp2(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.bfloat16().float() @ vf[:, :, t:t + 64]
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).bfloat16()
+
+
+def _bf16_randn(seed, shape):
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        shape).astype(np.float32)).bfloat16()
+
+
+def test_flash_bf16_gate_holds_for_the_kernels_arithmetic():
+    """The bf16 gate of the card tests and chip_smoke.py, |o - o64| <=
+    2**-7 (|o64| + P64·|V| / l64) + 1e-5, holds for the kernel's
+    arithmetic (P rounded to bf16 before P·V) with room to spare, and for
+    the plain version."""
+    q, k, v = (_bf16_randn(s, (1, 8, 1024, 64)) for s in (1, 2, 3))
+    got = ref.flash_bf16_gate(_emulate_bf16_kernel(q, k, v), q, k, v)
+    assert got <= 0.5, got
+    assert ref.flash_bf16_gate(ref.flash_attention_ref(q, k, v), q, k,
+                               v) <= 0.5
+
+
+@pytest.mark.parametrize("fault", [dict(drop_tile=0), dict(drop_tile=16),
+                                   dict(drop_tile=31), dict(scale_err=1.01),
+                                   dict(scale_err=0.99)])
+def test_flash_bf16_gate_rejects_a_faulty_result(fault):
+    """The gate rejects a result that drops one 64-key tile at Skv 2048
+    (the first, a middle and the last) or computes with a 1% wrong
+    scale."""
+    q, k, v = (_bf16_randn(s, (1, 2, 2048, 64)) for s in (4, 5, 6))
+    assert ref.flash_bf16_gate(_emulate_bf16_kernel(q, k, v, **fault), q, k,
+                               v) > 1.2
