@@ -55,7 +55,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    density matches within rel 1e-5; at the MovieLens shape every
    numerator is at least the generating-tuple count, and the phase times
    both kernels (the JSON line's entries), their plain versions and the
-   whole dense path, beside the bounds and the peak device memory;
+   whole dense path, beside the bounds and the peak device memory, with
+   ``tricluster_density``'s TOP/s, its ``ptxas`` report and, as a
+   yardstick of the product alone (not the same function), cuBLAS's int8
+   product of the same shape (``torch._int_mm``, C written, no epilogue);
 9. LM serving.  (a) ``decode_attention`` and ``rmsnorm`` against their
    plain versions at every shape of the JAX package's kernel tests in
    fp32 and bf16 (fp32 rtol = atol = 2e-5, its tolerance; bf16 one ulp of
@@ -263,6 +266,27 @@ def max_abs_err(got, want) -> int:
     g = got.to(torch.int64) & 0xFFFFFFFF
     w = want.to(torch.int64) & 0xFFFFFFFF
     return int((g - w).abs().max().item()) if g.numel() else 0
+
+
+def ptxas_usage(log_text: str) -> dict:
+    """{kernel entry: 'N registers, S bytes smem, spills'} from an
+    ``nvcc -Xptxas -v`` log."""
+    import re
+    out, entry = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            for short in ("td_tile", "td_image", "td_finish"):
+                if short in entry:
+                    entry = short + ("<aligned>" if "ILb1E" in entry else
+                                     "<bytes>" if "ILb0E" in entry else "")
+        elif entry and "spill" in line:
+            out[entry] = line.strip()
+        elif entry and "Used" in line:
+            out[entry] = (out.get(entry, "") + "; "
+                          + line.split("Used", 1)[1].strip()).lstrip("; ")
+    return out
 
 
 def leaves_equal(a, b, what: str) -> None:
@@ -589,7 +613,9 @@ def main() -> int:
     del q, k, v
 
     # signature and tricluster_density at the JAX package's test shapes
-    # (tests/test_kernels.py), bit for bit; timed at full size in phase 8
+    # (tests/test_kernels.py), bit for bit; tricluster_density also where
+    # M % 16 != 0 (Y by byte loads) and B > 128 (a tile's b range wraps);
+    # timed at full size in phase 8
     sig_err = 0
     for t_, e_ in ((8, 128), (16, 512), (256, 1024), (3, 77)):
         m_ = torch.from_numpy(rng.integers(0, 2, (t_, e_))).to(dev,
@@ -610,7 +636,8 @@ def main() -> int:
     log("phase 2 signature uint32 wraparound: bit-equal, mod 2^32")
     errs["signature"] = sig_err
     td_err = 0.0
-    for g_, m_n, b_, t_ in ((8, 16, 16, 8), (16, 8, 32, 128), (7, 5, 9, 3)):
+    for g_, m_n, b_, t_ in ((8, 16, 16, 8), (16, 8, 32, 128), (7, 5, 9, 3),
+                            (9, 50, 4, 40), (3, 40, 150, 17)):
         args = [torch.from_numpy(rng.integers(0, 2, s_)).to(dev, torch.bool)
                 for s_ in ((g_, m_n, b_), (t_, g_), (t_, m_n), (t_, b_))]
         got = KTD.tricluster_density(*args)
@@ -993,6 +1020,15 @@ def main() -> int:
               f"{label}: a numerator below the generating-tuple count")
         log(f"{label}: every numerator >= gen_count; "
             f"{int(ml_res.is_unique.sum())} unique clusters")
+    # the dense work a sparse path over light rows would skip: pairs (g, b)
+    # with X[t,g] Z[t,b] = 1, against the dense G*B of every row
+    card8 = [ref.row_counts(m_).to(torch.float64) for m_ in ml_masks]
+    xz_pairs = float((card8[0] * card8[2]).sum())
+    log(f"{label}: mean |X_t|, |Y_t|, |Z_t| "
+        f"{', '.join(f'{float(c.mean()):.1f}' for c in card8)}; "
+        f"sum |X_t| |Z_t| = {xz_pairs:.4g} (g, b) pairs against T G B = "
+        f"{ml.num_tuples * ml.sizes[0] * ml.sizes[2]:.4g}")
+    del card8
     path_times = []
     for _ in range(2):
         torch.cuda.synchronize()
@@ -1030,13 +1066,52 @@ def main() -> int:
         nops=2 * td_rows * G8 * M8 * B8,
         shape=f"T={td_rows} G={G8} M={M8} B={B8}"
         + (" (cut from 356877: one call took over 30 s)" if cut else ""),
-        plain_iters=1, ops_per_s=INT8_TENSOR_OPS_PER_S, iters=2, warm=1))
+        plain_iters=1, ops_per_s=INT8_TENSOR_OPS_PER_S, iters=5, warm=1))
     for k in kernels[-2:]:
         log(f"{label} {k['name']}: kernel {k['ms']:.5f} ms "
             f"({k['ms_source']}; {k['call_ms']:.5f} ms per call by "
             f"events), plain "
             f"{k['plain_ms']:.5f} ms, no library call, bound "
             f"{k['bound_ms']:.5f} ms ({k['bound_by']}) at {k['shape']}")
+    td = kernels[-1]
+    td["tops"] = 2 * td_rows * G8 * M8 * B8 / (td["ms"] * 1e-3) / 1e12
+    td_plan = KTD.plan(td_rows, G8, M8, B8)
+    td["ptxas"] = ptxas_usage(report["tricluster_density"]["log"])
+    # what the loaded kernel reports of itself (the C entry's constants
+    # and cudaFuncGetAttributes), for the variant this shape launched
+    td_cfg = KTD.kernel_config(
+        aligned=M8 % 16 == 0 and td_masks[1].data_ptr() % 16 == 0)
+    td["smem_bytes_per_block"] = td_cfg["smem_bytes"]
+    td["registers"] = td_cfg["registers"]
+    log(f"{label} tricluster_density: {td['tops']:.1f} TOP/s of "
+        f"{INT8_TENSOR_OPS_PER_S / 1e12:.0f} (int8 tensor cores); "
+        f"{td_plan.blocks} blocks of {KTD.TILE_T} x {KTD.TILE_N}, "
+        f"{td_plan.chunks} K chunks of {KTD.K_CHUNK} bytes, "
+        f"{td['smem_bytes_per_block']} bytes of shared memory a block, "
+        f"{td['registers']} registers and {td_cfg['local_bytes']} local "
+        f"bytes a thread (CUDA runtime); "
+        f"ptxas {td['ptxas'] or '(built earlier: no report)'}")
+    # Yardstick, product only, not the same function: cuBLAS's int8 product
+    # C = Y I'^T over T-chunks of Y, C written, no X.Z epilogue.  The port
+    # never calls it; library_ms stays null (no single call computes the
+    # kernel's function).
+    try:
+        ik_t = ml_tens.permute(0, 2, 1).reshape(G8 * B8, M8).to(
+            torch.int8).t()                     # (M, G*B), column-major
+        y8 = td_masks[1].view(torch.uint8).view(torch.int8)
+        rows8 = 8192
+
+        def int_mm_product():
+            for lo in range(0, td_rows, rows8):
+                torch._int_mm(y8[lo:lo + rows8], ik_t)
+        td["int_mm_product_ms"] = measure(int_mm_product, 2, 1)["ms"]
+        log(f"{label} torch._int_mm, product only, not the same function "
+            f"(C = Y I'^T written in {rows8}-row chunks, no epilogue): "
+            f"{td['int_mm_product_ms']:.5f} ms")
+        del ik_t, y8
+    except Exception as e:            # a yardstick: log it, go on
+        td["int_mm_product_ms"] = None
+        log(f"{label} torch._int_mm product: not measured ({e})")
     del ml_masks, td_masks, ml_tens, m0
     torch.cuda.empty_cache()
 

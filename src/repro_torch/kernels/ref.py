@@ -241,6 +241,45 @@ def tricluster_density_ref(tensor: torch.Tensor, x: torch.Tensor,
     return out
 
 
+def tricluster_density_tiled(tensor: torch.Tensor, x: torch.Tensor,
+                             y: torch.Tensor,
+                             z: torch.Tensor) -> torch.Tensor:
+    """The CUDA kernel's decomposition of :func:`tricluster_density_ref`
+    (``kernels.tricluster_density.Plan``) on any device (slow: a Python
+    loop over its blocks).
+
+    I is laid out as ``I'`` (N padded, M padded) with zero padding; each
+    block of the raster order takes the int32 product of its (128 × Kp) Y
+    rows, zero past T and M, with its (128 × Kp) ``I'`` rows; its epilogue
+    weights each product by ``X[t,g(n)]·Z[t,b(n)]``, 0 past N, and adds
+    the int64 row sums into (T,) sums, which are returned as float32."""
+    from .tricluster_density import TILE_N, TILE_T, plan
+    g, m, b = tensor.shape
+    t = x.shape[0]
+    dev = tensor.device
+    p = plan(t, g, m, b)
+    sums = torch.zeros((t,), dtype=torch.int64, device=dev)
+    if t == 0 or p.n == 0 or m == 0:
+        return sums.to(torch.float32)
+    image = torch.zeros((p.n_pad, p.kp), dtype=torch.int32, device=dev)
+    image[:p.n, :m] = (tensor != 0).permute(0, 2, 1).reshape(p.n, m)
+    ypad = torch.zeros((p.tiles_t * TILE_T, p.kp), dtype=torch.int32,
+                       device=dev)
+    ypad[:t, :m] = y.to(torch.int32)
+    xb, zb = (x != 0).to(torch.int64), (z != 0).to(torch.int64)
+    for pid in range(p.blocks):
+        tt, nt = p.tile(pid)
+        t0, n0 = tt * TILE_T, nt * TILE_N
+        rows = slice(t0, min(t0 + TILE_T, t))
+        live = rows.stop - t0
+        c = (ypad[t0:t0 + TILE_T] @ image[n0:n0 + TILE_N].T).to(torch.int64)
+        cols = range(n0, min(n0 + TILE_N, p.n))
+        gb = torch.tensor([p.column(n) for n in cols], device=dev)
+        w = xb[rows][:, gb[:, 0]] * zb[rows][:, gb[:, 1]]
+        sums[rows] += (c[:live, :len(cols)] * w).sum(1)
+    return sums.to(torch.float32)
+
+
 def row_counts(mask: torch.Tensor,
                chunk_elems: int = CHUNK_ELEMS) -> torch.Tensor:
     """(T, n) 0/1 mask -> (T,) float32 row sums, over row chunks of at

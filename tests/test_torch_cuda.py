@@ -234,9 +234,20 @@ def test_signature_kernel_past_int32_offsets(cuda):
     assert torch.equal(got[-3:], ref.signature_ref(mask[-3:], r))
 
 
+# The tensor-core kernel's edges (kernels/tricluster_density.Plan): M % 16
+# != 0 (Y by byte loads) and M % 32 != 0, M < 32; G·B off the 128-column
+# tile, B not dividing 128 and B above it (the b range wraps); T off the
+# 128-row tile and T = 1; K loops of 1, 2, STAGES = 3 and STAGES + 1 = 4
+# chunks of 128 bytes; two raster groups of t-tiles; the MovieLens width
+# M = 3952.
 TD_SHAPES = [(8, 16, 16, 8), (16, 8, 32, 128), (7, 5, 9, 3),
              (70, 4100, 3, 33), (65, 40, 33, 97), (250, 700, 22, 64),
-             (1, 1, 1, 1), (6, 7, 8, 1000)]
+             (1, 1, 1, 1), (6, 7, 8, 1000),
+             (9, 50, 4, 40), (5, 48, 3, 20), (6, 20, 7, 10),
+             (37, 70, 3, 130), (20, 33, 7, 129), (3, 40, 150, 17),
+             (11, 64, 5, 1), (11, 128, 5, 300), (4, 200, 3, 9),
+             (4, 320, 3, 9), (4, 512, 3, 9),
+             (2, 16, 2, 2100), (60, 3952, 5, 3000)]
 
 
 @pytest.mark.parametrize("g,m,b,t", TD_SHAPES)
@@ -252,6 +263,66 @@ def test_tricluster_density_kernel(cuda, g, m, b, t, dtype):
     assert KTD.tricluster_density.launches == before + 1
     assert got.dtype == torch.float32
     assert torch.equal(got, ref.tricluster_density_ref(tensor, x, y, z))
+
+
+def test_tricluster_density_kernel_masks_off_16_bytes(cuda):
+    """Masks whose base is off 16 bytes: rows sliced from row 1 (M % 16 !=
+    0), and views into a flat buffer at an odd offset with M % 16 == 0;
+    both take the byte-load path for Y."""
+    from repro_torch.kernels import tricluster_density as KTD
+    rng = np.random.default_rng(5)
+    for g, m, b, t in ((9, 50, 4, 300), (13, 64, 6, 200)):
+        tensor = torch.from_numpy(rng.integers(0, 2, (g, m, b))).to(
+            cuda, torch.uint8)
+        x, y, z = (torch.from_numpy(rng.integers(0, 2, (t + 1, n))).to(
+            cuda, torch.uint8) for n in (g, m, b))
+        flat = torch.from_numpy(rng.integers(0, 2, t * m + 3)).to(
+            cuda, torch.uint8)
+        views = ([y[1:]] if m % 16 else []) + [flat[3:].view(t, m)]
+        for ym in views:
+            assert ym.data_ptr() % 16 != 0 and ym.is_contiguous()
+            args = (tensor, x[1:], ym, z[1:])
+            assert torch.equal(KTD.tricluster_density(*args),
+                               ref.tricluster_density_ref(*args))
+
+
+def test_tricluster_density_kernel_all_ones_just_under_2_24(cuda):
+    """G, M, B = 255, 256, 257, all ones: every numerator is exactly
+    16,776,960 (just under 2**24)."""
+    from repro_torch.kernels import tricluster_density as KTD
+    g, m, b, t = 255, 256, 257, 3
+    tensor = torch.ones((g, m, b), dtype=torch.bool, device=cuda)
+    x, y, z = (torch.ones((t, n), dtype=torch.bool, device=cuda)
+               for n in (g, m, b))
+    got = KTD.tricluster_density(tensor, x, y, z)
+    want = torch.full((t,), 16_776_960.0, device=cuda)
+    assert torch.equal(got, want)
+    assert torch.equal(got, ref.tricluster_density_ref(tensor, x, y, z))
+
+
+def test_tricluster_density_kernel_repeats_bit_for_bit(cuda):
+    """The 64-bit atomic sums give the same bits on every call."""
+    from repro_torch.kernels import tricluster_density as KTD
+    rng = np.random.default_rng(11)
+    args = [torch.from_numpy(rng.integers(0, 2, s)).to(cuda, torch.bool)
+            for s in ((300, 500, 7), (5000, 300), (5000, 500), (5000, 7))]
+    first = KTD.tricluster_density(*args)
+    for _ in range(3):
+        assert torch.equal(KTD.tricluster_density(*args), first)
+    assert torch.equal(first, ref.tricluster_density_ref(*args))
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+def test_tricluster_density_kernel_config(cuda, aligned):
+    """The built kernel's tile constants are the plan's, and two blocks of
+    its shared memory fit an SM (228 KiB, 1 KiB reserved a block)."""
+    from repro_torch.kernels import tricluster_density as KTD
+    cfg = KTD.kernel_config(aligned)
+    assert (cfg["tile_t"], cfg["tile_n"], cfg["k_chunk"], cfg["stages"],
+            cfg["group_t"]) == (KTD.TILE_T, KTD.TILE_N, KTD.K_CHUNK,
+                                KTD.STAGES, KTD.GROUP_T)
+    assert 2 * (cfg["smem_bytes"] + 1024) <= 228 * 1024
+    assert 0 < cfg["registers"] <= 255
 
 
 def test_dense_path_on_the_card(cuda):

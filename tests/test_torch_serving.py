@@ -12,9 +12,11 @@ make logits of magnitude ~30, and the two packages' fp32 sums in other
 orders differ by up to ~1e-5 of that magnitude in any logit, large or
 small.
 The kernels' switches (``attn_impl="pallas"``, ``use_pallas=True``) run
-the kernels' plain versions here, on CPU tensors.  internvl2's smoke
-config is left out: its JAX prefill/decode test fails at take-up
-(ROADMAP queue C)."""
+the kernels' plain versions here, on CPU tensors.  The mistral-nemo and
+internvl2 smoke configs get one test of their own: a prefill and a decode
+step against the JAX package's ``prefill`` and ``decode_step``
+(internvl2 through its patch frontend; its JAX test that compares decode
+with ``forward`` fails at take-up, ROADMAP queue C)."""
 import dataclasses
 import functools
 
@@ -157,6 +159,34 @@ def test_decode_steps_match_over_wrapping_rings(arch):
         _check_logits(logits, jl)
         _check_cache(cache, jcache)
     assert int(cache["pos"]) == S + STEPS
+
+
+@pytest.mark.parametrize("arch", ["mistral-nemo-12b", "internvl2-76b"])
+def test_prefill_and_a_decode_step_match_at_the_larger_smoke_configs(arch):
+    """fp32 prefill and one decode step of the two smoke configs that
+    :data:`ARCHS` leaves out, against the JAX package's ``prefill`` and
+    ``decode_step``; internvl2 prefills its patch embeddings first."""
+    jc, tc = _configs(arch)
+    jp, tp = _weights(arch)
+    toks = _prompt_tokens(4)
+    inputs, jpatches, n_front = {"tokens": toks}, None, 0
+    if jc.frontend == "patch":
+        n_front = jc.frontend_len
+        patches = np.random.default_rng(5).standard_normal(
+            (B, n_front, jc.frontend_dim)).astype(np.float32)
+        inputs["patches"], jpatches = patches, jnp.asarray(patches)
+    jcache, jl = JL.prefill(jc, jp, jnp.asarray(toks), MAX_LEN,
+                            patches=jpatches)
+    cache, logits = get_model(tc).prefill(tc, tp, inputs, MAX_LEN)
+    _check_logits(logits, jl)
+    _check_cache(cache, jcache)
+    assert int(cache["pos"]) == S + n_front
+    step_toks = np.random.default_rng(6).integers(1, 255, B).astype(np.int32)
+    cache, logits = L.decode_step(tc, tp, cache, step_toks)
+    jcache, jl = JL.decode_step(jc, jp, jcache, jnp.asarray(step_toks))
+    _check_logits(logits, jl)
+    _check_cache(cache, jcache)
+    assert int(cache["pos"]) == S + n_front + 1
 
 
 @pytest.mark.parametrize("arch,pos", [

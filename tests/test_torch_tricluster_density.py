@@ -15,6 +15,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import tricluster_density as KTD
 
 SHAPES = [(8, 16, 16, 8), (16, 8, 32, 128), (7, 5, 9, 3)]
 
@@ -79,3 +80,87 @@ def test_tricluster_density_empty_and_use_kernels():
         np.ones(2, np.float32))
     with pytest.raises(ValueError, match="use_kernels=True needs CUDA"):
         tops.tricluster_density(tensor, *full, use_kernels=True)
+
+
+# The CUDA kernel's decomposition (``kernels/tricluster_density.Plan`` and
+# its emulation ``ref.tricluster_density_tiled``), held against the plain
+# version and the Pallas kernel: ragged M (M % 32 != 0, M % 16 != 0,
+# M < 32), G·B off the 128-column tile and B not dividing 128, B above the
+# tile (its b range wraps), T off the 128-row tile and T = 1, K loops of 1,
+# 2 and STAGES + 1 chunks of 128 bytes, and more t-tiles than one raster
+# group.
+RAGGED_SHAPES = [(9, 50, 4, 40), (5, 48, 3, 20), (6, 20, 7, 10),
+                 (37, 70, 3, 130), (20, 33, 7, 129), (3, 40, 150, 17),
+                 (11, 64, 5, 1), (11, 128, 5, 300), (4, 200, 3, 9),
+                 (4, 512, 3, 9), (2, 16, 2, 2100)]
+
+
+@pytest.mark.parametrize("g,m,b,t", SHAPES + RAGGED_SHAPES)
+def test_tricluster_density_tiled_matches_plain_and_pallas(g, m, b, t):
+    arrs = _inputs(g, m, b, t, seed=g * m + b + t)
+    got = tref.tricluster_density_tiled(*(torch.from_numpy(a.astype(np.uint8))
+                                          for a in arrs))
+    assert got.dtype == torch.float32 and got.shape == (t,)
+    assert torch.equal(got, tref.tricluster_density_ref(
+        *(torch.from_numpy(a).to(torch.bool) for a in arrs)))
+    assert_same(got, jops.tricluster_density(
+        *(jnp.asarray(a, jnp.float32) for a in arrs)), "pallas")
+
+
+def test_tricluster_density_tiled_all_ones_just_under_2_24():
+    """All ones at G, M, B = 255, 256, 257: each numerator is G·M·B =
+    16,776,960, just under 2**24, exactly."""
+    g, m, b, t = 255, 256, 257, 3
+    tensor = torch.ones((g, m, b), dtype=torch.bool)
+    x, y, z = (torch.ones((t, n), dtype=torch.bool) for n in (g, m, b))
+    want = torch.full((t,), 16_776_960.0)
+    assert g * m * b == 16_776_960 < 2**24
+    assert torch.equal(tref.tricluster_density_tiled(tensor, x, y, z), want)
+    assert torch.equal(tref.tricluster_density_ref(tensor, x, y, z), want)
+    assert_same(want, jops.tricluster_density(
+        *(jnp.asarray(a.numpy(), jnp.float32) for a in (tensor, x, y, z))),
+        "pallas")
+
+
+def test_plan_at_the_movielens_shape():
+    """The decomposition at the dense path's MovieLens-1M shape."""
+    assert KTD.plan(9, 4, 512, 3).chunks == KTD.STAGES + 1
+    p = KTD.plan(356_877, 6040, 3952, 5)
+    assert (p.n, p.kp, p.n_pad) == (30_200, 3968, 30_208)
+    assert (p.tiles_t, p.tiles_n, p.blocks, p.chunks) == (2789, 236,
+                                                         658_204, 31)
+    assert p.image_bytes == 30_208 * 3968 == 119_865_344
+    assert p.scratch_words == 119_865_344 // 4 + 2 * 356_877
+    assert p.column(0) == (0, 0) and p.column(127) == (25, 2)
+    assert p.column(p.n - 1) == (6039, 4)
+
+
+@pytest.mark.parametrize("tiles_t,tiles_n", [(1, 1), (16, 3), (17, 5),
+                                             (40, 2), (33, 1)])
+def test_plan_raster_covers_every_tile_once_in_groups(tiles_t, tiles_n):
+    p = KTD.plan(tiles_t * KTD.TILE_T - 5, tiles_n * KTD.TILE_N, 1, 1)
+    assert (p.tiles_t, p.tiles_n) == (tiles_t, tiles_n)
+    seen = [p.tile(pid) for pid in range(p.blocks)]
+    assert sorted(seen) == [(i, j) for i in range(tiles_t)
+                            for j in range(tiles_n)]
+    for pid, (tt, nt) in enumerate(seen):
+        # a group's blocks are contiguous, its n-tiles in order
+        group = pid // (KTD.GROUP_T * tiles_n)
+        assert tt // KTD.GROUP_T == group
+        assert nt == (pid - group * KTD.GROUP_T * tiles_n) // min(
+            KTD.GROUP_T, tiles_t - group * KTD.GROUP_T)
+
+
+@pytest.mark.parametrize("g,b", [(6040, 5), (100, 1), (9, 127), (5, 128),
+                                 (4, 129), (3, 300), (2, 1000), (37, 3)])
+def test_plan_columns_in_the_tiled_epilogue(g, b):
+    """Every column n < G·B is one (g, b) of the tensor, in order; the
+    emulation's epilogue weighs it by X[t,g]·Z[t,b] across n-tiles whose
+    b range wraps (B > 128) or splits a g, and equals the plain version."""
+    p = KTD.plan(5, g, 3, b)
+    assert [p.column(n) for n in range(p.n)] == [
+        (gg, bb) for gg in range(g) for bb in range(b)]
+    arrs = _inputs(g, 3, b, 5, seed=g + b)
+    args = [torch.from_numpy(a.astype(np.uint8)) for a in arrs]
+    assert torch.equal(tref.tricluster_density_tiled(*args),
+                       tref.tricluster_density_ref(*args))
