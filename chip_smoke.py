@@ -11,7 +11,13 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 2. run each kernel on the card at the main paths' shapes and hold it
    against its plain PyTorch version on the same inputs: the mining
    kernels bit for bit at T = 816,197 (the BibSonomy table), with a uint32
-   wraparound case and 1-, 2-word and 64-bit keys; ``flash_attention``
+   wraparound case and 1-, 2-word and 64-bit keys; ``radix_rank``'s
+   rank-only entry also with every digit equal, 90% of one digit and at
+   one and two tiles +- 1, and its fused pass (the main path's entry)
+   through every pass of the three keys' plans, then timed at T =
+   816,197 beside its plain version, the per-pass sequence it replaced
+   and stable ``torch.sort`` with gathers; the ``ptxas`` report of the
+   rank sweep and of the ``rmsnorm`` vector kernels; ``flash_attention``
    in fp32 within rtol = atol = 2e-5 of its plain version, and in bf16
    (where P enters the tensor cores rounded to bf16) elementwise against
    a float64 evaluation on the same inputs, |o - o64| <= 2**-7 (|o64| +
@@ -66,8 +72,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    serving run's shapes (decode B 4 x Hq 24 / Hkv 8 x D 64 over a
    (B, 4096, Hkv, D) ring view, kv_len 2049 and 4096 and at the
    boundaries of the split-KV ranges, k x splitlen +- 1; one split at
-   B x Hkv = 264; D 80; RMSNorm 4 x 2046 and 4 rows of D 1536), each
-   timed beside its bound, its plain version and one PyTorch call (SDPA
+   B x Hkv = 264; D 80; RMSNorm 4 x 2046 and 4 rows of D 1536, whose
+   plans must be the 16-byte vector path), each timed beside its bound,
+   its plain version and one PyTorch call (RMSNorm at the prefill and at
+   the decode shape; SDPA
    over the kv_len slice with ``enable_gqa``; ``F.rms_norm``); decode
    also L2-cold (``cold_ms``, ``library_cold_ms``), each call on the next
    of six distinct rings (201 MB), as serving reads each layer's cache.
@@ -76,7 +84,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    ``attn_impl="pallas"`` and ``use_pallas=True``: ``ServeEngine``
    (max_len 4096) over 4 ragged prompts of about 2048 tokens, 32 new
    tokens greedy — launch counts (32 decode launches a step; 65 RMSNorm
-   launches in the prefill and 65 a step), prefill and decode ms,
+   launches in the prefill and 65 a step, all on the vector path),
+   prefill and decode ms,
    tokens/s, idle share, peak memory, the decode step's profile, the
    bf16 tokens' agreement with the plain path (reported); then the fp32
    gate: kernels on against off (``attn_impl="blocked"``,
@@ -281,6 +290,15 @@ def ptxas_usage(log_text: str) -> dict:
                 if short in entry:
                     entry = short + ("<aligned>" if "ILb1E" in entry else
                                      "<bytes>" if "ILb0E" in entry else "")
+            if "radix_rank_onesweep" in entry:
+                entry = ("radix_rank_onesweep<fused>" if "ILb1E" in entry
+                         else "radix_rank_onesweep<rank>")
+            m = re.search(r"rmsnorm_vecI(f|13__nv_bfloat16)"
+                          r"(f|13__nv_bfloat16|S\d*_)Li(\d+)E", entry)
+            if m:        # <x, w, vectors a lane>; a bf16 w repeats x's type
+                entry = "rmsnorm_vec<{}, {}, {}>".format(
+                    "f32" if m.group(1) == "f" else "bf16",
+                    "f32" if m.group(2) == "f" else "bf16", m.group(3))
         elif entry and "spill" in line:
             out[entry] = line.strip()
         elif entry and "Used" in line:
@@ -512,9 +530,26 @@ def main() -> int:
               f"radix_rank {label}: ranks are not a permutation")
         err = max(err, e)
         log(f"phase 2 radix_rank {label}: bit-equal")
-    errs["radix_rank"] = err
     st0 = starts2[0].contiguous()
     iota = torch.arange(T, dtype=torch.int32, device=dev)
+    # the rank sweep's edge cases: one digit for every element (the
+    # longest look-back chains on one digit), 90% of one digit, and the
+    # ragged ends of one and two tiles
+    rank_cases = [("all digits equal", torch.full_like(dig_lo, 200)),
+                  ("90% one digit", torch.where(
+                      torch.from_numpy(rng.random(T) < 0.9).to(dev),
+                      torch.full_like(dig_rand, 7), dig_rand))]
+    rank_cases += [(f"T = {n}", dig_rand[:n].contiguous()) for n in (
+        KR.RANK_TILE - 1, KR.RANK_TILE + 1, 2 * KR.RANK_TILE - 1,
+        2 * KR.RANK_TILE + 1)]
+    for label, d in rank_cases:
+        h = torch.bincount(d, minlength=256).to(torch.int32)
+        st = torch.cumsum(h, 0, dtype=torch.int32) - h
+        got = KR.radix_rank(d, st)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, ref.radix_rank_ref(d, st))
+        check(e == 0, f"radix_rank {label}: max |err| {e}")
+        log(f"phase 2 radix_rank {label}: bit-equal")
 
     def rank_library():
         order = torch.sort(dig_lo, stable=True).indices
@@ -528,8 +563,78 @@ def main() -> int:
         "radix_rank", "radix_sort.cu", "src/repro/kernels/radix_sort.py:133",
         lambda: KR.radix_rank(dig_lo, st0),
         lambda: ref.radix_rank_ref(dig_lo, st0), rank_library,
-        nbytes=4 * T + 4 * 256 + 4 * T, nops=4 * T, shape=f"T={T}",
-        plain_iters=4))
+        nbytes=4 * T + 4 * 256 + 4 * T, nops=4 * T,
+        shape=f"T={T} (rank-only entry)", plain_iters=4))
+
+    # the fused pass (what the main path launches): each plan's passes in
+    # turn, bit for bit against the plain pass, which also gives the next
+    # pass's inputs; then pass 1 of the BibSonomy key (2 words and a
+    # payload in, the same out) timed beside its plain version, the
+    # per-pass sequence it replaced (digit, gather, rank, scatter,
+    # compose, with the rank-only kernel) and stable torch.sort + gathers
+    for label, w, rp in (("bibsonomy 2-word 44-bit", words2, rplan2),
+                         ("movielens 1-word 31-bit", words1, rplan1),
+                         ("signature 64-bit", sig, rplan64)):
+        h = ref.radix_histogram_ref(w, rp.shifts, rp.widths)
+        sts = torch.cumsum(h, 1, dtype=torch.int32) - h
+        cur, perm = tuple(w), None
+        for p, (sh, wd) in enumerate(zip(rp.shifts, rp.widths)):
+            got_w, got_p = KR.radix_pass(cur, perm, sh, wd, sts[p])
+            want_w, want_p = ref.radix_pass_ref(cur, perm, sh, wd, sts[p])
+            torch.cuda.synchronize()
+            e = max(max_abs_err(got_p, want_p), *(
+                max_abs_err(a, b) for a, b in zip(got_w, want_w)))
+            check(e == 0, f"radix_pass {label} pass {p}: max |err| {e}")
+            err = max(err, e)
+            cur, perm = want_w, want_p
+        want = torch.sort(K.word_key(w), stable=True).indices
+        check(torch.equal(perm.long(), want),
+              f"radix_pass {label}: passes differ from stable torch.sort")
+        log(f"phase 2 radix_pass {label}: {rp.passes} passes bit-equal, "
+            "the stable sort")
+    errs["radix_rank"] = err
+    w_p1, perm_p1 = ref.radix_pass_ref(words2, None, rplan2.shifts[0],
+                                       rplan2.widths[0], starts2[0])
+    sh1, wd1, st1 = rplan2.shifts[1], rplan2.widths[1], starts2[1]
+
+    def old_pass():
+        dig = RX.extract_digit(words2, sh1, wd1)[perm_p1]
+        rank = KR.radix_rank(dig, st1)
+        src = torch.empty_like(iota)
+        src[rank] = iota
+        return perm_p1[src]
+
+    def pass_library():
+        order = torch.sort(RX.extract_digit(w_p1, sh1, wd1),
+                           stable=True).indices
+        return tuple(x[order] for x in w_p1), perm_p1[order]
+
+    check(torch.equal(old_pass(), KR.radix_pass(w_p1, perm_p1, sh1, wd1,
+                                                st1)[1]),
+          "radix_pass: the per-pass sequence gives another permutation")
+    fused = entry(
+        "radix_pass", "radix_sort.cu", "",
+        lambda: KR.radix_pass(w_p1, perm_p1, sh1, wd1, st1),
+        lambda: ref.radix_pass_ref(w_p1, perm_p1, sh1, wd1, st1),
+        pass_library, nbytes=2 * 12 * T + 4 * 256, nops=8 * T,
+        shape=f"T={T} words=2 with payload", plain_iters=4)
+    seq = measure(old_pass)
+    kernels[-1].update(
+        fused_pass_ms=fused["ms"], fused_pass_plain_ms=fused["plain_ms"],
+        fused_pass_library_ms=fused["library_ms"],
+        fused_pass_bound_ms=fused["bound_ms"],
+        fused_pass_shape=fused["shape"], per_pass_sequence_ms=seq["ms"])
+    log(f"phase 2 radix_rank fused pass: kernel {fused['ms']:.5f} ms "
+        f"({fused['ms_source']}), plain {fused['plain_ms']:.5f} ms, the "
+        f"per-pass sequence it replaced {seq['ms']:.5f} ms, stable sort + "
+        f"gathers {fused['library_ms']:.5f} ms, bound "
+        f"{fused['bound_ms'] * 1e3:.3f} us ({fused['bound_by']})")
+    usage = {}
+    for r in report.values():
+        usage.update(ptxas_usage(r["log"]))
+    for name, u in sorted(usage.items()):
+        if name.startswith(("radix_rank_onesweep", "rmsnorm_vec")):
+            log(f"phase 2 ptxas {name}: {u}")
     # flash_attention
     def fa_inputs(shape, dtype, seed):
         b, hq, hkv, sq, skv, d = shape
@@ -1254,6 +1359,13 @@ def main() -> int:
     rows_, dn_ = 4 * 2046, 1536
     x9 = randn(g9, (rows_, dn_), bf16)
     w9 = torch.randn((dn_,), generator=g9, device=dev) + 1.0
+    xd = randn(g9, (4, dn_), bf16)          # a decode step's norm
+    for xx in (x9, xd, x9.float(), xd.float()):
+        p9 = KN.plan_for(xx, w9)
+        check(p9.path == "vector", f"rmsnorm {tuple(xx.shape)} {xx.dtype}: "
+              f"plan {p9}, not the vector path")
+    log(f"phase 9a rmsnorm plans at D {dn_}: bf16 "
+        f"{KN.plan_for(x9, w9)}, fp32 {KN.plan_for(x9.float(), w9)}")
     kernels.append(entry(
         "rmsnorm", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:24",
         lambda: KN.rmsnorm(x9, w9, 1e-5),
@@ -1261,7 +1373,23 @@ def main() -> int:
         lambda: F.rms_norm(x9, (dn_,), w9, 1e-5),
         nbytes=2 * 2 * rows_ * dn_ + 4 * dn_, nops=4 * rows_ * dn_,
         shape=f"R={rows_} D={dn_} bf16, fp32 weight (a prefill norm)"))
-    kernels[-1]["max_abs_err_by_case"] = norm_errs
+    dec9 = entry(
+        "rmsnorm", "rmsnorm.cu", "",
+        lambda: KN.rmsnorm(xd, w9, 1e-5),
+        lambda: ref.rmsnorm_ref(xd, w9, 1e-5),
+        lambda: F.rms_norm(xd, (dn_,), w9, 1e-5),
+        nbytes=2 * 2 * 4 * dn_ + 4 * dn_, nops=4 * 4 * dn_,
+        shape=f"R=4 D={dn_} bf16, fp32 weight (a decode step's norm)")
+    kernels[-1].update(
+        decode_ms=dec9["ms"], decode_call_ms=dec9["call_ms"],
+        decode_plain_ms=dec9["plain_ms"],
+        decode_library_ms=dec9["library_ms"],
+        decode_bound_ms=dec9["bound_ms"], decode_shape=dec9["shape"],
+        max_abs_err_by_case=norm_errs)
+    log(f"phase 9a rmsnorm at {dec9['shape']}: kernel {dec9['ms']:.5f} ms "
+        f"({dec9['ms_source']}; {dec9['call_ms']:.5f} ms per call), plain "
+        f"{dec9['plain_ms']:.5f} ms, library {dec9['library_ms']:.5f} ms, "
+        f"bound {dec9['bound_ms'] * 1e3:.3f} us")
     errs["rmsnorm"] = norm_errs[f"rmsnorm {(rows_, dn_)} bfloat16"]
     for k in kernels[-2:]:
         log(f"phase 9a {k['name']}: kernel {k['ms']:.5f} ms "
@@ -1269,7 +1397,7 @@ def main() -> int:
             f"{k['plain_ms']:.5f} ms, library {k['library_ms']:.5f} ms, "
             f"bound {k['bound_ms'] * 1e3:.3f} us ({k['bound_by']}) at "
             f"{k['shape']}")
-    del q9, q4, k9, v9, x9, rings
+    del q9, q4, k9, v9, x9, xd, rings
 
     # 9b: full-width granite-moe-3b-a800m serving through both kernels
     cfg9 = dataclasses.replace(get_config("granite-moe-3b-a800m"),
@@ -1287,8 +1415,11 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
+    paths_before = dict(KN.rmsnorm.path_launches)
     run_a = engine.generate(prompts, n_new)
     serving_counts = ops.launch_counts()
+    norm_paths = {k: v - paths_before[k]
+                  for k, v in KN.rmsnorm.path_launches.items()}
     peak9 = torch.cuda.max_memory_allocated() / 1e9
     run_b = engine.generate(prompts, n_new)
     steps = run_a.steps
@@ -1304,6 +1435,9 @@ def main() -> int:
           and all(n == 0 for k, n in serving_counts.items()
                   if k not in expect9),
           f"phase 9b launches {serving_counts} != {expect9}")
+    log(f"phase 9b rmsnorm launches by path: {norm_paths}")
+    check(norm_paths["vector"] == serving_counts["rmsnorm"],
+          f"phase 9b: rmsnorm left the 16-byte vector path: {norm_paths}")
     check(steps == run_b.steps == max(lens9) - min(lens9) + n_new,
           f"phase 9b steps {steps} / {run_b.steps}")
     for res9 in (run_a, run_b):

@@ -10,8 +10,9 @@ eight.
 The port runs the **histogram formulation** everywhere: one sweep builds
 the 256-bucket histogram of every pass (``kernels.ops.radix_histogram``),
 then each pass ranks its elements stably as ``bucket_start[digit] +
-running occurrence`` (``kernels.ops.radix_rank``) and applies the ranks
-with one index assignment.  On CUDA tensors both ops launch the
+running occurrence`` and moves the key words and the permutation to
+their ranks, in one fused op (``kernels.ops.radix_pass``) that reads the
+words in the previous pass's order.  On CUDA tensors both ops launch the
 hand-written kernels of ``kernels/csrc/radix_sort.cu``; on CPU tensors
 their plain versions run.  (The JAX package's composite-word
 formulation, which exists for XLA-CPU's slow variadic sort, is not
@@ -95,28 +96,32 @@ def extract_digit(words: Sequence[torch.Tensor], shift: int,
 # Device sort
 # ---------------------------------------------------------------------------
 
-def _perm_histogram(words, plan: RadixPlan,
-                    use_kernels: Optional[bool]) -> torch.Tensor:
-    """Stable sort permutation via histogram ranks over ``plan``'s digit
-    schedule (the ``kernels/radix_sort`` pair; one rank scatter per
-    pass).  The plan must use ≤``HIST_DIGIT_BITS``-wide digits."""
+def _sort_histogram(words, live_bits: int, use_kernels: Optional[bool],
+                    max_passes: Optional[int] = None
+                    ) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
+    """(words in the sorted order, int32 stable sort permutation) via
+    histogram ranks over the 8-bit digit schedule of ``live_bits``
+    (truncated to ``max_passes``): one histogram sweep, then one fused
+    pass (``kernels.ops.radix_pass``) per digit, which reads the words in
+    the previous pass's order and moves them and the permutation to their
+    ranks."""
     from ..kernels import ops as kops
+    plan = plan_radix(live_bits, words[0].shape[0],
+                      digit_bits=HIST_DIGIT_BITS)
+    if max_passes is not None:
+        plan = dataclasses.replace(plan, shifts=plan.shifts[:max_passes],
+                                   widths=plan.widths[:max_passes])
+    if plan.t == 0 or plan.passes == 0:
+        return tuple(words), torch.arange(plan.t, dtype=torch.int32,
+                                          device=words[0].device)
     hists = kops.radix_histogram(words, plan.shifts, plan.widths,
                                  use_kernels=use_kernels)
-    t = plan.t
-    iota = torch.arange(t, dtype=torch.int32, device=words[0].device)
     starts_all = torch.cumsum(hists, dim=1, dtype=torch.int32) - hists
-    perm = None
+    cur, perm = tuple(words), None
     for p, (shift, width) in enumerate(zip(plan.shifts, plan.widths)):
-        dig = extract_digit(words, shift, width)
-        if perm is not None:
-            dig = dig[perm]
-        rank = kops.radix_rank(dig, starts_all[p].contiguous(),
-                               use_kernels=use_kernels)
-        src = torch.empty_like(iota)
-        src[rank] = iota
-        perm = src if perm is None else perm[src]
-    return perm
+        cur, perm = kops.radix_pass(cur, perm, shift, width, starts_all[p],
+                                    use_kernels=use_kernels)
+    return cur, perm
 
 
 def radix_sort_perm(words: Sequence[torch.Tensor], live_bits: int,
@@ -127,15 +132,7 @@ def radix_sort_perm(words: Sequence[torch.Tensor], live_bits: int,
 
     ``max_passes`` truncates the LSD schedule of 8-bit digits (per-pass
     attribution only — a truncated sort is *not* a total order)."""
-    plan = plan_radix(live_bits, words[0].shape[0],
-                      digit_bits=HIST_DIGIT_BITS)
-    if max_passes is not None:
-        plan = dataclasses.replace(plan, shifts=plan.shifts[:max_passes],
-                                   widths=plan.widths[:max_passes])
-    if plan.t == 0 or plan.passes == 0:
-        return torch.arange(plan.t, dtype=torch.int32,
-                            device=words[0].device)
-    return _perm_histogram(words, plan, use_kernels)
+    return _sort_histogram(words, live_bits, use_kernels, max_passes)[1]
 
 
 def sort_with_payload_radix(words: Sequence[torch.Tensor],
@@ -143,11 +140,10 @@ def sort_with_payload_radix(words: Sequence[torch.Tensor],
                             live_bits: int,
                             use_kernels: Optional[bool] = None):
     """Drop-in for ``keys.sort_with_payload``: same (sorted_words,
-    sorted_payloads) tuples, stability included, via the radix
-    permutation + gathers."""
-    perm = radix_sort_perm(words, live_bits, use_kernels)
-    return (tuple(w[perm] for w in words),
-            tuple(p[perm] for p in payloads))
+    sorted_payloads) tuples, stability included.  The sorted words come
+    out of the last pass; the payloads are gathered by the permutation."""
+    s_words, perm = _sort_histogram(words, live_bits, use_kernels)
+    return s_words, tuple(p[perm] for p in payloads)
 
 
 # ---------------------------------------------------------------------------

@@ -104,6 +104,22 @@ def radix_rank(digits: torch.Tensor, starts: torch.Tensor, *,
     return ref.radix_rank_ref(digits, starts)
 
 
+def radix_pass(words: Sequence[torch.Tensor], perm: Optional[torch.Tensor],
+               shift: int, width: int, starts: torch.Tensor, *,
+               use_kernels: Optional[bool] = None):
+    """One fused LSD pass: the stable ranks of digit bits ``[shift, shift
+    + width)`` of the words, and the words and the int32 payload ``perm``
+    (None: ``arange(T)``) moved to them.
+
+    words: 1-2 msb-first (T,) int32 words in their current order; starts
+    (256,) int32 -> (words, payload) in the pass's order.  The kernel
+    counts as a ``radix_rank`` launch."""
+    if resolve_use_kernels(use_kernels, words[0]):
+        return _radix.radix_pass([w.contiguous() for w in words], perm,
+                                 shift, width, starts.contiguous())
+    return ref.radix_pass_ref(words, perm, shift, width, starts)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     q_offset: Optional[int] = None,

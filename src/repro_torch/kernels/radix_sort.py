@@ -4,16 +4,23 @@ the 8-bit-digit LSD radix sort of ``core.radix``.
 * ``radix_histogram`` — the 256-bucket histograms of every pruned digit of
   1-2 msb-first packed key words, in one sweep.
 * ``radix_rank`` — one pass's stable ranks
-  ``rank[i] = starts[d_i] + #{j < i : d_j == d_i}``.
+  ``rank[i] = starts[d_i] + #{j < i : d_j == d_i}``: one sweep with
+  decoupled look-back over tiles of ``RANK_TILE`` elements.
+* ``radix_pass`` — the same sweep fused into an LSD pass: it reads the key
+  words in their current order, finds each digit, and scatters the words
+  and an int32 payload to their ranks.  Its launches count as
+  ``radix_rank`` launches: it is that kernel with the scatter on.
 
 The port of ``repro.kernels.radix_sort``; the plain versions are in
-``kernels.ref`` and ``kernels.ops`` picks between them.  These wrappers
-take CUDA tensors only.
+``kernels.ref`` (``ref.radix_rank_tiled`` emulates the rank sweep's tile
+plan) and ``kernels.ops`` picks between them.  These wrappers take CUDA
+tensors only.  The rank sweep's constants are held against the built
+kernel's (:func:`kernel_config`) when the library is loaded.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -22,13 +29,31 @@ from . import build
 
 _NAME = "radix_sort"
 _MAX_PASS = 8
-_argtypes_set = False
+_checked = False
+
+#: Elements of one tile of the rank sweep, threads and warps of its
+#: block (a warp holds a contiguous ``RANK_TILE // RANK_WARPS`` of the
+#: tile), and the predecessor status words its look-back reads at once.
+RANK_TILE = 4096
+RANK_THREADS = 256
+RANK_WARPS = 8
+LOOKBACK = 4
+
+_CONFIG_KEYS = ("tile", "threads", "warps", "lookback")
+
+
+def _config(lib: ctypes.CDLL) -> Dict[str, int]:
+    out = (ctypes.c_int64 * len(_CONFIG_KEYS))()
+    build.check(lib, _NAME, lib.radix_rank_config(ctypes.addressof(out)))
+    return dict(zip(_CONFIG_KEYS, out))
 
 
 def _lib() -> ctypes.CDLL:
-    global _argtypes_set
+    """The loaded library; on first use the rank sweep's constants are
+    held against this module's."""
+    global _checked
     lib = build.load(_NAME)
-    if not _argtypes_set:
+    if not _checked:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         ip = ctypes.POINTER(ctypes.c_int)
         lib.radix_histogram_launch.argtypes = [vp, vp, ip, ip, ci, vp, ci,
@@ -36,10 +61,28 @@ def _lib() -> ctypes.CDLL:
         lib.radix_histogram_launch.restype = ci
         lib.radix_rank_launch.argtypes = [vp, vp, vp, vp, ci, vp]
         lib.radix_rank_launch.restype = ci
-        lib.radix_rank_scratch_ints.argtypes = [ci]
-        lib.radix_rank_scratch_ints.restype = ci
-        _argtypes_set = True
+        lib.radix_pass_launch.argtypes = [vp, vp, ci, ci] + [vp] * 6 + [
+            ci, vp]
+        lib.radix_pass_launch.restype = ci
+        lib.radix_rank_scratch_words.argtypes = [ci]
+        lib.radix_rank_scratch_words.restype = ctypes.c_int64
+        lib.radix_rank_config.argtypes = [vp]
+        lib.radix_rank_config.restype = ci
+        cfg = _config(lib)
+        got = tuple(cfg[k] for k in _CONFIG_KEYS)
+        want = (RANK_TILE, RANK_THREADS, RANK_WARPS, LOOKBACK)
+        if got != want:
+            raise RuntimeError(
+                "radix_rank: the kernel's R_TILE, R_TPB, R_WARPS, LOOKBACK "
+                f"are {got}, this module's {want}")
+        _checked = True
     return lib
+
+
+def kernel_config() -> Dict[str, int]:
+    """The built rank sweep's constants (``tile``, ``threads``,
+    ``warps``, ``lookback``)."""
+    return _config(_lib())
 
 
 def _check(x: torch.Tensor, what: str, kernel: str, n: int,
@@ -98,6 +141,13 @@ def radix_histogram(words: Sequence[torch.Tensor], shifts: Sequence[int],
     return out
 
 
+def _scratch(lib: ctypes.CDLL, n: int, dev: torch.device) -> torch.Tensor:
+    """The rank sweep's scratch (a tile counter and 256 status words a
+    tile), zeroed by the launch itself."""
+    return torch.empty((lib.radix_rank_scratch_words(n),),
+                       dtype=torch.int64, device=dev)
+
+
 def radix_rank(digits: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
     """digits (T,) int32 in [0, 256), starts (256,) int32 exclusive bucket
     starts, both on the card -> (T,) int32 stable ranks."""
@@ -111,8 +161,7 @@ def radix_rank(digits: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
     if n == 0:
         return out
     lib = _lib()
-    scratch = torch.empty((lib.radix_rank_scratch_ints(n),),
-                          dtype=torch.int32, device=dev)
+    scratch = _scratch(lib, n, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.radix_rank_launch(digits.data_ptr(), starts.data_ptr(),
@@ -123,6 +172,51 @@ def radix_rank(digits: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
     return out
 
 
-#: Launches of each kernel since the last reset (``kernels.ops``).
+def radix_pass(words: Sequence[torch.Tensor], perm: Optional[torch.Tensor],
+               shift: int, width: int, starts: torch.Tensor
+               ) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
+    """One LSD pass on the card.  words: 1-2 msb-first (T,) int32 key words
+    in their current order; perm: (T,) int32 payload (None: the identity
+    ``arange(T)``); the digit is bits ``[shift, shift + width)`` of the
+    conceptual key (``core.radix.extract_digit``), width 1..8; starts:
+    (256,) int32 exclusive bucket starts of that digit -> (the words, the
+    payload), each element moved to its stable rank."""
+    if len(words) not in (1, 2):
+        raise ValueError(f"radix_pass: 1 or 2 words, got {len(words)}")
+    if not words[0].is_cuda:
+        raise ValueError("radix_pass: the CUDA kernel needs CUDA tensors, "
+                         f"got {words[0].device}")
+    n, dev = words[0].shape[0], words[0].device
+    for j, w in enumerate(words):
+        _check(w, f"words[{j}]", "radix_pass", n, dev)
+    if perm is not None:
+        _check(perm, "perm", "radix_pass", n, dev)
+    _check(starts, "starts", "radix_pass", HIST_BUCKETS, dev)
+    if not (1 <= width <= 8 and 0 <= shift
+            and shift + width <= 32 * len(words)):
+        raise ValueError(f"radix_pass: digit bits [{shift}, {shift + width})"
+                         f" do not fit {len(words)} word(s) of 8-bit digits")
+    out_words = tuple(torch.empty_like(w) for w in words)
+    out_perm = torch.empty_like(words[0])
+    if n == 0:
+        return out_words, out_perm
+    lib = _lib()
+    scratch = _scratch(lib, n, dev)
+    hi, hi_out = ((words[0].data_ptr(), out_words[0].data_ptr())
+                  if len(words) == 2 else (None, None))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.radix_pass_launch(
+            hi, words[-1].data_ptr(), shift, width,
+            None if perm is None else perm.data_ptr(), starts.data_ptr(),
+            hi_out, out_words[-1].data_ptr(), out_perm.data_ptr(),
+            scratch.data_ptr(), n, stream)
+    build.check(lib, _NAME, err, "radix_rank (fused pass)")
+    radix_rank.launches += 1
+    return out_words, out_perm
+
+
+#: Launches of each kernel since the last reset (``kernels.ops``);
+#: ``radix_pass`` counts in ``radix_rank``'s.
 radix_histogram.launches = 0
 radix_rank.launches = 0

@@ -80,6 +80,68 @@ def radix_rank_ref(digits: torch.Tensor, starts: torch.Tensor,
     return out
 
 
+def radix_rank_tiled(digits: torch.Tensor, starts: torch.Tensor,
+                     tile: Optional[int] = None,
+                     warps: Optional[int] = None) -> torch.Tensor:
+    """:func:`radix_rank_ref` computed as the CUDA rank sweep decomposes
+    it (``kernels.radix_sort``: tiles of ``tile`` elements, default
+    ``RANK_TILE``, of ``warps`` contiguous sub-ranges, default
+    ``RANK_WARPS``), on any device: each tile's count of each digit (what
+    it publishes), their exclusive prefix over the tiles (what its
+    look-back adds up), each warp's start inside its tile, and each
+    element's rank among the equal digits of its warp's sub-range."""
+    from .radix_sort import RANK_TILE, RANK_WARPS
+    tile = tile or RANK_TILE
+    warps = warps or RANK_WARPS
+    if tile % warps:
+        raise ValueError(f"a tile of {tile} does not split into {warps} "
+                         "warps")
+    dev = digits.device
+    t = digits.shape[0]
+    ntiles = -(-t // tile)
+    pos = torch.arange(t, device=dev)
+    group = (pos // tile) * warps + (pos % tile) // (tile // warps)
+    key = group * HIST_BUCKETS + (digits & (HIST_BUCKETS - 1)).long()
+    counts = torch.zeros((ntiles * warps * HIST_BUCKETS,), dtype=torch.int64,
+                         device=dev).index_add_(
+        0, key, torch.ones_like(key)).view(ntiles, warps, HIST_BUCKETS)
+    tile_counts = counts.sum(1)
+    before_tile = torch.cumsum(tile_counts, 0) - tile_counts
+    before_warp = torch.cumsum(counts, 1) - counts
+    base = (starts.long()[None, None, :] + before_tile[:, None, :]
+            + before_warp).reshape(-1)
+    # rank inside the warp: position in a stable sort by (warp, digit)
+    order = torch.sort(key, stable=True).indices
+    first = torch.cumsum(counts.reshape(-1), 0) - counts.reshape(-1)
+    local = torch.empty_like(key)
+    local[order] = torch.arange(t, device=dev) - first[key[order]]
+    return (base[key] + local).to(torch.int32)
+
+
+def radix_pass_ref(words: Sequence[torch.Tensor],
+                   perm: Optional[torch.Tensor], shift: int, width: int,
+                   starts: torch.Tensor):
+    """One LSD pass: each element's digit (bits [shift, shift + width) of
+    the words, ``core.radix.extract_digit``), its stable rank
+    (:func:`radix_rank_ref`), and the words and payload moved there.
+
+    words: 1-2 msb-first (T,) int32 words in their current order; perm:
+    (T,) int32 payload, None for ``arange(T)``; starts: (256,) int32
+    bucket starts of the digit.  Returns (words, payload) in the pass's
+    order."""
+    rank = radix_rank_ref(extract_digit(words, shift, width),
+                          starts).long()
+    if perm is None:
+        perm = torch.arange(words[0].shape[0], dtype=torch.int32,
+                            device=words[0].device)
+    out = []
+    for w in (*words, perm):
+        o = torch.empty_like(w)
+        o[rank] = w
+        out.append(o)
+    return tuple(out[:-1]), out[-1]
+
+
 def _attn_mask(sq: int, skv: int, q_offset: int, causal: bool,
                window: Optional[int], device) -> torch.Tensor:
     qpos = torch.arange(sq, device=device)[:, None] + q_offset

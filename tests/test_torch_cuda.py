@@ -61,19 +61,109 @@ def test_radix_histogram_kernel(cuda, t, live):
                                                     plan.widths))
 
 
-@pytest.mark.parametrize("t", SIZES)
+# the rank sweep's tiles (KR.RANK_TILE elements): one and two tiles, +- 1,
+# and the BibSonomy table
+RANK_SIZES = SIZES + [KR.RANK_TILE + o for o in (-1, 0, 1)] + [
+    2 * KR.RANK_TILE + o for o in (-1, 1)] + [816_197]
+
+
+def _starts(d):
+    hist = torch.bincount(d, minlength=256).to(torch.int32)
+    return torch.cumsum(hist, 0, dtype=torch.int32) - hist
+
+
+@pytest.mark.parametrize("t", RANK_SIZES)
 @pytest.mark.parametrize("skew", [False, True])
 def test_radix_rank_kernel(cuda, t, skew):
+    """One launch, bit-equal to the plain ranks; ``skew``: 90% of the
+    digits equal."""
     rng = np.random.default_rng(t)
     dig = rng.integers(0, 256, t).astype(np.int32)
     if skew:
         dig[rng.random(t) < 0.9] = 7
     d = torch.from_numpy(dig).to(cuda)
-    hist = torch.bincount(d, minlength=256).to(torch.int32)
-    starts = torch.cumsum(hist, 0, dtype=torch.int32) - hist
+    starts = _starts(d)
+    before = KR.radix_rank.launches
     got = KR.radix_rank(d, starts)
     torch.cuda.synchronize()
+    assert KR.radix_rank.launches == before + 1
     assert torch.equal(got, ref.radix_rank_ref(d, starts))
+
+
+@pytest.mark.parametrize("t", [1, KR.RANK_TILE + 1, 816_197])
+@pytest.mark.parametrize("digit", [0, 255])
+def test_radix_rank_kernel_all_digits_equal(cuda, t, digit):
+    """Every tile publishes 0 for 255 digits and the whole count for one:
+    the longest look-back chains land on one digit."""
+    d = torch.full((t,), digit, dtype=torch.int32, device=cuda)
+    starts = _starts(d)
+    got = KR.radix_rank(d, starts)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.arange(t, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("t", [1, 2049, KR.RANK_TILE + 1,
+                               2 * KR.RANK_TILE - 1, 70_001, 816_197])
+@pytest.mark.parametrize("live,shift", [(31, 0), (31, 24), (44, 0),
+                                        (44, 28), (44, 36), (64, 56)])
+@pytest.mark.parametrize("with_perm", [False, True])
+def test_radix_pass_kernel(cuda, t, live, shift, with_perm):
+    """The fused pass (digit in the kernel, words and payload scattered to
+    their ranks) equals its plain version bit for bit: one and two words,
+    digits in the low word, straddling the two, in the high word; the
+    payload given or the identity."""
+    rng = np.random.default_rng(t + live + shift)
+    keys = rng.integers(0, 2**min(live, 63), t, dtype=np.uint64)
+    keys[: t // 4] = keys[0]                              # ties
+    words = ([_i32(keys >> np.uint64(32), cuda),
+              _i32(keys & np.uint64(0xFFFFFFFF), cuda)] if live > 32
+             else [_i32(keys, cuda)])
+    width = min(8, live - shift)
+    d = RX.extract_digit(words, shift, width)
+    starts = _starts(d)
+    perm = (torch.from_numpy(rng.permutation(t).astype(np.int32)).to(cuda)
+            if with_perm else None)
+    before = KR.radix_rank.launches
+    got_w, got_p = KR.radix_pass(words, perm, shift, width, starts)
+    torch.cuda.synchronize()
+    assert KR.radix_rank.launches == before + 1
+    want_w, want_p = ref.radix_pass_ref(words, perm, shift, width, starts)
+    assert torch.equal(got_p, want_p)
+    assert len(got_w) == len(words)
+    for g, w in zip(got_w, want_w):
+        assert torch.equal(g, w)
+
+
+def test_radix_sort_perm_on_the_card_is_the_stable_sort(cuda):
+    """Full-size BibSonomy-shaped Stage-1 keys (44 bits, 2 words, 6
+    passes) and random 64-bit Stage-3 signature pairs (8 passes) against
+    ``torch.sort(stable=True)`` of the words' order key, with the sorted
+    words out of the last pass; a truncated schedule against the CPU."""
+    from repro_torch.core import keys as K
+    ctx = S.bibsonomy_like()
+    plan = K.plan_context_keys(ctx.sizes, with_values=False)[0]
+    bib = plan.pack_device(torch.from_numpy(ctx.tuples).to(cuda))
+    rng = np.random.default_rng(64)
+    sig = [_i32(rng.integers(0, 2**32, ctx.num_tuples, dtype=np.uint64),
+                cuda) for _ in range(2)]
+    sig[0][: 1000] = sig[0][0]                           # ties in hi
+    for words, live in ((bib, plan.total_bits), (sig, 64)):
+        iota = torch.arange(words[0].shape[0], dtype=torch.int32,
+                            device=cuda)
+        before = KR.radix_rank.launches
+        s_words, (perm,) = RX.sort_with_payload_radix(words, (iota,), live)
+        torch.cuda.synchronize()
+        assert KR.radix_rank.launches - before == -(-live // 8)
+        want = torch.sort(K.word_key(words), stable=True).indices
+        assert torch.equal(perm.long(), want)
+        assert torch.equal(RX.radix_sort_perm(words, live), perm)
+        for s_, w in zip(s_words, words):
+            assert torch.equal(s_, w[want])
+        for k in (1, 3):
+            got = RX.radix_sort_perm(words, live, max_passes=k)
+            cpu = RX.radix_sort_perm([w.cpu() for w in words], live,
+                                     max_passes=k)
+            assert torch.equal(got.cpu(), cpu)
 
 
 def test_pipeline_on_the_card_equals_the_cpu(cuda):
@@ -467,6 +557,57 @@ def test_rmsnorm_kernel(cuda, shape, dtype, w_dtype):
     assert got.dtype == dtype and got.shape == shape
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=atol)
+
+
+@pytest.mark.parametrize("rows,d,dtype,offset,path", [
+    (4, 1536, torch.bfloat16, 0, "vector"),      # a decode step's norm
+    (8184, 1536, torch.bfloat16, 0, "vector"),   # a prefill norm
+    (4, 1536, torch.float32, 0, "vector"),
+    (8184, 1536, torch.float32, 0, "vector"),
+    (7, 64, torch.float32, 0, "vector"),
+    (5, 1535, torch.bfloat16, 0, "block"),
+    (5, 1535, torch.float32, 0, "block"),
+    (4, 1536, torch.bfloat16, 1, "block"),       # 2 bytes off 16
+    (300, 512, torch.float32, 1, "warp"),        # 4 bytes off 16
+    (3, 8192, torch.bfloat16, 0, "block"),
+    (9, 100, torch.bfloat16, 0, "warp"),
+])
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_paths(cuda, rows, d, dtype, offset, path, w_dtype):
+    """Each call takes the path ``rmsnorm.plan`` names (granite-moe's
+    D 1536 the vector path; an odd D, a storage offset off 16 bytes and
+    D 8192 the scalar kernels) and stays within the tolerances of
+    :func:`test_rmsnorm_kernel`."""
+    from repro_torch.kernels import rmsnorm as KN
+    rng = np.random.default_rng(rows + d + offset)
+    flat = torch.from_numpy(rng.standard_normal(rows * d + offset)
+                            .astype(np.float32)).to(cuda, dtype)
+    x = flat[offset:].view(rows, d)
+    w = (torch.from_numpy(rng.standard_normal(d).astype(np.float32))
+         + 1.0).to(cuda, w_dtype)
+    assert KN.plan_for(x, w).path == path
+    before = dict(KN.rmsnorm.path_launches)
+    got = KN.rmsnorm(x, w, 1e-5)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in KN.rmsnorm.path_launches.items()
+            } == {k: int(k == path) for k in before}
+    want = ref.rmsnorm_ref(x, w, 1e-5)
+    rtol, atol = (2e-5, 2e-5) if dtype == torch.float32 else (1e-2, 4e-3)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+def test_rank_and_rmsnorm_kernel_config(cuda):
+    """The built kernels' constants are the wrappers' (also checked when
+    each library loads)."""
+    from repro_torch.kernels import rmsnorm as KN
+    assert KR.kernel_config() == {"tile": KR.RANK_TILE,
+                                  "threads": KR.RANK_THREADS,
+                                  "warps": KR.RANK_WARPS,
+                                  "lookback": KR.LOOKBACK}
+    cfg = KN.kernel_config()
+    assert (cfg["threads"], cfg["vec_max_d"], cfg["lane_vectors"]) == (
+        KN.THREADS, KN.VEC_MAX_D, KN.LANE_VECTORS)
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "qwen3-0.6b",

@@ -3,8 +3,10 @@ plain versions of its two kernels (``repro_torch.kernels.ref``) with the
 JAX package: plans, digit extraction, the histogram and rank sweeps
 against the Pallas kernels run in interpret mode (as
 ``tests/test_kernels.py`` runs them) and against their ``ref`` oracles,
-and the sort permutation against numpy's stable argsort.  CUDA kernels
-run only on the card (``tests/test_torch_cuda.py``)."""
+the rank sweep's tile plan (``ref.radix_rank_tiled``) and the fused LSD
+pass (``ref.radix_pass_ref``) against both, and the sort permutation
+against numpy's stable argsort.  CUDA kernels run only on the card
+(``tests/test_torch_cuda.py``)."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -18,6 +20,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import radix as TR
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import radix_sort as TK
 from repro_torch.kernels import ref as tref
 
 
@@ -101,6 +104,123 @@ def test_radix_rank_plain_matches_pallas(t, bt, chunk):
     r = got.numpy()
     assert sorted(r.tolist()) == list(range(t))
     assert (dig[np.argsort(r)] == np.sort(dig, kind="stable")).all()
+
+
+_TILE = TK.RANK_TILE
+_DIGITS = {
+    "uniform": lambda rng, t: rng.integers(0, 256, t),
+    "skew 90%": lambda rng, t: np.where(rng.random(t) < 0.9, 7,
+                                        rng.integers(0, 256, t)),
+    "all equal": lambda rng, t: np.full(t, 255),
+}
+
+
+def _digits_and_starts(kind, t, seed):
+    dig = _DIGITS[kind](np.random.default_rng(seed), t).astype(np.uint32)
+    hist = np.bincount(dig, minlength=256)
+    starts = np.concatenate([[0], np.cumsum(hist)[:-1]]).astype(np.int32)
+    return dig, starts
+
+
+@pytest.mark.parametrize("t", [1, _TILE - 1, _TILE, _TILE + 1,
+                               2 * _TILE - 1, 2 * _TILE + 1])
+@pytest.mark.parametrize("kind", list(_DIGITS))
+def test_radix_rank_tiled_matches_plain_and_pallas(t, kind):
+    """The CUDA rank sweep's decomposition (per-tile counts, their
+    exclusive prefix over the tiles, warp starts, in-warp ranks) at its
+    own tile, on both sides of one and two tiles, equals the plain ranks
+    and the Pallas kernel's in interpret mode."""
+    dig, starts = _digits_and_starts(kind, t, t)
+    d32, s32 = torch.from_numpy(dig.astype(np.int32)), torch.from_numpy(starts)
+    got = tref.radix_rank_tiled(d32, s32)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, tref.radix_rank_ref(d32, s32))
+    assert_same(got, jops.radix_rank(jnp.asarray(dig), jnp.asarray(starts),
+                                     bt=1024, use_pallas=True), "pallas")
+
+
+@pytest.mark.parametrize("tile,warps", [(64, 8), (96, 3), (32, 1)])
+@pytest.mark.parametrize("kind", list(_DIGITS))
+def test_radix_rank_tiled_at_small_tiles(tile, warps, kind):
+    """Many tiles and warps at a small T: the same ranks as the plain
+    version and the JAX reference."""
+    dig, starts = _digits_and_starts(kind, 1000, tile + warps)
+    d32, s32 = torch.from_numpy(dig.astype(np.int32)), torch.from_numpy(starts)
+    got = tref.radix_rank_tiled(d32, s32, tile=tile, warps=warps)
+    assert torch.equal(got, tref.radix_rank_ref(d32, s32))
+    assert_same(got, jref.radix_rank_ref(jnp.asarray(dig),
+                                         jnp.asarray(starts)), "ref")
+
+
+def _old_pass(words, perm, shift, width, starts):
+    """The per-pass sequence the fused pass replaces: the digit of the
+    original words gathered through the permutation, its ranks, and the
+    permutation composed with their inverse."""
+    dig = TR.extract_digit(words, shift, width)
+    if perm is not None:
+        dig = dig[perm]
+    rank = tref.radix_rank_ref(dig, starts)
+    iota = torch.arange(dig.shape[0], dtype=torch.int32)
+    src = torch.empty_like(iota)
+    src[rank.long()] = iota
+    return src if perm is None else perm[src]
+
+
+@pytest.mark.parametrize("t,live", [(1, 5), (300, 22), (2000, 31),
+                                    (1500, 44), (1200, 64)])
+def test_radix_pass_plain_matches_the_per_pass_sequence(t, live):
+    """Pass after pass, the plain fused pass (digits of the words in the
+    current order, words and payload moved to their ranks) keeps the
+    permutation of the old sequence, and its words are the original
+    words in that order."""
+    keys = _keys(t, live, seed=t + live)
+    words = [u32(w) for w in _words(keys, live)]
+    plan = TR.plan_radix(live, t, digit_bits=8)
+    hists = tref.radix_histogram_ref(words, plan.shifts, plan.widths)
+    starts = torch.cumsum(hists, 1, dtype=torch.int32) - hists
+    cur, perm, old = tuple(words), None, None
+    for p, (shift, width) in enumerate(zip(plan.shifts, plan.widths)):
+        old = _old_pass(words, old, shift, width, starts[p])
+        cur, perm = tref.radix_pass_ref(cur, perm, shift, width, starts[p])
+        assert perm.dtype == torch.int32 and torch.equal(perm, old), p
+        for c, w in zip(cur, words):
+            assert torch.equal(c, w[perm.long()]), p
+        assert torch.equal(tops.radix_pass(cur, perm, shift, width,
+                                           starts[p])[1],
+                           tref.radix_pass_ref(cur, perm, shift, width,
+                                               starts[p])[1])
+    np.testing.assert_array_equal(perm.numpy(),
+                                  np.argsort(keys, kind="stable"))
+    sw, (sp,) = TR.sort_with_payload_radix(words, (-perm,), live)
+    assert all(torch.equal(a, b) for a, b in zip(sw, cur))
+    assert torch.equal(sp, -perm[perm.long()])
+
+
+def test_rank_sweep_constants_match_the_kernel_source():
+    """The tile plan's constants are the ones written in
+    ``csrc/radix_sort.cu`` (on the card they are also read from the built
+    kernel at load)."""
+    import re
+    from repro_torch.kernels import build
+    src = (build.CSRC / "radix_sort.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+    assert "constexpr int R_TPB = BUCKETS;" in src
+    assert const("BUCKETS") == TR.HIST_BUCKETS == TK.RANK_THREADS
+    assert TK.RANK_THREADS // 32 == TK.RANK_WARPS
+    assert (32 * const("R_ITEMS") * TK.RANK_WARPS, const("LOOKBACK")) == (
+        TK.RANK_TILE, TK.LOOKBACK)
+
+
+def test_radix_pass_kernel_takes_cuda_tensors_only():
+    w = torch.zeros(16, dtype=torch.int32)
+    starts = torch.zeros(256, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        TK.radix_pass([w], None, 0, 8, starts)
+    with pytest.raises(ValueError, match="use_kernels=True"):
+        tops.radix_pass([w], None, 0, 8, starts, use_kernels=True)
+    assert TK.radix_rank.launches == 0
 
 
 @pytest.mark.parametrize("t,live", [(1, 5), (64, 9), (777, 22), (2000, 31),

@@ -92,3 +92,66 @@ def test_rmsnorm_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match=r"\(R, D\)"):
         KN.rmsnorm(x, torch.ones(32))
     assert KN.rmsnorm.launches == 0
+
+
+BF16, FP32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("d,dtype,aligned,want", [
+    # granite-moe-3b-a800m's norms (D 1536), bf16 serving and fp32 checks
+    (1536, BF16, True, KN.Plan("vector", 6)),
+    (1536, FP32, True, KN.Plan("vector", 12)),
+    # the smoke configs' widths
+    (64, FP32, True, KN.Plan("vector", 1)),
+    (96, BF16, True, KN.Plan("vector", 1)),
+    (512, BF16, True, KN.Plan("vector", 2)),
+    (1024, FP32, True, KN.Plan("vector", 8)),
+    (1280, BF16, True, KN.Plan("vector", 6)),   # 5 vectors a lane: 6
+    # odd widths, too wide, misaligned
+    (1535, BF16, True, KN.Plan("block")),
+    (1025, FP32, True, KN.Plan("block")),
+    (7, FP32, True, KN.Plan("warp")),
+    (100, BF16, True, KN.Plan("warp")),
+    (8192, BF16, True, KN.Plan("block")),
+    (2048, BF16, True, KN.Plan("block")),
+    (1536, BF16, False, KN.Plan("block")),
+    (512, FP32, False, KN.Plan("warp")),
+])
+def test_rmsnorm_plan(d, dtype, aligned, want):
+    got = KN.plan(d, dtype, aligned)
+    assert got == want
+    if got.path == "vector":
+        nvec = d * dtype.itemsize // KN.VEC_BYTES
+        assert 32 * got.lane_vectors >= nvec
+        smaller = [k for k in KN.LANE_VECTORS if k < got.lane_vectors]
+        assert all(32 * k < nvec for k in smaller)
+
+
+def test_rmsnorm_plan_of_tensors_sees_their_alignment():
+    """A view whose storage offset breaks 16-byte alignment leaves the
+    vector path, for x and for w."""
+    for dtype in (BF16, FP32):
+        x = torch.zeros(4 * 1536 + 1, dtype=dtype)
+        w = torch.ones(1537, dtype=FP32)
+        assert KN.plan_for(x[:-1].view(4, 1536), w[:-1]).path == "vector"
+        assert KN.plan_for(x[1:].view(4, 1536), w[:-1]).path == "block"
+        assert KN.plan_for(x[:-1].view(4, 1536), w[1:]).path == "block"
+
+
+def test_rmsnorm_constants_match_the_kernel_source():
+    """The plan's constants are the ones written in ``csrc/rmsnorm.cu``
+    (on the card they are also read from the built kernel at load)."""
+    import re
+    from repro_torch.kernels import build
+    src = (build.CSRC / "rmsnorm.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+    assert (const("NT"), const("WARP_MAX_D"), const("VEC_MAX_D"),
+            const("VEC_BYTES"), const("VEC_BLOCKS_PER_SM")) == (
+        KN.THREADS, KN.WARP_MAX_D, KN.VEC_MAX_D, KN.VEC_BYTES,
+        KN.VEC_BLOCKS_PER_SM)
+    lanes = re.search(r"LANE_VECTORS\[\] = \{([^}]*)\}", src)[1]
+    assert tuple(int(v) for v in lanes.split(",")) == KN.LANE_VECTORS
+    for k in KN.LANE_VECTORS:
+        assert f"case {k}: return launch_vec<T, W, {k}>" in src
