@@ -11,7 +11,12 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 2. run each kernel on the card at the main paths' shapes and hold it
    against its plain PyTorch version on the same inputs: the mining
    kernels bit for bit at T = 816,197 (the BibSonomy table), with a uint32
-   wraparound case and 1-, 2-word and 64-bit keys; ``radix_rank``'s
+   wraparound case and 1-, 2-word and 64-bit keys; ``segment_reduce``'s
+   (T + 1) entry (what ``masked_prefix`` takes) and inputs off 16 bytes;
+   ``radix_histogram`` also on all-equal keys, views off 16 bytes and T
+   mod 4 = 3, timed on the skewed BibSonomy keys and on uniform 64-bit
+   signature words, beside the two increment designs it was chosen
+   against (``probe_radix_histogram.RIVAL_DESIGNS``); ``radix_rank``'s
    rank-only entry also with every digit equal, 90% of one digit and at
    one and two tiles +- 1, and its fused pass (the main path's entry)
    through every pass of the three keys' plans, then timed at T =
@@ -293,6 +298,13 @@ def ptxas_usage(log_text: str) -> dict:
             if "radix_rank_onesweep" in entry:
                 entry = ("radix_rank_onesweep<fused>" if "ILb1E" in entry
                          else "radix_rank_onesweep<rank>")
+            m = re.search(r"radix_hist_kernelILb(\d)ELi(\d)E", entry)
+            if m:        # <16-byte loads, key words>
+                entry = "radix_hist_kernel<{}, {} words>".format(
+                    "vector" if m.group(1) == "1" else "scalar", m.group(2))
+            if "sr_onesweep" in entry:
+                entry = ("sr_onesweep<vector>" if "ILb1E" in entry
+                         else "sr_onesweep<scalar>")
             m = re.search(r"rmsnorm_vecI(f|13__nv_bfloat16)"
                           r"(f|13__nv_bfloat16|S\d*_)Li(\d+)E", entry)
             if m:        # <x, w, vectors a lane>; a bf16 w repeats x's type
@@ -458,6 +470,21 @@ def main() -> int:
     got_wrap = KS.segment_reduce(ones, ones, all_first)[0]
     check(np.array_equal(got_wrap.cpu().numpy().view(np.uint32), wrap),
           "segment_reduce wraparound differs from numpy's mod-2^32 cumsum")
+    # the (T + 1) entry the path launches (core.pipeline.masked_prefix),
+    # and inputs off 16 bytes (the scalar-load path)
+    w_lo1, w_hi1, first1 = (torch.cat([x[:1], x])[1:]
+                            for x in (w_lo, w_hi, first))
+    for label, args in (("exclusive (T + 1)", (w_lo, w_hi, first)),
+                        ("views off 16 bytes", (w_lo1, w_hi1, first1))):
+        got = KS.segment_reduce_exclusive(*args)
+        want = P.masked_prefix(*args, use_kernels=False)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            e = max_abs_err(g, w)
+            check(g.shape == w.shape and e == 0,
+                  f"segment_reduce {label}: max |err| {e}")
+            err = max(err, e)
+        log(f"phase 2 segment_reduce {label}: bit-equal")
     errs["segment_reduce"] = err
 
     def seg_library():
@@ -474,6 +501,11 @@ def main() -> int:
         lambda: KS.segment_reduce(w_lo, w_hi, first),
         lambda: ref.segment_reduce_ref(w_lo, w_hi, first), seg_library,
         nbytes=21 * T, nops=3 * T, shape=f"T={T}"))
+    kernels[-1]["scalar_ms"] = measure(
+        lambda: KS.segment_reduce(w_lo1, w_hi1, first1))["ms"]
+    cfg = KS.kernel_config()
+    check(cfg["local_bytes"] == 0, f"segment_reduce spills: {cfg}")
+    kernels[-1]["registers"] = cfg["registers"]
 
     # radix_histogram
     err = 0
@@ -487,6 +519,20 @@ def main() -> int:
         check(e == 0, f"radix_histogram {label}: max |err| {e}")
         check(int(got.sum()) == w[0].shape[0] * rp.passes,
               f"radix_histogram {label}: counts do not sum to T x passes")
+        err = max(err, e)
+        log(f"phase 2 radix_histogram {label}: bit-equal")
+    same = [torch.full_like(w, 0x1234567) for w in sig]
+    sig1 = [torch.cat([w[:1], w])[1:] for w in sig]
+    check(KR.hist_plan_for(sig1).path == "scalar",
+          "radix_histogram: views off 16 bytes planned for vector loads")
+    for label, w, rp in (("all keys equal", same, rplan64),
+                         ("views off 16 bytes", sig1, rplan64),
+                         ("T mod 4 = 3", [x[:T - 2] for x in words2],
+                          rplan2)):
+        got = KR.radix_histogram(w, rp.shifts, rp.widths)
+        e = max_abs_err(got, ref.radix_histogram_ref(w, rp.shifts,
+                                                     rp.widths))
+        check(e == 0, f"radix_histogram {label}: max |err| {e}")
         err = max(err, e)
         log(f"phase 2 radix_histogram {label}: bit-equal")
     errs["radix_histogram"] = err
@@ -504,7 +550,50 @@ def main() -> int:
                                         rplan2.widths), hist_library,
         nbytes=4 * 2 * T + 4 * 256 * rplan2.passes,
         nops=3 * T * rplan2.passes,
-        shape=f"T={T} words=2 passes={rplan2.passes}"))
+        shape=f"T={T} words=2 passes={rplan2.passes} (BibSonomy mode 0, "
+              "the context's order)"))
+    # the same on uniform 64-bit signature words (8 passes), and the
+    # designs the kernel's increment was chosen from
+    uni = entry(
+        "radix_histogram", "radix_sort.cu", "",
+        lambda: KR.radix_histogram(sig, rplan64.shifts, rplan64.widths),
+        lambda: ref.radix_histogram_ref(sig, rplan64.shifts,
+                                        rplan64.widths),
+        lambda: [torch.bincount(RX.extract_digit(sig, s, wd),
+                                minlength=RX.HIST_BUCKETS)
+                 for s, wd in zip(rplan64.shifts, rplan64.widths)],
+        nbytes=4 * 2 * T + 4 * 256 * rplan64.passes,
+        nops=3 * T * rplan64.passes, shape="", plain_iters=4)
+    from repro_torch.kernels import probe_radix_histogram as PH
+    designs = PH.time_designs(
+        {"skewed": (words2, rplan2.shifts, rplan2.widths),
+         "uniform": (sig, rplan64.shifts, rplan64.widths)},
+        names=PH.RIVAL_DESIGNS)
+    check(all(d["bit_equal"] for d in designs.values()),
+          "radix_histogram: a design differs from the plain version")
+    kernels[-1].update(
+        uniform_ms=uni["ms"], uniform_call_ms=uni["call_ms"],
+        uniform_plain_ms=uni["plain_ms"],
+        uniform_library_ms=uni["library_ms"],
+        uniform_bound_ms=uni["bound_ms"],
+        uniform_shape=f"T={T} words=2 passes={rplan64.passes} (random "
+                      "signature words)",
+        scalar_ms=measure(lambda: KR.radix_histogram(
+            sig1, rplan64.shifts, rplan64.widths))["ms"],
+        designs={k: d["ms"] for k, d in designs.items()})
+    for k, d in designs.items():
+        log(f"phase 2 radix_histogram design {k}: " + ", ".join(
+            f"{lab} {ms:.5f} ms" for lab, ms in d["ms"].items()))
+    log(f"phase 2 radix_histogram uniform 64-bit words: kernel "
+        f"{uni['ms']:.5f} ms ({uni['call_ms']:.5f} ms per call), plain "
+        f"{uni['plain_ms']:.5f} ms, bincount x8 {uni['library_ms']:.5f} "
+        f"ms, bound {uni['bound_ms'] * 1e3:.3f} us")
+    for vec in (True, False):
+        for nw in (1, 2):
+            cfg = KR.hist_kernel_config(vec, nw)
+            check(cfg["local_bytes"] == 0,
+                  f"radix_histogram spills: {vec} {nw} {cfg}")
+    kernels[-1]["registers"] = KR.hist_kernel_config(True, 2)["registers"]
 
     # radix_rank
     hist2 = ref.radix_histogram_ref(words2, rplan2.shifts, rplan2.widths)
@@ -633,7 +722,8 @@ def main() -> int:
     for r in report.values():
         usage.update(ptxas_usage(r["log"]))
     for name, u in sorted(usage.items()):
-        if name.startswith(("radix_rank_onesweep", "rmsnorm_vec")):
+        if name.startswith(("radix_rank_onesweep", "rmsnorm_vec",
+                            "radix_hist_kernel", "sr_onesweep")):
             log(f"phase 2 ptxas {name}: {u}")
     # flash_attention
     def fa_inputs(shape, dtype, seed):

@@ -246,11 +246,10 @@ def masked_prefix(w_lo: torch.Tensor, w_hi: torch.Tensor,
                   use_kernels: Optional[bool] = None):
     """Exclusive (length T+1) prefix sums of first-occurrence-masked hash
     weights and of the mask — the one segment-reduction sweep both
-    component operators consume (``kernels.ops.segment_reduce``)."""
-    lo, hi, cnt = kops.segment_reduce(w_lo, w_hi, first_occ,
-                                      use_kernels=use_kernels)
-    z = torch.zeros((1,), dtype=torch.int32, device=lo.device)
-    return torch.cat([z, lo]), torch.cat([z, hi]), torch.cat([z, cnt])
+    component operators consume (``kernels.ops.segment_reduce_exclusive``;
+    on the card the kernel writes this layout, with no copy after it)."""
+    return kops.segment_reduce_exclusive(w_lo, w_hi, first_occ,
+                                         use_kernels=use_kernels)
 
 
 def prime_components(sm: SortedMode, r_lo: torch.Tensor, r_hi: torch.Tensor,

@@ -6,12 +6,14 @@ falls back silently: the default device is CUDA and asking for it
 without a card raises, naming ``device="cpu"``."""
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Dict, Optional, Union
 
 import torch
 
 #: Default device of every entry point.
 DEFAULT_DEVICE = "cuda"
+
+_sm_counts: Dict[int, int] = {}
 
 
 def on_cuda() -> bool:
@@ -46,3 +48,13 @@ def resolve_use_kernels(use_kernels: Optional[bool],
             f"{x.device}; leave use_kernels=None to run the plain version "
             "on the CPU")
     return bool(use_kernels)
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of ``device``'s card, read once."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sm_counts[index]

@@ -10,6 +10,7 @@ loaded as it is.  Nothing is compiled when this module is imported.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -104,6 +105,16 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _libs[name] = lib
     return lib
+
+
+def on_device(dev):
+    """A context in which a launch goes to ``dev``'s card: none when
+    ``dev`` is already the current device (the common case, which then
+    costs no device switch), else ``torch.cuda.device(dev)``."""
+    import torch
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
 
 
 def check(lib: ctypes.CDLL, name: str, err: int,

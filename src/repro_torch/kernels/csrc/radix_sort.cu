@@ -18,19 +18,36 @@
 //
 // Bounds on an H100 SXM (3.35 TB/s), at T = 816,197:
 // * histogram: reads 4 bytes per word per element and writes npass x 1 KiB;
-//   2 words: 6.5 MB, 1.95 us.  Memory bound: a few integer ops per digit.
+//   2 words: 6.5 MB, 1.95 us.  Memory bound by its bytes; a key costs a few
+//   integer ops and a shared atomic per pass.
 // * rank: reads the 4-byte digit and writes the 4-byte rank (the 1 KiB of
 //   starts aside): 6.5 MB, 1.95 us.  The fused pass reads the words and
 //   the payload once and writes them once: 2 words, 24 bytes an element,
 //   19.6 MB, 5.85 us.  Memory bound.
 //
 // Design.
-// * histogram: each block builds the npass x 256 histogram of its tile in
-//   shared memory with shared atomics, then adds each non-zero bucket into
-//   the zeroed output with one global atomicAdd.  The ragged tail is
-//   masked.  Counts are order-free, so the atomics' order does not matter.
-//   It is Onesweep's upfront histogram: every pass's bucket starts from one
-//   read of the keys.
+// * histogram: one memset of the output and one launch on a persistent
+//   grid (H_BLOCKS_PER_SM blocks of H_THREADS an SM, sized by the wrapper's
+//   plan from the SM count).  Block b walks a contiguous share of the key
+//   vectors (4 keys a lane, one 16-byte load a word; a lane loads
+//   H_UNROLL vectors before it counts any, so a 1024-thread block keeps
+//   64 KiB of 2-word keys in flight).  The scalar-load variant (template
+//   VEC = false) serves words off 16 bytes; the vector variant reads a
+//   vector that T cuts (the last T mod 4 keys) with scalar loads.  Each
+//   key adds one to its bucket of every pass in the block's histograms in
+//   shared memory with one atomicAdd, which nvcc compiles to
+//   ATOMS.POPC.INC: the card adds the lanes of a warp that hit one bucket
+//   in one operation, the warp aggregation that the keys' skew asks for
+//   (the keys come in the context's order, so a warp's 32 digits of a high
+//   pass are mostly one value).  Aggregating in software first was slower
+//   on an H100: peers_of's ballot per digit bit and one atomic per
+//   distinct digit, one shuffle and ballot a key to catch a warp on one
+//   digit, per-lane runs of equal digits, and per-warp sub-histograms
+//   (python -m repro_torch.kernels.probe_radix_histogram).  Each block
+//   then adds each non-zero bucket into the output with one global
+//   atomicAdd.  Counts are order-free, so the atomics' order does not
+//   matter.  It is Onesweep's upfront histogram: every pass's bucket
+//   starts from one read of the keys.
 // * rank: one sweep with decoupled look-back (Merrill and Garland's
 //   single-pass prefix scan, as Onesweep ranks a radix pass), one launch
 //   after one memset of the scratch.  Stability is the trap, since shared
@@ -61,26 +78,13 @@
 //      touches up to 32 sectors, and these stores are most of a fused
 //      pass's time; a shared-memory reorder of the tile before the write
 //      would coalesce them).
-//   Status words: flag (2 bits) and count (32 bits) in one 64-bit word,
-//   written by one st.relaxed.gpu and read by ld.relaxed.gpu.  Aligned
-//   64-bit accesses are single-copy atomic, so a reader sees a flag with
-//   its own count, and the count is the only thing a tile learns from
-//   another: there is no other data whose visibility a release/acquire
-//   pair would have to order.  (On an H100, st.release.gpu for both
-//   publishes and a fence.acq_rel.gpu after the look-back cost about a
-//   quarter of the rank-only sweep: python -m
-//   repro_torch.kernels.probe_radix_rank.)  Every count is below the
+//   Status words and tile claims: lookback.cuh.  Every count is below the
 //   wrapper's limit of 2^31 - 2^16 elements.
-//   Deadlock: blocks are scheduled in no order and a block may wait for a
-//   predecessor, so the tile a block works on is NOT its blockIdx.x but the
-//   next value of a global counter (atomicAdd) taken when it starts.  Tile
-//   k is then only ever claimed after tiles 0..k-1 were claimed by blocks
-//   that already run, so every tile it waits for makes progress.  With
-//   blockIdx.x, a resident block could spin on a tile whose block cannot
-//   be scheduled until the spinning one leaves.
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "lookback.cuh"
 
 namespace {
 
@@ -95,9 +99,11 @@ struct Plan {
 };
 
 // histogram sweep
-constexpr int H_TPB = 256;
-constexpr int H_IPT = 16;
-constexpr int H_TILE = H_TPB * H_IPT;
+constexpr int H_THREADS = 1024;           // threads of a block
+constexpr int H_BLOCKS_PER_SM = 1;        // blocks an SM of the grid
+constexpr int H_KEYS = 4;                 // keys of a lane's vector
+constexpr int H_UNROLL = 2;               // vectors a lane loads at once
+constexpr int H_COPIES = 1;               // copies of each shared bucket
 
 // rank sweep
 constexpr int R_TPB = BUCKETS;            // thread d looks back for digit d
@@ -106,11 +112,6 @@ constexpr int R_ITEMS = 16;               // elements a lane holds
 constexpr int R_WARP_ITEMS = 32 * R_ITEMS;
 constexpr int R_TILE = R_WARPS * R_WARP_ITEMS;
 constexpr int LOOKBACK = 4;               // predecessor words read at once
-
-// status words: flag in bits 62-63, count in bits 0-31; 0 is NOT_READY
-constexpr unsigned long long FLAG_MASK = 3ull << 62;
-constexpr unsigned long long AGGREGATE = 1ull << 62;
-constexpr unsigned long long INCLUSIVE = 2ull << 62;
 
 // The fused pass's operands; all null (and shift, width unused) for the
 // rank-only entry.
@@ -147,41 +148,108 @@ __device__ __forceinline__ unsigned peers_of(int digit, bool valid) {
   return peers;
 }
 
-__device__ __forceinline__ void store_relaxed(unsigned long long* p,
-                                              unsigned long long v) {
-  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
-               : "memory");
+// The shared counter this lane adds digit d of pass p to: copy
+// lane % H_COPIES of the bucket, the copies of a bucket side by side.
+__device__ __forceinline__ int slot(int p, int d, int lane) {
+  return (p * BUCKETS + d) * H_COPIES + lane % H_COPIES;
 }
 
-__device__ __forceinline__ unsigned long long load_relaxed(
-    const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
-               : "memory");
-  return v;
+// Adds one pass's digits of this lane's keys, d[0 .. keys), into the
+// shared histograms, one atomic a key.  Every lane of the warp calls it.
+__device__ __forceinline__ void add_digits(int* h, int p,
+                                           const int (&d)[H_KEYS], int keys,
+                                           int lane) {
+#pragma unroll
+  for (int k = 0; k < H_KEYS; ++k)
+    if (k < keys) atomicAdd(&h[slot(p, d[k], lane)], 1);
 }
 
-__global__ void __launch_bounds__(H_TPB)
+// Key vector v (keys 4v .. 4v + 3) of a word: one 16-byte load where VEC
+// and all four keys lie below n, else one load a key (0 past n).
+template <bool VEC>
+__device__ __forceinline__ uint4 load_keys(const uint32_t* __restrict__ w,
+                                           long long v, long long n) {
+  const long long e = H_KEYS * v;
+  if (VEC && e + H_KEYS <= n)
+    return __ldg(reinterpret_cast<const uint4*>(w) + v);
+  uint4 k = make_uint4(0u, 0u, 0u, 0u);
+  if (e < n) k.x = __ldg(w + e);
+  if (e + 1 < n) k.y = __ldg(w + e + 1);
+  if (e + 2 < n) k.z = __ldg(w + e + 2);
+  if (e + 3 < n) k.w = __ldg(w + e + 3);
+  return k;
+}
+
+// Counts the first `keys` keys of this lane's vector in every pass.
+template <int NW>
+__device__ __forceinline__ void count_vector(int* h, uint4 hi, uint4 lo,
+                                             int keys, const Plan& plan,
+                                             int lane) {
+  const uint32_t l[H_KEYS] = {lo.x, lo.y, lo.z, lo.w};
+  const uint32_t u[H_KEYS] = {hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+  for (int p = 0; p < MAX_PASS; ++p) {
+    if (p >= plan.npass) break;
+    int d[H_KEYS];
+#pragma unroll
+    for (int k = 0; k < H_KEYS; ++k)
+      d[k] = NW == 2 ? digit_of(((uint64_t)u[k] << 32) | l[k], plan.shift[p],
+                                plan.width[p])
+                     : (int)((l[k] >> plan.shift[p]) &
+                             ((1u << plan.width[p]) - 1u));
+    add_digits(h, p, d, keys, lane);
+  }
+}
+
+// VEC: 16-byte loads (every word 16-byte aligned).  NW: key words (hi is
+// unused for 1).  Block b counts key vectors [b * per, (b + 1) * per) of
+// the ceil(n / 4), per = ceil(vectors / gridDim.x), into its shared
+// histograms, then adds them into the zeroed out.
+template <bool VEC, int NW>
+__global__ void __launch_bounds__(H_THREADS, H_BLOCKS_PER_SM)
 radix_hist_kernel(const uint32_t* __restrict__ hi,
                   const uint32_t* __restrict__ lo, Plan plan,
                   int* __restrict__ out, int n) {
-  __shared__ int h[MAX_PASS * BUCKETS];
+  extern __shared__ int h[];
   const int cells = plan.npass * BUCKETS;
-  for (int j = threadIdx.x; j < cells; j += H_TPB) h[j] = 0;
+  for (int j = threadIdx.x; j < H_COPIES * cells; j += H_THREADS) h[j] = 0;
   __syncthreads();
-  const long long base = (long long)blockIdx.x * H_TILE;
-  for (int k = 0; k < H_IPT; ++k) {
-    const long long i = base + k * H_TPB + threadIdx.x;
-    if (i >= n) break;
-    uint64_t key = lo[i];
-    if (hi != nullptr) key |= (uint64_t)hi[i] << 32;
-    for (int p = 0; p < plan.npass; ++p)
-      atomicAdd(&h[p * BUCKETS + digit_of(key, plan.shift[p],
-                                          plan.width[p])], 1);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long vectors = ((long long)n + H_KEYS - 1) / H_KEYS;
+  const long long per = (vectors + gridDim.x - 1) / gridDim.x;
+  const long long v0 = (long long)blockIdx.x * per;
+  const long long v1 = min(vectors, v0 + per);
+  // base is warp-uniform, so every lane of a warp takes each step
+  for (long long base = v0 + warp * 32; base < v1;
+       base += H_UNROLL * H_THREADS) {
+    uint4 kl[H_UNROLL], kh[H_UNROLL];
+#pragma unroll
+    for (int u = 0; u < H_UNROLL; ++u) {
+      const long long v = base + u * H_THREADS + lane;
+      kl[u] = kh[u] = make_uint4(0u, 0u, 0u, 0u);
+      if (v < v1) {
+        kl[u] = load_keys<VEC>(lo, v, n);
+        if constexpr (NW == 2) kh[u] = load_keys<VEC>(hi, v, n);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < H_UNROLL; ++u) {
+      const long long vbase = base + u * H_THREADS;
+      if (vbase >= v1) break;
+      const long long v = vbase + lane;
+      const int keys =
+          v < v1 ? (int)min((long long)H_KEYS, (long long)n - H_KEYS * v) : 0;
+      count_vector<NW>(h, kh[u], kl[u], keys, plan, lane);
+    }
   }
   __syncthreads();
-  for (int j = threadIdx.x; j < cells; j += H_TPB)
-    if (h[j] != 0) atomicAdd(&out[j], h[j]);
+  for (int j = threadIdx.x; j < cells; j += H_THREADS) {
+    int c = 0;
+#pragma unroll
+    for (int k = 0; k < H_COPIES; ++k) c += h[j * H_COPIES + k];
+    if (c != 0) atomicAdd(&out[j], c);
+  }
 }
 
 // One sweep: FUSED = false reads digits and writes ranks; FUSED = true
@@ -190,16 +258,13 @@ template <bool FUSED>
 __global__ void __launch_bounds__(R_TPB)
 radix_rank_onesweep(const int* __restrict__ dig, PassArgs pa,
                     const int* __restrict__ starts, int* __restrict__ out,
-                    unsigned long long* __restrict__ status,
-                    unsigned int* __restrict__ tile_counter, int n) {
+                    unsigned long long* __restrict__ scratch, int n) {
   __shared__ int wh[R_WARPS][BUCKETS];
-  __shared__ int tile_s;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) tile_s = (int)atomicAdd(tile_counter, 1u);
   for (int w = 0; w < R_WARPS; ++w) wh[w][threadIdx.x] = 0;
-  __syncthreads();
-  const int tile = tile_s;
+  const int tile = claim_tile(scratch);
+  unsigned long long* status = status_words(scratch);
   const long long wbase =
       (long long)tile * R_TILE + (long long)warp * R_WARP_ITEMS;
 
@@ -313,20 +378,40 @@ namespace {
 
 int rank_tiles(int n) { return (n + R_TILE - 1) / R_TILE; }
 
-// scratch: the tile counter (one 64-bit word), then 256 status words per
+// scratch (lookback.cuh): the tile counter, then 256 status words per
 // tile, all zeroed on the stream, then the sweep.
 template <bool FUSED>
 cudaError_t launch_rank(const int* dig, const PassArgs& pa,
                         const int* starts, int* out, void* scratch, int n,
                         cudaStream_t s) {
   const int ntiles = rank_tiles(n);
-  auto* words = (unsigned long long*)scratch;
-  cudaError_t err = cudaMemsetAsync(
-      scratch, 0, (1 + (size_t)ntiles * BUCKETS) * sizeof(*words), s);
+  cudaError_t err =
+      zero_lookback_scratch(scratch, (long long)ntiles * BUCKETS, s);
   if (err != cudaSuccess) return err;
   radix_rank_onesweep<FUSED><<<ntiles, R_TPB, 0, s>>>(
-      dig, pa, starts, out, words + 1, (unsigned int*)words, n);
+      dig, pa, starts, out, (unsigned long long*)scratch, n);
   return cudaGetLastError();
+}
+
+template <bool VEC, int NW>
+cudaError_t launch_hist(const uint32_t* hi, const uint32_t* lo,
+                        const Plan& plan, int* out, int n, int blocks,
+                        cudaStream_t s) {
+  const size_t smem = (size_t)H_COPIES * plan.npass * BUCKETS * sizeof(int);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        radix_hist_kernel<VEC, NW>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  radix_hist_kernel<VEC, NW><<<blocks, H_THREADS, smem, s>>>(hi, lo, plan,
+                                                            out, n);
+  return cudaGetLastError();
+}
+
+template <bool VEC, int NW>
+const void* hist_kernel() {
+  return (const void*)radix_hist_kernel<VEC, NW>;
 }
 
 }  // namespace
@@ -334,26 +419,65 @@ cudaError_t launch_rank(const int* dig, const PassArgs& pa,
 extern "C" {
 
 // words: hi (nullptr for one word) and lo, (n,) uint32 each; shifts and
-// widths: npass <= 8 host ints; out: (npass, 256) int32, zeroed by the
-// caller.  Returns cudaGetLastError().
+// widths: npass <= 8 host ints; out: (npass, 256) int32, zeroed here by a
+// memset on the stream; vector: 1 for 16-byte loads, which needs hi and lo
+// on 16-byte boundaries (else the plan is refused), 0 for one load a key;
+// blocks: the persistent grid.  One memset and one launch; returns
+// cudaGetLastError().
 int radix_histogram_launch(const void* hi, const void* lo, const int* shifts,
                            const int* widths, int npass, void* out, int n,
-                           void* stream) {
-  if (npass < 0 || npass > MAX_PASS) return (int)cudaErrorInvalidValue;
-  if (n <= 0 || npass == 0) return (int)cudaSuccess;
+                           int vector, int blocks, void* stream) {
+  if (npass < 0 || npass > MAX_PASS || n < 0 || blocks < 1 ||
+      (vector != 0 && vector != 1))
+    return (int)cudaErrorInvalidValue;
+  if (vector && (((uintptr_t)lo | (uintptr_t)hi) % 16 != 0))
+    return (int)cudaErrorMisalignedAddress;
   Plan plan{};
   plan.npass = npass;
   for (int p = 0; p < npass; ++p) {
     if (shifts[p] < 0 || widths[p] < 1 || widths[p] > 8 ||
-        shifts[p] + widths[p] > 64)
+        shifts[p] + widths[p] > (hi != nullptr ? 64 : 32))
       return (int)cudaErrorInvalidValue;
     plan.shift[p] = shifts[p];
     plan.width[p] = widths[p];
   }
-  const int nblocks = (n + H_TILE - 1) / H_TILE;
-  radix_hist_kernel<<<nblocks, H_TPB, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)hi, (const uint32_t*)lo, plan, (int*)out, n);
-  return (int)cudaGetLastError();
+  if (npass == 0) return (int)cudaSuccess;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err =
+      cudaMemsetAsync(out, 0, (size_t)npass * BUCKETS * sizeof(int), s);
+  if (err != cudaSuccess || n == 0) return (int)err;
+  const auto* h = (const uint32_t*)hi;
+  const auto* l = (const uint32_t*)lo;
+  if (hi != nullptr)
+    err = vector ? launch_hist<true, 2>(h, l, plan, (int*)out, n, blocks, s)
+                 : launch_hist<false, 2>(h, l, plan, (int*)out, n, blocks, s);
+  else
+    err = vector ? launch_hist<true, 1>(h, l, plan, (int*)out, n, blocks, s)
+                 : launch_hist<false, 1>(h, l, plan, (int*)out, n, blocks, s);
+  return (int)err;
+}
+
+// The histogram sweep's constants and what the runtime reports of the
+// variant (vector: 16-byte loads or not; words: 1 or 2) as loaded, into
+// out[0..7]: threads of a block, blocks an SM, keys of a lane's vector,
+// vectors a lane loads at once, copies of each shared bucket, the largest
+// npass; registers a thread and local memory bytes a thread
+// (cudaFuncGetAttributes).  Returns a CUDA error code.
+int radix_histogram_config(int vector, int words, long long* out) {
+  if ((vector != 0 && vector != 1) || (words != 1 && words != 2))
+    return (int)cudaErrorInvalidValue;
+  const void* k = vector ? (words == 2 ? hist_kernel<true, 2>()
+                                       : hist_kernel<true, 1>())
+                         : (words == 2 ? hist_kernel<false, 2>()
+                                       : hist_kernel<false, 1>());
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, k);
+  if (err != cudaSuccess) return (int)err;
+  const long long v[8] = {H_THREADS, H_BLOCKS_PER_SM, H_KEYS,
+                          H_UNROLL,  H_COPIES,        MAX_PASS,
+                          attr.numRegs, (long long)attr.localSizeBytes};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  return (int)cudaSuccess;
 }
 
 // The rank sweep's constants, in this order: elements of a tile, threads

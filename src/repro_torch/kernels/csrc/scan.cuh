@@ -1,8 +1,7 @@
-// Block-wide exclusive scan shared by the port's kernels.
+// Warp and block scans shared by the port's kernels.
 //
-// A warp scans with shuffles, warp 0 scans the warp totals, and every
-// thread adds the totals of the warps before its own.  `T` needs `+`,
-// value-initialisation to zero (`T{}`) and a `shfl_up` specialisation.
+// `T` needs `+`, value-initialisation to zero (`T{}`) and `shfl_up` and
+// `shfl_idx` specialisations (the int ones are here).
 #pragma once
 
 #include <cstdint>
@@ -12,44 +11,52 @@ constexpr unsigned FULL_MASK = 0xffffffffu;
 template <typename T>
 __device__ __forceinline__ T shfl_up(T v, unsigned delta);
 
+template <typename T>
+__device__ __forceinline__ T shfl_idx(T v, int src);
+
 template <>
 __device__ __forceinline__ int shfl_up<int>(int v, unsigned delta) {
   return __shfl_up_sync(FULL_MASK, v, delta);
 }
 
-// Exclusive prefix of `v` over the block's threads in thread order; the
-// block's total goes to `*total`.  Every thread of the block must call it
-// (it synchronises the block, also on the way out so that the shared
-// buffer can be reused by the next call).
-template <typename T, int TPB>
-__device__ __forceinline__ T block_exclusive_scan(T v, T* total) {
-  static_assert(TPB % 32 == 0 && TPB <= 1024, "TPB must be whole warps");
-  constexpr int WARPS = TPB / 32;
-  __shared__ T warp_tot[WARPS];
+template <>
+__device__ __forceinline__ int shfl_idx<int>(int v, int src) {
+  return __shfl_sync(FULL_MASK, v, src);
+}
+
+// Inclusive prefix of `v` over the warp's lanes, in lane order.
+template <typename T>
+__device__ __forceinline__ T warp_inclusive_scan(T v) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  T inc = v;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    T up = shfl_up(inc, o);
-    if (lane >= o) inc = inc + up;
+    const T up = shfl_up(v, o);
+    if (lane >= o) v = v + up;
   }
-  T ex = shfl_up(inc, 1);
-  if (lane == 0) ex = T{};
-  if (lane == 31) warp_tot[warp] = inc;
+  return v;
+}
+
+// Exclusive prefix of the warps' values `v` (one value a warp, the same in
+// each of its lanes) over the block's warps in warp order; the block's
+// total goes to `*total`.  Every thread of the block must call it, once
+// per block: it synchronises the block once, on the way in, and a second
+// call would need a barrier before it, so that no warp overwrites a value
+// that another still reads.
+template <typename T, int TPB>
+__device__ __forceinline__ T block_exclusive_scan_warps(T v, T* total) {
+  static_assert(TPB % 32 == 0 && TPB <= 1024, "TPB must be whole warps");
+  constexpr int WARPS = TPB / 32;
+  __shared__ T warp_val[WARPS];
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) warp_val[warp] = v;
   __syncthreads();
-  if (warp == 0) {
-    T w = lane < WARPS ? warp_tot[lane] : T{};
+  T before{}, all{};
 #pragma unroll
-    for (int o = 1; o < WARPS; o <<= 1) {
-      T up = shfl_up(w, o);
-      if (lane >= o) w = w + up;
-    }
-    if (lane < WARPS) warp_tot[lane] = w;
+  for (int w = 0; w < WARPS; ++w) {
+    const T x = warp_val[w];
+    if (w < warp) before = before + x;
+    all = all + x;
   }
-  __syncthreads();
-  T before = warp ? warp_tot[warp - 1] : T{};
-  *total = warp_tot[WARPS - 1];
-  __syncthreads();
-  return before + ex;
+  *total = all;
+  return before;
 }

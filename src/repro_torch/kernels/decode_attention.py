@@ -24,10 +24,11 @@ scratch that the wrapper allocates.  One call is one launch in
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from ..device import sm_count
 from . import build
 from .flash_attention import HEAD_DIMS as _FLASH_HEAD_DIMS
 
@@ -42,7 +43,6 @@ KEY_TILE = 64
 BLOCKS_PER_SM = 2
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _argtypes_set = False
-_sm_counts: Dict[int, int] = {}
 
 
 def split_plan(kv_len: int, window: Optional[int], kv_blocks: int,
@@ -66,16 +66,6 @@ def split_plan(kv_len: int, window: Optional[int], kv_blocks: int,
     want = min(-(-target // kv_blocks), n_tiles)
     per = -(-n_tiles // want)
     return t_first, per, -(-n_tiles // per)
-
-
-def sm_count(device: torch.device) -> int:
-    """Streaming multiprocessors of ``device``'s card, read once."""
-    index = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    if index not in _sm_counts:
-        _sm_counts[index] = torch.cuda.get_device_properties(
-            index).multi_processor_count
-    return _sm_counts[index]
 
 
 def _lib() -> ctypes.CDLL:

@@ -79,6 +79,20 @@ def segment_reduce(w_lo: torch.Tensor, w_hi: torch.Tensor,
     return ref.segment_reduce_ref(w_lo, w_hi, first)
 
 
+def segment_reduce_exclusive(w_lo: torch.Tensor, w_hi: torch.Tensor,
+                             first: torch.Tensor, *,
+                             use_kernels: Optional[bool] = None):
+    """:func:`segment_reduce` in the exclusive layout: three (T + 1,)
+    int32 prefix sums, element 0 zero and element i the sum of the first
+    i masked weights (and flags).  The kernel writes this layout itself;
+    the plain version puts a zero before the inclusive sums."""
+    if resolve_use_kernels(use_kernels, w_lo):
+        return _segment.segment_reduce_exclusive(w_lo, w_hi, first)
+    z = torch.zeros((1,), dtype=torch.int32, device=w_lo.device)
+    return tuple(torch.cat([z, x])
+                 for x in ref.segment_reduce_ref(w_lo, w_hi, first))
+
+
 def radix_histogram(words: Sequence[torch.Tensor], shifts: Sequence[int],
                     widths: Sequence[int], *,
                     use_kernels: Optional[bool] = None) -> torch.Tensor:

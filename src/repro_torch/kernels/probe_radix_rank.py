@@ -40,6 +40,8 @@ from . import build
 from .probe_tricluster_density import _build, _time_ms
 
 _SRC = build.CSRC / "radix_sort.cu"
+_HEADER = build.CSRC / "lookback.cuh"
+_INCLUDE = '#include "lookback.cuh"\n'
 
 _PUBLISH = "    store_relaxed(mine, INCLUSIVE | (unsigned)(prefix + count));\n"
 _STORE = "st.relaxed.gpu.global.u64"
@@ -66,7 +68,8 @@ def _variants() -> Dict[str, str]:
         "release": _patched(src, [
             (_PUBLISH, '    asm volatile("fence.acq_rel.gpu;" ::: "memory");'
                        "\n" + _PUBLISH),
-            (_STORE, "st.release.gpu.global.u64")]),
+            (_INCLUDE, _patched(_HEADER.read_text(), [
+                (_STORE, "st.release.gpu.global.u64")]))]),
         "match_any": _patched(src, [
             (_PEERS, "const unsigned peers = __match_any_sync(FULL_MASK, "
                      "d[c]);")]),

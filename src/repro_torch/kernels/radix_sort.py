@@ -2,7 +2,10 @@
 the 8-bit-digit LSD radix sort of ``core.radix``.
 
 * ``radix_histogram`` — the 256-bucket histograms of every pruned digit of
-  1-2 msb-first packed key words, in one sweep.
+  1-2 msb-first packed key words, in one sweep: one memset of the output
+  and one launch on a persistent grid, which :func:`hist_plan` sizes from
+  the SM count and sets to 16-byte loads or one load a key by the words'
+  alignment.
 * ``radix_rank`` — one pass's stable ranks
   ``rank[i] = starts[d_i] + #{j < i : d_j == d_i}``: one sweep with
   decoupled look-back over tiles of ``RANK_TILE`` elements.
@@ -14,17 +17,20 @@ the 8-bit-digit LSD radix sort of ``core.radix``.
 The port of ``repro.kernels.radix_sort``; the plain versions are in
 ``kernels.ref`` (``ref.radix_rank_tiled`` emulates the rank sweep's tile
 plan) and ``kernels.ops`` picks between them.  These wrappers take CUDA
-tensors only.  The rank sweep's constants are held against the built
-kernel's (:func:`kernel_config`) when the library is loaded.
+tensors only.  Both sweeps' constants are held against the built
+kernel's (:func:`kernel_config`, :func:`hist_kernel_config`) when the
+library is loaded.
 """
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from ..core.radix import HIST_BUCKETS
+from ..device import sm_count
 from . import build
 
 _NAME = "radix_sort"
@@ -41,6 +47,69 @@ LOOKBACK = 4
 
 _CONFIG_KEYS = ("tile", "threads", "warps", "lookback")
 
+#: Threads of a histogram block and blocks an SM of its persistent grid;
+#: keys a lane reads with one 16-byte load of each word, and the key
+#: vectors a lane loads before it counts any (2 words: 64 KiB in flight an
+#: SM); and the copies of each bucket in shared memory (lane l adds to
+#: copy l % HIST_COPIES).
+HIST_THREADS = 1024
+HIST_BLOCKS_PER_SM = 1
+HIST_KEYS = 4
+HIST_UNROLL = 2
+HIST_COPIES = 1
+#: Bytes of one vector load.
+VEC_BYTES = 16
+_HIST_PATHS = {"scalar": 0, "vector": 1}
+_HIST_CONFIG_KEYS = ("threads", "blocks_per_sm", "keys", "unroll",
+                     "copies", "max_pass", "registers", "local_bytes")
+
+
+@dataclass(frozen=True)
+class HistPlan:
+    """The histogram sweep a call launches: ``path`` is ``vector`` (one
+    16-byte load of each word for four keys) or ``scalar`` (one load a
+    key); ``blocks`` the persistent grid, which walks ``vectors`` groups of
+    ``HIST_KEYS`` keys (the last one cut by T), ``tail`` of the keys by
+    scalar loads: T mod 4 on the vector path, all on the scalar path."""
+    path: str
+    blocks: int
+    vectors: int
+    tail: int
+
+
+def hist_plan(n: int, aligned: bool, sms: int) -> HistPlan:
+    """The sweep over ``n`` keys on a card of ``sms`` SMs; ``aligned``:
+    every key word starts on a 16-byte boundary.  The grid is
+    ``HIST_BLOCKS_PER_SM`` blocks an SM, or fewer when the keys do not
+    give every thread of them a vector."""
+    vectors = -(-n // HIST_KEYS)
+    blocks = max(1, min(sms * HIST_BLOCKS_PER_SM,
+                        -(-vectors // HIST_THREADS)))
+    if aligned:
+        return HistPlan("vector", blocks, vectors, n % HIST_KEYS)
+    return HistPlan("scalar", blocks, vectors, n)
+
+
+def hist_plan_for(words: Sequence[torch.Tensor]) -> HistPlan:
+    """:func:`hist_plan` of a call on ``words`` (CUDA tensors)."""
+    return hist_plan(words[0].shape[0],
+                     all(w.data_ptr() % VEC_BYTES == 0 for w in words),
+                     sm_count(words[0].device))
+
+
+#: The ctypes arrays of each plan's shifts and widths, made once.
+_c_digits: Dict[Tuple[Tuple[int, ...], Tuple[int, ...]],
+                Tuple[ctypes.Array, ctypes.Array]] = {}
+
+
+def _digits(shifts: Sequence[int], widths: Sequence[int]):
+    key = (tuple(shifts), tuple(widths))
+    arrays = _c_digits.get(key)
+    if arrays is None:
+        arrays = _c_digits[key] = ((ctypes.c_int * _MAX_PASS)(*key[0]),
+                                   (ctypes.c_int * _MAX_PASS)(*key[1]))
+    return arrays
+
 
 def _config(lib: ctypes.CDLL) -> Dict[str, int]:
     out = (ctypes.c_int64 * len(_CONFIG_KEYS))()
@@ -48,17 +117,27 @@ def _config(lib: ctypes.CDLL) -> Dict[str, int]:
     return dict(zip(_CONFIG_KEYS, out))
 
 
+def _hist_config(lib: ctypes.CDLL, vector: bool,
+                 words: int) -> Dict[str, int]:
+    out = (ctypes.c_int64 * len(_HIST_CONFIG_KEYS))()
+    build.check(lib, _NAME, lib.radix_histogram_config(
+        int(vector), words, ctypes.addressof(out)))
+    return dict(zip(_HIST_CONFIG_KEYS, out))
+
+
 def _lib() -> ctypes.CDLL:
-    """The loaded library; on first use the rank sweep's constants are
-    held against this module's."""
+    """The loaded library; on first use both sweeps' constants are held
+    against this module's."""
     global _checked
     lib = build.load(_NAME)
     if not _checked:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         ip = ctypes.POINTER(ctypes.c_int)
         lib.radix_histogram_launch.argtypes = [vp, vp, ip, ip, ci, vp, ci,
-                                               vp]
+                                               ci, ci, vp]
         lib.radix_histogram_launch.restype = ci
+        lib.radix_histogram_config.argtypes = [ci, ci, vp]
+        lib.radix_histogram_config.restype = ci
         lib.radix_rank_launch.argtypes = [vp, vp, vp, vp, ci, vp]
         lib.radix_rank_launch.restype = ci
         lib.radix_pass_launch.argtypes = [vp, vp, ci, ci] + [vp] * 6 + [
@@ -75,6 +154,15 @@ def _lib() -> ctypes.CDLL:
             raise RuntimeError(
                 "radix_rank: the kernel's R_TILE, R_TPB, R_WARPS, LOOKBACK "
                 f"are {got}, this module's {want}")
+        hcfg = _hist_config(lib, True, 2)
+        got = tuple(hcfg[k] for k in _HIST_CONFIG_KEYS[:6])
+        want = (HIST_THREADS, HIST_BLOCKS_PER_SM, HIST_KEYS, HIST_UNROLL,
+                HIST_COPIES, _MAX_PASS)
+        if got != want:
+            raise RuntimeError(
+                "radix_histogram: the kernel's H_THREADS, H_BLOCKS_PER_SM, "
+                "H_KEYS, H_UNROLL, H_COPIES, MAX_PASS are "
+                f"{got}, this module's {want}")
         _checked = True
     return lib
 
@@ -83,6 +171,14 @@ def kernel_config() -> Dict[str, int]:
     """The built rank sweep's constants (``tile``, ``threads``,
     ``warps``, ``lookback``)."""
     return _config(_lib())
+
+
+def hist_kernel_config(vector: bool = True, words: int = 2
+                       ) -> Dict[str, int]:
+    """The built histogram sweep's constants and, for the variant
+    (``vector`` loads or not, 1 or 2 ``words``), its ``registers`` and
+    ``local_bytes`` a thread."""
+    return _hist_config(_lib(), vector, words)
 
 
 def _check(x: torch.Tensor, what: str, kernel: str, n: int,
@@ -124,19 +220,19 @@ def radix_histogram(words: Sequence[torch.Tensor], shifts: Sequence[int],
         raise ValueError(f"radix_histogram: digits {list(shifts)} / "
                          f"{list(widths)} do not fit {len(words)} word(s) "
                          "of 8-bit digits")
-    out = torch.zeros((npass, HIST_BUCKETS), dtype=torch.int32, device=dev)
+    out = torch.empty((npass, HIST_BUCKETS), dtype=torch.int32, device=dev)
     if n == 0 or npass == 0:
-        return out
+        return out.zero_()
     lib = _lib()
-    c_shifts = (ctypes.c_int * _MAX_PASS)(*shifts)
-    c_widths = (ctypes.c_int * _MAX_PASS)(*widths)
+    c_shifts, c_widths = _digits(shifts, widths)
+    p = hist_plan_for(words)
     hi = words[0].data_ptr() if len(words) == 2 else None
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with build.on_device(dev):
         err = lib.radix_histogram_launch(
             hi, words[-1].data_ptr(), c_shifts, c_widths, npass,
-            out.data_ptr(), n, stream)
-    build.check(lib, _NAME, err, "radix_histogram")
+            out.data_ptr(), n, _HIST_PATHS[p.path], p.blocks,
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, _NAME, err, f"radix_histogram ({p.path} path)")
     radix_histogram.launches += 1
     return out
 
@@ -162,11 +258,10 @@ def radix_rank(digits: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
         return out
     lib = _lib()
     scratch = _scratch(lib, n, dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with build.on_device(dev):
         err = lib.radix_rank_launch(digits.data_ptr(), starts.data_ptr(),
                                     out.data_ptr(), scratch.data_ptr(), n,
-                                    stream)
+                                    torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, _NAME, err, "radix_rank")
     radix_rank.launches += 1
     return out
@@ -204,13 +299,12 @@ def radix_pass(words: Sequence[torch.Tensor], perm: Optional[torch.Tensor],
     scratch = _scratch(lib, n, dev)
     hi, hi_out = ((words[0].data_ptr(), out_words[0].data_ptr())
                   if len(words) == 2 else (None, None))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with build.on_device(dev):
         err = lib.radix_pass_launch(
             hi, words[-1].data_ptr(), shift, width,
             None if perm is None else perm.data_ptr(), starts.data_ptr(),
             hi_out, out_words[-1].data_ptr(), out_perm.data_ptr(),
-            scratch.data_ptr(), n, stream)
+            scratch.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, _NAME, err, "radix_rank (fused pass)")
     radix_rank.launches += 1
     return out_words, out_perm

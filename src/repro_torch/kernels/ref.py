@@ -39,6 +39,78 @@ def segment_reduce_ref(w_lo: torch.Tensor, w_hi: torch.Tensor,
     return lo, hi, cnt
 
 
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values as the int32 bit patterns of their low 32 bits."""
+    x = x & 0xFFFFFFFF
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def segment_reduce_tiled(w_lo: torch.Tensor, w_hi: torch.Tensor,
+                         first: torch.Tensor, tile: Optional[int] = None,
+                         items: Optional[int] = None, lag: int = 0):
+    """:func:`segment_reduce_ref` computed as the CUDA sweep decomposes it
+    (``kernels.segment_reduce``: tiles of ``tile`` elements, default
+    ``TILE``, ``items`` elements a thread, default ``ITEMS``), in the
+    exclusive (T + 1) layout it writes, on any device.
+
+    A warp holds a stretch of 32 x ``items`` elements of its tile as
+    chunks of 128, a lane the 4 contiguous elements 4l .. 4l + 3 of each
+    chunk: the lane's elements are scanned in turn, the lane sums of a
+    chunk across the warp, the chunk totals carry from chunk to chunk,
+    and the warp totals are scanned across the tile (each warp's start);
+    each tile publishes its three lane totals.  Then, tile after tile in
+    the order they are claimed, each of the three lanes walks back over
+    its own status words alone: the nearest ``lag`` predecessors still
+    hold AGGREGATE values (published, not yet inclusive) and are added one
+    by one, and the next one's INCLUSIVE value ends the walk.  The ragged
+    last tile is zero past T, and element T is the last tile's inclusive
+    value.  Returns three (T + 1,) int32 tensors (uint32 bit patterns for
+    the weight lanes)."""
+    from .segment_reduce import ITEMS, TILE
+    tile = tile or TILE
+    items = items or ITEMS
+    if items % 4 or tile % (32 * items):
+        raise ValueError(f"a tile of {tile} does not split into warps of "
+                         f"32 x {items} elements in chunks of 128")
+    t = w_lo.shape[0]
+    dev = w_lo.device
+    f = first.to(torch.bool)
+    ntiles = max(1, -(-t // tile))
+    lanes = torch.zeros((3, ntiles * tile), dtype=torch.int64, device=dev)
+    lanes[0, :t] = torch.where(f, w_lo.long() & 0xFFFFFFFF, 0)
+    lanes[1, :t] = torch.where(f, w_hi.long() & 0xFFFFFFFF, 0)
+    lanes[2, :t] = f.long()
+    # (lane of the sums, tile, warp, chunk, lane of the warp, element)
+    v = lanes.view(3, ntiles, tile // (32 * items), items // 4, 32, 4)
+    in_lane = torch.cumsum(v, -1) - v
+    lane_sum = v.sum(-1)
+    in_chunk = torch.cumsum(lane_sum, -1) - lane_sum
+    chunk_sum = lane_sum.sum(-1)
+    in_warp = torch.cumsum(chunk_sum, -1) - chunk_sum
+    warp_sum = chunk_sum.sum(-1)
+    in_tile = torch.cumsum(warp_sum, -1) - warp_sum
+    agg = warp_sum.sum(-1)                            # (3, ntiles)
+    inclusive = torch.zeros_like(agg)
+    prefix = torch.zeros_like(agg)
+    for k in range(ntiles):                           # claim order
+        for lane in range(3):
+            p, j = 0, k - 1
+            while j >= 0:
+                if j >= k - lag:                      # still AGGREGATE
+                    p += int(agg[lane, j])
+                    j -= 1
+                    continue
+                p += int(inclusive[lane, j])          # INCLUSIVE: done
+                break
+            prefix[lane, k] = p
+            inclusive[lane, k] = p + int(agg[lane, k])
+    ex = (prefix[:, :, None, None, None, None]
+          + in_tile[..., None, None, None] + in_warp[..., None, None]
+          + in_chunk[..., None] + in_lane)
+    out = torch.cat([ex.reshape(3, -1)[:, :t], inclusive[:, -1:]], 1)
+    return tuple(_i32(x) for x in out)
+
+
 def radix_histogram_ref(words: Sequence[torch.Tensor],
                         shifts: Sequence[int], widths: Sequence[int]
                         ) -> torch.Tensor:
@@ -56,6 +128,57 @@ def radix_histogram_ref(words: Sequence[torch.Tensor],
     if not rows:
         return torch.zeros((0, HIST_BUCKETS), dtype=torch.int32, device=dev)
     return torch.stack(rows)
+
+
+def radix_histogram_warp(words: Sequence[torch.Tensor],
+                         shifts: Sequence[int], widths: Sequence[int],
+                         blocks: int = 1):
+    """:func:`radix_histogram_ref` computed as the CUDA sweep counts
+    (``kernels.radix_sort.hist_plan``), on any device -> (the (npass,
+    256) int32 histograms, the shared-memory additions the counts took).
+
+    The grid of ``blocks`` blocks deals the vectors of 4 keys in equal
+    contiguous shares; a warp's 32 lanes hold 32 consecutive vectors of
+    its block's share and count one key of each vector at a time, in
+    every pass, with one shared atomic.  The card adds the lanes of one
+    such atomic that hit one bucket in one operation (``ATOMS.POPC.INC``),
+    which this emulates as the warp multi-split: each lane's peers are the
+    lanes that agree with it on every digit bit (one ballot per bit of the
+    digit's width), and the lowest peer adds their number, one addition
+    per distinct digit of the warp's 32 keys."""
+    from .radix_sort import HIST_KEYS
+    dev = words[0].device
+    t = words[0].shape[0]
+    npass = len(shifts)
+    hist = torch.zeros((npass, HIST_BUCKETS), dtype=torch.int64, device=dev)
+    if t == 0 or npass == 0:
+        return hist.to(torch.int32), 0
+    nvec = -(-t // HIST_KEYS)
+    per = -(-nvec // blocks)
+    warps = -(-per // 32)
+    vec = torch.arange(nvec, device=dev)
+    row = (vec // per) * warps + (vec % per) // 32   # the warp's step
+    lane = vec % per % 32
+    e = vec[:, None] * HIST_KEYS + torch.arange(HIST_KEYS, device=dev)
+    lower = torch.ones((32, 32), dtype=torch.bool, device=dev).tril(-1)
+    additions = 0
+    for p, (shift, width) in enumerate(zip(shifts, widths)):
+        dig = torch.full((t + HIST_KEYS,), -1, dtype=torch.int64,
+                         device=dev)
+        dig[:t] = extract_digit(words, shift, width).long()
+        d = torch.full((blocks * warps, HIST_KEYS, 32), -1,
+                       dtype=torch.int64, device=dev)
+        d[row, :, lane] = dig[e.clamp(max=t)]
+        d = d.reshape(-1, 32)
+        live = d >= 0
+        bits = (d.clamp(min=0)[..., None]
+                >> torch.arange(width, device=dev)) & 1     # (R, 32, width)
+        peers = ((bits[:, :, None, :] == bits[:, None, :, :]).all(-1)
+                 & live[:, None, :] & live[:, :, None])
+        leader = live & ~(peers & lower).any(-1)
+        hist[p].index_add_(0, d[leader], peers[leader].sum(-1))
+        additions += int(leader.sum())
+    return hist.to(torch.int32), additions
 
 
 def radix_rank_ref(digits: torch.Tensor, starts: torch.Tensor,

@@ -11,6 +11,7 @@ import torch
 from repro_torch.core import BatchMiner, NOACMiner
 from repro_torch.core import radix as RX
 from repro_torch.data import synthetic as S
+from repro_torch.kernels import decode_attention as KD
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import radix_sort as KR
 from repro_torch.kernels import segment_reduce as KS
@@ -59,6 +60,184 @@ def test_radix_histogram_kernel(cuda, t, live):
     torch.cuda.synchronize()
     assert torch.equal(got, ref.radix_histogram_ref(words, plan.shifts,
                                                     plan.widths))
+
+
+# the segment sweep's runs (KS.ITEMS) and tiles (KS.TILE), +- 1, and the
+# BibSonomy table
+SEG_SIZES = [1, KS.ITEMS - 1, KS.ITEMS, KS.ITEMS + 1, KS.TILE - 1, KS.TILE,
+             KS.TILE + 1, 2 * KS.TILE + 1, 33 * KS.TILE - 5, 816_197]
+
+
+def _seg_inputs(t, dev, p_first=0.5, seed=None):
+    rng = np.random.default_rng(t if seed is None else seed)
+    return (_i32(rng.integers(0, 2**32, t, dtype=np.uint64), dev),
+            _i32(rng.integers(0, 2**32, t, dtype=np.uint64), dev),
+            torch.from_numpy(rng.random(t) < p_first).to(dev))
+
+
+def _assert_exclusive(got, args):
+    want = ref.segment_reduce_ref(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == (w.shape[0] + 1,) and g.dtype == torch.int32
+        assert int(g[0]) == 0 and torch.equal(g[1:], w)
+
+
+@pytest.mark.parametrize("t", SEG_SIZES)
+def test_segment_reduce_kernel_exclusive_at_tile_bounds(cuda, t):
+    """The (T + 1) entry at the runs' and tiles' bounds: element 0 zero,
+    then the plain inclusive sums, element T the total."""
+    args = _seg_inputs(t, cuda)
+    assert KS.plan(t, True) == KS.Plan("vector", -(-t // KS.TILE))
+    _assert_exclusive(KS.segment_reduce_exclusive(*args), args)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("t", [1, KS.TILE + 1, 70_001])
+def test_segment_reduce_kernel_views_off_16_bytes(cuda, t, offset):
+    """Inputs that start off 16 bytes take the scalar-load path, which the
+    C entry would refuse as a vector plan."""
+    base = _seg_inputs(t + offset, cuda)
+    args = tuple(x[offset:] for x in base)
+    assert KS.plan(t, all(x.data_ptr() % 16 == 0 for x in args)).path == \
+        "scalar"
+    _assert_exclusive(KS.segment_reduce_exclusive(*args), args)
+    got = KS.segment_reduce(*args)
+    want = ref.segment_reduce_ref(*args)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("p_first", [0.0, 1.0])
+@pytest.mark.parametrize("t", [KS.TILE + 3, 816_197])
+def test_segment_reduce_kernel_no_first_and_all_first(cuda, t, p_first):
+    args = _seg_inputs(t, cuda, p_first)
+    got = KS.segment_reduce_exclusive(*args)
+    _assert_exclusive(got, args)
+    assert int(got[2][-1]) == (t if p_first else 0)
+
+
+def test_segment_reduce_kernel_wraparound_and_repeats(cuda):
+    """0xFFFFFFFF weights wrap mod 2**32 across many tiles, and three calls
+    give the same bits (the scratch is zeroed by every call's memset)."""
+    t = 816_197
+    ones = torch.full((t,), -1, dtype=torch.int32, device=cuda)
+    all_first = torch.ones((t,), dtype=torch.bool, device=cuda)
+    got = KS.segment_reduce_exclusive(ones, ones, all_first)
+    want = np.concatenate([np.zeros(1, np.uint64),
+                           np.cumsum(np.full(t, 0xFFFFFFFF, np.uint64))])
+    np.testing.assert_array_equal(got[0].cpu().numpy().view(np.uint32),
+                                  want.astype(np.uint32))
+    args = _seg_inputs(t, cuda, seed=5)
+    first = KS.segment_reduce_exclusive(*args)
+    for _ in range(3):
+        again = KS.segment_reduce_exclusive(*args)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
+    _assert_exclusive(first, args)
+
+
+def test_masked_prefix_on_the_card_runs_no_cat(cuda, monkeypatch):
+    """``core.pipeline.masked_prefix`` takes the kernel's (T + 1) buffers
+    as they are: no ``torch.cat`` runs, and they equal the plain path's."""
+    from repro_torch.core import pipeline as P
+    args = _seg_inputs(70_001, cuda, p_first=0.3)
+    want = P.masked_prefix(*args, use_kernels=False)
+    before = KS.segment_reduce.launches
+
+    def no_cat(*a, **k):
+        raise AssertionError("torch.cat ran in masked_prefix on the card")
+    monkeypatch.setattr(torch, "cat", no_cat)
+    got = P.masked_prefix(*args)
+    monkeypatch.undo()
+    assert KS.segment_reduce.launches == before + 1
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("vector", [True, False])
+def test_segment_reduce_kernel_config(cuda, vector):
+    """The built sweep's constants are the plan's, and each variant stays
+    in registers (no local memory, no spills)."""
+    cfg = KS.kernel_config(vector)
+    assert (cfg["threads"], cfg["items"], cfg["tile"], cfg["lanes"],
+            cfg["lookback"]) == (KS.THREADS, KS.ITEMS, KS.TILE, KS.LANES,
+                                 KS.LOOKBACK)
+    assert 0 < cfg["registers"] <= 255 and cfg["local_bytes"] == 0
+
+
+def _hist_words(keys, nw, dev):
+    if nw == 2:
+        return [_i32(keys >> np.uint64(32), dev),
+                _i32(keys & np.uint64(0xFFFFFFFF), dev)]
+    return [_i32(keys & np.uint64(0xFFFFFFFF), dev)]
+
+
+def _hist_check(words, shifts, widths):
+    got = KR.radix_histogram(words, shifts, widths)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.radix_histogram_ref(words, shifts, widths))
+    assert int(got.sum()) == words[0].shape[0] * len(shifts)
+
+
+@pytest.mark.parametrize("t", [1, 3, 4, 5, 4097, 135_171, 816_197])
+@pytest.mark.parametrize("nw", [1, 2])
+def test_radix_histogram_kernel_all_keys_equal(cuda, t, nw):
+    """Every key equal, the worst contention for the shared atomics, in
+    every pass of 8-bit digits, with T mod 4 = 1, 3, 0."""
+    keys = np.full(t, 0x0123456789ABCDEF, np.uint64)
+    npass = 4 * nw
+    _hist_check(_hist_words(keys, nw, cuda), [8 * p for p in range(npass)],
+                [8] * npass)
+
+
+@pytest.mark.parametrize("npass", range(1, 9))
+@pytest.mark.parametrize("nw", [1, 2])
+@pytest.mark.parametrize("t", [7, 70_001])
+def test_radix_histogram_kernel_passes_and_narrow_widths(cuda, npass, nw, t):
+    """1-8 passes (1-4 on one word) of widths 1-8, skewed keys."""
+    npass = min(npass, 4 * nw)
+    rng = np.random.default_rng(npass * 10 + nw)
+    keys = rng.integers(0, 2**63, t, dtype=np.uint64)
+    keys[: t // 2] = keys[0]
+    widths = [1 + (p * 3 + npass) % 8 for p in range(npass)]
+    shifts, at = [], 0
+    for w in widths:
+        shifts.append(at)
+        at += w
+    _hist_check(_hist_words(keys, nw, cuda), shifts, widths)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("t", [5, 4099, 816_197])
+@pytest.mark.parametrize("nw", [1, 2])
+def test_radix_histogram_kernel_views_off_16_bytes(cuda, t, offset, nw):
+    """Key words that start off 16 bytes take the scalar-load path, at
+    T mod 4 = 1 and 3 too; an aligned hi with an unaligned lo as well."""
+    rng = np.random.default_rng(t + offset)
+    keys = rng.integers(0, 2**44, t + offset, dtype=np.uint64)
+    base = _hist_words(keys, nw, cuda)
+    words = [w[offset:] for w in base]
+    if nw == 2:
+        words[0] = words[0].clone()                 # aligned hi
+    assert KR.hist_plan_for(words).path == "scalar"
+    plan = RX.plan_radix(32 * nw, t, RX.HIST_DIGIT_BITS)
+    _hist_check(words, plan.shifts, plan.widths)
+
+
+@pytest.mark.parametrize("vector", [True, False])
+@pytest.mark.parametrize("words", [1, 2])
+def test_radix_histogram_kernel_config(cuda, vector, words):
+    """The built sweep's constants are the plan's, and each variant stays
+    in registers (no local memory, no spills)."""
+    cfg = KR.hist_kernel_config(vector, words)
+    assert (cfg["threads"], cfg["blocks_per_sm"], cfg["keys"],
+            cfg["unroll"], cfg["copies"], cfg["max_pass"]) == (
+        KR.HIST_THREADS, KR.HIST_BLOCKS_PER_SM, KR.HIST_KEYS,
+        KR.HIST_UNROLL, KR.HIST_COPIES, 8)
+    assert 0 < cfg["registers"] <= 65536 // (
+        KR.HIST_THREADS * KR.HIST_BLOCKS_PER_SM)
+    assert cfg["local_bytes"] == 0
+    plan = KR.hist_plan(816_197, vector, KD.sm_count(cuda))
+    assert plan.blocks == KD.sm_count(cuda) * KR.HIST_BLOCKS_PER_SM
 
 
 # the rank sweep's tiles (KR.RANK_TILE elements): one and two tiles, +- 1,

@@ -213,6 +213,102 @@ def test_rank_sweep_constants_match_the_kernel_source():
         TK.RANK_TILE, TK.LOOKBACK)
 
 
+@pytest.mark.parametrize("t", [1, 3, 4, 5, 4095, 4096, 4097,
+                               TK.HIST_KEYS * TK.HIST_THREADS * 132 + 2,
+                               816_197])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("sms", [132, 8])
+def test_hist_plan(t, aligned, sms):
+    """The histogram sweep's plan: a persistent grid of
+    HIST_BLOCKS_PER_SM blocks an SM, fewer when the keys do not give each
+    of their threads a vector; 16-byte loads on aligned words with the
+    last T mod 4 keys by scalar loads, else scalar loads throughout."""
+    p = TK.hist_plan(t, aligned, sms)
+    vectors = -(-t // TK.HIST_KEYS)
+    assert p.vectors == vectors
+    assert p.blocks == max(1, min(sms * TK.HIST_BLOCKS_PER_SM,
+                                  -(-vectors // TK.HIST_THREADS)))
+    assert 1 <= p.blocks <= sms * TK.HIST_BLOCKS_PER_SM
+    # every block has a share, and the shares cover the vectors
+    per = -(-vectors // p.blocks)
+    assert (p.blocks - 1) * per < vectors <= p.blocks * per
+    if aligned:
+        assert (p.path, p.tail) == ("vector", t % TK.HIST_KEYS)
+    else:
+        assert (p.path, p.tail) == ("scalar", t)
+    if t == 816_197:
+        assert p.blocks == sms * TK.HIST_BLOCKS_PER_SM
+
+
+def _widths_plan(npass, nw):
+    widths = [1 + (p * 3 + npass) % 8 for p in range(npass)]
+    while sum(widths) > 32 * nw:
+        widths = [max(1, w - 1) for w in widths]
+    return [int(x) for x in np.cumsum([0] + widths[:-1])], widths
+
+
+@pytest.mark.parametrize("npass", range(1, 9))
+@pytest.mark.parametrize("nw", [1, 2])
+@pytest.mark.parametrize("kind", ["random", "all equal"])
+def test_radix_histogram_warp_matches_plain_and_pallas(npass, nw, kind):
+    """The emulation of the CUDA sweep's counting (its grid's shares, a
+    warp's 32 lanes one key of a vector at a time, the lanes on one bucket
+    added in one operation: peers by digit bits, the lowest adds their
+    number) equals the plain histograms and the Pallas kernel's, 1-8
+    passes of widths 1-8 on 1 and 2 words, 1 and 3 blocks."""
+    t = 1000 + npass
+    keys = _keys(t, 32 * nw, seed=npass * 2 + nw)
+    if kind == "all equal":
+        keys[:] = keys[-1]
+    words = _words(keys, 32 * nw) if nw == 2 else [keys.astype(np.uint32)]
+    tw = [u32(w) for w in words]
+    shifts, widths = _widths_plan(npass, nw)
+    want = tref.radix_histogram_ref(tw, shifts, widths)
+    pallas = jops.radix_histogram([jnp.asarray(w) for w in words], shifts,
+                                  widths, bt=256, use_pallas=True)
+    for blocks in (1, 3):
+        got, additions = tref.radix_histogram_warp(tw, shifts, widths,
+                                                   blocks)
+        assert torch.equal(got, want)
+        assert_same(got, pallas, "pallas")
+        assert 0 < additions <= t * npass
+        if kind == "all equal":
+            # one addition a warp, key slot and pass
+            nvec = -(-t // TK.HIST_KEYS)
+            per = -(-nvec // blocks)
+            vec = np.arange(t) // TK.HIST_KEYS
+            rows = (vec // per) * (-(-per // 32)) + vec % per // 32
+            groups = np.unique(rows * TK.HIST_KEYS + np.arange(t)
+                               % TK.HIST_KEYS).size
+            assert additions == groups * npass
+
+
+def test_histogram_sweep_constants_match_the_kernel_source():
+    """The histogram plan's constants are the ones written in
+    ``csrc/radix_sort.cu`` (on the card they are also read from the built
+    kernel at load)."""
+    import re
+    from repro_torch.kernels import build
+    src = (build.CSRC / "radix_sort.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+    assert (const("H_THREADS"), const("H_BLOCKS_PER_SM"), const("H_KEYS"),
+            const("H_UNROLL"), const("H_COPIES"), const("MAX_PASS")) == (
+        TK.HIST_THREADS, TK.HIST_BLOCKS_PER_SM, TK.HIST_KEYS,
+        TK.HIST_UNROLL, TK.HIST_COPIES, 8)
+    assert TK.HIST_KEYS * 4 == TK.VEC_BYTES      # one 16-byte load a word
+
+
+def test_radix_histogram_kernel_takes_cuda_tensors_only():
+    w = torch.zeros(16, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        TK.radix_histogram([w], [0], [8])
+    with pytest.raises(ValueError, match="use_kernels=True"):
+        tops.radix_histogram([w], [0], [8], use_kernels=True)
+    assert TK.radix_histogram.launches == 0
+
+
 def test_radix_pass_kernel_takes_cuda_tensors_only():
     w = torch.zeros(16, dtype=torch.int32)
     starts = torch.zeros(256, dtype=torch.int32)
