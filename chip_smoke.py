@@ -98,7 +98,22 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    step's logits within 1e-3 of the step's max |logit|.  (c) ring wrap:
    danube-smoke and mixtral-smoke (window 32) in fp32, 40-token prompts
    and 48 decode steps, kernels on against off within rtol = atol = 2e-5
-   at every step.
+   at every step;
+10. out-of-core and streaming mining (``phase10``), with
+   ``use_kernels=None`` on the card: (a) BibSonomy prime and (b) the
+   MovieLens-1M shape NOAC (delta 1) through ``mine_chunked`` at
+   ceil(T/8) rows a chunk, ``mine_windowed`` at ceil(T/8) rows a window
+   and at an odd budget below the largest key segment of mode 0, every
+   ``PipelineResult`` leaf equal to the in-core result on the card, the
+   windowed run's peak device bytes below the in-core run's; (c)
+   ``StreamingMiner`` over the BibSonomy table in 8 chunks, a seeded 1%
+   upserted and another 1% deleted, a snapshot after each step, the last
+   equal to a batch mine of the survivors, to a ``full_remine`` snapshot,
+   to a windowed snapshot and to a snapshot after ``save_checkpoint`` ->
+   ``load_checkpoint`` -> ``RunStore.restore``; every run's launches
+   held against the window plan (``segment_reduce`` = modes x windows),
+   with warm times, busy shares, host run-sort, per-window and snapshot
+   times.
 
 Before the last line it prints the card's name and power limit
 (``nvidia-smi``) and one JSON line ``{"kernels": [...]}``; the last line is
@@ -111,6 +126,7 @@ import contextlib
 import io
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -208,7 +224,7 @@ def queued_ms(fn, iters: int = 20):
     return start.elapsed_time(end) / iters, queued
 
 
-def device_ms(fn, iters: int = 10):
+def device_ms(fn, iters: int = 10, warm: bool = True):
     """(device ms per call, {kernel name: device ms per call}, {PyTorch op:
     device ms per call of the kernels it launched itself}, complete) of
     every kernel, copy and fill that ``iters`` calls of ``fn`` put on the
@@ -220,7 +236,8 @@ def device_ms(fn, iters: int = 10):
     kernels (2 of 10 kept), and an incomplete trace understates."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     try:
         with profile(activities=[ProfilerActivity.CPU,
@@ -285,7 +302,6 @@ def max_abs_err(got, want) -> int:
 def ptxas_usage(log_text: str) -> dict:
     """{kernel entry: 'N registers, S bytes smem, spills'} from an
     ``nvcc -Xptxas -v`` log."""
-    import re
     out, entry = {}, None
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -336,6 +352,264 @@ def route_agreement(a, b):
     eq = np.asarray(a) == np.asarray(b)
     return float(eq.mean()), [float(x) for x in eq.reshape(eq.shape[0], -1)
                               .mean(1)]
+
+
+def phase10(bib, ml, prime_ms: float, noac_ms: float) -> dict:
+    """Phase 10: out-of-core and streaming mining on the card at full size.
+
+    (a) BibSonomy prime and (b) the MovieLens-1M shape NOAC (delta 1):
+    ``mine_chunked`` at ceil(T/8), ``mine_windowed`` at ceil(T/8) and at an
+    odd budget below the largest key segment of mode 0, every leaf equal
+    to the in-core result on the card.  (c) ``StreamingMiner`` over the
+    BibSonomy table in 8 chunks, then a seeded 1% upserted and another 1%
+    deleted, a snapshot after each step; the last equals a batch mine of
+    the survivor table, a ``full_remine`` snapshot, a windowed snapshot
+    and a snapshot after a checkpoint round trip.  Each run's launches are
+    counted and held against the window plan; warm times, busy shares,
+    host run-sort, per-window and snapshot times, and peak device bytes
+    in-core against windowed are printed.  Returns {run: launch counts}."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.core import BatchMiner, NOACMiner, StreamingMiner
+    from repro_torch.core import keys as K
+    from repro_torch.core import memprobe as MP
+    from repro_torch.core import pipeline as P
+    from repro_torch.core import radix as RX
+    from repro_torch.core import runs as RS
+    from repro_torch.kernels import ops
+
+    mining = ops.PATH_KERNELS["mining"]
+    runs = {}
+
+    def expect(windows=1, sorted_stage1=False, passes=0, n=3):
+        """Launches of one mining run: per window a segment sweep per
+        mode and one Stage-3 sort (a histogram, 8 fused passes); a Stage 1
+        that sorts on the card adds a histogram per mode and ``passes``
+        fused passes per mode."""
+        return {"segment_reduce": n * windows,
+                "radix_histogram": windows + (n if sorted_stage1 else 0),
+                "radix_rank": 8 * windows + (n * passes
+                                             if sorted_stage1 else 0)}
+
+    def counted(label, fn, want):
+        """Run ``fn`` once with the counts at 0 and check them against
+        ``want`` (no other kernel, no plain version on the card)."""
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        res.keep.cpu()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = ops.launch_counts()
+        path = {k: counts[k] for k in mining}
+        check(path == want, f"{label}: launches {path} != {want}")
+        check(all(n == 0 for k, n in counts.items() if k not in mining),
+              f"{label}: a kernel of another path was launched: {counts}")
+        runs[label] = counts
+        return res, ms
+
+    def timed(label, fn, want, first_ms):
+        """Two more warm runs (min of 3 with the counted one) and one under
+        the profiler for the device busy share."""
+        times = [first_ms]
+        for _ in range(2):
+            t0 = time.perf_counter()
+            fn().keep.cpu()
+            times.append((time.perf_counter() - t0) * 1e3)
+        busy, _, _, complete = device_ms(lambda: fn().keep.cpu(), iters=1,
+                                         warm=False)
+        best = min(times)
+        share = ("busy not measured" if busy is None or not complete
+                 else f"device busy {busy:.3f} ms (busy share "
+                 f"{busy / best:.3f})")
+        log(f"{label}: launches {want}; warm ms {[round(t, 3) for t in times]}"
+            f" (min {best:.3f}); {share}")
+        return best
+
+    def equal_leaves(a, b, what, rows=None):
+        """Every leaf equal (``rows``: the per-tuple leaves of the first
+        ``rows`` tuples only — a padded snapshot against an unpadded
+        table, whose sorted-order leaves shift by the pads)."""
+        for name in P.PipelineResult.__dataclass_fields__:
+            x, y = getattr(a, name), getattr(b, name)
+            if rows is not None:
+                if name in ("range_lo", "range_hi", "sorted_e", "perms"):
+                    continue
+                x, y = x[..., :rows], y[..., :rows]
+            check(x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu()),
+                  f"{what}: leaf {name} differs")
+
+    def peak_bytes(fn):
+        """(result, device bytes allocated at the run's peak above what
+        was allocated before it)."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = fn()
+        res.keep.cpu()
+        torch.cuda.synchronize()
+        return res, torch.cuda.max_memory_allocated() - base
+
+    def largest_segment(ctx, plan):
+        keys = plan.pack_host(ctx.tuples, ctx.values if plan.with_values
+                              else None) >> np.uint64(plan.seg_shift)
+        return int(np.unique(keys, return_counts=True)[1].max())
+
+    def out_of_core(tag, ctx, miner, args, kw, incore_ms):
+        t = ctx.num_tuples
+        incore, incore_peak = peak_bytes(lambda: miner(*args))
+        b8 = math.ceil(t / 8)
+        seg = largest_segment(ctx, miner.key_plans[0])
+        odd = seg - 1 if (seg - 1) % 2 else seg - 2
+        check(odd >= 1, f"{tag}: largest mode-0 segment {seg}")
+        log(f"{tag}: T={t}, in-core warm {incore_ms:.3f} ms (phase "
+            f"{3 if tag.endswith('prime') else 4}); largest mode-0 key "
+            f"segment {seg} rows; budgets ceil(T/8) = {b8} and {odd}")
+        # the host run sort alone, at the chunk budget
+        t0 = time.perf_counter()
+        store = RS.RunStore(miner.key_plans, incremental=True)
+        for rows, vals in RS.iter_chunks(ctx.tuples, kw.get("values"), b8,
+                                         with_values=miner.delta
+                                         is not None):
+            store.add(rows, vals)
+        store.prepare()
+        sort_ms = (time.perf_counter() - t0) * 1e3
+        log(f"{tag}: host run sort of {t} rows in {math.ceil(t / b8)} "
+            f"chunks (RunStore add + prepare): {sort_ms:.3f} ms")
+
+        def chunked():
+            return miner.mine_chunked(ctx.tuples, chunk_budget=b8, **kw)
+        res, ms = counted(f"{tag} chunked", chunked, expect())
+        equal_leaves(res, incore, f"{tag} chunked vs in-core")
+        timed(f"{tag} chunked (budget {b8})", chunked, expect(), ms)
+        peaks = {}
+        for budget in (b8, odd):
+            windows = RX.plan_windows(t, budget).n_windows
+            label = f"{tag} windowed (budget {budget}, {windows} windows)"
+            stamps = []
+            probe = MP.MemProbe("cuda")
+
+            def stamped(stage, probe=probe, stamps=stamps):
+                stamps.append((stage, time.perf_counter()))
+                probe(stage)
+
+            def windowed(budget=budget, probe=None):
+                return miner.mine_windowed(ctx.tuples, window_budget=budget,
+                                           probe=probe, **kw)
+            res, ms = counted(label, lambda: windowed(probe=stamped),
+                              expect(windows))
+            equal_leaves(res, incore, f"{label} vs in-core")
+            # the time from one window's result to the next, host work
+            # included (the first window of a stage also carries the
+            # stage's host set-up)
+            per_stage = {}
+            for (_, t_a), (stage, t_b) in zip(stamps, stamps[1:]):
+                per_stage.setdefault(stage, []).append((t_b - t_a) * 1e3)
+            log(f"{label}: per-window ms " + ", ".join(
+                f"{st} median {np.median(v):.3f} max {np.max(v):.3f}"
+                for st, v in per_stage.items())
+                + f"; MemProbe stage peaks {probe.report()['stages']}")
+            timed(label, windowed, expect(windows), ms)
+            _, peaks[budget] = peak_bytes(windowed)
+        log(f"{tag}: peak device bytes above the start: in-core "
+            f"{incore_peak}, windowed " + ", ".join(
+                f"(budget {b}) {v} ({v / incore_peak:.3f} of in-core)"
+                for b, v in peaks.items()))
+        for b, v in peaks.items():
+            check(v < incore_peak, f"{tag}: windowed (budget {b}) peak {v}"
+                  f" >= in-core {incore_peak}")
+        return incore
+
+    t_phase = time.perf_counter()
+    # (a) BibSonomy prime, (b) the MovieLens-1M shape NOAC
+    bib_incore = out_of_core("phase 10a bibsonomy prime", bib,
+                             BatchMiner(bib.sizes, device="cuda"),
+                             (bib.tuples,), {}, prime_ms)
+    out_of_core("phase 10b movielens noac", ml,
+                NOACMiner(ml.sizes, delta=1.0, device="cuda"),
+                (ml.tuples, ml.values), {"values": ml.values}, noac_ms)
+
+    # (c) streaming over the BibSonomy table
+    tag = "phase 10c streaming bibsonomy"
+    t = bib.num_tuples
+    sm = StreamingMiner(bib.sizes, device="cuda")
+    step = math.ceil(t / 8)
+    snap_ms = []
+    for i, lo in enumerate(range(0, t, step)):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        sm.add(bib.tuples[lo:lo + step])
+        add_ms = (time.perf_counter() - t0) * 1e3
+        check(sum(ops.launch_counts().values()) == 0,
+              f"{tag}: ingestion launched a kernel")
+        snap, ms = counted(f"{tag} snapshot {i + 1}", sm.snapshot, expect())
+        snap_ms.append(ms)
+        log(f"{tag}: chunk {i + 1}: add {add_ms:.3f} ms (host sort and "
+            f"merge), snapshot of {sm.state.count} rows (cap "
+            f"{len(snap.keep)}) {ms:.3f} ms")
+    equal_leaves(snap, bib_incore, f"{tag} after 8 chunks vs in-core",
+                 rows=t)
+    rng = np.random.default_rng(2026)
+    pick = rng.choice(t, 2 * (t // 100), replace=False)
+    for what, fn in (("upsert", lambda: sm.upsert(
+            bib.tuples[pick[:t // 100]])),
+                     ("delete", lambda: sm.delete(
+                         bib.tuples[pick[t // 100:]]))):
+        t0 = time.perf_counter()
+        fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        snap, ms = counted(f"{tag} snapshot after {what}", sm.snapshot,
+                           expect())
+        snap_ms.append(ms)
+        log(f"{tag}: {what} of {t // 100} rows {host_ms:.3f} ms, snapshot of "
+            f"{sm.state.count} rows {ms:.3f} ms")
+    survivors = sm.state.table()[0].copy()
+    batch = BatchMiner(bib.sizes, device="cuda")(survivors)
+    equal_leaves(snap, batch, f"{tag} last snapshot vs batch of the "
+                 "survivors", rows=survivors.shape[0])
+    check(np.array_equal(P.kept_sig_words(snap), P.kept_sig_words(batch)),
+          f"{tag}: kept signatures differ from the batch mine")
+    snap_warm = timed(f"{tag} incremental snapshot", sm.snapshot, expect(),
+                      snap_ms[-1])
+    remine = expect(sorted_stage1=True,
+                    passes=math.ceil(sm.key_plans[0].total_bits / 8))
+    full, full_ms = counted(f"{tag} full_remine",
+                            lambda: sm.snapshot(full_remine=True), remine)
+    equal_leaves(full, snap, f"{tag} full_remine vs incremental")
+    full_warm = timed(f"{tag} full_remine",
+                      lambda: sm.snapshot(full_remine=True), remine, full_ms)
+    sm.window_budget = step
+    windows = RX.plan_windows(len(snap.keep), step).n_windows
+    win, win_ms = counted(f"{tag} windowed snapshot", sm.snapshot,
+                          expect(windows))
+    equal_leaves(win, snap, f"{tag} windowed vs incremental")
+    win_warm = timed(f"{tag} windowed snapshot", sm.snapshot,
+                     expect(windows), win_ms)
+    sm.window_budget = None
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/stream.ckpt"
+        t0 = time.perf_counter()
+        RS.save_checkpoint(sm.state.checkpoint(), path,
+                           meta={"stream_version": sm.stream_version})
+        blob, meta = RS.load_checkpoint(path)
+        ck_ms = (time.perf_counter() - t0) * 1e3
+    check(meta == {"stream_version": 10}, f"{tag}: checkpoint meta {meta}")
+    restored = StreamingMiner(bib.sizes, device="cuda")
+    restored.state = RS.RunStore.restore(blob)
+    back, back_ms = counted(f"{tag} snapshot after restore",
+                            restored.snapshot, expect())
+    equal_leaves(back, snap, f"{tag} restored vs uninterrupted")
+    log(f"{tag}: snapshot ms after each step {[round(x, 3) for x in snap_ms]}"
+        f"; warm (min of 3) incremental {snap_warm:.3f}, full_remine "
+        f"{full_warm:.3f}, windowed (budget {step}, {windows} windows) "
+        f"{win_warm:.3f}; checkpoint save + load {ck_ms:.3f} ms, "
+        f"snapshot after restore {back_ms:.3f} ms; every leaf equal to the "
+        f"incremental snapshot, and the per-tuple leaves to a batch mine of "
+        f"the {survivors.shape[0]} survivors")
+    log(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
+    return runs
 
 
 def main() -> int:
@@ -1802,6 +2076,9 @@ def main() -> int:
             f"{errs_c['rmsnorm'][1]:.3e}); kernels on vs off within 2e-5 of "
             f"max |logit| at every step (worst {worst:.3e})")
 
+    # -- phase 10: out-of-core and streaming mining --------------------------
+    runs10 = phase10(bib, ml, prime_ms, noac_ms)
+
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
                     or m == "repro" or m.startswith("repro."))
@@ -1831,6 +2108,9 @@ def main() -> int:
         for run, counts in dense_counts.items():
             k["launches_by_run"][run.replace("phase 8 ", "").replace(
                 " ", "_")] = counts[k["name"]]
+        for run, counts in runs10.items():
+            k["launches_by_run"][re.sub(r"[^a-z0-9]+", "_", run.lower())
+                                 .strip("_")] = counts[k["name"]]
         k["launches"] = sum(k["launches_by_run"].values())
         k["max_abs_err"] = errs[k["name"]]
 

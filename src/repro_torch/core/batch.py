@@ -43,10 +43,12 @@ class BatchMiner(P.PipelineMiner):
                  seed: int = 0x5EED, packed: Optional[bool] = None,
                  sort_backend: Optional[str] = None,
                  use_kernels: Optional[bool] = None,
-                 prune_values: bool = True, device=None):
+                 prune_values: bool = True,
+                 window_budget: Optional[int] = None, device=None):
         super().__init__(sizes, theta=theta, seed=seed, packed=packed,
                          sort_backend=sort_backend, use_kernels=use_kernels,
-                         prune_values=prune_values, device=device)
+                         prune_values=prune_values,
+                         window_budget=window_budget, device=device)
 
     def mine_context(self, ctx: PolyadicContext, only_kept: bool = True):
         if ctx.sizes != self.sizes:

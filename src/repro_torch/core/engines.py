@@ -4,10 +4,10 @@ Port of ``repro.core.engines`` for the engines the port has.
 ``repro_torch.core.mine(ctx, backend=..., variant=...)`` is the single
 entry point.  Engines register themselves under a ``(backend, variant)``
 key; unknown combinations fail with an error that lists every valid
-choice.  The port registers ``batch`` (one device) and ``reference`` (the
-pure-python oracle of ``core.reference``), each in the ``prime`` and
-``noac`` variants; the distributed and streaming backends are later
-slices.
+choice.  The port registers ``batch`` (one device), ``streaming``
+(incremental sorted-run ingestion, ``core.streaming``) and ``reference``
+(the pure-python oracle of ``core.reference``), each in the ``prime``
+and ``noac`` variants; the distributed backend is a later slice.
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ import numpy as np
 from .batch import BatchMiner
 from .context import PolyadicContext
 from .manyvalued import NOACMiner
+from .streaming import StreamingMiner
 
 _REGISTRY: dict[tuple[str, str], Callable] = {}
 
@@ -79,9 +80,13 @@ def mine(ctx: PolyadicContext, backend: str = "batch",
     auto, False = lexsort baseline), ``sort_backend`` ('radix' | 'lax' |
     'lexsort'), ``use_kernels`` (the CUDA kernels; None = when on CUDA),
     ``prune_values`` and ``device`` (default CUDA; ``"cpu"`` runs the
-    plain versions on the CPU).  ``variant='noac'`` requires ``delta``.
-    ``chunk_budget``/``window_budget`` (the out-of-core paths) raise
-    ``NotImplementedError`` until the run store is ported.
+    plain versions on the CPU).  Backend-specific: ``chunks``/
+    ``incremental`` (streaming), ``chunk_budget`` (batch: out-of-core
+    chunked Stage 1 via ``mine_chunked`` — host-sorted runs, the device
+    never sorts in Stage 1), ``window_budget`` (the windowed device
+    pipeline: on the batch backend via ``mine_windowed``, on streaming
+    it windows the incremental snapshot).  ``variant='noac'`` requires
+    ``delta``.
     """
     if variant == "noac" and params.get("delta") is None:
         raise ValueError("variant='noac' requires delta=<float>")
@@ -115,6 +120,7 @@ def _pipe_kw(p):
             "sort_backend": p.get("sort_backend"),
             "use_kernels": p.get("use_kernels"),
             "prune_values": p.get("prune_values", True),
+            "window_budget": p.get("window_budget"),
             "device": p.get("device")}
 
 
@@ -134,14 +140,17 @@ def _timed(step):
 
 
 def _batch_step(miner, p, tuples, values=None):
-    """One-shot in-core mining.  The out-of-core paths (``chunk_budget``,
-    ``window_budget``) are not ported yet and raise."""
+    """One-shot in-core mining; out-of-core chunked Stage 1 when
+    ``chunk_budget`` is set (``PipelineMiner.mine_chunked``); the
+    windowed device pipeline when ``window_budget`` is set
+    (``PipelineMiner.mine_windowed`` — host run sort *and* bounded
+    device windows sharing the one budget)."""
     if p.get("window_budget"):
-        return lambda: miner.mine_windowed(tuples, values=values,
-                                           window_budget=p["window_budget"])
+        return lambda: miner.mine_windowed(
+            tuples, values=values, window_budget=int(p["window_budget"]))
     if p.get("chunk_budget"):
-        return lambda: miner.mine_chunked(tuples, values=values,
-                                          chunk_budget=p["chunk_budget"])
+        return lambda: miner.mine_chunked(
+            tuples, values=values, chunk_budget=int(p["chunk_budget"]))
     if values is not None:
         return lambda: miner(tuples, values)
     return lambda: miner(tuples)
@@ -168,6 +177,39 @@ def _batch_noac(ctx, p):
     res = rerun()
     clusters = miner.materialise(res)
     return len(clusters), clusters, res, miner, rerun
+
+
+def _run_streaming(ctx, p, values, **variant_kw):
+    miner = StreamingMiner(ctx.sizes, seed=p.get("seed", 0x5EED),
+                           incremental=p.get("incremental", True),
+                           **_pipe_kw(p), **variant_kw)
+    step = -(-ctx.num_tuples // max(1, int(p.get("chunks", 8))))
+
+    def ingest_and_snapshot():
+        miner.state = None
+        for lo in range(0, ctx.num_tuples, step):
+            hi = lo + step
+            miner.add(ctx.tuples[lo:hi],
+                      values[lo:hi] if values is not None else None)
+        return miner.snapshot()
+
+    rerun = _timed(ingest_and_snapshot)
+    res = rerun()
+    clusters = miner.materialise(res)
+    return len(clusters), clusters, res, miner, rerun
+
+
+@register_engine("streaming", "prime")
+def _streaming_prime(ctx, p):
+    return _run_streaming(ctx, p, None, theta=p.get("theta", 0.0))
+
+
+@register_engine("streaming", "noac")
+def _streaming_noac(ctx, p):
+    ctx = _noac_ctx(ctx)
+    return _run_streaming(ctx, p, ctx.values, delta=p["delta"],
+                          rho_min=p.get("rho_min", 0.0),
+                          minsup=p.get("minsup", 0))
 
 
 @register_engine("reference", "prime")

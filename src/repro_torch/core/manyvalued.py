@@ -37,11 +37,13 @@ class NOACMiner(P.PipelineMiner):
                  packed: Optional[bool] = None,
                  sort_backend: Optional[str] = None,
                  use_kernels: Optional[bool] = None,
-                 prune_values: bool = True, device=None):
+                 prune_values: bool = True,
+                 window_budget: Optional[int] = None, device=None):
         super().__init__(sizes, theta=rho_min, delta=delta, minsup=minsup,
                          seed=seed, packed=packed,
                          sort_backend=sort_backend, use_kernels=use_kernels,
-                         prune_values=prune_values, device=device)
+                         prune_values=prune_values,
+                         window_budget=window_budget, device=device)
         self.rho_min = float(rho_min)
 
     def mine_context(self, ctx: PolyadicContext):

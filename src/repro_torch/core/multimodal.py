@@ -20,17 +20,18 @@ from .context import PolyadicContext, from_named_triples, tricontext
 from .engines import MineRun, available_engines, mine, resolve_engine
 from .manyvalued import NOACMiner, NOACResult
 from .pipeline import PipelineResult
+from .streaming import StreamingMiner
 
 __all__ = [
-    "BatchMiner", "NOACMiner", "MiningResult", "NOACResult",
+    "BatchMiner", "NOACMiner", "StreamingMiner", "MiningResult",
+    "NOACResult",
     "PipelineResult", "PolyadicContext", "tricontext", "from_named_triples",
     "make_miner", "mine", "MineRun", "available_engines", "resolve_engine",
 ]
 
 #: Backends of the JAX package that the port has not ported yet, with the
 #: ROADMAP item that brings each.
-_UNPORTED = {"streaming": "A7 (core/runs.py and core/streaming.py)",
-             "distributed": "A9 (core/distributed.py)"}
+_UNPORTED = {"distributed": "A9 (core/distributed.py)"}
 
 
 def make_miner(sizes: Sequence[int], backend: str = "batch",
@@ -42,9 +43,10 @@ def make_miner(sizes: Sequence[int], backend: str = "batch",
     Thin compatibility wrapper over the engine registry; prefer
     ``repro_torch.core.mine(ctx, backend=..., variant=...)`` for one-shot
     runs.  ``kw`` goes to the miner (``seed``, ``sort_backend``,
-    ``use_kernels``, ``device``, ...).  The streaming and distributed
-    backends raise ``NotImplementedError`` until they are ported;
-    ``mesh``, ``axes`` and ``strategy`` are theirs."""
+    ``use_kernels``, ``window_budget``, ``device``, ...; ``incremental``
+    for streaming).  The distributed backend raises
+    ``NotImplementedError`` until it is ported; ``mesh``, ``axes`` and
+    ``strategy`` are its."""
     if backend in _UNPORTED:
         raise NotImplementedError(
             f"the {backend} backend is not ported to the PyTorch port yet; "
@@ -56,6 +58,7 @@ def make_miner(sizes: Sequence[int], backend: str = "batch",
                          "use repro_torch.core.mine(ctx, "
                          "backend='reference')")
     if variant == "noac":
-        return NOACMiner(sizes, delta=delta, rho_min=rho_min, minsup=minsup,
-                         **kw)
-    return BatchMiner(sizes, theta=theta, **kw)
+        cls = StreamingMiner if backend == "streaming" else NOACMiner
+        return cls(sizes, delta=delta, rho_min=rho_min, minsup=minsup, **kw)
+    cls = StreamingMiner if backend == "streaming" else BatchMiner
+    return cls(sizes, theta=theta, **kw)

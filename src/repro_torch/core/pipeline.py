@@ -36,6 +36,7 @@ from ..device import resolve_device
 from ..kernels import ops as kops
 from . import keys as K
 from . import radix as RX
+from . import runs as RS
 from .bits import SIGN, as_uint32, from_uint32, i32, srl
 
 
@@ -550,7 +551,10 @@ class PipelineMiner:
     """Base driver: the single-device pipeline over fixed mode sizes.
 
     Subclasses (``BatchMiner``, ``NOACMiner``) pin the component operator;
-    everything else — hashing, materialisation — is shared.  ``device``
+    everything else — hashing, materialisation, the out-of-core paths
+    (:meth:`mine_chunked`, :meth:`mine_windowed`, whose default budget is
+    ``window_budget``) — is shared; ``streaming.StreamingMiner`` adds
+    ingestion and snapshots.  ``device``
     defaults to CUDA and raises without a card (``device="cpu"`` runs the
     plain versions of the kernels on the CPU)."""
 
@@ -560,9 +564,12 @@ class PipelineMiner:
                  sort_backend: Optional[str] = None,
                  use_kernels: Optional[bool] = None,
                  prune_values: bool = True,
+                 window_budget: Optional[int] = None,
                  device=None):
         self.device = resolve_device(device)
         self.sizes = tuple(int(s) for s in sizes)
+        self.window_budget = (None if window_budget is None
+                              else int(window_budget))
         self.theta = float(theta)
         self.delta = None if delta is None else float(delta)
         if self.delta is not None and self.delta < 0:
@@ -625,17 +632,119 @@ class PipelineMiner:
         result carries its own component windows."""
         return materialise(result, only_kept)
 
-    def mine_chunked(self, chunks, values=None, chunk_budget=None,
-                     stats=None) -> PipelineResult:
-        """Out-of-core chunked Stage 1: not ported yet."""
-        raise NotImplementedError(
-            "mine_chunked needs the run store (core/runs.py), which the "
-            "PyTorch port has not ported yet; see ROADMAP.md queue A")
+    def mine_chunked(self, chunks, values=None,
+                     chunk_budget: Optional[int] = None,
+                     stats: Optional[dict] = None) -> PipelineResult:
+        """Out-of-core chunked Stage 1: build a host-side
+        ``core.runs.RunStore`` chunk by chunk — each chunk sorted with
+        O(chunk) working set, runs merged linearly — and hand the merged
+        per-mode permutations to ``mine_tuples`` via ``perms``, so the
+        device never sorts in Stage 1 and the host never holds more than
+        the row log plus one chunk's sort scratch.  Bit-identical to the
+        in-core ``__call__`` on the same table (the store's host packers
+        are the device packers, and stable merges keep the sort order).
 
-    def mine_windowed(self, chunks, values=None, window_budget=None,
-                      stats=None, probe=None) -> PipelineResult:
-        """Windowed out-of-core mining: not ported yet."""
-        raise NotImplementedError(
-            "mine_windowed needs the run store and the windowed pipeline "
-            "(core/runs.py, core/windowed.py), which the PyTorch port has "
-            "not ported yet; see ROADMAP.md queue A")
+        ``chunks`` is a single (T, N) table or an iterable of row chunks
+        (``values`` aligned likewise for the δ variant); ``chunk_budget``
+        bounds rows per chunk, re-splitting anything larger.  A budget
+        *smaller than the largest key segment* is fine — chunk runs merge
+        stably, so a segment spanning many chunks reassembles exactly;
+        only degenerate budgets (< 1) raise.  Valued tables get the
+        constructor's last-write-wins canonicalisation (``core.runs``) —
+        already-canonical contexts pass through unchanged.  Contexts
+        whose key exceeds 64 bits fall back to one device sort of the
+        assembled table."""
+        if chunk_budget is not None and int(chunk_budget) < 1:
+            raise ValueError(
+                f"chunk_budget must be >= 1, got {chunk_budget}; pass "
+                "None to ingest chunks as offered")
+        store = self._sorted_store(chunks, values, chunk_budget, stats)
+        rows, vals = store.table()
+        perms = store.perms()
+        if perms is None:      # key exceeds 64 bits: no host runs
+            # one device sort of the assembled table — with the same
+            # value-lane pruning __call__ applies, so a key rescued by
+            # the rank-coded lane still takes the packed path
+            return self(rows, vals)
+        return self._mine_unpruned(rows, vals, perms)
+
+    def _sorted_store(self, chunks, values, budget, stats) -> RS.RunStore:
+        """A prepared host ``RunStore`` of the chunks, each re-split to at
+        most ``budget`` rows and sorted on arrival (no runs when the key
+        exceeds 64 bits)."""
+        store = RS.RunStore(self.key_plans,
+                            radix=self.resolved_sort_backend == "radix",
+                            incremental=self.key_plans[0].fits,
+                            stats=stats if stats is not None else {})
+        for rows, vals in RS.iter_chunks(chunks, values, budget,
+                                         with_values=self.delta is not None):
+            store.add(rows, vals)
+        store.prepare()
+        if store.count == 0:
+            raise ValueError("no data ingested")
+        return store
+
+    def _mine_unpruned(self, rows, vals, perms=None) -> PipelineResult:
+        """``mine_tuples`` of a host table on the un-pruned key plans (the
+        float value lane the run store packs with): with its host-merged
+        (N, T) ``perms``, Stage 1 only segments; without, it sorts on the
+        device."""
+        return mine_tuples(
+            _as_tensor(rows, torch.int32, self.device), self._lo, self._hi,
+            values=(None if vals is None
+                    else _as_tensor(vals, torch.float32, self.device)),
+            delta=self.delta, theta=self.theta, minsup=self.minsup,
+            perms=(None if perms is None
+                   else _as_tensor(perms, torch.int32, self.device)),
+            packed=self.packed, sort_backend=self.sort_backend,
+            use_kernels=self.use_kernels)
+
+    def mine_windowed(self, chunks, values=None,
+                      window_budget: Optional[int] = None,
+                      stats: Optional[dict] = None,
+                      probe=None) -> PipelineResult:
+        """Fully windowed out-of-core mining: the host run sort of
+        :meth:`mine_chunked` *and* a device pipeline that streams Stage
+        1–3 through ``window_budget``-row slices of the merged sorted
+        order (``core.windowed``), so peak incremental device memory is
+        O(window), not O(T).  The sort chunking and the device window
+        loop share the one budget (``radix.plan_windows``); ``None``
+        takes the miner's ``window_budget``, and a single in-core window
+        when that is None too.  Bit-identical to the in-core
+        ``__call__`` on the same table; the leaves come back as host
+        tensors.  ``probe`` is ``core.windowed``'s memory hook.
+
+        Raises for configurations the windowed path cannot honour
+        bit-exactly (keys wider than 64 bits, the forced-lexsort
+        baseline) and for degenerate budgets — never a silent seam
+        split."""
+        if window_budget is None:
+            window_budget = self.window_budget
+        if not self.key_plans[0].fits:
+            raise ValueError(
+                "mine_windowed needs 64-bit-packable keys; this "
+                "context's key exceeds 64 bits — use mine_chunked")
+        if self.resolved_sort_backend == "lexsort":
+            raise ValueError(
+                "mine_windowed has no lexsort path (packed=False / "
+                "sort_backend='lexsort'); use the monolithic pipeline "
+                "for the lexsort baseline")
+        if window_budget is not None and int(window_budget) < 1:
+            raise ValueError(
+                f"window_budget must be >= 1, got {window_budget}; "
+                "pass None for a single in-core window")
+        store = self._sorted_store(chunks, values, window_budget, stats)
+        rows, vals = store.table()
+        return self._mine_windows(rows, vals, store.perms(), window_budget,
+                                  probe)
+
+    def _mine_windows(self, rows, vals, perms, window_budget,
+                      probe=None) -> PipelineResult:
+        """``core.windowed.mine_windowed`` with this miner's settings."""
+        from . import windowed as WD
+        return WD.mine_windowed(
+            rows, vals, perms, plans=self.key_plans, hash_lo=self._lo,
+            hash_hi=self._hi, delta=self.delta, theta=self.theta,
+            minsup=self.minsup, window_budget=window_budget,
+            sort_backend=self.resolved_sort_backend,
+            use_kernels=self.use_kernels, device=self.device, probe=probe)

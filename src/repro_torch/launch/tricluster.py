@@ -2,14 +2,17 @@
 ``python -m repro_torch.launch.tricluster --dataset imdb --backend batch``.
 
 The twin of ``repro.launch.tricluster`` for the engines the port has
-(``batch`` on one device and ``reference``, the pure-python oracle, each
-in the prime and NOAC variants), with the flags that apply to them and
-``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain versions;
-the reference backend runs on the host either way).  Prints timings,
-cluster counts, and §5.2-formatted top patterns
-(``core.postprocess.format_cluster``).  An unknown backend/variant returns
-2 with the valid combinations on stderr.  ``--top-k`` and ``--query-*``
-wait for the serving layer (ROADMAP A10).
+(``batch`` on one device, with the out-of-core ``--chunk-budget`` and
+``--window-budget`` paths; ``streaming``, incremental sorted-run
+snapshots over ``--chunks`` ingestion chunks; and ``reference``, the
+pure-python oracle — each in the prime and NOAC variants), with the
+flags that apply to them and ``--device`` (default ``cuda``; ``cpu`` runs
+the kernels' plain versions; the reference backend runs on the host
+either way).  Prints timings, cluster counts, and §5.2-formatted top
+patterns (``core.postprocess.format_cluster``).  An unknown
+backend/variant returns 2 with the valid combinations on stderr.
+``--strategy`` waits for the distributed backend (ROADMAP A9),
+``--top-k`` and ``--query-*`` for the serving layer (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -56,6 +59,24 @@ def main(argv=None):
                     help="NOAC δ for many-valued contexts")
     ap.add_argument("--rho-min", type=float, default=0.0)
     ap.add_argument("--minsup", type=int, default=0)
+    ap.add_argument("--chunks", type=int, default=8,
+                    help="streaming: number of ingestion chunks")
+    ap.add_argument("--chunk-budget", type=int, default=0,
+                    help="batch: out-of-core chunked Stage 1 — sort at "
+                         "most this many rows per host chunk "
+                         "(core.runs store; 0 = in-core)")
+    ap.add_argument("--window-budget", type=int, default=0,
+                    help="windowed device pipeline (core.windowed): "
+                         "stream Stage 1-3 through sorted-order windows "
+                         "of at most this many rows — peak incremental "
+                         "device memory O(window), bit-identical to the "
+                         "monolithic path (0 = off)")
+    ap.add_argument("--incremental", action="store_true",
+                    help="streaming: the sorted-run merge path (the "
+                         "default)")
+    ap.add_argument("--no-incremental", action="store_true",
+                    help="streaming: full device re-sort per snapshot "
+                         "(disable the sorted-run merge path)")
     ap.add_argument("--sort-path", default="auto",
                     choices=["auto", "packed", "lexsort"],
                     help="Stage-1/3 sort: packed single-word keys "
@@ -89,9 +110,17 @@ def main(argv=None):
 
     try:
         packed = {"auto": None, "packed": True, "lexsort": False}
+        incremental = (False if args.no_incremental
+                       else True if args.incremental
+                       else None)
         run = mine(ctx, backend=args.backend, variant=variant,
                    theta=args.theta, delta=args.delta,
                    rho_min=args.rho_min, minsup=args.minsup,
+                   chunks=args.chunks,
+                   chunk_budget=args.chunk_budget or None,
+                   window_budget=args.window_budget or None,
+                   **({} if incremental is None
+                      else {"incremental": incremental}),
                    packed=packed[args.sort_path],
                    sort_backend=(None if args.sort_backend == "auto"
                                  else args.sort_backend),

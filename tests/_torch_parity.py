@@ -1,6 +1,7 @@
 """Helpers shared by the parity tests of the PyTorch port
-(``tests/test_torch_*.py``): numpy views of port tensors, and the
-leaf-by-leaf ``PipelineResult`` comparison."""
+(``tests/test_torch_*.py``): numpy views of port tensors, the
+leaf-by-leaf ``PipelineResult`` comparison, and seeded add / upsert /
+delete streams."""
 import dataclasses
 
 import numpy as np
@@ -34,3 +35,28 @@ def assert_results_identical(jax_res, torch_res) -> None:
     for f in dataclasses.fields(jax_res):
         assert_same(getattr(torch_res, f.name), getattr(jax_res, f.name),
                     f.name)
+
+
+def gen_ops(rng, sizes, n_ops, valued, universe=28, max_chunk=7):
+    """A seeded stream of (kind, rows, values) operations over a small
+    universe of rows, so that upserts and deletes hit earlier rows."""
+    rows_u = np.stack([rng.integers(0, s, universe) for s in sizes],
+                      1).astype(np.int32)
+    ops = []
+    for _ in range(n_ops):
+        kind = rng.choice(["add", "add", "upsert", "delete"])
+        m = int(rng.integers(1, max_chunk))
+        rows = rows_u[rng.integers(0, universe, m)]
+        vals = (rng.uniform(0.0, 100.0, m).astype(np.float32)
+                if valued and kind != "delete" else None)
+        ops.append((kind, rows, vals))
+    return ops
+
+
+def apply_op(target, op) -> None:
+    """One operation on a ``RunStore`` or a ``StreamingMiner``."""
+    kind, rows, vals = op
+    if kind == "delete":
+        target.delete(rows)
+    else:
+        getattr(target, kind)(rows, vals)

@@ -836,3 +836,118 @@ def test_serving_on_the_card_equals_the_cpu(cuda, arch):
     got = ServeEngine(cfg, card, max_len=128).generate(prompts, 12)
     want = ServeEngine(cfg, cpu, max_len=128).generate(prompts, 12)
     assert got.tokens == want.tokens
+
+
+# ---------------------------------------------------------------------------
+# Out-of-core and streaming mining on the card
+# ---------------------------------------------------------------------------
+
+def _path_counts():
+    counts = ops.launch_counts()
+    return {k: counts[k] for k in ops.PATH_KERNELS["mining"]}
+
+
+def _equal_leaves(a, b):
+    for name in a.__dataclass_fields__:
+        x, y = getattr(a, name), getattr(b, name)
+        assert x.dtype == y.dtype, name
+        assert torch.equal(x.cpu(), y.cpu()), name
+
+
+# odd budgets: single partial tiles of the segment sweep (1, 3), T mod 4
+# != 0 windows for the histogram's scalar tail (1021, 2049), one window
+# past the rank sweep's tile (4099) and a budget above T
+WINDOW_CASES = [("random", 1), ("random", 3), ("random", 7),
+                ("bibsonomy", 1021), ("bibsonomy", 2049),
+                ("bibsonomy", 4099), ("bibsonomy", 1 << 20),
+                ("movielens", 1021), ("movielens", 4099)]
+
+
+def _window_ctx(name):
+    if name == "random":
+        return S.random_context((9, 7, 5), 300, seed=3), None
+    if name == "bibsonomy":
+        return S.bibsonomy_like(scale=0.01), None
+    return S.movielens_like(n_tuples=6000, seed=2).deduplicated(), 1.0
+
+
+@pytest.mark.parametrize("name,budget", WINDOW_CASES)
+def test_windowed_on_the_card_equals_the_cpu(cuda, name, budget):
+    """``mine_windowed`` through the kernels at odd budgets gives the CPU
+    (plain) result and the card's in-core result, with one
+    ``segment_reduce`` launch per mode and window and one Stage-3 sort
+    (a histogram and 8 fused passes) per window."""
+    from repro_torch.core import memprobe as MP
+    ctx, delta = _window_ctx(name)
+    args = (ctx.tuples,) if delta is None else (ctx.tuples, ctx.values)
+    make = (lambda d: BatchMiner(ctx.sizes, device=d)) if delta is None \
+        else (lambda d: NOACMiner(ctx.sizes, delta=delta, device=d))
+    card, cpu = make("cuda"), make("cpu")
+    kw = {} if delta is None else {"values": ctx.values}
+    probe = MP.MemProbe("cuda")
+    ops.reset_launch_counts()
+    got = card.mine_windowed(ctx.tuples, window_budget=budget, probe=probe,
+                             **kw)
+    windows = RX.plan_windows(ctx.num_tuples, budget).n_windows
+    assert _path_counts() == {"segment_reduce": 3 * windows,
+                              "radix_histogram": windows,
+                              "radix_rank": 8 * windows}
+    assert sorted(probe.stages) == ["stage1_scan", "stage2_mix",
+                                    "stage3_sort"]
+    _equal_leaves(got, cpu.mine_windowed(ctx.tuples, window_budget=budget,
+                                         **kw))
+    _equal_leaves(got, card(*args))
+    ops.reset_launch_counts()
+    _equal_leaves(card.mine_chunked(ctx.tuples, chunk_budget=budget, **kw),
+                  got)
+    assert _path_counts() == {"segment_reduce": 3, "radix_histogram": 1,
+                              "radix_rank": 8}
+
+
+@pytest.mark.parametrize("budget", [None, 3, 1021])
+@pytest.mark.parametrize("variant", ["prime", "noac"])
+def test_streaming_on_the_card_equals_the_cpu(cuda, variant, budget):
+    """A stream of adds, upserts and deletes: every snapshot on the card
+    (incremental, windowed and ``full_remine``) equals the CPU's."""
+    from repro_torch.core import StreamingMiner
+    ctx = S.random_context((9, 7, 5), 400, seed=8, values=True)
+    ctx = ctx.deduplicated()
+    kw = {} if variant == "prime" else {"delta": 50.0}
+    card = StreamingMiner(ctx.sizes, window_budget=budget, device="cuda",
+                          **kw)
+    cpu = StreamingMiner(ctx.sizes, device="cpu", **kw)
+    rng = np.random.default_rng(1)
+    for lo in range(0, ctx.num_tuples, 97):
+        for m in (card, cpu):
+            m.add(ctx.tuples[lo:lo + 97], ctx.values[lo:lo + 97])
+        ops.reset_launch_counts()
+        got = card.snapshot()
+        cap = len(got.keep)
+        windows = RX.plan_windows(cap, budget).n_windows
+        assert _path_counts() == {"segment_reduce": 3 * windows,
+                                  "radix_histogram": windows,
+                                  "radix_rank": 8 * windows}
+        _equal_leaves(got, cpu.snapshot())
+    pick = rng.choice(ctx.num_tuples, 20, replace=False)
+    for m in (card, cpu):
+        m.upsert(ctx.tuples[pick[:10]], ctx.values[pick[:10]] + 1.0)
+        m.delete(ctx.tuples[pick[10:]])
+    _equal_leaves(card.snapshot(), cpu.snapshot())
+    _equal_leaves(card.snapshot(full_remine=True), cpu.snapshot())
+
+
+def test_memprobe_reads_the_allocator(cuda):
+    from repro_torch.core import memprobe as MP
+    from repro_torch.core import pipeline as P
+    x = torch.empty(1 << 20, dtype=torch.int32, device=cuda)
+    assert MP.device_bytes(cuda) == torch.cuda.memory_allocated(cuda)
+    probe = MP.MemProbe(cuda)
+    y = torch.empty(1 << 22, dtype=torch.int32, device=cuda)
+    assert probe("held") >= y.numel() * 4
+    res = BatchMiner((9, 7, 5), device="cuda")(
+        S.random_context((9, 7, 5), 300, seed=3).tuples)
+    assert MP.measure_result_bytes(res) == sum(
+        getattr(res, f).numel() * getattr(res, f).element_size()
+        for f in res.__dataclass_fields__)
+    assert isinstance(res, P.PipelineResult)
+    del x, y

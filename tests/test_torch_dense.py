@@ -21,8 +21,9 @@ from repro.core import pipeline as JP
 from repro.core import postprocess as JPP
 from repro.core import reference as JR
 from repro.data import synthetic as JS
-from repro_torch.core import (BatchMiner, NOACMiner, dense_tensor,
-                              exact_density_dense, fibers, make_miner, mine)
+from repro_torch.core import (BatchMiner, NOACMiner, StreamingMiner,
+                              dense_tensor, exact_density_dense, fibers,
+                              make_miner, mine)
 from repro_torch.core import pipeline as TP
 from repro_torch.core import postprocess as PP
 from repro_torch.core import reference as R
@@ -182,9 +183,13 @@ def test_make_miner_matches_jax():
         make_miner(ctx.sizes, backend="reference")
     with pytest.raises(ValueError, match="no engine"):
         make_miner(ctx.sizes, backend="nope")
-    for backend, item in (("streaming", "A7"), ("distributed", "A9")):
-        with pytest.raises(NotImplementedError, match=item):
-            make_miner(ctx.sizes, backend=backend, device="cpu")
+    with pytest.raises(NotImplementedError, match="A9"):
+        make_miner(ctx.sizes, backend="distributed", device="cpu")
+    streaming = make_miner(ctx.sizes, backend="streaming", device="cpu")
+    assert isinstance(streaming, StreamingMiner)
+    streaming.add(ctx.tuples)
+    assert_same(streaming.snapshot().sig_lo[:ctx.num_tuples],
+                jmake_miner(jctx.sizes)(jctx.tuples).sig_lo, "streaming")
 
 
 def test_cli_reference_backend(capsys):

@@ -15,7 +15,9 @@ import torch
 
 from repro_torch import device as D
 from repro_torch.configs import get_smoke_config
-from repro_torch.core import BatchMiner, NOACMiner, mine
+from repro_torch.core import BatchMiner, NOACMiner, StreamingMiner, mine
+from repro_torch.core.keys import plan_context_keys
+from repro_torch.core.windowed import mine_windowed
 from repro_torch.data import synthetic as S
 from repro_torch.kernels import decode_attention as KD
 from repro_torch.kernels import flash_attention as KF
@@ -25,7 +27,7 @@ from repro_torch.kernels import rmsnorm as KN
 from repro_torch.kernels import segment_reduce as KS
 from repro_torch.kernels import signature as KSig
 from repro_torch.kernels import tricluster_density as KTD
-from repro_torch.launch import mine_moe_routing, serve
+from repro_torch.launch import mine_moe_routing, serve, tricluster
 from repro_torch.models.api import get_model
 from repro_torch.models.params import from_jax_params
 from repro_torch.serve import ServeEngine
@@ -57,6 +59,21 @@ res = BatchMiner(ctx.sizes, device="cpu")(ctx.tuples)
 nres = NOACMiner(ctx.sizes, delta=50.0, device="cpu")(ctx.tuples, ctx.values)
 run = mine(S.imdb_like(), device="cpu")
 assert mine(S.imdb_like(), backend="reference").n_clusters == run.n_clusters
+
+# the out-of-core and streaming paths, and a checkpoint round trip
+import os, tempfile
+from repro_torch.core import StreamingMiner
+from repro_torch.core import runs as RS
+for budget in ("chunk_budget", "window_budget"):
+    assert mine(S.imdb_like(), device="cpu",
+                **{budget: 1000}).n_clusters == run.n_clusters
+sm = StreamingMiner(ctx.sizes, delta=50.0, window_budget=16, device="cpu")
+sm.add(ctx.tuples, ctx.values)
+sm.delete(ctx.tuples[:3])
+with tempfile.TemporaryDirectory() as d:
+    RS.save_checkpoint(sm.state.checkpoint(), os.path.join(d, "c"))
+    sm.state = RS.RunStore.restore(RS.load_checkpoint(os.path.join(d, "c"))[0])
+assert int(sm.snapshot().keep.sum()) > 0
 
 # the dense validation path
 import torch
@@ -121,6 +138,21 @@ def test_default_device_is_cuda_and_raises_without_a_card():
         NOACMiner((3, 3, 3), delta=1.0)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         mine(S.random_context((3, 3, 3), 10, seed=0))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        StreamingMiner((3, 3, 3))
+    for backend, kw in (("streaming", {}), ("batch", {"window_budget": 4}),
+                        ("batch", {"chunk_budget": 4})):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            mine(S.random_context((3, 3, 3), 10, seed=0), backend=backend,
+                 **kw)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tricluster.main(["--dataset", "random", "--backend", "streaming"])
+    lo = [torch.zeros(3, dtype=torch.int32)] * 3
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        mine_windowed(np.zeros((4, 3), np.int32), None,
+                      np.zeros((3, 4), np.int32),
+                      plans=plan_context_keys((3, 3, 3), False), hash_lo=lo,
+                      hash_hi=lo)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         D.resolve_device()
     with pytest.raises(RuntimeError, match='device="cpu"'):

@@ -163,22 +163,29 @@ def test_mine_registry_errors():
     ctx = TS.random_context((4, 4, 4), 30, seed=1)
     assert available_engines() == [("batch", "noac"), ("batch", "prime"),
                                    ("reference", "noac"),
-                                   ("reference", "prime")]
-    for backend in ("distributed", "streaming"):
-        with pytest.raises(ValueError, match="valid combinations: "
-                           "batch/noac, batch/prime, reference/noac, "
-                           "reference/prime"):
-            mine(ctx, backend=backend, device="cpu")
+                                   ("reference", "prime"),
+                                   ("streaming", "noac"),
+                                   ("streaming", "prime")]
+    with pytest.raises(ValueError, match="valid combinations: "
+                       "batch/noac, batch/prime, reference/noac, "
+                       "reference/prime, streaming/noac, streaming/prime"):
+        mine(ctx, backend="distributed", device="cpu")
     with pytest.raises(ValueError, match="requires delta"):
         mine(ctx, variant="noac", device="cpu")
+    # the out-of-core budgets run and give the in-core result
+    incore = mine(ctx, device="cpu").result
+    jctx = JS.random_context((4, 4, 4), 30, seed=1)
     for budget in ("chunk_budget", "window_budget"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            mine(ctx, device="cpu", **{budget: 8})
+        got = mine(ctx, device="cpu", **{budget: 8}).result
+        assert_results_identical(jmine(jctx, **{budget: 8}).result, got)
+        for f in ("sig_lo", "keep", "perms", "range_lo"):
+            assert torch.equal(getattr(got, f), getattr(incore, f))
     miner = BatchMiner(ctx.sizes, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        miner.mine_chunked(ctx.tuples)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        miner.mine_windowed(ctx.tuples)
+    want = JBatch(jctx.sizes)(jctx.tuples)
+    assert_results_identical(want, miner.mine_chunked(ctx.tuples))
+    assert_results_identical(want, miner.mine_windowed(ctx.tuples))
+    assert mine(ctx, backend="streaming", device="cpu").n_clusters == \
+        mine(ctx, backend="reference").n_clusters
 
 
 def test_hash_vectors_and_mix_signatures():
@@ -268,10 +275,12 @@ def test_cli_twin_matches_jax_cli(args, capsys):
 
 @pytest.mark.parametrize("args", [
     ["--backend", "distributed"],
-    ["--backend", "streaming", "--delta", "1.0"],
+    ["--backend", "distributed", "--delta", "1.0"],
     ["--variant", "noac"],
 ])
 def test_cli_twin_rejects_with_valid_choices(args, capsys):
     assert tcli.main(["--dataset", "imdb", "--device", "cpu"] + args) == 2
     err = capsys.readouterr().err
-    assert "valid backend/variant choices: batch/noac, batch/prime" in err
+    assert ("valid backend/variant choices: batch/noac, batch/prime, "
+            "reference/noac, reference/prime, streaming/noac, "
+            "streaming/prime") in err
