@@ -41,9 +41,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    card and, on a small context, against the CPU run;
 4. the same for ``NOACMiner(delta=1.0)`` on the MovieLens-1M shape
    (1,000,209 ratings; 6,040 x 3,952 x 5 stars);
-5. the CLI twin, ``--dataset imdb --backend batch`` and ``--backend
-   reference`` (rc 0, the same cluster count) and an unknown backend
-   (rc 2);
+5. the CLI twin, ``--dataset imdb --backend batch``, ``--backend
+   reference`` and ``--backend distributed --strategy shuffle`` (rc 0, the
+   same cluster count) and an unknown backend (rc 2);
 6. MoE routing telemetry at full width: granite-moe-3b-a800m (32 layers,
    3,298,793,472 parameters, random weights from a seeded generator) over
    4 x 2048 tokens with ``attn_impl="pallas"`` — 32 ``flash_attention``
@@ -113,7 +113,25 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    ``load_checkpoint`` -> ``RunStore.restore``; every run's launches
    held against the window plan (``segment_reduce`` = modes x windows),
    with warm times, busy shares, host run-sort, per-window and snapshot
-   times.
+   times;
+11. distributed mining (``phase11``, ``core.distributed`` over
+   ``torch.distributed``): (a) an NCCL group of one rank, BibSonomy prime
+   and the MovieLens-1M shape NOAC (delta 1) under ``replicate`` and
+   ``shuffle``, every ``DistributedResult`` leaf equal to the in-core
+   result, overflow 0, launches from the key plans (the shuffle's owners
+   sort ``total_bits + 1`` bits), warm ms, tuples/s and idle share beside
+   phases 3-4; (b) BibSonomy ingested in 8 chunks into the per-shard run
+   stores, then ``snapshot()``, ``snapshot(full_remine=True)``,
+   ``serving_snapshot()`` and a windowed ``serving_snapshot()`` at
+   ceil(T/8) rows, each equal to the in-core result (kept signatures and
+   per-tuple leaves), with their ms and ``stream_stats``; (c) four gloo
+   ranks spawned on the one card (NCCL takes one rank a card; the gloo
+   collectives stage their buffers through host memory), both contexts
+   under ``shuffle``, rank 0's gathered result against the in-core miner
+   (``sig_lo``, ``sig_hi``, ``gen_count``, ``volume``, ``density``, the
+   unique signature sets, ``n_clusters`` and the kept count), with each
+   mode's partition (range or hash fallback) and the final
+   ``capacity_factor``.
 
 Before the last line it prints the card's name and power limit
 (``nvidia-smi``) and one JSON line ``{"kernels": [...]}``; the last line is
@@ -123,9 +141,11 @@ package.
 from __future__ import annotations
 
 import contextlib
+import datetime
 import io
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -609,6 +629,330 @@ def phase10(bib, ml, prime_ms: float, noac_ms: float) -> dict:
         f"incremental snapshot, and the per-tuple leaves to a batch mine of "
         f"the {survivors.shape[0]} survivors")
     log(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
+
+#: Ranks of phase 11c's gloo group on the one card.
+GLOO_RANKS = 4
+
+
+def mining_launches(sizes, with_values=False, value_slots=None, extra=0,
+                    sorted_stage1=True, windows=1):
+    """Mining-kernel launches of one run: per window a segment sweep per
+    mode and one Stage-3 sort (a histogram, 8 fused passes); a Stage 1
+    that sorts on the card adds a histogram per mode and one fused pass
+    per 8 bits of its keys (``extra`` bits more: the shuffle's owners
+    sort with the validity flag as a top bit)."""
+    from repro_torch.core import keys as K
+    n = len(sizes)
+    bits = K.plan_context_keys(sizes, with_values, value_slots)[0].total_bits
+    passes = math.ceil((bits + extra) / 8) if sorted_stage1 else 0
+    return {"segment_reduce": n * windows,
+            "radix_histogram": windows + (n if sorted_stage1 else 0),
+            "radix_rank": 8 * windows + n * passes}
+
+
+def phase11c_rank(rank: int, tmp: str) -> None:
+    """One of phase 11c's gloo ranks on ``cuda:0``: BibSonomy prime and the
+    MovieLens-1M shape NOAC under ``shuffle``; writes its report, and rank 0
+    its checks against the in-core miners, to ``tmp/rank<r>.json``."""
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import (BatchMiner, DistributedMiner, NOACMiner,
+                                  pad_tuples, pad_values)
+    from repro_torch.core import keys as K
+    from repro_torch.data import synthetic as S
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    torch.cuda.set_device(0)
+    # the ranks share the host's cores (host work: gloo, numpy, launches)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // GLOO_RANKS))
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/pg11c",
+                            rank=rank, world_size=GLOO_RANKS,
+                            timeout=datetime.timedelta(seconds=300))
+    report = {"rank": rank, "runs": {}}
+    try:
+        mesh = make_mesh((GLOO_RANKS,), ("data",), device="cuda")
+        report["staged"] = mesh.staged
+        bib = S.bibsonomy_like()
+        ml = S.movielens_like(n_tuples=ML_T).deduplicated()
+        for tag, ctx, kw in (("bibsonomy prime", bib, {}),
+                             ("movielens noac", ml, {"delta": 1.0})):
+            tuples = pad_tuples(ctx.tuples, GLOO_RANKS)
+            values = (None if ctx.values is None
+                      else pad_values(ctx.values, GLOO_RANKS))
+            args = (tuples,) if values is None else (tuples, values)
+            miner = DistributedMiner(ctx.sizes, mesh, strategy="shuffle",
+                                     **kw)
+            miner(*args).keep.cpu()                       # cold
+            miner.capacity_factor = 2.0
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = miner(*args)
+            res.keep.cpu()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = ops.launch_counts()
+            times = [ms]
+            for _ in range(2):
+                miner.capacity_factor = 2.0
+                dist.barrier()
+                t0 = time.perf_counter()
+                miner(*args).keep.cpu()
+                times.append((time.perf_counter() - t0) * 1e3)
+            vslots = (None if values is None
+                      else K.value_domain_host(values).shape[0])
+            runs = int(round(math.log2(miner.capacity_factor / 2.0))) + 1
+            want = mining_launches(ctx.sizes, values is not None, vslots,
+                                   extra=1)
+            want = {k: v * runs for k, v in want.items()}
+            got = res.gather()
+            entry = {
+                "T": int(tuples.shape[0]), "counts": counts,
+                "expected": want, "warm_ms": times,
+                "capacity_factor": miner.capacity_factor,
+                "hash_fallback": [bool(f) for f in miner.hash_fallback],
+                "overflow": int(res.overflow)}
+            if rank == 0:
+                cls = NOACMiner if values is not None else BatchMiner
+                inc = cls(ctx.sizes, device="cuda", **kw)(*args)
+                entry["equal"] = {
+                    name: bool(torch.equal(getattr(got, name),
+                                           getattr(inc, name)))
+                    for name in ("sig_lo", "sig_hi", "gen_count", "volume",
+                                 "density", "is_unique", "keep",
+                                 "cardinalities")}
+
+                def uniq(r):
+                    u = r.is_unique.cpu().numpy()
+                    return set(zip(r.sig_lo.cpu().numpy()[u].tolist(),
+                                   r.sig_hi.cpu().numpy()[u].tolist()))
+                entry["unique_sets_equal"] = uniq(got) == uniq(inc)
+                entry["n_clusters"] = [int(got.n_clusters),
+                                       int(inc.is_unique.sum())]
+                entry["kept"] = [int(got.keep.sum()), int(inc.keep.sum())]
+            report["runs"][tag] = entry
+    finally:
+        dist.destroy_process_group()
+        with open(f"{tmp}/rank{rank}.json", "w") as f:
+            json.dump(report, f)
+
+
+def phase11(bib, ml, prime_ms: float, noac_ms: float) -> dict:
+    """Phase 11: distributed mining (``core.distributed``) on the card.
+
+    (a) An NCCL group of one rank: BibSonomy prime and the MovieLens-1M
+    shape NOAC (delta 1) under ``replicate`` and ``shuffle``, every
+    ``DistributedResult`` leaf equal to the in-core result, overflow 0,
+    launches as the key plans give them (the owners sort total_bits + 1
+    bits).  (b) BibSonomy ingested in 8 chunks into the per-shard stores:
+    ``snapshot()``, ``snapshot(full_remine=True)``, ``serving_snapshot()``
+    and a windowed ``serving_snapshot()`` at ceil(T/8), each one's kept
+    signatures and per-tuple leaves equal to the in-core ones.  (c) Four
+    gloo ranks on the one card (NCCL takes one rank a card) under
+    ``shuffle``, their collectives staged through host memory: rank 0's
+    gathered result against the in-core miner.  Returns {run: launch
+    counts}."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from repro_torch.core import BatchMiner, DistributedMiner, NOACMiner
+    from repro_torch.core import keys as K
+    from repro_torch.core import pipeline as P
+    from repro_torch.core import radix as RX
+    from repro_torch.core.distributed import LEAVES
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_local_mesh
+
+    mining = ops.PATH_KERNELS["mining"]
+    runs = {}
+
+    def counted(label, fn, want):
+        """Run ``fn`` once with the counts at 0 and check them against
+        ``want`` (no other kernel, no plain version on the card)."""
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        res.keep.cpu()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = ops.launch_counts()
+        path = {k: counts[k] for k in mining}
+        check(path == want, f"{label}: launches {path} != {want}")
+        check(all(n == 0 for k, n in counts.items() if k not in mining),
+              f"{label}: a kernel of another path was launched: {counts}")
+        runs[label] = counts
+        return res, ms
+
+    def warm(label, fn, first_ms, n_t, incore_ms=None):
+        """Two more warm runs (min of 3 with the counted one) and one under
+        the profiler for the device busy share."""
+        times = [first_ms]
+        for _ in range(2):
+            t0 = time.perf_counter()
+            fn().keep.cpu()
+            times.append((time.perf_counter() - t0) * 1e3)
+        busy, _, _, complete = device_ms(lambda: fn().keep.cpu(), iters=1,
+                                         warm=False)
+        best = min(times)
+        share = ("busy not measured" if busy is None or not complete
+                 else f"device busy {busy:.3f} ms (idle share "
+                 f"{1 - busy / best:.3f})")
+        log(f"{label}: warm ms {[round(t, 3) for t in times]} (min "
+            f"{best:.3f}; {n_t / (best / 1e3):.0f} tuples/s); {share}"
+            + ("" if incore_ms is None
+               else f"; in-core {incore_ms:.3f} ms (phases 3-4)"))
+        return best
+
+    def rows_equal(a, b, what, rows, names):
+        for name in names:
+            x, y = getattr(a, name), getattr(b, name)
+            x = x[..., :rows] if x.dim() else x
+            y = y[..., :rows] if y.dim() else y
+            check(x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu()),
+                  f"{what}: leaf {name} differs")
+
+    t_phase = time.perf_counter()
+    bib_inc = BatchMiner(bib.sizes, device="cuda")(bib.tuples)
+    ml_inc = NOACMiner(ml.sizes, delta=1.0, device="cuda")(ml.tuples,
+                                                          ml.values)
+    ml_slots = K.value_domain_host(ml.values).shape[0]
+    cases = (("bibsonomy prime", bib, (bib.tuples,), {}, bib_inc, prime_ms,
+              (False, None)),
+             ("movielens noac", ml, (ml.tuples, ml.values), {"delta": 1.0},
+              ml_inc, noac_ms, (True, ml_slots)))
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) and (b): an NCCL group of one rank
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg11a",
+                                rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=300))
+        try:
+            mesh = make_local_mesh(device="cuda")
+            check(mesh.group is not None and not mesh.staged
+                  and dist.get_backend(mesh.group) == "nccl",
+                  f"phase 11a mesh {mesh}")
+            for tag, ctx, args, kw, inc, inc_ms, vkey in cases:
+                for strategy in ("replicate", "shuffle"):
+                    label = f"phase 11a {tag} {strategy}"
+                    miner = DistributedMiner(ctx.sizes, mesh,
+                                             strategy=strategy, **kw)
+                    miner(*args).keep.cpu()               # cold
+                    want = mining_launches(
+                        ctx.sizes, *vkey,
+                        extra=1 if strategy == "shuffle" else 0)
+                    res, ms = counted(label, lambda: miner(*args), want)
+                    check(int(res.overflow) == 0 and
+                          miner.capacity_factor == 2.0,
+                          f"{label}: overflow {int(res.overflow)}")
+                    rows_equal(res, inc, f"{label} vs in-core",
+                               ctx.num_tuples, LEAVES[:8])
+                    check(int(res.n_clusters) == int(inc.is_unique.sum()),
+                          f"{label}: n_clusters {int(res.n_clusters)}")
+                    log(f"{label}: launches {want}; every leaf equal to "
+                        f"the in-core result; n_clusters "
+                        f"{int(res.n_clusters)}, kept {int(res.keep.sum())}"
+                        + ("; owners by mode: " + ", ".join(
+                            "hash" if bool(f) else "range"
+                            for f in miner.hash_fallback)
+                           if strategy == "shuffle" else ""))
+                    warm(label, lambda: miner(*args), ms, ctx.num_tuples,
+                         inc_ms)
+
+            # (b) the incremental path over the BibSonomy table
+            tag = "phase 11b incremental bibsonomy"
+            t = bib.num_tuples
+            step = math.ceil(t / 8)
+            miner = DistributedMiner(bib.sizes, mesh)
+            t0 = time.perf_counter()
+            for lo in range(0, t, step):
+                miner.ingest(bib.tuples[lo:lo + step])
+            ingest_ms = (time.perf_counter() - t0) * 1e3
+            kept = P.kept_sig_words(bib_inc)
+            per_tuple = LEAVES[:8]
+            perms_run = mining_launches(bib.sizes, sorted_stage1=False)
+            snaps = {}
+            for what, fn, want in (
+                    ("snapshot", miner.snapshot, perms_run),
+                    ("snapshot full_remine",
+                     lambda: miner.snapshot(full_remine=True),
+                     mining_launches(bib.sizes)),
+                    ("serving_snapshot", miner.serving_snapshot, perms_run)):
+                res, ms = counted(f"{tag} {what}", fn, want)
+                rows_equal(res, bib_inc, f"{tag} {what} vs in-core", t,
+                           per_tuple)
+                check(np.array_equal(P.kept_sig_words(res), kept),
+                      f"{tag} {what}: kept signatures differ")
+                snaps[what] = (ms, warm(f"{tag} {what}", fn, ms, t))
+            miner.window_budget = step
+            cap = len(res.keep)
+            windows = RX.plan_windows(cap, step).n_windows
+            what = f"serving_snapshot windowed (budget {step})"
+            res, ms = counted(f"{tag} {what}", miner.serving_snapshot,
+                              mining_launches(bib.sizes, sorted_stage1=False,
+                                              windows=windows))
+            rows_equal(res, bib_inc, f"{tag} {what} vs in-core", t,
+                       per_tuple)
+            check(np.array_equal(P.kept_sig_words(res), kept),
+                  f"{tag} {what}: kept signatures differ")
+            snaps[what] = (ms, warm(f"{tag} {what}", miner.serving_snapshot,
+                                    ms, t))
+            log(f"{tag}: ingest of {t} rows in 8 chunks {ingest_ms:.3f} ms; "
+                "first / warm ms " + "; ".join(
+                    f"{k} {a:.3f} / {b:.3f}" for k, (a, b) in snaps.items())
+                + f" ({windows} windows of a {cap}-row snapshot); kept "
+                f"signatures and per-tuple leaves equal to the in-core ones; "
+                f"stream_stats {miner.stream_stats}")
+        finally:
+            dist.destroy_process_group()
+
+        # (c) four gloo ranks on the one card
+        t0 = time.perf_counter()
+        mp.start_processes(phase11c_rank, args=(tmp,), nprocs=GLOO_RANKS,
+                           start_method="spawn")
+        wall = time.perf_counter() - t0
+        reports = []
+        for r in range(GLOO_RANKS):
+            with open(f"{tmp}/rank{r}.json") as f:
+                reports.append(json.load(f))
+    check(all(r["staged"] for r in reports),
+          "phase 11c: the gloo mesh on the card did not stage")
+    log(f"phase 11c: {GLOO_RANKS} gloo ranks on cuda:0 in {wall:.1f} s "
+        "wall (start-up included); collectives staged through host "
+        "memory (gloo group, CUDA tensors)")
+    for tag, entry in reports[0]["runs"].items():
+        label = f"phase 11c {tag} shuffle {GLOO_RANKS} ranks"
+        for r in reports:
+            e = r["runs"][tag]
+            path = {k: e["counts"][k] for k in mining}
+            check(path == e["expected"], f"{label} rank {r['rank']}: "
+                  f"launches {path} != {e['expected']}")
+            check(e["overflow"] == 0, f"{label}: overflow {e['overflow']}")
+            runs[f"{label} rank {r['rank']}"] = e["counts"]
+        for name in ("sig_lo", "sig_hi", "gen_count", "volume", "density"):
+            check(entry["equal"][name], f"{label}: leaf {name} differs from "
+                  "the in-core result")
+        check(entry["unique_sets_equal"],
+              f"{label}: unique signature sets differ")
+        check(entry["n_clusters"][0] == entry["n_clusters"][1],
+              f"{label}: n_clusters {entry['n_clusters']}")
+        check(entry["kept"][0] == entry["kept"][1],
+              f"{label}: kept {entry['kept']}")
+        log(f"{label}: T={entry['T']}; owners by mode: " + ", ".join(
+            "hash" if f else "range" for f in entry["hash_fallback"])
+            + f"; final capacity_factor {entry['capacity_factor']}; "
+            f"launches per rank {entry['expected']}; warm ms (rank 0) "
+            f"{[round(x, 3) for x in entry['warm_ms']]} (min "
+            f"{min(entry['warm_ms']):.3f}); sig_lo, sig_hi, gen_count, "
+            "volume, density equal to the in-core result, unique sets, "
+            f"n_clusters {entry['n_clusters'][0]} and kept "
+            f"{entry['kept'][0]} agree; every leaf equal: "
+            f"{all(entry['equal'].values())}")
+    log(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
     return runs
 
 
@@ -1214,11 +1558,12 @@ def main() -> int:
     log("phase 4 movielens-20k noac: CUDA result equals the CPU result")
 
     # -- phase 5: the CLI twin ---------------------------------------------
-    def cli_clusters(backend):
+    def cli_clusters(backend, *extra):
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             rc = tricluster.main(["--dataset", "imdb", "--backend", backend,
-                                  "--device", "cuda", "--print-top", "1"])
+                                  "--device", "cuda", "--print-top", "1",
+                                  *extra])
         out = buf.getvalue()
         print(out, end="", flush=True)
         check(rc == 0, f"CLI --dataset imdb --backend {backend}: rc={rc}")
@@ -1229,11 +1574,14 @@ def main() -> int:
     n_batch, n_ref = cli_clusters("batch"), cli_clusters("reference")
     check(n_batch == n_ref, f"CLI cluster counts: batch {n_batch}, "
           f"reference {n_ref}")
-    rc = tricluster.main(["--dataset", "imdb", "--backend", "distributed",
+    n_dist = cli_clusters("distributed", "--strategy", "shuffle")
+    check(n_dist == n_batch, f"CLI cluster counts: batch {n_batch}, "
+          f"distributed/shuffle {n_dist}")
+    rc = tricluster.main(["--dataset", "imdb", "--backend", "spark",
                           "--device", "cuda"])
-    check(rc == 2, f"CLI --backend distributed: rc={rc}, expected 2")
-    log(f"phase 5 CLI: rc=0 for batch and reference ({n_batch} clusters "
-        "each), rc=2 for an unknown backend")
+    check(rc == 2, f"CLI --backend spark: rc={rc}, expected 2")
+    log(f"phase 5 CLI: rc=0 for batch, reference and distributed/shuffle "
+        f"({n_batch} clusters each), rc=2 for an unknown backend")
 
     # -- phase 6: MoE routing telemetry at full width ------------------------
     cfg = dataclasses.replace(get_config("granite-moe-3b-a800m"),
@@ -2078,6 +2426,9 @@ def main() -> int:
 
     # -- phase 10: out-of-core and streaming mining --------------------------
     runs10 = phase10(bib, ml, prime_ms, noac_ms)
+
+    # -- phase 11: distributed mining ------------------------------------------
+    runs10.update(phase11(bib, ml, prime_ms, noac_ms))
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")

@@ -4,10 +4,11 @@ Port of ``repro.core.engines`` for the engines the port has.
 ``repro_torch.core.mine(ctx, backend=..., variant=...)`` is the single
 entry point.  Engines register themselves under a ``(backend, variant)``
 key; unknown combinations fail with an error that lists every valid
-choice.  The port registers ``batch`` (one device), ``streaming``
-(incremental sorted-run ingestion, ``core.streaming``) and ``reference``
-(the pure-python oracle of ``core.reference``), each in the ``prime``
-and ``noac`` variants; the distributed backend is a later slice.
+choice.  The port registers ``batch`` (one device), ``distributed``
+(the ranks of a ``torch.distributed`` process group, ``core.distributed``),
+``streaming`` (incremental sorted-run ingestion, ``core.streaming``) and
+``reference`` (the pure-python oracle of ``core.reference``), each in the
+``prime`` and ``noac`` variants.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import numpy as np
 
 from .batch import BatchMiner
 from .context import PolyadicContext
+from .distributed import DistributedMiner, pad_tuples, pad_values
 from .manyvalued import NOACMiner
 from .streaming import StreamingMiner
 
@@ -80,8 +82,12 @@ def mine(ctx: PolyadicContext, backend: str = "batch",
     auto, False = lexsort baseline), ``sort_backend`` ('radix' | 'lax' |
     'lexsort'), ``use_kernels`` (the CUDA kernels; None = when on CUDA),
     ``prune_values`` and ``device`` (default CUDA; ``"cpu"`` runs the
-    plain versions on the CPU).  Backend-specific: ``chunks``/
-    ``incremental`` (streaming), ``chunk_budget`` (batch: out-of-core
+    plain versions on the CPU).  Backend-specific: ``mesh``/``axes``/
+    ``strategy``/``capacity_factor`` (distributed; the default mesh is
+    ``launch.mesh.make_local_mesh``: the default process group's ranks,
+    or one rank), ``chunks``/``incremental`` (streaming; distributed:
+    chunked ingestion into per-shard run stores, then one incremental
+    snapshot), ``chunk_budget`` (batch: out-of-core
     chunked Stage 1 via ``mine_chunked`` — host-sorted runs, the device
     never sorts in Stage 1), ``window_budget`` (the windowed device
     pipeline: on the batch backend via ``mine_windowed``, on streaming
@@ -126,7 +132,7 @@ def _pipe_kw(p):
 
 def _timed(step):
     """Wrap a mining step: each call waits for the device result (when it
-    has one: a ``PipelineResult``'s ``keep``) and records its wall time in
+    has one: a result's ``keep``) and records its wall time in
     ``go.last_s``."""
     def go():
         t0 = time.perf_counter()
@@ -177,6 +183,52 @@ def _batch_noac(ctx, p):
     res = rerun()
     clusters = miner.materialise(res)
     return len(clusters), clusters, res, miner, rerun
+
+
+def _run_distributed(ctx, p, values, **variant_kw):
+    if p.get("mesh") is not None:
+        mesh = p["mesh"]
+    else:
+        from ..launch.mesh import make_local_mesh
+        mesh = make_local_mesh(device=p.get("device"))
+    miner = DistributedMiner(
+        ctx.sizes, mesh, axes=p.get("axes", "data"),
+        strategy=p.get("strategy", "replicate"),
+        capacity_factor=p.get("capacity_factor", 2.0),
+        seed=p.get("seed", 0x5EED), **_pipe_kw(p), **variant_kw)
+    if p.get("incremental"):
+        # chunked ingestion + merged per-shard-run snapshot (core.runs)
+        step = -(-ctx.num_tuples // max(1, int(p.get("chunks", 8))))
+
+        def ingest_and_snapshot():
+            miner.reset_stream()
+            for lo in range(0, ctx.num_tuples, step):
+                hi = lo + step
+                miner.ingest(ctx.tuples[lo:hi],
+                             values[lo:hi] if values is not None else None)
+            return miner.snapshot()
+
+        rerun = _timed(ingest_and_snapshot)
+    else:
+        tuples = pad_tuples(ctx.tuples, miner.n_shards)
+        values = (pad_values(values, miner.n_shards)
+                  if values is not None else None)
+        rerun = _timed(lambda: miner(tuples, values))
+    res = rerun()
+    return int(res.gather().keep.sum()), None, res, miner, rerun
+
+
+@register_engine("distributed", "prime")
+def _distributed_prime(ctx, p):
+    return _run_distributed(ctx, p, None, theta=p.get("theta", 0.0))
+
+
+@register_engine("distributed", "noac")
+def _distributed_noac(ctx, p):
+    ctx = _noac_ctx(ctx)
+    return _run_distributed(ctx, p, ctx.values, delta=p["delta"],
+                            rho_min=p.get("rho_min", 0.0),
+                            minsup=p.get("minsup", 0))
 
 
 def _run_streaming(ctx, p, values, **variant_kw):

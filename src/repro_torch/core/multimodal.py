@@ -17,21 +17,20 @@ from typing import Optional, Sequence
 
 from .batch import BatchMiner, MiningResult
 from .context import PolyadicContext, from_named_triples, tricontext
+from .distributed import (DistributedMiner, DistributedResult, pad_tuples,
+                          pad_values)
 from .engines import MineRun, available_engines, mine, resolve_engine
 from .manyvalued import NOACMiner, NOACResult
 from .pipeline import PipelineResult
 from .streaming import StreamingMiner
 
 __all__ = [
-    "BatchMiner", "NOACMiner", "StreamingMiner", "MiningResult",
-    "NOACResult",
-    "PipelineResult", "PolyadicContext", "tricontext", "from_named_triples",
-    "make_miner", "mine", "MineRun", "available_engines", "resolve_engine",
+    "BatchMiner", "DistributedMiner", "StreamingMiner", "NOACMiner",
+    "MiningResult", "DistributedResult", "NOACResult", "PipelineResult",
+    "PolyadicContext", "tricontext", "from_named_triples", "pad_tuples",
+    "pad_values", "make_miner", "mine", "MineRun", "available_engines",
+    "resolve_engine",
 ]
-
-#: Backends of the JAX package that the port has not ported yet, with the
-#: ROADMAP item that brings each.
-_UNPORTED = {"distributed": "A9 (core/distributed.py)"}
 
 
 def make_miner(sizes: Sequence[int], backend: str = "batch",
@@ -44,19 +43,21 @@ def make_miner(sizes: Sequence[int], backend: str = "batch",
     ``repro_torch.core.mine(ctx, backend=..., variant=...)`` for one-shot
     runs.  ``kw`` goes to the miner (``seed``, ``sort_backend``,
     ``use_kernels``, ``window_budget``, ``device``, ...; ``incremental``
-    for streaming).  The distributed backend raises
-    ``NotImplementedError`` until it is ported; ``mesh``, ``axes`` and
-    ``strategy`` are its."""
-    if backend in _UNPORTED:
-        raise NotImplementedError(
-            f"the {backend} backend is not ported to the PyTorch port yet; "
-            f"see ROADMAP.md queue A, item {_UNPORTED[backend]}")
+    for streaming).  ``mesh`` (a ``launch.mesh.Mesh``), ``axes`` and
+    ``strategy`` are the distributed backend's."""
     variant = "noac" if delta is not None else "prime"
     resolve_engine(backend, variant)  # clear error on unknown combinations
     if backend == "reference":
         raise ValueError("the reference oracle has no miner object; "
                          "use repro_torch.core.mine(ctx, "
                          "backend='reference')")
+    if backend == "distributed":
+        if mesh is None:
+            raise ValueError("distributed backend needs a mesh")
+        variant_kw = ({"delta": delta, "rho_min": rho_min, "minsup": minsup}
+                      if variant == "noac" else {"theta": theta})
+        return DistributedMiner(sizes, mesh, axes=axes, strategy=strategy,
+                                **variant_kw, **kw)
     if variant == "noac":
         cls = StreamingMiner if backend == "streaming" else NOACMiner
         return cls(sizes, delta=delta, rho_min=rho_min, minsup=minsup, **kw)

@@ -3,20 +3,32 @@
 
 The twin of ``repro.launch.tricluster`` for the engines the port has
 (``batch`` on one device, with the out-of-core ``--chunk-budget`` and
-``--window-budget`` paths; ``streaming``, incremental sorted-run
-snapshots over ``--chunks`` ingestion chunks; and ``reference``, the
-pure-python oracle — each in the prime and NOAC variants), with the
-flags that apply to them and ``--device`` (default ``cuda``; ``cpu`` runs
-the kernels' plain versions; the reference backend runs on the host
-either way).  Prints timings, cluster counts, and §5.2-formatted top
-patterns (``core.postprocess.format_cluster``).  An unknown
-backend/variant returns 2 with the valid combinations on stderr.
-``--strategy`` waits for the distributed backend (ROADMAP A9),
-``--top-k`` and ``--query-*`` for the serving layer (ROADMAP A10).
+``--window-budget`` paths; ``distributed``, the ranks of a process group
+with the ``--strategy`` merge, one-shot or ``--incremental``;
+``streaming``, incremental sorted-run snapshots over ``--chunks``
+ingestion chunks; and ``reference``, the pure-python oracle — each in the
+prime and NOAC variants), with the flags that apply to them and
+``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain versions;
+the reference backend runs on the host either way).  Prints timings,
+cluster counts, and §5.2-formatted top patterns
+(``core.postprocess.format_cluster``).  An unknown backend/variant
+returns 2 with the valid combinations on stderr.  ``--top-k`` and
+``--query-*`` wait for the serving layer (ROADMAP A10).
+
+Under ``torchrun`` (``WORLD_SIZE`` set) every rank joins the default
+process group — NCCL on the card (one rank a card, ``cuda:LOCAL_RANK``),
+gloo with ``--device cpu`` — and only rank 0 prints::
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.tricluster \
+        --backend distributed --strategy shuffle --device cpu
+
+Without it the distributed backend runs one rank.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import sys
 
 
@@ -53,6 +65,10 @@ def main(argv=None):
                          "repro_torch.core.available_engines)")
     ap.add_argument("--variant", default=None,
                     help="'prime' | 'noac'; default: noac iff --delta given")
+    ap.add_argument("--strategy", default="replicate",
+                    choices=["replicate", "shuffle"],
+                    help="distributed: replicate the table on every rank, "
+                         "or the M/R shuffle to key-owner ranks")
     ap.add_argument("--theta", type=float, default=0.0,
                     help="min density (Alg. 7 estimate)")
     ap.add_argument("--delta", type=float, default=None,
@@ -60,7 +76,8 @@ def main(argv=None):
     ap.add_argument("--rho-min", type=float, default=0.0)
     ap.add_argument("--minsup", type=int, default=0)
     ap.add_argument("--chunks", type=int, default=8,
-                    help="streaming: number of ingestion chunks")
+                    help="streaming / incremental-distributed: number of "
+                         "ingestion chunks")
     ap.add_argument("--chunk-budget", type=int, default=0,
                     help="batch: out-of-core chunked Stage 1 — sort at "
                          "most this many rows per host chunk "
@@ -73,7 +90,9 @@ def main(argv=None):
                          "monolithic path (0 = off)")
     ap.add_argument("--incremental", action="store_true",
                     help="streaming: the sorted-run merge path (the "
-                         "default)")
+                         "default); distributed: chunked ingestion into "
+                         "per-shard run stores + one merged-run snapshot "
+                         "instead of one-shot mining")
     ap.add_argument("--no-incremental", action="store_true",
                     help="streaming: full device re-sort per snapshot "
                          "(disable the sorted-run merge path)")
@@ -99,7 +118,28 @@ def main(argv=None):
     ap.add_argument("--repeat", type=int, default=1,
                     help="timing repeats (paper used 5)")
     args = ap.parse_args(argv)
+    if "WORLD_SIZE" not in os.environ:
+        return _main(args)
+    import torch
+    import torch.distributed as dist
+    if torch.device(args.device).type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", 0))
+        torch.cuda.set_device(local)
+        args.device = f"cuda:{local}"
+        dist.init_process_group("nccl")
+    else:
+        dist.init_process_group("gloo")
+    try:
+        if dist.get_rank() == 0:
+            return _main(args)
+        with open(os.devnull, "w") as quiet, \
+                contextlib.redirect_stdout(quiet):
+            return _main(args)
+    finally:
+        dist.destroy_process_group()
 
+
+def _main(args) -> int:
     from ..core import available_engines, mine
     from ..core import postprocess as PP
 
@@ -116,7 +156,7 @@ def main(argv=None):
         run = mine(ctx, backend=args.backend, variant=variant,
                    theta=args.theta, delta=args.delta,
                    rho_min=args.rho_min, minsup=args.minsup,
-                   chunks=args.chunks,
+                   strategy=args.strategy, chunks=args.chunks,
                    chunk_budget=args.chunk_budget or None,
                    window_budget=args.window_budget or None,
                    **({} if incremental is None
@@ -139,15 +179,20 @@ def main(argv=None):
               file=sys.stderr)
         return 2
 
+    label = args.backend + (f"/{args.strategy}"
+                            if args.backend == "distributed" else "")
     if variant == "noac":
         print(f"[tricluster] NOAC(δ={args.delta}, ρ={args.rho_min}, "
-              f"minsup={args.minsup}) backend={args.backend}: "
+              f"minsup={args.minsup}) backend={label}: "
               f"{run.n_clusters} triclusters; "
               f"best {run.elapsed_s * 1e3:.1f} ms over {args.repeat} run(s)")
     else:
-        print(f"[tricluster] backend={args.backend} θ={args.theta}: "
+        print(f"[tricluster] backend={label} θ={args.theta}: "
               f"{run.n_clusters} unique clusters; "
               f"best {run.elapsed_s * 1e3:.1f} ms over {args.repeat} run(s)")
+    overflow = getattr(run.result, "overflow", None)
+    if overflow is not None:
+        print(f"[tricluster] shuffle overflow flag: {int(overflow)}")
 
     if args.print_top and run.clusters:
         mats = sorted(run.clusters, key=lambda cd: -(cd[1]

@@ -951,3 +951,91 @@ def test_memprobe_reads_the_allocator(cuda):
         for f in res.__dataclass_fields__)
     assert isinstance(res, P.PipelineResult)
     del x, y
+
+
+# the owner stage of the distributed shuffle: receive buffers of P x
+# capacity slots, about half of them invalid, at the rank and segment
+# tiles +- 1; prime keys of 33 and exactly 64 bits (the flag has no room:
+# a stable two-column sort, no radix launch) and a rank-coded NOAC key
+OWNER_SIZES = [KR.RANK_TILE - 1, KR.RANK_TILE + 1, KS.TILE - 1,
+               KS.TILE + 1, 70_001]
+OWNER_PLANS = {"prime33": ((2**11, 2**11, 2**11), False, None),
+               "prime64": ((2**22, 2**21, 2**21), False, None),
+               "noac_rank": ((40, 30, 5), True, 9)}
+
+
+@pytest.mark.parametrize("plan_name", sorted(OWNER_PLANS))
+@pytest.mark.parametrize("t", OWNER_SIZES)
+def test_owner_stage_on_the_card_equals_the_plain_versions(cuda, t,
+                                                           plan_name):
+    from repro_torch.core import distributed as D
+    from repro_torch.core import keys as K
+    sizes, with_values, slots = OWNER_PLANS[plan_name]
+    rng = np.random.default_rng(t)
+    rows = np.stack([rng.integers(0, min(s, 64), t) for s in sizes],
+                    1).astype(np.int32)
+    dom = np.arange(slots, dtype=np.float32) * 0.5 if slots else None
+    vals = rng.choice(dom, t) if slots else None
+    plan = K.plan_context_keys(sizes, with_values, slots)[1]
+    valid = rng.random(t) < 0.5
+    key = np.where(valid, plan.pack_host(rows, vals, dom), np.uint64(0))
+    words = ([key >> np.uint64(32)] if plan.words == 2 else []) + [
+        key & np.uint64(0xFFFFFFFF)]
+    recv = torch.stack([_i32(w, cuda) for w in words], 1)
+    rvalid = torch.from_numpy(valid).to(cuda)
+    r_lo = _i32(rng.integers(1, 2**32, sizes[1], dtype=np.uint64), cuda)
+    r_hi = _i32(rng.integers(1, 2**32, sizes[1], dtype=np.uint64), cuda)
+    vdom = None if dom is None else torch.from_numpy(dom).to(cuda)
+    delta = 0.5 if with_values else None
+    args = (recv, rvalid, plan, r_lo, r_hi, delta)
+    ops.reset_launch_counts()
+    got = D._owner_stage_packed(*args, value_domain=vdom)
+    bits = plan.total_bits + 1
+    sorts = 0 if bits > 64 else 1
+    assert _path_counts() == {"segment_reduce": 1,
+                              "radix_histogram": sorts,
+                              "radix_rank": sorts * -(-bits // 8)}
+    plain = D._owner_stage_packed(*args, use_kernels=False,
+                                  value_domain=vdom)
+    cpu = D._owner_stage_packed(*(a.cpu() if isinstance(a, torch.Tensor)
+                                  else a for a in args),
+                                value_domain=None if vdom is None
+                                else vdom.cpu())
+    for g, p, c in zip(got, plain, cpu):
+        assert torch.equal(g, p) and torch.equal(g.cpu(), c)
+
+
+def test_nccl_group_of_one_rank_equals_in_core(cuda, tmp_path):
+    """The distributed backend over an NCCL group of one rank, both
+    strategies and variants, against the in-core miners on the card."""
+    import datetime
+
+    import torch.distributed as dist
+    from repro_torch.core import DistributedMiner
+    from repro_torch.core.distributed import LEAVES
+    from repro_torch.launch.mesh import make_local_mesh
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_local_mesh(device="cuda")
+        assert dist.get_backend(mesh.group) == "nccl" and not mesh.staged
+        ctx = S.bibsonomy_like(scale=0.01)
+        mctx = S.movielens_like(n_tuples=5000, seed=2).deduplicated()
+        for c, kw, args in ((ctx, {}, (ctx.tuples,)),
+                            (mctx, {"delta": 1.0},
+                             (mctx.tuples, mctx.values))):
+            want = (NOACMiner if kw else BatchMiner)(
+                c.sizes, device="cuda", **kw)(*args)
+            for strategy in ("replicate", "shuffle"):
+                got = DistributedMiner(c.sizes, mesh, strategy=strategy,
+                                       **kw)(*args)
+                assert int(got.overflow) == 0
+                assert int(got.n_clusters) == int(want.is_unique.sum())
+                for name in LEAVES[:8]:
+                    assert torch.equal(getattr(got, name),
+                                       getattr(want, name)), name
+                    assert torch.equal(getattr(got.gather(), name),
+                                       getattr(want, name)), name
+    finally:
+        dist.destroy_process_group()

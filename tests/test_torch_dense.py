@@ -21,8 +21,8 @@ from repro.core import pipeline as JP
 from repro.core import postprocess as JPP
 from repro.core import reference as JR
 from repro.data import synthetic as JS
-from repro_torch.core import (BatchMiner, NOACMiner, StreamingMiner,
-                              dense_tensor, exact_density_dense, fibers,
+from repro_torch.core import (BatchMiner, DistributedMiner, NOACMiner,
+                              StreamingMiner, dense_tensor, exact_density_dense, fibers,
                               make_miner, mine)
 from repro_torch.core import pipeline as TP
 from repro_torch.core import postprocess as PP
@@ -30,6 +30,7 @@ from repro_torch.core import reference as R
 from repro_torch.data import synthetic as TS
 from repro_torch.kernels import ops
 from repro_torch.launch import tricluster as tcli
+from repro_torch.launch.mesh import make_local_mesh
 
 CONTEXTS = {
     "random3": lambda S: S.random_context((6, 5, 4), 50, seed=7),
@@ -183,8 +184,11 @@ def test_make_miner_matches_jax():
         make_miner(ctx.sizes, backend="reference")
     with pytest.raises(ValueError, match="no engine"):
         make_miner(ctx.sizes, backend="nope")
-    with pytest.raises(NotImplementedError, match="A9"):
-        make_miner(ctx.sizes, backend="distributed", device="cpu")
+    dm = make_miner(ctx.sizes, backend="distributed",
+                    mesh=make_local_mesh(device="cpu"), device="cpu")
+    assert isinstance(dm, DistributedMiner)
+    assert_same(dm(ctx.tuples).sig_lo,
+                jmake_miner(jctx.sizes)(jctx.tuples).sig_lo, "distributed")
     streaming = make_miner(ctx.sizes, backend="streaming", device="cpu")
     assert isinstance(streaming, StreamingMiner)
     streaming.add(ctx.tuples)

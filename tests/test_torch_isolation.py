@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
 package, runs on CUDA by default (and says so when there is no card), and
 never runs a plain version where a kernel was asked for.  Its four paths —
-mining, the MoE routing pass that feeds it, the dense validation path and
-LM serving — each have their own kernel set."""
+mining (on one device or over the ranks of a process group), the MoE
+routing pass that feeds it, the dense validation path and LM serving —
+each have their own kernel set."""
 import dataclasses
 import os
 import subprocess
@@ -15,7 +16,8 @@ import torch
 
 from repro_torch import device as D
 from repro_torch.configs import get_smoke_config
-from repro_torch.core import BatchMiner, NOACMiner, StreamingMiner, mine
+from repro_torch.core import (BatchMiner, DistributedMiner, NOACMiner,
+                              StreamingMiner, mine)
 from repro_torch.core.keys import plan_context_keys
 from repro_torch.core.windowed import mine_windowed
 from repro_torch.data import synthetic as S
@@ -28,6 +30,7 @@ from repro_torch.kernels import segment_reduce as KS
 from repro_torch.kernels import signature as KSig
 from repro_torch.kernels import tricluster_density as KTD
 from repro_torch.launch import mine_moe_routing, serve, tricluster
+from repro_torch.launch.mesh import Mesh, make_local_mesh
 from repro_torch.models.api import get_model
 from repro_torch.models.params import from_jax_params
 from repro_torch.serve import ServeEngine
@@ -74,6 +77,18 @@ with tempfile.TemporaryDirectory() as d:
     RS.save_checkpoint(sm.state.checkpoint(), os.path.join(d, "c"))
     sm.state = RS.RunStore.restore(RS.load_checkpoint(os.path.join(d, "c"))[0])
 assert int(sm.snapshot().keep.sum()) > 0
+
+# the distributed backend at one rank, both strategies
+from repro_torch.core import DistributedMiner
+from repro_torch.launch.mesh import make_local_mesh
+mesh = make_local_mesh(device="cpu")
+for strategy in ("replicate", "shuffle"):
+    dres = DistributedMiner(ctx.sizes, mesh, strategy=strategy,
+                            delta=50.0)(ctx.tuples, ctx.values)
+    assert int(dres.keep.sum()) == int(nres.keep.sum())
+dm = DistributedMiner(ctx.sizes, mesh, window_budget=16)
+dm.ingest(ctx.tuples)
+assert int(dm.serving_snapshot().keep.sum()) == int(res.keep.sum())
 
 # the dense validation path
 import torch
@@ -124,7 +139,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert out.returncode == 0, out.stderr
     ok, n_modules, kept, nkept, n_clusters, n_routes, n_routing, n_gen = \
         out.stdout.split()[-8:]
-    assert ok == "OK" and int(n_modules) >= 44
+    assert ok == "OK" and int(n_modules) >= 47
     assert int(kept) > 0 and int(nkept) > 0 and int(n_clusters) > 0
     assert int(n_routes) > 0 and int(n_routing) > 0 and int(n_gen) == 10
 
@@ -147,6 +162,13 @@ def test_default_device_is_cuda_and_raises_without_a_card():
                  **kw)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         tricluster.main(["--dataset", "random", "--backend", "streaming"])
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        mine(S.random_context((3, 3, 3), 10, seed=0), backend="distributed")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        make_local_mesh()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        DistributedMiner((3, 3, 3), Mesh(("data",), (1,),
+                                         torch.device("cpu")), device="cuda")
     lo = [torch.zeros(3, dtype=torch.int32)] * 3
     with pytest.raises(RuntimeError, match='device="cpu"'):
         mine_windowed(np.zeros((4, 3), np.int32), None,

@@ -162,14 +162,17 @@ def test_mine_registry_cluster_sets(case):
 def test_mine_registry_errors():
     ctx = TS.random_context((4, 4, 4), 30, seed=1)
     assert available_engines() == [("batch", "noac"), ("batch", "prime"),
+                                   ("distributed", "noac"),
+                                   ("distributed", "prime"),
                                    ("reference", "noac"),
                                    ("reference", "prime"),
                                    ("streaming", "noac"),
                                    ("streaming", "prime")]
     with pytest.raises(ValueError, match="valid combinations: "
-                       "batch/noac, batch/prime, reference/noac, "
+                       "batch/noac, batch/prime, distributed/noac, "
+                       "distributed/prime, reference/noac, "
                        "reference/prime, streaming/noac, streaming/prime"):
-        mine(ctx, backend="distributed", device="cpu")
+        mine(ctx, backend="spark", device="cpu")
     with pytest.raises(ValueError, match="requires delta"):
         mine(ctx, variant="noac", device="cpu")
     # the out-of-core budgets run and give the in-core result
@@ -264,6 +267,12 @@ def _count(out: str) -> int:
      "--backend", "reference"],
     ["--dataset", "random", "--n-tuples", "300", "--sort-backend", "lax",
      "--theta", "0.5"],
+    ["--dataset", "imdb", "--backend", "distributed", "--strategy",
+     "shuffle"],
+    ["--dataset", "movielens", "--n-tuples", "512", "--backend",
+     "distributed", "--delta", "1.0"],
+    ["--dataset", "random", "--n-tuples", "512", "--backend",
+     "distributed", "--incremental"],
 ])
 def test_cli_twin_matches_jax_cli(args, capsys):
     assert jcli.main(args + ["--print-top", "0"]) == 0
@@ -274,13 +283,13 @@ def test_cli_twin_matches_jax_cli(args, capsys):
 
 
 @pytest.mark.parametrize("args", [
-    ["--backend", "distributed"],
-    ["--backend", "distributed", "--delta", "1.0"],
+    ["--backend", "spark"],
+    ["--backend", "distributed", "--variant", "noac"],
     ["--variant", "noac"],
 ])
 def test_cli_twin_rejects_with_valid_choices(args, capsys):
     assert tcli.main(["--dataset", "imdb", "--device", "cpu"] + args) == 2
     err = capsys.readouterr().err
     assert ("valid backend/variant choices: batch/noac, batch/prime, "
-            "reference/noac, reference/prime, streaming/noac, "
-            "streaming/prime") in err
+            "distributed/noac, distributed/prime, reference/noac, "
+            "reference/prime, streaming/noac, streaming/prime") in err
