@@ -131,7 +131,26 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    (``sig_lo``, ``sig_hi``, ``gen_count``, ``volume``, ``density``, the
    unique signature sets, ``n_clusters`` and the kept count), with each
    mode's partition (range or hash fallback) and the final
-   ``capacity_factor``.
+   ``capacity_factor``;
+12. the cluster service (``phase12``, ``serve`` and ``obs``) over the
+   first thirty-second of BibSonomy's table (25,507 rows;
+   ``SERVICE_ROWS`` says why): (a) ``TriclusterService(backend="streaming",
+   delta_index=True)`` with an enabled ``obs`` hub, the rows in 8
+   chunks, ``start()``, 8 rounds of 0.1% upserts each with a
+   ``refresh()``: at every version the delta index equals the full build
+   of the same result array for array, and ``query_batch`` of 4,096
+   entities (k 10) equals ``BatchQuerier`` over it; the last index equals
+   those built from ``full_remine``, an in-core ``BatchMiner``,
+   ``mine_chunked`` and ``mine_windowed`` of the live rows on the card;
+   the launches of the 9 swaps, the swap, mine, index-build, readback
+   and query times from the hub and its spans, and the stage histograms
+   the miners' hooks filled; (b) the same write stream through
+   ``backend="distributed"`` on an NCCL group of one rank, its kept
+   signature words and top-k hits equal to (a)'s at every version; (c)
+   the CLI's ``--top-k 5`` and ``--query-entity 207 --query-mode 0`` on
+   the card and on the CPU, the same ranked lines; (d) a service with
+   ``recover_dir`` stopped after writes, and a successor restored from
+   its checkpoint and WAL publishing the same signatures and scores.
 
 Before the last line it prints the card's name and power limit
 (``nvidia-smi``) and one JSON line ``{"kernels": [...]}``; the last line is
@@ -953,6 +972,342 @@ def phase11(bib, ml, prime_ms: float, noac_ms: float) -> dict:
             f"{entry['kept'][0]} agree; every leaf equal: "
             f"{all(entry['equal'].values())}")
     log(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
+
+#: Rows of BibSonomy's table that phase 12 serves: its first thirty-
+#: second, ceil(T/32).  The cut is the run's time limit.  The service's
+#: index is host numpy over every component member (the JAX package's
+#: design), and on this generator the members grow as about T^1.6: 9.7M,
+#: 28.6M and 83.8M at the first 102,025, 204,050 and 408,100 rows, whose
+#: full builds took 16.5, 52.3 and 179.1 s on the card's host
+#: (``scripts/torch_service_swap.py`` on an H100 80GB HBM3).  The
+#: phase builds an index about 35 times.
+SERVICE_ROWS = 25_507
+#: Rounds of phase 12's upserts, and the share of the rows each upserts.
+SERVICE_ROUNDS = 8
+SERVICE_UPSERT = 1000          # one row in this many: 0.1%
+#: Entities of each phase-12 batched query, and hits per entity.
+QUERY_BATCH = 4096
+QUERY_K = 10
+
+
+def phase12(bib) -> dict:
+    """Phase 12: the cluster service (``serve``) on the card over the
+    first :data:`SERVICE_ROWS` rows of BibSonomy's table (the mode sizes
+    and the generator of the full context; the cut is explained there).
+
+    (a) ``TriclusterService(backend="streaming", delta_index=True)`` with
+    an enabled ``obs`` hub: the rows ingested in 8 chunks, ``start()``,
+    then 8 rounds of 0.1% upserts, each with a ``refresh()``.  At every
+    published version the delta index equals ``ClusterIndex.from_result``
+    of the same result, array for array, and ``query_batch`` of 4,096
+    entities (k = 10) equals ``BatchQuerier`` over that full-built index;
+    at the last version the index equals one built from ``full_remine``
+    on the card and one from an in-core ``BatchMiner`` on the card over
+    the same rows (its ``mine_chunked`` and ``mine_windowed`` too, which
+    fill the stage histograms).  (b) The same write stream through
+    ``backend="distributed"`` on an NCCL group of one rank: the kept
+    signature words and top-k hits at every version equal (a)'s.  (c) The
+    CLI's ``--top-k 5`` and ``--query-entity E --query-mode 0`` on the
+    card and on the CPU: rc 0 and the same ranked lines.  (d) A service
+    with ``recover_dir``, writes, ``stop()``; a successor restored from
+    the checkpoint and the WAL publishes the same signatures and scores.
+    Returns {run: launch counts}."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import BatchMiner
+    from repro_torch.kernels import ops
+    from repro_torch.launch import tricluster
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.obs import Obs
+    from repro_torch.serve import (BatchQuerier, ClusterIndex,
+                                   TriclusterService)
+    from repro_torch.serve.clusters import INDEX_LEAVES
+
+    mining = ops.PATH_KERNELS["mining"]
+    runs = {}
+    t_phase = time.perf_counter()
+    table = bib.tuples[:SERVICE_ROWS]
+    t = table.shape[0]
+    step = math.ceil(t / 8)
+    rng = np.random.default_rng(2027)
+    # each round upserts 0.1% of the rows with a new tag (mode 2): mostly
+    # tuples the table does not hold, so clusters change at every swap
+    picks = []
+    for _ in range(SERVICE_ROUNDS):
+        rows = table[rng.choice(t, t // SERVICE_UPSERT,
+                                replace=False)].copy()
+        rows[:, 2] = rng.integers(0, bib.sizes[2], rows.shape[0])
+        picks.append(rows)
+    ents = rng.integers(0, max(bib.sizes), QUERY_BATCH)
+    quiet = dict(refresh_interval=3600.0, dirty_threshold=10**9)
+    per_snapshot = {"segment_reduce": 3, "radix_histogram": 1,
+                    "radix_rank": 8}
+
+    def index_equal(a, b, what):
+        check(len(a) == len(b), f"{what}: {len(a)} vs {len(b)} clusters")
+        for name in ("packed_sigs", "sig_lo", "sig_hi", "density",
+                     "gen_count", "volume", "any_pairs"):
+            x, y = getattr(a, name), getattr(b, name)
+            check(x.dtype == y.dtype and np.array_equal(x, y),
+                  f"{what}: {name} differs")
+        for name in ("mode_pairs", "comp_ents", "comp_bounds"):
+            for k, (x, y) in enumerate(zip(getattr(a, name),
+                                           getattr(b, name))):
+                check(x.dtype == y.dtype and np.array_equal(x, y),
+                      f"{what}: {name}[{k}] differs")
+
+    def hits(hl):
+        return [(v.signature, s) for v, s in hl]
+
+    def counted_path(label, counts, want):
+        path = {k: counts[k] for k in mining}
+        check(all(n > 0 for n in path.values()),
+              f"{label}: a kernel of the path was not launched: {counts}")
+        check(path == want, f"{label}: launches {path} != {want}")
+        check(all(n == 0 for k, n in counts.items() if k not in mining),
+              f"{label}: a kernel of another path was launched: {counts}")
+        runs[label] = counts
+
+    def drive(svc, label, check_each=None):
+        """The write stream through ``svc``, counts at 0 before it and
+        read after it; {version: (packed sigs, global top-k)}."""
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        for lo in range(0, t, step):
+            svc.add(table[lo:lo + step])
+        add_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        svc.start()
+        start_ms = (time.perf_counter() - t0) * 1e3
+        seen, upsert_ms, refresh_ms, dirty = {}, [], [], []
+        for r in range(SERVICE_ROUNDS + 1):
+            snap = svc.snapshot()
+            counts = ops.launch_counts()     # the checks launch nothing
+            seen[snap.version] = (snap.index.packed_sigs,
+                                  hits(svc.query(k=QUERY_K).hits))
+            dirty.append(svc.dirty_clusters)
+            t0 = time.perf_counter()
+            if check_each is not None:
+                check_each(snap)
+            check(ops.launch_counts() == counts,
+                  f"{label}: a check launched a kernel")
+            log(f"{label}: v{snap.version}, {len(snap.index)} clusters, "
+                f"{dirty[-1]} changed; swap "
+                f"{refresh_ms[-1] if refresh_ms else start_ms:.3f} ms; "
+                f"checks {(time.perf_counter() - t0) * 1e3:.3f} ms")
+            if r == SERVICE_ROUNDS:
+                break
+            t0 = time.perf_counter()
+            svc.upsert(picks[r])
+            upsert_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            svc.refresh()
+            refresh_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        check(min(dirty[1:]) > 0, f"{label}: a swap changed no cluster "
+              f"({dirty})")
+        counted_path(label, ops.launch_counts(),
+                     {k: v * (SERVICE_ROUNDS + 1)
+                      for k, v in per_snapshot.items()})
+        log(f"{label}: {t} rows added in 8 chunks {add_ms:.3f} ms; start() "
+            f"(first swap, full index) {start_ms:.3f} ms; upserts of "
+            f"{t // SERVICE_UPSERT} rows ms {[round(x, 3) for x in upsert_ms]}"
+            f"; refresh() ms {[round(x, 3) for x in refresh_ms]}; launches "
+            f"{per_snapshot} x {SERVICE_ROUNDS + 1} swaps; versions "
+            f"{sorted(seen)}; clusters changed at each swap {dirty}; stats "
+            + json.dumps(
+                {k: v for k, v in svc.stats().items()
+                 if k in ("publishes", "delta_builds", "full_builds",
+                          "clusters", "dirty_clusters", "stream_version",
+                          "scrubs", "scrub_errors", "mine_errors")}))
+        return seen
+
+    # (a) the streaming service
+    tag = "phase 12a streaming service bibsonomy/32"
+    obs = Obs.create(service="phase12")
+    svc = TriclusterService(bib.sizes, backend="streaming", obs=obs,
+                            delta_index=True, device="cuda", **quiet)
+    check(svc.device.type == "cuda" and svc.device.index is not None,
+          f"{tag}: service device {svc.device}")
+    query_ms, build_full_ms = [], []
+
+    def check_each(snap):
+        t0 = time.perf_counter()
+        full = ClusterIndex.from_result(snap.result)
+        build_full_ms.append((time.perf_counter() - t0) * 1e3)
+        index_equal(snap.index, full, f"{tag} v{snap.version} delta vs "
+                    "full")
+        t0 = time.perf_counter()
+        got = svc.query_batch(ents, k=QUERY_K).hits
+        query_ms.append((time.perf_counter() - t0) * 1e3)
+        want = BatchQuerier(full, svc.policy, snap.ages).topk_batch(
+            ents, None, QUERY_K)
+        check([hits(h) for h in got] == [hits(h) for h in want],
+              f"{tag} v{snap.version}: query_batch differs from "
+              "BatchQuerier over the full-built index")
+    seen_a = drive(svc, tag, check_each)
+    snap = svc.snapshot()
+    n_hits = sum(len(h) for h in svc.query_batch(ents, k=QUERY_K).hits)
+    svc.stop()
+    with svc._wlock:
+        remine = svc.miner.snapshot(full_remine=True)
+        survivors = svc.miner.state.table()[0].copy()
+    index_equal(snap.index, ClusterIndex.from_result(remine),
+                f"{tag} last version vs full_remine")
+    pipe = BatchMiner(bib.sizes, device="cuda")
+    pipe.obs = obs
+    for what, res in (
+            ("in-core BatchMiner", pipe(survivors)),
+            ("mine_chunked", pipe.mine_chunked(survivors,
+                                               chunk_budget=step)),
+            ("mine_windowed", pipe.mine_windowed(survivors,
+                                                 window_budget=step))):
+        index_equal(snap.index, ClusterIndex.from_result(res),
+                    f"{tag} last version vs {what} of the "
+                    f"{survivors.shape[0]} live rows")
+    m = obs.metrics
+    stages = {}
+    for st in ("mine_monolithic", "stage1_sort", "device_mine",
+               "stage1_scan", "stage2_mix", "stage3_sort"):
+        h = m.histogram("pipeline_stage_ms", stage=st)
+        check(h.count > 0, f"{tag}: pipeline_stage_ms{{stage={st}}} empty")
+        stages[st] = round(h.sum / h.count, 3)
+    windows = {st: m.histogram("pipeline_window_ms", stage=st).count
+               for st in ("stage1_scan", "stage2_mix", "stage3_sort")}
+    check(all(windows.values()), f"{tag}: window histograms {windows}")
+
+    def q(name, **labels):
+        h = m.histogram(name, **labels)
+        s = h.snapshot()
+        return (f"n {s['count']} p50 {h.quantile(0.5):.3f} p99 "
+                f"{h.quantile(0.99):.3f} min {s['min']:.3f} max "
+                f"{s['max']:.3f}")
+    swaps = [sp["attrs"] for sp in obs.tracer.spans()
+             if sp["name"] == "service.swap"]
+    check(len(swaps) == SERVICE_ROUNDS + 1, f"{tag}: {len(swaps)} swaps")
+    log(f"{tag}: service_mine_ms {q('service_mine_ms')}; "
+        f"service_index_build_ms{{kind=full}} "
+        f"{q('service_index_build_ms', kind='full')}; "
+        f"service_index_build_ms{{kind=delta}} "
+        f"{q('service_index_build_ms', kind='delta')}; service_swap_ms "
+        f"{q('service_swap_ms')}")
+    log(f"{tag}: readback of the {len(INDEX_LEAVES)} index leaves per swap: "
+        f"{swaps[-1]['readback_bytes']} bytes, ms "
+        f"{[round(a['readback_ms'], 3) for a in swaps]}; mine ms (readback "
+        f"included) {[round(a['mine_ms'], 3) for a in swaps]}")
+    log(f"{tag}: query_batch of {QUERY_BATCH} entities (k {QUERY_K}) ms "
+        f"{[round(x, 3) for x in query_ms]} ({n_hits} hits at the last "
+        f"version); full from_result build ms "
+        f"{[round(x, 3) for x in build_full_ms]}; {len(snap.index)} clusters"
+        f" at v{snap.version}; every delta index equal to the full build, "
+        f"every batch equal to BatchQuerier over it; the last index equal "
+        f"to full_remine's, the in-core miner's, mine_chunked's and "
+        f"mine_windowed's")
+    log(f"{tag}: pipeline_stage_ms mean by stage {stages}; "
+        f"pipeline_window_ms counts {windows}; seam carries "
+        f"{m.counter('pipeline_seam_carries_total').value}; window peak "
+        "bytes " + json.dumps({r['labels']['stage']: r['value'] for r in
+                                m.to_dict()['pipeline_window_peak_bytes']
+                                ['series']}))
+
+    # (b) the distributed service at one NCCL rank
+    tag = "phase 12b distributed service bibsonomy/32"
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg12",
+                                rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=300))
+        try:
+            mesh = make_local_mesh(device="cuda")
+            check(mesh.group is not None and not mesh.staged,
+                  f"{tag}: mesh {mesh}")
+            dsvc = TriclusterService(bib.sizes, backend="distributed",
+                                     mesh=mesh, device="cuda", **quiet)
+            seen_b = drive(dsvc, tag)
+            dsvc.stop()
+        finally:
+            dist.destroy_process_group()
+    check(sorted(seen_b) == sorted(seen_a), f"{tag}: versions")
+    for v, (sigs, top) in seen_a.items():
+        check(np.array_equal(seen_b[v][0], sigs),
+              f"{tag} v{v}: kept signature words differ from 12a's")
+        check(seen_b[v][1] == top, f"{tag} v{v}: top-k hits differ")
+    log(f"{tag}: kept signature words and top-{QUERY_K} hits equal to "
+        f"12a's at every version ({len(seen_a)} versions)")
+
+    # (c) the CLI's serving flags, on the card and on the CPU
+    outs = {}
+    for device in ("cuda", "cpu"):
+        for flags in (("--top-k", "5"),
+                      ("--query-entity", "207", "--query-mode", "0")):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = tricluster.main(["--dataset", "imdb", "--device",
+                                      device, "--print-top", "0", *flags])
+            check(rc == 0, f"phase 12c CLI {flags} on {device}: rc={rc}")
+            lines = buf.getvalue().splitlines()
+            first = [i for i, ln in enumerate(lines) if "top-" in ln]
+            check(len(first) == 1, f"phase 12c CLI {flags}: no ranking")
+            outs[(device, flags)] = lines[first[0]:]
+    for flags in {f for _, f in outs}:
+        check(outs[("cuda", flags)] == outs[("cpu", flags)],
+              f"phase 12c CLI {flags}: the card's ranked lines differ "
+              "from the CPU's")
+        check(sum("score=" in ln for ln in outs[("cuda", flags)]) >= 1,
+              f"phase 12c CLI {flags}: no ranked line")
+    print("\n".join(outs[("cuda", ("--query-entity", "207",
+                                   "--query-mode", "0"))]), flush=True)
+    log("phase 12c CLI: --top-k 5 and --query-entity 207 --query-mode 0 "
+        "rc 0 on the card and on the CPU, the same ranked lines")
+
+    # (d) recovery from the checkpoint and the WAL
+    tag = "phase 12d recovery bibsonomy/32"
+    with tempfile.TemporaryDirectory() as rec:
+        kw = dict(recover_dir=rec, checkpoint_every=8, device="cuda",
+                  **quiet)
+        svc = TriclusterService(bib.sizes, **kw)
+        t0 = time.perf_counter()
+        for lo in range(0, t, step):
+            svc.add(table[lo:lo + step])
+        svc.start()                          # v1: checkpoint at cadence
+        for r in range(2):
+            svc.upsert(picks[r])             # in the WAL only
+        last = svc.refresh()
+        svc.stop()
+        write_s = time.perf_counter() - t0
+        check(svc.stats()["checkpoints"] == 1,
+              f"{tag}: checkpoints {svc.stats()['checkpoints']}")
+        t0 = time.perf_counter()
+        succ = TriclusterService(bib.sizes, **kw)
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        r = succ.recovered
+        check(r.get("checkpoint_generation") == "current"
+              and r.get("replayed_ops") == 2
+              and succ.stream_version == svc.stream_version,
+              f"{tag}: recovered {r}")
+        t0 = time.perf_counter()
+        succ.start()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        got = succ.snapshot()
+        check(got.version == last.version,
+              f"{tag}: version {got.version} != {last.version}")
+        check(np.array_equal(got.index.packed_sigs, last.index.packed_sigs)
+              and np.array_equal(got.querier.scores, last.querier.scores),
+              f"{tag}: signatures or scores differ from the predecessor")
+        check(hits(succ.query(k=QUERY_K).hits)
+              == hits(svc.query(k=QUERY_K).hits), f"{tag}: top-k differs")
+        succ.stop()
+    log(f"{tag}: predecessor wrote 8 chunks + 2 upserts with a checkpoint "
+        f"at v1 ({write_s:.1f} s with its swaps); successor restored "
+        f"{r} in {restore_ms:.3f} ms and published v{got.version} in "
+        f"{first_ms:.3f} ms with the same {len(got.index)} signatures, "
+        "scores and top-k")
+    log(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
     return runs
 
 
@@ -2429,6 +2784,9 @@ def main() -> int:
 
     # -- phase 11: distributed mining ------------------------------------------
     runs10.update(phase11(bib, ml, prime_ms, noac_ms))
+
+    # -- phase 12: the cluster service -----------------------------------------
+    runs10.update(phase12(bib))
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")

@@ -27,6 +27,7 @@ so there is no jit; every tensor lives on the tuples' device.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -540,6 +541,24 @@ def dirty_sig_count(prev: Optional[np.ndarray],
     return int(cur.size) + int(prev.size) - 2 * int(inter)
 
 
+def _active_obs(obs):
+    """The enabled observability hub or None — the pipeline's
+    zero-overhead-when-disabled gate.  Duck-typed (``.enabled``,
+    ``.metrics``, ``.tracer``) so ``core`` never imports
+    ``repro_torch.obs``; callers pass a ``repro_torch.obs.Obs`` (or
+    nothing)."""
+    return obs if (obs is not None
+                   and getattr(obs, "enabled", False)) else None
+
+
+def timer_sync(device: torch.device) -> None:
+    """Wait for the work queued on ``device`` before a stage timer reads
+    the clock (CUDA runs asynchronously; the CPU's ops have finished when
+    they return).  Called only when profiling is on."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def _as_tensor(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype).contiguous()
@@ -556,7 +575,14 @@ class PipelineMiner:
     ``window_budget``) — is shared; ``streaming.StreamingMiner`` adds
     ingestion and snapshots.  ``device``
     defaults to CUDA and raises without a card (``device="cpu"`` runs the
-    plain versions of the kernels on the CPU)."""
+    plain versions of the kernels on the CPU).
+
+    ``obs`` (an enabled ``repro_torch.obs.Obs``) turns on per-stage
+    wall-time profiling: host run-sort vs device mine split, per-window
+    stage timings and memory peaks on the windowed path.  A stage timer
+    synchronises the device before it reads the clock.  ``obs=None``
+    (the default) queues exactly the work an unprofiled run queues: no
+    synchronisation, no host read."""
 
     def __init__(self, sizes: Sequence[int], *, theta: float = 0.0,
                  delta: Optional[float] = None, minsup: int = 0,
@@ -565,7 +591,8 @@ class PipelineMiner:
                  use_kernels: Optional[bool] = None,
                  prune_values: bool = True,
                  window_budget: Optional[int] = None,
-                 device=None):
+                 device=None, obs=None):
+        self.obs = obs
         self.device = resolve_device(device)
         self.sizes = tuple(int(s) for s in sizes)
         self.window_budget = (None if window_budget is None
@@ -609,6 +636,21 @@ class PipelineMiner:
         return torch.from_numpy(K.value_domain_host(values)).to(self.device)
 
     def __call__(self, tuples, values=None) -> PipelineResult:
+        obs = _active_obs(self.obs)
+        t0 = time.perf_counter() if obs is not None else 0.0
+        res = self._mine_incore(tuples, values)
+        if obs is not None:
+            # profiling waits for the queued mine: the figure is the
+            # device's wall time, and the next stage's timer starts clean
+            timer_sync(self.device)
+            obs.metrics.histogram(
+                "pipeline_stage_ms", stage="mine_monolithic").observe(
+                    (time.perf_counter() - t0) * 1e3)
+        return res
+
+    def _mine_incore(self, tuples, values=None) -> PipelineResult:
+        """The in-core pipeline of one table, Stage 1 sorting on the
+        device (unprofiled: :meth:`__call__` times it)."""
         tuples = _as_tensor(tuples, torch.int32, self.device)
         if self.delta is not None:
             if values is None:
@@ -658,15 +700,30 @@ class PipelineMiner:
             raise ValueError(
                 f"chunk_budget must be >= 1, got {chunk_budget}; pass "
                 "None to ingest chunks as offered")
+        obs = _active_obs(self.obs)
+        t0 = time.perf_counter() if obs is not None else 0.0
         store = self._sorted_store(chunks, values, chunk_budget, stats)
+        if obs is not None:
+            # the host run sort IS Stage 1's sort on this path
+            obs.metrics.histogram(
+                "pipeline_stage_ms", stage="stage1_sort").observe(
+                    (time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
         rows, vals = store.table()
         perms = store.perms()
         if perms is None:      # key exceeds 64 bits: no host runs
             # one device sort of the assembled table — with the same
             # value-lane pruning __call__ applies, so a key rescued by
             # the rank-coded lane still takes the packed path
-            return self(rows, vals)
-        return self._mine_unpruned(rows, vals, perms)
+            res = self._mine_incore(rows, vals)
+        else:
+            res = self._mine_unpruned(rows, vals, perms)
+        if obs is not None:
+            timer_sync(self.device)
+            obs.metrics.histogram(
+                "pipeline_stage_ms", stage="device_mine").observe(
+                    (time.perf_counter() - t0) * 1e3)
+        return res
 
     def _sorted_store(self, chunks, values, budget, stats) -> RS.RunStore:
         """A prepared host ``RunStore`` of the chunks, each re-split to at
@@ -733,13 +790,19 @@ class PipelineMiner:
             raise ValueError(
                 f"window_budget must be >= 1, got {window_budget}; "
                 "pass None for a single in-core window")
+        obs = _active_obs(self.obs)
+        t0 = time.perf_counter() if obs is not None else 0.0
         store = self._sorted_store(chunks, values, window_budget, stats)
+        if obs is not None:
+            obs.metrics.histogram(
+                "pipeline_stage_ms", stage="stage1_sort").observe(
+                    (time.perf_counter() - t0) * 1e3)
         rows, vals = store.table()
         return self._mine_windows(rows, vals, store.perms(), window_budget,
-                                  probe)
+                                  probe, obs)
 
     def _mine_windows(self, rows, vals, perms, window_budget,
-                      probe=None) -> PipelineResult:
+                      probe=None, obs=None) -> PipelineResult:
         """``core.windowed.mine_windowed`` with this miner's settings."""
         from . import windowed as WD
         return WD.mine_windowed(
@@ -747,4 +810,5 @@ class PipelineMiner:
             hash_hi=self._hi, delta=self.delta, theta=self.theta,
             minsup=self.minsup, window_budget=window_budget,
             sort_backend=self.resolved_sort_backend,
-            use_kernels=self.use_kernels, device=self.device, probe=probe)
+            use_kernels=self.use_kernels, device=self.device, probe=probe,
+            obs=obs)

@@ -49,6 +49,13 @@ arrays, which it holds anyway (the table comes from the host run store,
 and results are read on the host).  Peak *incremental* device memory
 is O(window), not O(T) (``core.memprobe`` measures it).
 
+Profiling: with an enabled ``obs`` hub, :func:`mine_windowed` fills the
+JAX package's per-window and per-stage histograms, seam-carry counter,
+window gauges, per-stage peak-memory gauges and ``pipeline.windowed``
+span.  Each window's copy back to the host already waits for its device
+work; the timer also synchronises the device before it reads the clock
+(``pipeline.timer_sync``), and only when profiling is on.
+
 Results are **host tensors** (CPU, over the numpy arrays the host
 assembled) inside the usual ``PipelineResult``: shipping the O(T)
 result back to the device would bring back the O(T) footprint the
@@ -57,6 +64,7 @@ patterns for the signatures).
 """
 from __future__ import annotations
 
+import time
 from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
@@ -225,8 +233,8 @@ def mine_windowed(rows, values, perms, *,
                   sort_backend: str = "radix",
                   use_kernels: Optional[bool] = None,
                   device=None,
-                  probe: Optional[Callable[[str], None]] = None
-                  ) -> P.PipelineResult:
+                  probe: Optional[Callable[[str], None]] = None,
+                  obs=None) -> P.PipelineResult:
     """Mine ``rows`` through bounded device windows; bit-identical to
     ``pipeline.mine_tuples`` on the same table (every ``PipelineResult``
     leaf, permutations included).
@@ -243,6 +251,13 @@ def mine_windowed(rows, values, perms, *,
     ``probe`` (optional) is called with a :data:`STAGES` name after each
     device window's result is back on the host — the peak-memory hook
     (``core.memprobe.MemProbe``).
+
+    ``obs`` (an *enabled* ``repro_torch.obs.Obs``, duck-typed) turns on
+    per-stage profiling: per-window and per-stage wall-time histograms,
+    the seam-carry count (windows entered mid-segment), and — when no
+    ``probe`` is supplied — a ``core.memprobe`` peak sample per stage,
+    all folded into the hub's registry plus one ``pipeline.windowed``
+    span.  ``obs=None`` keeps the loop at one predicate test per window.
 
     Raises ``ValueError`` for degenerate budgets (< 1) and for
     configurations the windowed path cannot honour bit-exactly (keys
@@ -277,7 +292,30 @@ def mine_windowed(rows, values, perms, *,
     perms = np.asarray(perms)
     if perms.shape != (n, t):
         raise ValueError(f"perms shape {perms.shape} != {(n, t)}")
-    bounds = RX.plan_windows(t, window_budget).bounds  # raises on budget < 1
+    wplan = RX.plan_windows(t, window_budget)   # raises on budget < 1
+    bounds, budget = wplan.bounds, wplan.budget
+
+    prof = P._active_obs(obs)
+    mp = None
+    if prof is not None:
+        if probe is None:
+            from . import memprobe as MP
+            mp = MP.MemProbe(dev)
+            probe = mp
+        win_hist = {st: prof.metrics.histogram("pipeline_window_ms",
+                                               stage=st)
+                    for st in STAGES}
+        stage_ms = {st: 0.0 for st in STAGES}
+        seam_carries = 0
+        sp = prof.tracer.start("pipeline.windowed", rows=t, modes=n,
+                               budget=budget, windows=len(bounds))
+
+        def window_done(stage: str, tw: float) -> None:
+            P.timer_sync(dev)
+            ms = (time.perf_counter() - tw) * 1e3
+            stage_ms[stage] += ms
+            win_hist[stage].observe(ms)
+
     hash_lo = [h.to(dev) for h in hash_lo]
     hash_hi = [h.to(dev) for h in hash_hi]
 
@@ -298,6 +336,7 @@ def mine_windowed(rows, values, perms, *,
         carry = [torch.zeros((), dtype=torch.int32, device=dev)
                  for _ in range(3)]
         for w0, w1 in bounds:
+            tw = time.perf_counter() if prof is not None else 0.0
             words = tuple(_to_dev(w[w0:w1], dev) for w in words_host)
             first0 = bool(w0 == 0 or sk[w0] != sk[w0 - 1])
             sums = _scan_window(words, first0, carry, hash_lo[k],
@@ -307,6 +346,10 @@ def mine_windowed(rows, values, perms, *,
                 p[w0 + 1:w1 + 1] = _host(s)
             if probe is not None:
                 probe("stage1_scan")
+            if prof is not None:
+                if not first0:      # entered mid-segment: a seam carry
+                    seam_carries += 1
+                window_done("stage1_scan", tw)
         pref_lo, pref_hi = pref[0].view(np.uint32), pref[1].view(np.uint32)
         pref_cnt = pref[2]
         # component windows in sorted order: whole key segment (prime)
@@ -346,6 +389,7 @@ def mine_windowed(rows, values, perms, *,
     sig_hi = np.empty(t, np.int32)
     volume = np.empty(t, np.float32)
     for w0, w1 in bounds:
+        tw = time.perf_counter() if prof is not None else 0.0
         lo, hi, vol = _mix_window(_to_dev(mode_sig_lo[:, w0:w1], dev),
                                   _to_dev(mode_sig_hi[:, w0:w1], dev),
                                   _to_dev(mode_card[:, w0:w1], dev))
@@ -354,10 +398,13 @@ def mine_windowed(rows, values, perms, *,
         volume[w0:w1] = _host(vol)
         if probe is not None:
             probe("stage2_mix")
+        if prof is not None:
+            window_done("stage2_mix", tw)
 
     # ---- Stage 3: per-window device signature sorts + host combine
     parts = []
     for w0, w1 in bounds:
+        tw = time.perf_counter() if prof is not None else 0.0
         s_lo, s_hi, idx = _sort_window(_to_dev(sig_lo[w0:w1], dev),
                                        _to_dev(sig_hi[w0:w1], dev),
                                        sort_backend, use_kernels)
@@ -369,6 +416,8 @@ def mine_windowed(rows, values, perms, *,
         parts.append((word, w0 + _host(idx).astype(np.int64)))
         if probe is not None:
             probe("stage3_sort")
+        if prof is not None:
+            window_done("stage3_sort", tw)
     s_word, order = _kway_combine(parts)
     # group stats on the combined order — the monolithic stage3_dedup
     # prefix-difference formulas on the host
@@ -391,6 +440,21 @@ def mine_windowed(rows, values, perms, *,
     if minsup:
         for k in range(n):
             keep = keep & (mode_card[k] >= minsup)
+    if prof is not None:
+        m = prof.metrics
+        for st in STAGES:
+            m.histogram("pipeline_stage_ms", stage=st).observe(
+                stage_ms[st])
+            sp.set(f"{st}_ms", stage_ms[st])
+        m.counter("pipeline_seam_carries_total").inc(seam_carries)
+        m.gauge("pipeline_windows").set(len(bounds))
+        m.gauge("pipeline_window_budget").set(budget)
+        if mp is not None:
+            for st, peak in mp.report()["stages"].items():
+                m.gauge("pipeline_window_peak_bytes", stage=st).set(peak)
+            sp.set("peak_bytes", mp.peak_bytes)
+        sp.set("seam_carries", seam_carries)
+        sp.finish()
     host = torch.from_numpy
     return P.PipelineResult(
         sig_lo=host(sig_lo), sig_hi=host(sig_hi),

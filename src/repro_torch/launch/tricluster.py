@@ -13,7 +13,10 @@ the reference backend runs on the host either way).  Prints timings,
 cluster counts, and §5.2-formatted top patterns
 (``core.postprocess.format_cluster``).  An unknown backend/variant
 returns 2 with the valid combinations on stderr.  ``--top-k`` and
-``--query-*`` wait for the serving layer (ROADMAP A10).
+``--query-entity``/``--query-mode`` route the mined result through the
+serving layer (``serve.clusters`` index, ``serve.ranking`` scores) and
+print ranked clusters; a result without component windows (the
+distributed backend's) returns 2.
 
 Under ``torchrun`` (``WORLD_SIZE`` set) every rank joins the default
 process group — NCCL on the card (one rank a card, ``cuda:LOCAL_RANK``),
@@ -114,6 +117,17 @@ def main(argv=None):
                     help="torch device to mine on (default cuda; cpu runs "
                          "the kernels' plain versions)")
     ap.add_argument("--print-top", type=int, default=3)
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="route the mined result through the serving "
+                         "ranking layer (serve.ranking) and print the "
+                         "global top-k ranked clusters")
+    ap.add_argument("--query-entity", type=int, default=None,
+                    help="ranked clusters containing this entity "
+                         "(serve-path query; combine with --query-mode "
+                         "and --top-k)")
+    ap.add_argument("--query-mode", type=int, default=None,
+                    help="restrict --query-entity to one mode's "
+                         "component")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--repeat", type=int, default=1,
                     help="timing repeats (paper used 5)")
@@ -201,6 +215,43 @@ def _main(args) -> int:
         for comps, dens in mats[:args.print_top]:
             print(PP.format_cluster(comps, names=names,
                                     density=None if dens != dens else dens))
+
+    if args.top_k or args.query_entity is not None:
+        # the CLI exercises the same ranked query path the service
+        # serves (serve.clusters index + serve.ranking scores)
+        return _serve_query(run, ctx, args)
+    return 0
+
+
+def _serve_query(run, ctx, args) -> int:
+    from ..core import postprocess as PP
+    from ..serve import BatchQuerier, ClusterIndex, top_clusters
+
+    res = run.result
+    if res is None or not hasattr(res, "range_lo"):
+        print("[tricluster] --top-k/--query-entity need component "
+              "windows; the distributed backend's result does not carry "
+              "them (serve via backend=streaming/batch, or "
+              "TriclusterService(backend='distributed') which re-mines "
+              "the serving snapshot)", file=sys.stderr)
+        return 2
+    k = args.top_k or 3
+    idx = ClusterIndex.from_result(res)
+    names = ctx.names if getattr(ctx, "names", None) else None
+    if args.query_entity is not None:
+        bq = BatchQuerier(idx)
+        hits = bq.topk(args.query_entity, mode=args.query_mode, k=k)
+        where = ("any mode" if args.query_mode is None
+                 else f"mode {args.query_mode}")
+        print(f"[tricluster] top-{k} clusters containing entity "
+              f"{args.query_entity} ({where}): {len(hits)} hit(s)")
+    else:
+        hits = top_clusters(idx, k=k)
+        print(f"[tricluster] global top-{k} of {len(idx)} clusters")
+    for view, score in hits:
+        print(f"  score={score:.3f} "
+              + PP.format_cluster(view.components, names=names,
+                                  density=view.density))
     return 0
 
 

@@ -2,8 +2,11 @@
 8-host-device mesh, (8,) and (2, 4), against 8 gloo ranks of the port
 (``repro_torch.core.DistributedMiner``, spawned processes), every
 gathered leaf bit for bit, and the final ``capacity_factor`` after the
-overflow retries.  Invoked by ``test_torch_distributed.py``; prints 'OK'
-on success.
+overflow retries; and the per-shard incremental stores (``ingest``, a
+delete, then ``snapshot``, ``snapshot(full_remine=True)`` and
+``serving_snapshot``) at 8 ranks, or alone at 4 ranks with ``python
+_torch_distributed_check.py 4``.  Invoked by
+``test_torch_distributed.py``; prints 'OK' on success.
 
 JAX is imported in the parent process only: the ranks are spawned (not
 forked), import nothing of it, and mine while the parent computes JAX's
@@ -16,7 +19,7 @@ import time
 
 import numpy as np
 
-RANKS = 8
+RANKS = int(sys.argv[1]) if len(sys.argv) > 1 else 8
 
 #: name -> (mesh shape, mesh axis names, data axes, strategy, miner kw).
 #: The shuffle cases but one run at a capacity factor of 4, which these
@@ -40,6 +43,28 @@ CASES = {
 
 LEAVES = ("sig_lo", "sig_hi", "is_unique", "gen_count", "volume",
           "density", "keep", "cardinalities", "n_clusters", "overflow")
+
+#: The leaves of the full-table serving snapshot (a ``PipelineResult``).
+SERVING_LEAVES = ("sig_lo", "sig_hi", "is_unique", "gen_count", "volume",
+                  "density", "keep", "cardinalities", "range_lo",
+                  "range_hi", "sorted_e", "perms")
+
+#: The incremental stream over a (RANKS,) mesh: the snapshots it takes.
+STREAM = "incremental_stream"
+SNAPSHOTS = ("snapshot", "full_remine", "serving")
+
+
+def stream_snapshots(miner, S):
+    """Ingest a context in 4 chunks into the per-shard stores, delete a
+    few rows, and take the three snapshots — {name: result}."""
+    ctx = S.random_context((9, 8, 7), 203, seed=12)
+    step = -(-ctx.num_tuples // 4)
+    for lo in range(0, ctx.num_tuples, step):
+        miner.ingest(ctx.tuples[lo:lo + step])
+    miner.delete(ctx.tuples[:6])
+    return {"snapshot": miner.snapshot(),
+            "full_remine": miner.snapshot(full_remine=True),
+            "serving": miner.serving_snapshot()}
 
 
 def context(name, S):
@@ -65,15 +90,26 @@ def context(name, S):
     return ctx.sizes, tuples, values
 
 
+def cases():
+    """The one-shot cases of this rank count (their meshes need 8)."""
+    return CASES if RANKS == 8 else {}
+
+
 def jax_results(path):
-    """Every case's leaves and final capacity factor from the JAX
-    package, saved to ``path`` (npz)."""
-    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    """Every case's leaves and final capacity factor, and the stream's
+    snapshots, from the JAX package, saved to ``path`` (npz)."""
+    os.environ["XLA_FLAGS"] = \
+        f"--xla_force_host_platform_device_count={RANKS}"
     from repro.core import DistributedMiner
     from repro.data import synthetic as JS
     from repro.launch.mesh import make_mesh
     out = {}
-    for name, (shape, names, axes, strategy, kw) in CASES.items():
+    snaps = stream_snapshots(
+        DistributedMiner((9, 8, 7), make_mesh((RANKS,), ("data",))), JS)
+    for what, res in snaps.items():
+        for leaf in SERVING_LEAVES if what == "serving" else LEAVES:
+            out[f"{STREAM}/{what}/{leaf}"] = np.asarray(getattr(res, leaf))
+    for name, (shape, names, axes, strategy, kw) in cases().items():
         sizes, tuples, values = context(name, JS)
         miner = DistributedMiner(sizes, make_mesh(shape, names), axes=axes,
                                  strategy=strategy, **kw)
@@ -107,7 +143,12 @@ def rank_main(rank, tmp):
         from repro_torch.data import synthetic as TS
         from repro_torch.launch.mesh import make_mesh
         got = {}
-        for name, (shape, names, axes, strategy, kw) in CASES.items():
+        mesh = make_mesh((RANKS,), ("data",), device="cpu")
+        snaps = stream_snapshots(DistributedMiner((9, 8, 7), mesh), TS)
+        # gathering is a collective: every rank takes part
+        snaps = {what: res if what == "serving" else res.gather()
+                 for what, res in snaps.items()}
+        for name, (shape, names, axes, strategy, kw) in cases().items():
             sizes, tuples, values = context(name, TS)
             mesh = make_mesh(shape, names, device="cpu")
             miner = DistributedMiner(sizes, mesh, axes=axes,
@@ -118,6 +159,19 @@ def rank_main(rank, tmp):
         if rank:
             return
         want = wait_for(f"{tmp}/jax.npz")
+        for what in SNAPSHOTS:
+            res = snaps[what]
+            leaves = SERVING_LEAVES if what == "serving" else LEAVES
+            for leaf in leaves:
+                w = want[f"{STREAM}/{what}/{leaf}"]
+                g = getattr(res, leaf).numpy()
+                if w.dtype == np.uint32:
+                    g = g.view(np.uint32)
+                if g.dtype != w.dtype or not np.array_equal(g, w):
+                    raise AssertionError(f"{STREAM} {what}: leaf {leaf} "
+                                         f"differs ({g.dtype} vs {w.dtype})")
+            print(f"{STREAM} {what} at {RANKS} ranks: {len(leaves)} "
+                  "leaves equal", flush=True)
         for name, (res, factor, fallback) in got.items():
             kw = CASES[name][-1]
             for leaf in LEAVES:

@@ -60,3 +60,31 @@ def apply_op(target, op) -> None:
         target.delete(rows)
     else:
         getattr(target, kind)(rows, vals)
+
+
+#: Flat arrays of a ``ClusterIndex`` (``serve.clusters``), and its
+#: per-mode array lists.
+INDEX_ARRAYS = ("packed_sigs", "sig_lo", "sig_hi", "density", "gen_count",
+                "volume", "any_pairs")
+INDEX_LISTS = ("mode_pairs", "comp_ents", "comp_bounds")
+
+
+def assert_index_identical(want, got, what: str = "") -> None:
+    """Two cluster indexes array for array, dtypes included (an overlay
+    index materialises its flat arrays here)."""
+    assert len(got) == len(want), (what, len(got), len(want))
+    for name in INDEX_ARRAYS:
+        g, w = np.asarray(getattr(got, name)), np.asarray(getattr(want, name))
+        assert g.dtype == w.dtype, (what, name, g.dtype, w.dtype)
+        np.testing.assert_array_equal(g, w, err_msg=f"{what}: {name}")
+    for name in INDEX_LISTS:
+        gl, wl = getattr(got, name), getattr(want, name)
+        assert len(gl) == len(wl), (what, name)
+        for k, (g, w) in enumerate(zip(gl, wl)):
+            assert g.dtype == w.dtype, (what, name, k, g.dtype, w.dtype)
+            np.testing.assert_array_equal(g, w, err_msg=f"{what}: {name}[{k}]")
+
+
+def hits_view(hits):
+    """Ranked hits as comparable ((sig_lo, sig_hi), score, density)."""
+    return [(v.signature, s, v.density) for v, s in hits]

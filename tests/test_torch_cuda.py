@@ -936,6 +936,61 @@ def test_streaming_on_the_card_equals_the_cpu(cuda, variant, budget):
     _equal_leaves(card.snapshot(full_remine=True), cpu.snapshot())
 
 
+@pytest.mark.parametrize("backend", ["streaming", "distributed"])
+def test_service_on_the_card_equals_the_cpu(cuda, backend, monkeypatch):
+    """``TriclusterService`` on the card against the same service on the
+    CPU, write for write: versions, packed signatures, scores and ranked
+    hits; its re-mine thread and ``stop()`` leave no work queued; and the
+    hub's stage timers synchronise the card only when a hub is set."""
+    from repro_torch.core import pipeline as P
+    from repro_torch.obs import Obs
+    from repro_torch.serve import TriclusterService
+    ctx = S.random_context((9, 7, 5), 400, seed=8)
+    kw = dict(backend=backend, refresh_interval=3600.0,
+              dirty_threshold=10**9, obs=Obs.create())
+    card = TriclusterService(ctx.sizes, device="cuda", **kw)
+    cpu = TriclusterService(ctx.sizes, device="cpu", **kw)
+    assert card.device.type == "cuda" and card.device.index is not None
+    rng = np.random.default_rng(4)
+    ents = np.arange(-1, 12)
+    for lo in range(0, ctx.num_tuples, 100):
+        for svc in (card, cpu):
+            svc.add(ctx.tuples[lo:lo + 100])
+        got, want = card.refresh(), cpu.refresh()
+        assert (got.version, got.stream_version) == (want.version,
+                                                    want.stream_version)
+        np.testing.assert_array_equal(got.index.packed_sigs,
+                                      want.index.packed_sigs)
+        np.testing.assert_array_equal(got.querier.scores,
+                                      want.querier.scores)
+        for q in (lambda s: s.query(k=5).hits,
+                  lambda s: s.query_batch(ents, mode=0, k=3).hits[1]):
+            assert [(v.signature, sc) for v, sc in q(card)] == \
+                [(v.signature, sc) for v, sc in q(cpu)]
+    assert got.result.keep.is_cuda or backend == "distributed"
+    pick = rng.choice(ctx.num_tuples, 30, replace=False)
+    card.start()
+    for svc in (card, cpu):
+        svc.upsert(ctx.tuples[pick[:15]])
+        svc.delete(ctx.tuples[pick[15:]])
+    card._wake.set()
+    np.testing.assert_array_equal(card.refresh().index.packed_sigs,
+                                  cpu.refresh().index.packed_sigs)
+    card.stop()
+    assert card.stats()["mine_errors"] == 0
+    syncs = []
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda device=None: syncs.append(device))
+    miner = BatchMiner(ctx.sizes, device="cuda")
+    miner(ctx.tuples)
+    assert syncs == []
+    miner.obs = Obs.create()
+    miner(ctx.tuples)
+    assert len(syncs) == 1 and P.timer_sync is not None
+    assert miner.obs.metrics.histogram(
+        "pipeline_stage_ms", stage="mine_monolithic").count == 1
+
+
 def test_memprobe_reads_the_allocator(cuda):
     from repro_torch.core import memprobe as MP
     from repro_torch.core import pipeline as P

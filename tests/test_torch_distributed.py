@@ -9,7 +9,8 @@ hashing, the dispatch with forced overflow, the validity bit at 31, 32,
 exactly-64-bit key); the incremental per-shard snapshots, the serving
 snapshot (monolithic and windowed) and the registry; the mesh and its
 collectives; and, in a subprocess, 8 gloo ranks against JAX on forced
-8-host-device meshes (``_torch_distributed_check.py``)."""
+8-host-device meshes, and the per-shard incremental stores at 4 and 8
+ranks (``_torch_distributed_check.py``)."""
 import os
 import subprocess
 import sys
@@ -433,3 +434,25 @@ def test_eight_gloo_ranks_match_jax_on_forced_host_meshes():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.splitlines()[-1] == "OK"
     assert "skewed_hash_fallback: 10 leaves equal" in proc.stdout
+    assert "incremental_stream serving at 8 ranks: 12 leaves equal" \
+        in proc.stdout
+
+
+def test_four_gloo_ranks_incremental_snapshots_match_jax():
+    """The per-shard incremental stores at 4 gloo ranks (the 8-rank run
+    above covers 8): ``ingest`` in chunks and a delete, then
+    ``snapshot``, ``snapshot(full_remine=True)`` and ``serving_snapshot``
+    against JAX's on a forced 4-device mesh, leaf for leaf."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([os.path.join(ROOT, "src"),
+                                         os.path.join(ROOT, "tests")])
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "tests",
+                                      "_torch_distributed_check.py"), "4"],
+        capture_output=True, text=True, env=env, timeout=600)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    lines = proc.stdout.splitlines()
+    assert lines[-1] == "OK"
+    for what, n in (("snapshot", 10), ("full_remine", 10), ("serving", 12)):
+        assert f"incremental_stream {what} at 4 ranks: {n} leaves equal" \
+            in lines

@@ -290,3 +290,95 @@ def test_kernel_sources_ship_with_the_package():
     for name in build.SOURCES:
         assert (build.CSRC / f"{name}.cu").is_file()
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+_BLOCKED_SERVE = r"""
+import importlib.abc, io, contextlib, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import numpy as np
+from repro_torch.data import synthetic as S
+from repro_torch.launch import tricluster
+from repro_torch.obs import Obs
+from repro_torch.serve import clusters, faults, ranking
+from repro_torch.serve.service import TriclusterService
+
+ctx = S.random_context((8, 7, 6), 96, seed=7)
+obs = Obs.create()
+plan = faults.FaultPlan.build(faults.FaultPlan.drop_requests("replica", 0, 3))
+svc = TriclusterService(ctx.sizes, device="cpu", obs=obs, scrub_interval=0,
+                        fault=plan.for_component("writer", 0))
+svc.add(ctx.tuples)
+snap = svc.refresh()
+hits = svc.query_batch([0, 1, 2], k=3).hits
+assert len(snap.index) > 0 and len(hits) == 3
+assert "repro_service_swap_ms_count 1" in obs.metrics.expose()
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    rc1 = tricluster.main(["--dataset", "imdb", "--device", "cpu",
+                           "--print-top", "0", "--top-k", "2"])
+    rc2 = tricluster.main(["--dataset", "imdb", "--device", "cpu",
+                           "--print-top", "0", "--query-entity", "3",
+                           "--query-mode", "0"])
+assert (rc1, rc2) == (0, 0), out.getvalue()
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not leaked, leaked
+print("OK", len(snap.index), out.getvalue().count("score="))
+"""
+
+
+def test_serving_layer_and_obs_run_without_jax():
+    """``repro_torch.obs``, ``serve.{clusters,ranking,service,faults}``
+    and the CLI's ``--top-k``/``--query-*`` with JAX and the JAX package
+    blocked."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC)
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_SERVE], env=env,
+                         capture_output=True, text=True, timeout=300,
+                         cwd=str(SRC.parent))
+    assert out.returncode == 0, out.stderr
+    ok, n_clusters, n_lines = out.stdout.split()[-3:]
+    assert ok == "OK" and int(n_clusters) > 0 and int(n_lines) >= 3
+
+
+def test_obs_none_adds_no_synchronisation(monkeypatch):
+    """``PipelineMiner`` with ``obs=None`` queues no synchronisation on any
+    of its three paths; with a hub, each stage timer synchronises once
+    (``timer_sync``: a CUDA synchronize on the card, nothing on the CPU)."""
+    from repro_torch.core import pipeline as P
+    from repro_torch.obs import Obs
+    calls = {"timer_sync": 0, "synchronize": 0}
+    real = P.timer_sync
+
+    def counted_timer_sync(device):
+        calls["timer_sync"] += 1
+        real(device)
+
+    def counted_synchronize(device=None):
+        calls["synchronize"] += 1
+
+    monkeypatch.setattr(P, "timer_sync", counted_timer_sync)
+    monkeypatch.setattr(torch.cuda, "synchronize", counted_synchronize)
+    ctx = S.random_context((9, 8, 7), 160, seed=8)
+    miner = BatchMiner(ctx.sizes, device="cpu")
+
+    def run():
+        miner(ctx.tuples)
+        miner.mine_chunked(ctx.tuples, chunk_budget=50)
+        miner.mine_windowed(ctx.tuples, window_budget=40)
+
+    assert miner.obs is None
+    run()
+    assert calls == {"timer_sync": 0, "synchronize": 0}
+    miner.obs = Obs.create()
+    run()
+    # __call__, mine_chunked, and each window of the windowed path's
+    # three stages (4 windows; 3 modes in Stage 1)
+    assert calls == {"timer_sync": 1 + 1 + 4 * 3 + 4 + 4, "synchronize": 0}
