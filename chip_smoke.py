@@ -150,7 +150,24 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    the CLI's ``--top-k 5`` and ``--query-entity 207 --query-mode 0`` on
    the card and on the CPU, the same ranked lines; (d) a service with
    ``recover_dir`` stopped after writes, and a successor restored from
-   its checkpoint and WAL publishing the same signatures and scores.
+   its checkpoint and WAL publishing the same signatures and scores;
+13. the multi-process serving plane (``phase13``, ``serve.{shm,protocol,
+   router,supervise}`` and ``launch.cluster_serve``): (a) a card-backed
+   writer publishing to ``/dev/shm`` and a ``ReplicaService`` of it,
+   each behind ``make_server``, over phase 12's rows: the smoke client's
+   sequence (scalar, a batch of 4,096, top-k with components, signature
+   round-trip, upsert, refresh, ``at_least_version``) answered equally by
+   both endpoints and the service in-process, 3 / 1 / 8 launches a swap,
+   publish, attach and HTTP times; (b) ``python -m
+   repro_torch.launch.cluster_serve --shards 2 --replicas 2 --device
+   cuda`` over ``PLANE_ROWS`` BibSonomy-shaped rows: ``nvidia-smi``
+   lists CUDA contexts for this process and the writers only, the
+   router's top-k and a batch equal in-process card-backed shards
+   merged, each writer's launches (its ``/metrics``) are a swap's times
+   its publishes, and ``--smoke-client`` passes; (c) the plane with a
+   writer killed at its first write after the preload: restarted by the
+   supervisor, recovered from checkpoint and WAL on the card, the write
+   read back at its version.  No shared-memory segment outlives a plane.
 
 Before the last line it prints the card's name and power limit
 (``nvidia-smi``) and one JSON line ``{"kernels": [...]}``; the last line is
@@ -1308,6 +1325,462 @@ def phase12(bib) -> dict:
         f"{first_ms:.3f} ms with the same {len(got.index)} signatures, "
         "scores and top-k")
     log(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
+
+#: The serving plane of phase 13b-c: BibSonomy-shaped rows (the
+#: generator at this table size) behind this many writers, each with
+#: this many shared-memory replicas.  ``core.runs.shard_of_rows`` splits
+#: the rows by the top digit of the mode-0 identity key, whose leading
+#: lane is the tag; BibSonomy's tags are power-law, so the split is
+#: skewed (51,008 / 6 rows here; the plane prints it) and one writer
+#: holds nearly every row.  Twice phase 12's rows, cut by the run's time
+#: limit: that writer's index build grows as about N^2 (phase 12).
+PLANE_ROWS = 51_014
+PLANE_SHARDS = 2
+PLANE_REPLICAS = 2
+#: Entities of phase 13b's batched query through the router.
+PLANE_BATCH = 256
+#: Scalar queries and batches phase 13a times over HTTP.
+HTTP_SCALARS = 200
+HTTP_BATCHES = 10
+SHM = "/dev/shm"
+
+
+def shm_free() -> int:
+    st = os.statvfs(SHM)
+    return st.f_bavail * st.f_frsize
+
+
+def shm_segments(prefix: str) -> list:
+    return sorted(e for e in os.listdir(SHM) if e.startswith(prefix))
+
+
+def device_fds(pid: int) -> list:
+    """The NVIDIA device files process ``pid`` holds open."""
+    out = set()
+    for fd in os.listdir(f"/proc/{pid}/fd"):
+        try:
+            target = os.readlink(f"/proc/{pid}/fd/{fd}")
+        except OSError:
+            continue
+        if target.startswith("/dev/nvidia"):
+            out.add(target)
+    return sorted(out)
+
+
+def urllib_get(url: str) -> str:
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return r.read().decode()
+
+
+def compute_apps() -> list:
+    """PIDs with a CUDA context on the card, as ``nvidia-smi`` lists
+    them."""
+    smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi compute apps: {smi.stderr}")
+    return sorted(int(x) for x in smi.stdout.split())
+
+
+def phase13(bib) -> dict:
+    """Phase 13: the multi-process serving plane (``serve.{shm,protocol,
+    router,supervise}``, ``launch.cluster_serve``) with writers mining on
+    the card.
+
+    (a) One process: a card-backed ``TriclusterService(backend=
+    "streaming")`` over BibSonomy's first :data:`SERVICE_ROWS` rows that
+    publishes to shared memory (``ShmPublisher``), served by
+    ``make_server`` on a thread, and a ``ReplicaService`` of its segments
+    served by a second ``make_server``.  The smoke client's sequence
+    against both: scalar, batch of 4,096, top-k with components,
+    signature round-trip, upsert, refresh, ``at_least_version``; at equal
+    versions the writer's HTTP answers, the replica's and ``svc.query``/
+    ``svc.query_batch`` are equal hit for hit; launches a swap as in
+    phase 12; publish ms, bundle bytes, the replica's attach ms and HTTP
+    p50/p99.  (b) The plane: ``python -m repro_torch.launch.cluster_serve
+    --dataset bibsonomy --n-tuples PLANE_ROWS --shards 2 --replicas 2
+    --device cuda --metrics``; ``nvidia-smi`` lists a CUDA context for
+    this process and the writers only; the router's top-k and a batch of
+    :data:`PLANE_BATCH` entities equal in-process card-backed services
+    of each shard's rows merged with ``router._merge_hits``; each
+    writer's launches (its ``/metrics``) are the swap's times its
+    publishes; then ``--smoke-client`` passes.  (c) The same plane with
+    ``FaultPlan.kill_writer(0, at_stream_version=5)`` (the first write
+    after the 4 preload chunks): the supervisor restarts shard-0, its
+    writer recovers the stream from checkpoint and WAL on the card, the
+    router's ``/metrics`` counts one restart, and an
+    ``at_least_version`` read returns the written row's cluster.  After
+    each plane no segment of it is left in ``/dev/shm``.
+    Returns {run: launch counts}."""
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+    from repro_torch.core import keys as K
+    from repro_torch.core import runs as RS
+    from repro_torch.kernels import ops
+    from repro_torch.launch.tricluster import load_dataset
+    from repro_torch.serve import (ClusterClient, ReplicaService,
+                                   ShmPublisher, TriclusterService,
+                                   make_server)
+    from repro_torch.serve.faults import FaultPlan
+    from repro_torch.serve.protocol import hit_doc
+    from repro_torch.serve.router import _merge_hits
+
+    mining = ops.PATH_KERNELS["mining"]
+    per_swap = {"segment_reduce": 3, "radix_histogram": 1, "radix_rank": 8}
+    runs = {}
+    t_phase = time.perf_counter()
+    quiet = dict(refresh_interval=3600.0, dirty_threshold=10**9)
+    log(f"phase 13: {SHM} free {shm_free()} bytes")
+
+    def swap_launches(label, counts, swaps):
+        """``counts`` are ``swaps`` times a swap's launches, all on the
+        mining path."""
+        want = {k: v * swaps for k, v in per_swap.items()}
+        path = {k: counts[k] for k in mining}
+        check(all(n > 0 for n in path.values()),
+              f"{label}: a kernel of the path was not launched: {counts}")
+        check(path == want, f"{label}: launches {path} != {want} "
+              f"({swaps} swaps)")
+        check(all(n == 0 for k, n in counts.items() if k not in mining),
+              f"{label}: a kernel of another path was launched: {counts}")
+        return counts
+
+    def docs(hits, comps=False):
+        return [hit_doc(v, s, comps) for v, s in hits]
+
+    def fits(bundle_bytes, what):
+        free = shm_free()
+        log(f"{what}: bundle {bundle_bytes} bytes, {SHM} free {free} "
+            "bytes")
+        check(bundle_bytes <= free, f"{what}: a bundle of {bundle_bytes} "
+              f"bytes does not fit in {SHM}'s {free} free bytes (a writer "
+              "holds two during a swap)")
+
+    def pct(xs):
+        return (f"p50 {np.percentile(xs, 50):.3f} p99 "
+                f"{np.percentile(xs, 99):.3f} ms")
+
+    # (a) one process: writer and replica behind their own endpoints
+    tag = "phase 13a writer and replica bibsonomy/32"
+    table = bib.tuples[:SERVICE_ROWS]
+    t = table.shape[0]
+    step = math.ceil(t / 8)
+    rng = np.random.default_rng(2028)
+    ents = rng.integers(0, max(bib.sizes), QUERY_BATCH).tolist()
+    fresh = table[rng.choice(t, t // SERVICE_UPSERT, replace=False)].copy()
+    fresh[:, 2] = rng.integers(0, bib.sizes[2], fresh.shape[0])
+    prefix = f"p13a{os.getpid()}"
+    pub = ShmPublisher(prefix)
+    svc = TriclusterService(bib.sizes, backend="streaming", device="cuda",
+                            publisher=pub, **quiet)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for lo in range(0, t, step):
+        svc.add(table[lo:lo + step])
+    svc.start()
+    fits(pub._data.size, f"{tag} v1")
+    check(svc.stats()["publish_errors"] == 0,
+          f"{tag}: publish failed: {svc.stats().get('last_publish_error')}")
+    rep = ReplicaService(prefix, scrub_interval=0).start()
+    servers = [make_server(s, port=0) for s in (svc, rep)]
+    for s in servers:
+        threading.Thread(target=s.serve_forever, daemon=True).start()
+    wcl, rcl = (ClusterClient(f"http://127.0.0.1:{s.port}", timeout=120)
+                for s in servers)
+
+    def same_answers(version):
+        """Writer HTTP, replica HTTP and the service in-process agree."""
+        rep.snapshot(at_least_version=version, timeout=60)
+        check(svc.version == rep.version == version,
+              f"{tag}: versions {svc.version}/{rep.version} != {version}")
+        for e, mode in ((ents[0], 0), (ents[1], 1), (ents[2], None)):
+            want = docs(svc.query(entity=e, mode=mode, k=QUERY_K).hits)
+            for cl in (wcl, rcl):
+                got = cl.query(entity=e, mode=mode, k=QUERY_K)
+                check(got["version"] == version and got["hits"] == want,
+                      f"{tag} v{version}: scalar query of {e} differs")
+        want = [docs(h) for h in svc.query_batch(ents, k=QUERY_K).hits]
+        for cl in (wcl, rcl):
+            got = cl.query_batch(ents, k=QUERY_K)
+            check(got["version"] == version and got["hits"] == want,
+                  f"{tag} v{version}: batch of {len(ents)} differs")
+        want = docs(svc.query(k=QUERY_K).hits, True)
+        check(want, f"{tag} v{version}: empty top-k")
+        for cl in (wcl, rcl):
+            top = cl.query(k=QUERY_K, include_components=True)
+            check(top["hits"] == want, f"{tag} v{version}: top-k differs")
+            sig = top["hits"][0]["signature"]
+            by_sig = cl.query(signature=sig, include_components=True)
+            check(by_sig["hits"] == want[:1],
+                  f"{tag} v{version}: signature round-trip differs")
+        return sum(len(h) for h in want)
+
+    try:
+        n_hits = same_answers(1)
+        up = wcl.upsert(fresh.tolist())
+        check(up["stream_version"] == 9, f"{tag}: upsert {up}")
+        ref = wcl.refresh()
+        check(ref["version"] == 2, f"{tag}: refresh {ref}")
+        got = rcl.query(entity=int(fresh[0, 0]), mode=0, k=QUERY_K,
+                        at_least_version=ref["version"], timeout=60)
+        check(got["version"] >= 2, f"{tag}: at_least_version read {got}")
+        same_answers(2)
+        torch.cuda.synchronize()
+        runs[tag] = swap_launches(tag, ops.launch_counts(), 2)
+        fits(pub._data.size, f"{tag} v2")
+        times = {}
+        for name, cl in (("writer", wcl), ("replica", rcl)):
+            sc, bt = [], []
+            for i in range(HTTP_SCALARS):
+                t0 = time.perf_counter()
+                cl.query(entity=ents[i], k=QUERY_K)
+                sc.append((time.perf_counter() - t0) * 1e3)
+            for _ in range(HTTP_BATCHES):
+                t0 = time.perf_counter()
+                cl.query_batch(ents, k=QUERY_K)
+                bt.append((time.perf_counter() - t0) * 1e3)
+            times[name] = (pct(sc), pct(bt))
+        st, rst = svc.stats(), rep.stats()
+        log(f"{tag}: {len(svc.snapshot().index)} clusters at v2; writer "
+            f"HTTP, replica HTTP and in-process answers equal at v1 and v2 "
+            f"(scalar, batch of {len(ents)}, top-{QUERY_K} with components "
+            f"{n_hits} members, signature round-trip); launches "
+            f"{per_swap} x 2 swaps; last shm publish "
+            f"{st['last_shm_publish_ms']:.3f} ms, bundle {pub._data.size} "
+            f"bytes; replica last attach {rst['last_attach_ms']:.3f} ms "
+            f"({rst['attaches']} attaches)")
+        for name, (sc, bt) in times.items():
+            log(f"{tag}: {name} HTTP, {HTTP_SCALARS} scalar queries {sc}; "
+                f"{HTTP_BATCHES} batches of {len(ents)} {bt}")
+    finally:
+        for s in servers:
+            s.shutdown()
+            s.server_close()
+        rep.stop()
+        svc.stop()
+        pub.close()
+    check(not shm_segments(prefix), f"{tag}: segments left: "
+          f"{shm_segments(prefix)}")
+
+    # the plane's rows, split as its writers split them
+    ctx = load_dataset("bibsonomy", PLANE_ROWS, 0)
+    own = RS.shard_of_rows(ctx.tuples, K.plan_mode_key(
+        ctx.sizes, 0, with_values=False), PLANE_SHARDS)
+    split = [int((own == s).sum()) for s in range(PLANE_SHARDS)]
+    log(f"phase 13 plane: {PLANE_ROWS} BibSonomy-shaped rows split "
+        f"{split} over {PLANE_SHARDS} writers (shard_of_rows)")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+
+    def launch(tmp, name, *flags):
+        """Start a plane; returns (process, its log path, client)."""
+        port_file = os.path.join(tmp, f"{name}.port")
+        out = os.path.join(tmp, f"{name}.log")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.cluster_serve",
+             "--dataset", "bibsonomy", "--n-tuples", str(PLANE_ROWS),
+             "--shards", str(PLANE_SHARDS), "--replicas",
+             str(PLANE_REPLICAS), "--device", "cuda", "--port", "0",
+             "--port-file", port_file, "--metrics", *flags],
+            env=env, cwd=str(ROOT), stdout=open(out, "w"),
+            stderr=subprocess.STDOUT)
+        deadline = time.monotonic() + 300
+        while not (os.path.exists(port_file)
+                   and open(port_file).read().strip()):
+            check(proc.poll() is None and time.monotonic() < deadline,
+                  f"{name}: no router port (rc {proc.poll()}): "
+                  + open(out).read()[-3000:])
+            time.sleep(0.2)
+        cl = ClusterClient(f"http://127.0.0.1:{open(port_file).read()}",
+                           timeout=600)
+        cl.wait_ready(timeout=300)
+        return proc, out, cl, port_file
+
+    def children(out):
+        """{child: (pid, port)} as the children announce themselves."""
+        found = {}
+        for m in re.finditer(r"\[(replica-\d+\.\d+|shard-\d+)\][^\[]*"
+                             r"port=(\d+) pid=(\d+)", open(out).read()):
+            found[m.group(1)] = (int(m.group(3)), int(m.group(2)))
+        return found
+
+    def writer_launches(port):
+        text = urllib_get(f"http://127.0.0.1:{port}/metrics")
+        counts = {k: 0 for k in ops.KERNELS}
+        for name, n in re.findall(r'repro_kernel_launches\{kernel="(\w+)"\}'
+                                  r" ([0-9.e+]+)", text):
+            counts[name] = int(float(n))
+        return counts
+
+    def stop(proc, cl, out, what):
+        with contextlib.suppress(Exception):
+            cl.shutdown()
+        try:
+            rc = proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        check(rc == 0,
+              f"{what}: launcher rc {rc}: " + open(out).read()[-3000:])
+        left = shm_segments(f"cs{proc.pid}s")
+        check(not left, f"{what}: segments left in {SHM}: {left}")
+
+    def context_holders(found, launcher, what):
+        writers = {pid for c, (pid, _) in found.items()
+                   if c.startswith("shard")}
+        others = {pid for c, (pid, _) in found.items()
+                  if c.startswith("replica")} | {launcher}
+        apps = compute_apps()
+        fds = {c: device_fds(pid) for c, (pid, _) in sorted(found.items())}
+        fds["launcher"] = device_fds(launcher)
+        log(f"{what}: nvidia-smi compute apps {apps}; this process "
+            f"{os.getpid()}, writers {sorted(writers)}, replicas and "
+            f"router {sorted(others)}; device files open {fds}")
+        check(len(apps) == 1 + PLANE_SHARDS, f"{what}: {len(apps)} CUDA "
+              f"contexts, want this process and {PLANE_SHARDS} writers")
+        if os.getpid() in apps:     # the listing speaks this namespace
+            check(set(apps) == {os.getpid()} | writers,
+                  f"{what}: CUDA contexts {apps}")
+        replicas = [c for c in fds if c.startswith("replica")]
+        check(not any(fds[c] for c in replicas),
+              f"{what}: a replica opened the card: {fds}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (b) the plane
+        tag = "phase 13b plane"
+        t0 = time.perf_counter()
+        proc, out, cl, port_file = launch(tmp, "p13b")
+        try:
+            boot_s = time.perf_counter() - t0
+            deadline = time.monotonic() + 120
+            while len(children(out)) < PLANE_SHARDS * (1 + PLANE_REPLICAS):
+                check(time.monotonic() < deadline, f"{tag}: children "
+                      f"{children(out)}")
+                time.sleep(0.2)
+            found = children(out)
+            context_holders(found, proc.pid, tag)
+            t1 = time.perf_counter()
+            top = cl.query(k=QUERY_K, include_components=True)
+            batch_ents = rng.integers(0, max(ctx.sizes),
+                                      PLANE_BATCH).tolist()
+            batch = cl.query_batch(batch_ents, k=QUERY_K)
+            query_ms = (time.perf_counter() - t1) * 1e3
+            check(top["shard_versions"] == [1] * PLANE_SHARDS
+                  and not top["degraded"], f"{tag}: {top['shard_versions']}")
+            # the same shards in this process, on the card, merged
+            tops, batches = [], []
+            for s in range(PLANE_SHARDS):
+                rows = ctx.tuples[own == s]
+                ref = TriclusterService(ctx.sizes, device="cuda",
+                                        seed=0x5EED, **quiet)
+                sstep = -(-max(rows.shape[0], 1) // 4)
+                for lo in range(0, rows.shape[0], sstep):
+                    ref.add(rows[lo:lo + sstep])
+                ref.start()
+                tops.append(docs(ref.query(k=QUERY_K).hits, True))
+                batches.append([docs(h) for h in ref.query_batch(
+                    batch_ents, k=QUERY_K).hits])
+                ref.stop()
+            check(top["hits"] == _merge_hits(tops, QUERY_K),
+                  f"{tag}: the router's top-{QUERY_K} differs from the "
+                  "in-process shards merged")
+            check(batch["hits"] == [
+                _merge_hits([b[i] for b in batches], QUERY_K)
+                for i in range(PLANE_BATCH)],
+                f"{tag}: the router's batch differs from the in-process "
+                "shards merged")
+            stats = cl.stats()
+            launches = {k: 0 for k in ops.KERNELS}
+            for s in range(PLANE_SHARDS):
+                counts = swap_launches(
+                    f"{tag} shard-{s}",
+                    writer_launches(found[f"shard-{s}"][1]),
+                    stats["shard_stats"][s]["publishes"])
+                launches = {k: launches[k] + counts[k] for k in launches}
+            runs[f"{tag} writers"] = launches
+            for s, st in enumerate(stats["shard_stats"]):
+                log(f"{tag} shard-{s}: {st['clusters']} clusters, mine "
+                    f"{st['last_mine_ms']:.3f} ms, index build "
+                    f"{st['last_index_build_ms']:.3f} ms, shm publish "
+                    f"{st.get('last_shm_publish_ms', 0.0):.3f} ms")
+            sizes = {seg: os.stat(os.path.join(SHM, seg)).st_size
+                     for seg in shm_segments(f"cs{proc.pid}s")}
+            fits(max(sizes.values()), f"{tag} {sizes}")
+            log(f"{tag}: router up in {boot_s:.1f} s; top-{QUERY_K} and a "
+                f"batch of {PLANE_BATCH} equal to the in-process shards "
+                f"merged ({query_ms:.3f} ms both); writer launches "
+                f"{launches}")
+            smoke = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.cluster_serve",
+                 "--smoke-client", "--port-file", port_file], env=env,
+                cwd=str(ROOT), capture_output=True, text=True, timeout=300)
+            check(smoke.returncode == 0 and "[serve-smoke] PASS"
+                  in smoke.stdout, f"{tag}: smoke client rc "
+                  f"{smoke.returncode}: {smoke.stdout[-2000:]}"
+                  f"{smoke.stderr[-2000:]}")
+            print("\n".join(ln for ln in smoke.stdout.splitlines()
+                            if "ready" not in ln), flush=True)
+        finally:
+            stop(proc, cl, out, tag)
+        log(f"{tag}: launcher exited 0, no segment left in {SHM}")
+
+        # (c) a writer killed at its first write after the preload
+        tag = "phase 13c writer crash and recovery"
+        plan = FaultPlan.build(FaultPlan.kill_writer(0, at_stream_version=5))
+        proc, out, cl, _ = launch(tmp, "p13c", "--fault-plan",
+                                  plan.to_json(), "--router-timeout", "600")
+        try:
+            mine = ctx.tuples[own == 0]
+            users, n_rows = np.unique(mine[:, 0], return_counts=True)
+            user = int(users[np.argmin(n_rows)])
+            row = mine[mine[:, 0] == user][0].copy()
+            row[2] = (row[2] + 1) % ctx.sizes[2]     # a new bookmark
+            check(RS.shard_of_rows(row[None], K.plan_mode_key(
+                ctx.sizes, 0, with_values=False), PLANE_SHARDS)[0] == 0,
+                f"{tag}: row {row.tolist()} left shard 0")
+            t0 = time.perf_counter()
+            up = cl.upsert([row.tolist()])
+            write_s = time.perf_counter() - t0
+            check(up["shards"] == [0], f"{tag}: upsert {up}")
+            tok = cl.refresh()["shard_versions"]
+            got = cl.query(entity=user, mode=0, k=10**6,
+                           include_components=True, at_least_version=tok,
+                           timeout=300)
+            check(any(all(int(row[j]) in h["components"][j]
+                          for j in range(3)) for h in got["hits"]),
+                  f"{tag}: no cluster of the written row {row.tolist()} at "
+                  f"{got['shard_versions']}")
+            metrics = urllib_get(f"{cl.base_url}/metrics")
+            restarts = {c: float(n) for c, n in re.findall(
+                r'repro_supervisor_child_restarts\{child="([^"]+)"\} '
+                r"([0-9.]+)", metrics)}
+            check(restarts.get("shard-0") == 1.0 and sum(restarts.values())
+                  == 1.0, f"{tag}: restarts {restarts}")
+            log_text = open(out).read()
+            check("[shard-0] recovered" in log_text,
+                  f"{tag}: no recovery line: {log_text[-3000:]}")
+            recovered = re.search(r"\[shard-0\] recovered (\{[^}]*\})",
+                                  log_text).group(1)
+            found = children(out)
+            pubs = cl.stats()["shard_stats"][0]["publishes"]
+            counts = swap_launches(tag, writer_launches(found["shard-0"][1]),
+                                   pubs)
+            runs[f"{tag} restarted shard-0"] = counts
+            log(f"{tag}: the write to shard 0 came back after {write_s:.1f} "
+                f"s (kill, restart, recovery {recovered}); the "
+                f"at_least_version read at {tok} returns the row's cluster; "
+                f"router /metrics restarts {restarts}; the restarted writer "
+                f"launched {counts} over {pubs} swaps")
+        finally:
+            stop(proc, cl, out, tag)
+        log(f"{tag}: launcher exited 0, no segment left in {SHM}")
+    log(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
     return runs
 
 
@@ -2787,6 +3260,9 @@ def main() -> int:
 
     # -- phase 12: the cluster service -----------------------------------------
     runs10.update(phase12(bib))
+
+    # -- phase 13: the multi-process serving plane ------------------------------
+    runs10.update(phase13(bib))
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")

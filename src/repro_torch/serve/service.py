@@ -45,8 +45,9 @@ that copy is the synchronisation point, so writers wait while the store
 is merged and mined, as in the JAX package, and everything after it is
 host numpy.  The re-mine thread makes the miner's own device current
 before it queues work, and ``stop()`` synchronises that device, so no
-work a re-mine queued outlives the service.  Supervisor events
-(``event_dir``) wait for ``serve.supervise`` (ROADMAP A10b).
+work a re-mine queued outlives the service.  Only the miner touches the
+card: a shared-memory replica (``serve.shm.ReplicaService``) builds its
+``Snapshot`` from host arrays and never creates a CUDA context.
 """
 from __future__ import annotations
 
@@ -148,10 +149,6 @@ class TriclusterService:
                  event_name: str = "writer",
                  obs=None,
                  mesh=None, miner=None, **miner_kw):
-        if event_dir is not None:
-            raise NotImplementedError(
-                "event_dir mirrors integrity events to serve.supervise, "
-                "which the port does not have yet (ROADMAP A10b)")
         self.sizes = tuple(int(s) for s in sizes)
         self.refresh_interval = float(refresh_interval)
         self.dirty_threshold = max(1, int(dirty_threshold))
@@ -234,8 +231,9 @@ class TriclusterService:
         #: cross-structure invariants (see :meth:`scrub`)
         self.scrub_interval = float(scrub_interval)
         self._scrub_thread: Optional[threading.Thread] = None
-        #: integrity events stay local (``stats()["integrity_events"]``)
-        #: until ``serve.supervise`` is ported; ``event_dir`` raised above
+        #: integrity events are mirrored to ``{event_dir}/{event_name}
+        #: .events`` for the supervisor to adopt into its log
+        #: (``serve.supervise.write_event``); None keeps them local
         self.event_dir = event_dir
         self.event_name = event_name
         self._wlock = threading.Lock()      # miner store + dirty counter
@@ -307,10 +305,17 @@ class TriclusterService:
         return q
 
     def _integrity_event(self, event: str, detail: str) -> None:
-        """Record a corruption/scrub event locally (the supervisor's
-        event log is ROADMAP A10b)."""
+        """Record a corruption/scrub event locally and mirror it to the
+        supervisor's event log when this writer runs supervised."""
         self._stats.setdefault("integrity_events", []).append(
             [event, detail])
+        if self.event_dir:
+            try:
+                from .supervise import write_event
+                write_event(self.event_dir, self.event_name, event,
+                            detail)
+            except Exception:   # noqa: BLE001 — reporting must never
+                pass            # take the data path down
 
     def _wal_append(self, op: str, rows, values, sv: int) -> None:
         if self._wal is None:

@@ -1094,3 +1094,50 @@ def test_nccl_group_of_one_rank_equals_in_core(cuda, tmp_path):
                                        getattr(want, name)), name
     finally:
         dist.destroy_process_group()
+
+
+def test_card_writer_publishes_the_cpu_writers_segment(cuda):
+    """A writer mining on the card publishes, write for write, the same
+    shared-memory segment as the same writer on the CPU (the readback
+    leaves host numpy), and a replica of it answers as the writer."""
+    import os
+    from repro_torch.serve import ReplicaService, TriclusterService
+    from repro_torch.serve.shm import ShmPublisher, ShmReplica
+    ctx = S.random_context((9, 7, 5), 300, seed=12)
+    kw = dict(refresh_interval=3600.0, dirty_threshold=10**9,
+              scrub_interval=0.0)
+    pubs = [ShmPublisher(f"tcard{d}{os.getpid()}") for d in ("g", "c")]
+    svcs = [TriclusterService(ctx.sizes, device=d, publisher=p, **kw)
+            for d, p in zip(("cuda", "cpu"), pubs)]
+    reps = [ShmReplica(p.prefix) for p in pubs]
+    replica = None
+    try:
+        for lo in (0, 150):
+            for svc in svcs:
+                svc.add(ctx.tuples[lo:lo + 150])
+                svc.refresh()
+            got, want = (r.current() for r in reps)
+            assert got.manifest == want.manifest
+            assert {k: v for k, v in got.meta.items()
+                    if k not in ("published_wall", "epoch")} == \
+                {k: v for k, v in want.meta.items()
+                 if k not in ("published_wall", "epoch")}
+            for k in want.arrays:
+                np.testing.assert_array_equal(got.arrays[k], want.arrays[k])
+        replica = ReplicaService(pubs[0].prefix, scrub_interval=0).start()
+        ents = np.arange(9)
+        assert [(v.signature, s) for v, s in replica.query(k=6).hits] == \
+            [(v.signature, s) for v, s in svcs[0].query(k=6).hits]
+        assert [[(v.signature, s) for v, s in h] for h in
+                replica.query_batch(ents, mode=0, k=3).hits] == \
+            [[(v.signature, s) for v, s in h] for h in
+             svcs[0].query_batch(ents, mode=0, k=3).hits]
+    finally:
+        if replica is not None:
+            replica.stop()
+        for r in reps:
+            r.close()
+        for svc in svcs:
+            svc.stop()
+        for p in pubs:
+            p.close()

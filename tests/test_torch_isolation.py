@@ -29,7 +29,8 @@ from repro_torch.kernels import rmsnorm as KN
 from repro_torch.kernels import segment_reduce as KS
 from repro_torch.kernels import signature as KSig
 from repro_torch.kernels import tricluster_density as KTD
-from repro_torch.launch import mine_moe_routing, serve, tricluster
+from repro_torch.launch import (cluster_serve, mine_moe_routing, serve,
+                                tricluster)
 from repro_torch.launch.mesh import Mesh, make_local_mesh
 from repro_torch.models.api import get_model
 from repro_torch.models.params import from_jax_params
@@ -139,7 +140,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert out.returncode == 0, out.stderr
     ok, n_modules, kept, nkept, n_clusters, n_routes, n_routing, n_gen = \
         out.stdout.split()[-8:]
-    assert ok == "OK" and int(n_modules) >= 47
+    assert ok == "OK" and int(n_modules) >= 74
     assert int(kept) > 0 and int(nkept) > 0 and int(n_clusters) > 0
     assert int(n_routes) > 0 and int(n_routing) > 0 and int(n_gen) == 10
 
@@ -188,6 +189,10 @@ def test_default_device_is_cuda_and_raises_without_a_card():
         get_model(cfg).init_cache(cfg, 1, 8)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         serve.main(["--arch", "granite-moe-3b-a800m", "--smoke"])
+    for plane in ([], ["--shards", "2", "--replicas", "1"]):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            cluster_serve.main(["--dataset", "random", "--n-tuples", "64",
+                                "--port", "0", *plane])
     assert D.resolve_device("cpu") == torch.device("cpu")
 
 
@@ -304,21 +309,49 @@ class Block(importlib.abc.MetaPathFinder):
 sys.meta_path.insert(0, Block())
 import numpy as np
 from repro_torch.data import synthetic as S
-from repro_torch.launch import tricluster
+from repro_torch.launch import cluster_serve, tricluster
 from repro_torch.obs import Obs
-from repro_torch.serve import clusters, faults, ranking
+from repro_torch.serve import (clusters, faults, protocol, ranking, router,
+                               shm, supervise)
 from repro_torch.serve.service import TriclusterService
+# the LM engine stays unloaded until asked for
+assert "repro_torch.serve.engine" not in sys.modules
+assert "repro_torch.models" not in sys.modules
+import os, tempfile, threading
 
 ctx = S.random_context((8, 7, 6), 96, seed=7)
 obs = Obs.create()
 plan = faults.FaultPlan.build(faults.FaultPlan.drop_requests("replica", 0, 3))
+pub = shm.ShmPublisher(f"tiso{os.getpid()}")
+flags = tempfile.mkdtemp()
 svc = TriclusterService(ctx.sizes, device="cpu", obs=obs, scrub_interval=0,
-                        fault=plan.for_component("writer", 0))
+                        fault=plan.for_component("writer", 0),
+                        publisher=pub, event_dir=flags)
 svc.add(ctx.tuples)
 snap = svc.refresh()
 hits = svc.query_batch([0, 1, 2], k=3).hits
 assert len(snap.index) > 0 and len(hits) == 3
 assert "repro_service_swap_ms_count 1" in obs.metrics.expose()
+# the serving plane in-process: a replica of the segment behind an HTTP
+# endpoint, the writer behind another, a router over both
+rep = shm.ReplicaService(pub.prefix).start()
+servers = [protocol.make_server(s, port=0) for s in (svc, rep)]
+for s in servers:
+    threading.Thread(target=s.serve_forever, daemon=True).start()
+rt = router.RouterService([router.Shard(
+    f"http://127.0.0.1:{servers[0].port}",
+    [f"http://127.0.0.1:{servers[1].port}"])])
+cl = protocol.ClusterClient(f"http://127.0.0.1:{servers[1].port}")
+assert cl.query(k=3)["hits"] == rt.query(k=3)["hits"]
+supervise.write_event(flags, "writer", "probe", "ok")
+assert supervise.Supervisor(flag_dir=flags).stats() == {"children": {}}
+rt.close()
+for s in servers:
+    s.shutdown()
+    s.server_close()
+rep.stop()
+svc.stop()
+pub.close()
 out = io.StringIO()
 with contextlib.redirect_stdout(out):
     rc1 = tricluster.main(["--dataset", "imdb", "--device", "cpu",
@@ -335,9 +368,11 @@ print("OK", len(snap.index), out.getvalue().count("score="))
 
 
 def test_serving_layer_and_obs_run_without_jax():
-    """``repro_torch.obs``, ``serve.{clusters,ranking,service,faults}``
-    and the CLI's ``--top-k``/``--query-*`` with JAX and the JAX package
-    blocked."""
+    """``repro_torch.obs``, ``serve.{clusters,ranking,service,faults}``,
+    the serving plane (``serve.{supervise,shm,protocol,router}`` and
+    ``launch.cluster_serve``) and the CLI's ``--top-k``/``--query-*``
+    with JAX and the JAX package blocked; importing ``serve`` leaves the
+    LM engine unloaded."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC)
     out = subprocess.run([sys.executable, "-c", _BLOCKED_SERVE], env=env,

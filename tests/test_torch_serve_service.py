@@ -210,7 +210,15 @@ def test_concurrent_readers_only_see_complete_snapshots():
 
 
 def test_supervisor_events_wait_for_their_module(tmp_path):
-    with pytest.raises(NotImplementedError, match="A10b"):
-        TriclusterService(SIZES, device="cpu", event_dir=str(tmp_path))
+    """``event_dir`` mirrors integrity events to ``serve.supervise``'s
+    event file (the module is ported: nothing waits any more)."""
+    svc = TriclusterService(SIZES, device="cpu", event_dir=str(tmp_path),
+                            event_name="shard-3", **QUIET)
+    svc._integrity_event("scrub_violation", "probe")
+    assert svc.stats()["integrity_events"] == [["scrub_violation", "probe"]]
+    with open(tmp_path / "shard-3.events") as fh:
+        assert fh.read() == ('{"event": "scrub_violation", '
+                             '"detail": "probe"}\n')
+    svc.stop()
     with pytest.raises(ValueError, match="backend"):
         TriclusterService(SIZES, backend="spark", device="cpu")

@@ -387,3 +387,21 @@ def test_unported_families_name_their_roadmap_item(arch, item):
         L.init_cache(tc, 1, 8, device="cpu")
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         get_model(tc).prefill(tc, None, {"tokens": None}, 8)
+
+
+def test_serve_batch_example_runs_on_the_cpu():
+    """``examples/torch_serve_batch.py``, the twin of
+    ``examples/serve_batch.py``, as a user runs it."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run(
+        [sys.executable, os.path.join("examples", "torch_serve_batch.py"),
+         "--device", "cpu"], cwd=root, capture_output=True, text=True,
+        timeout=300, env={k: v for k, v in os.environ.items()
+                          if k != "PYTHONPATH"})
+    assert out.returncode == 0, out.stderr
+    assert "arch=qwen3-smoke batch=4" in out.stdout
+    assert out.stdout.count("sample[") == 2
+    assert out.stdout.rstrip().endswith("torch_serve_batch: OK")
