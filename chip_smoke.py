@@ -168,6 +168,32 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    writer killed at its first write after the preload: restarted by the
    supervisor, recovered from checkpoint and WAL on the card, the write
    read back at its version.  No shared-memory segment outlives a plane.
+14. training (``phase14``, ``train.{optim,step,checkpoints,
+   fault_tolerance}`` and ``launch.train``; no kernel on its path, as in
+   the JAX package): (a) ``launch.train.main`` trains granite-moe-3b-
+   a800m at full width and depth (bf16 compute over fp32 master
+   parameters, ``remat="block"``, ``attn_impl="blocked"``) for
+   ``TRAIN_STEPS`` steps of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens: each
+   step's loss, grad norm and lr (finite), the warm step time and tokens/s
+   (steps 2 on, each ending in the log row's read), the peak device
+   bytes beside the memory reckoning, zero kernel launches, then one more
+   step under the profiler (device busy share, time by PyTorch op); (b)
+   an fp32 gate at ``GATE_LAYERS`` depth and full width: one step of the
+   same seeded state and batch (1 x 512 tokens) on the card and on the
+   CPU, no MoE route differing, the loss within rtol 1e-5 and the grad
+   norm 5e-4, every leaf of ``m`` and ``v`` within 5e-3 and 1e-2 of the
+   leaf's largest magnitude (float32's own error here,
+   ``scripts/torch_train_conditioning.py``), the card's parameter update
+   bit for bit AdamW applied on the host to the card's own moments and
+   bias corrections, and the parameters against the CPU's where the
+   update is not the sign of rounding noise; (c) ``launch.train`` at smoke
+   size on the card (h2o-danube-1.8b): 6 steps straight against a resume
+   of its step-3 checkpoint for 3 more (the rows of steps 4-6 and every
+   leaf of the step-6 states equal), and a checkpoint
+   written on the card restored with ``device="cpu"`` leaf for leaf
+   equal to the state it saved; (d) ``examples/torch_fault_tolerance_demo
+   .py`` on the card: an injected crash under the ``Supervisor``, a
+   restart, a resume from the last checkpoint, exit 0.
 
 Before the last line it prints the card's name and power limit
 (``nvidia-smi``) and one JSON line ``{"kernels": [...]}``; the last line is
@@ -183,6 +209,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -215,6 +242,11 @@ GATE_LAYERS = 2
 
 BIB_T = 816_197
 ML_T = 1_000_209
+
+#: Phase 14a's run: granite-moe-3b-a800m at full width and depth, global
+#: batch x sequence tokens a step (4,096; the memory reckoning below is
+#: for this size), steps.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 6
 
 
 class SmokeFailure(Exception):
@@ -1784,6 +1816,314 @@ def phase13(bib) -> dict:
     return runs
 
 
+def train_reckoning(n_params: int, cfg, tokens: int) -> dict:
+    """Phase 14a's memory reckoning in bytes: fp32 params, grads, m and v;
+    the step's bf16 copy of the tree; the stacked leaves' bf16 cotangents
+    before their cast; the block inputs remat keeps; the fp32 logits,
+    log-softmax and their gradients."""
+    out = {"fp32 params, grads, m, v": 4 * 4 * n_params,
+           "bf16 tree": 2 * n_params,
+           "bf16 cotangents": 2 * n_params,
+           "remat block inputs": cfg.n_layers * tokens * cfg.d_model * 2,
+           "fp32 logits, log-softmax, grads": 3 * tokens * cfg.vocab_size
+           * 4}
+    out["total"] = sum(out.values())
+    return out
+
+
+def phase14() -> dict:
+    """Training: ``launch.train`` at full width (14a), its fp32 gate at
+    ``GATE_LAYERS`` depth against the CPU (14b), the driver's resume and a
+    checkpoint round trip at smoke size (14c), the supervised crash and
+    restart (14d).  -> {run: launch counts}, all zero."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.params import tree_items, tree_map
+    from repro_torch.models.telemetry import collect_moe_routing
+    from repro_torch.train import step as TS
+    from repro_torch.train.checkpoints import CheckpointManager
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    runs = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke14_")
+
+    def zero_launches(tag: str) -> dict:
+        counts = ops.launch_counts()
+        check(all(n == 0 for n in counts.values()),
+              f"{tag}: kernel launches {counts} on the training path (its "
+              "kernels have no backward: none may launch)")
+        return counts
+
+    # 14a: full width and depth through the driver
+    arch = "granite-moe-3b-a800m"
+    cfg = get_config(arch)
+    check(cfg.dtype == "bfloat16" and cfg.remat == "block"
+          and cfg.attn_impl == "blocked" and not cfg.use_pallas,
+          f"{arch}: dtype {cfg.dtype}, remat {cfg.remat}, attn_impl "
+          f"{cfg.attn_impl}, use_pallas {cfg.use_pallas}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    reck = train_reckoning(cfg.n_params(), cfg, tokens)
+    tag = "phase 14a training granite-moe"
+    metrics_path = os.path.join(tmp, "14a.json")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = train_mod.main(["--arch", arch, "--global-batch", str(TRAIN_BATCH),
+                         "--seq", str(TRAIN_SEQ), "--steps",
+                         str(TRAIN_STEPS), "--lr", "3e-3", "--warmup", "2",
+                         "--log-every", "1", "--metrics-out", metrics_path,
+                         "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    runs[tag] = zero_launches(tag)
+    peak = torch.cuda.max_memory_allocated()
+    check(rc == 0, f"{tag}: rc {rc}")
+    rows = json.load(open(metrics_path))
+    check([r["step"] for r in rows] == list(range(1, TRAIN_STEPS + 1)),
+          f"{tag}: rows {[r['step'] for r in rows]}")
+    for r in rows:
+        check(all(math.isfinite(r[k]) for k in ("loss", "grad_norm", "lr")),
+              f"{tag}: step {r['step']} {r}")
+    step_ms = [tokens / r["tok_per_s"] * 1e3 for r in rows]
+    warm = step_ms[1:]
+    warm_ms = sum(warm) / len(warm)
+    log(f"{tag}: {cfg.n_params()} parameters, {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens a step, bf16 compute over fp32 master, remat block, "
+        f"attention blocked; {TRAIN_STEPS} steps in {wall:.1f} s (init "
+        f"included)")
+    for r, ms in zip(rows, step_ms):
+        log(f"  step {r['step']}: loss {r['loss']:.6f} grad norm "
+            f"{r['grad_norm']:.6f} lr {r['lr']:.6e} ({ms:.3f} ms)")
+    log(f"{tag}: warm step ms {[round(x, 3) for x in warm]} (mean "
+        f"{warm_ms:.3f}, min {min(warm):.3f}); {tokens / (warm_ms / 1e3):.1f}"
+        f" tokens/s; peak device memory {peak} bytes ({peak / 1e9:.3f} GB) "
+        f"against the reckoning's {reck['total'] / 1e9:.3f} GB ("
+        + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in reck.items()
+                    if k != "total")
+        + f"); kernel launches {runs[tag]}")
+    check(peak <= torch.cuda.get_device_properties(0).total_memory,
+          f"{tag}: peak {peak}")
+    # one more step under the profiler: where the step's device time goes
+    state = TS.init_train_state(cfg, torch.Generator(device=dev)
+                                .manual_seed(0), device=dev)
+    step_fn = TS.make_train_step(cfg, None, TS.TrainConfig(
+        peak_lr=3e-3, warmup_steps=2, total_steps=TRAIN_STEPS))
+    pipe = TokenPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in pipe.batch_at(0).items()}
+    box = {"state": state}
+
+    def one_step():
+        box["state"], m = step_fn(box["state"], batch)
+        float(m["loss"])
+
+    t0 = time.perf_counter()
+    one_step()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    del state
+    busy, by_name, by_op, complete = device_ms(one_step, iters=1, warm=False)
+    if busy is not None:
+        log(f"{tag} profiled step (host {host_ms:.3f} ms unprofiled): device "
+            f"busy {busy:.3f} ms (idle share {1 - busy / warm_ms:.3f} of the "
+            f"driver's warm step; trace complete: {complete}); device ms by "
+            f"the PyTorch op that launched it, the largest:")
+        for oname, oms in sorted(by_op.items(), key=lambda kv: -kv[1])[:14]:
+            log(f"    {oms:.3f} ms  {oname[:90]}")
+    del box, batch, step_fn
+    torch.cuda.empty_cache()
+
+    # 14b: the fp32 gate at GATE_LAYERS depth, full width: card and CPU.
+    # Tolerances from scripts/torch_train_conditioning.py: at this size the
+    # CPU's float32 step is 8.2e-7 (loss), 6.0e-5 (grad norm) and up to
+    # 1.2e-3 of a leaf's max |gradient| from float64 (logits of ~100s at
+    # this init leave their rounding in the softmax's gradient), and two
+    # correct float32 runs can each be that far: the loss 1e-5, the grad
+    # norm 5e-4, m (a gradient) 5e-3 and v (its square) 1e-2 of the leaf's
+    # max.  The parameter update is held two ways: bit for bit against
+    # AdamW applied on the host to the card's own moments and bias
+    # corrections (the same correctly rounded float32 operations in the
+    # same order; the square root through float64, since the host's
+    # float32 ``torch.sqrt`` misses the correctly rounded root by an ulp
+    # in ~0.5% of elements where the card's does not), and
+    # against the CPU's where the update is not the sign of rounding noise
+    # (|m| >= 2e-2 of its leaf's max and m / (1 - b1) >= 1e-5 = 1000 eps:
+    # 1e-3 lr).  No MoE route may differ: a flipped route trains another
+    # expert, and no leaf tolerance covers that.
+    tag = "phase 14b fp32 gate"
+    gcfg = dataclasses.replace(cfg, dtype="float32", n_layers=GATE_LAYERS)
+    gtc = TS.TrainConfig(peak_lr=3e-3, warmup_steps=0,
+                         total_steps=TRAIN_STEPS)
+    card = TS.init_train_state(gcfg, torch.Generator(device=dev)
+                               .manual_seed(0), device=dev)
+    host0 = tree_map(lambda t: t.detach().to("cpu", copy=True).numpy(),
+                     card)
+    cpu = TS.from_jax_state(host0, device="cpu")
+    gbatch = TokenPipeline(gcfg, 1, 512, seed=0).batch_at(0)
+    r_card = collect_moe_routing(gcfg, card["params"], gbatch["tokens"])
+    r_cpu = collect_moe_routing(gcfg, cpu["params"], gbatch["tokens"])
+    flips = int((np.asarray(r_card) != np.asarray(r_cpu)).sum())
+    ops.reset_launch_counts()
+    card, m_card = TS.make_train_step(gcfg, None, gtc)(
+        card, {k: torch.from_numpy(v).to(dev) for k, v in gbatch.items()})
+    torch.cuda.synchronize()
+    runs[tag] = zero_launches(tag)
+    t0 = time.perf_counter()
+    cpu, m_cpu = TS.make_train_step(gcfg, None, gtc)(
+        cpu, {k: torch.from_numpy(v) for k, v in gbatch.items()})
+    cpu_s = time.perf_counter() - t0
+    lr = float(m_cpu["lr"])
+    rel = {k: abs(float(m_card[k]) - float(m_cpu[k]))
+           / max(abs(float(m_cpu[k])), 1e-30)
+           for k in ("loss", "nll", "aux", "grad_norm")}
+    err = {"m": {}, "v": {}, "update": {}, "params": {}}
+    for part in ("m", "v"):
+        for (path, x), (_, y) in zip(tree_items(card["opt"][part]),
+                                     tree_items(cpu["opt"][part])):
+            err[part][path] = float((x.cpu() - y).abs().max()) / max(
+                float(y.abs().max()), 1e-30)
+    t = card["opt"]["step"].to(torch.float32)
+    bc1, bc2 = ((1.0 - b ** t).cpu() for b in (gtc.b1, gtc.b2))  # the card's
+    cm, cv = dict(tree_items(card["opt"]["m"])), dict(tree_items(
+        card["opt"]["v"]))
+    pm = dict(tree_items(cpu["opt"]["m"]))
+    p0s = dict(tree_items(host0["params"]))
+    compared = 0
+    for (path, pc), (_, pp) in zip(tree_items(card["params"]),
+                                   tree_items(cpu["params"])):
+        p0 = torch.from_numpy(p0s[path])
+        root = torch.sqrt((cv[path].cpu() / bc2).double()).float()
+        want = p0 - m_cpu["lr"] * (cm[path].cpu() / bc1 / (root + 1e-8)
+                                   + gtc.weight_decay * p0)
+        got = pc.detach().cpu()
+        big = torch.maximum(torch.maximum(p0.abs(), want.abs()),
+                            torch.tensor(lr))     # the operands' scale
+        ulp = torch.nextafter(big, torch.tensor(math.inf)) - big
+        err["update"][path] = float(((got - want).abs() / ulp).max())
+        mc = pm[path].abs()
+        sure = (mc >= 2e-2 * float(mc.max())) & (mc / bc1 >= 1e-5)
+        compared += int(sure.sum())
+        d = (got - pp.detach())[sure].abs()
+        err["params"][path] = float(d.max()) / lr if d.numel() else 0.0
+    worst = {k: max(v.values()) for k, v in err.items()}
+    n_el = sum(x.numel() for _, x in tree_items(cpu["params"]))
+    log(f"{tag} ({GATE_LAYERS} of {cfg.n_layers} layers, full width, 1 x 512 "
+        f"tokens, one step at lr {lr:.3e}; the CPU step {cpu_s:.1f} s): "
+        f"routes differing card/CPU {flips} of {np.asarray(r_cpu).size}; "
+        f"loss {float(m_card['loss']):.6f} / {float(m_cpu['loss']):.6f}, "
+        f"grad norm {float(m_card['grad_norm']):.6f} / "
+        f"{float(m_cpu['grad_norm']):.6f}; relative differences "
+        + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+        + f" (limits 1e-5, grad norm 5e-4); max |err| of m {worst['m']:.3e} "
+        f"and v {worst['v']:.3e} of their leaves' max (limits 5e-3, 1e-2); "
+        f"the card's update from its own moments within "
+        f"{worst['update']:.3f} ulp of max(|p|, |p'|, lr) (limit 0); params "
+        f"against the CPU's "
+        f"within {worst['params']:.3e} lr (limit 1e-3) at {compared} of "
+        f"{n_el} elements")
+    for part in ("m", "v"):
+        log(f"  {part} by leaf: " + ", ".join(
+            f"{'/'.join(k)} {v:.2e}" for k, v in err[part].items()))
+    for k, v in rel.items():
+        check(v <= (5e-4 if k == "grad_norm" else 1e-5),
+              f"{tag}: {k} {float(m_card[k])} on the card, "
+              f"{float(m_cpu[k])} on the CPU ({flips} routes differ)")
+    check(flips == 0, f"{tag}: {flips} MoE routes differ between the card "
+          "and the CPU, so the two steps train different experts")
+    check(float(m_card["lr"]) == lr > 0, f"{tag}: lr {m_card['lr']} / {lr}")
+    for part, limit in (("m", 5e-3), ("v", 1e-2), ("update", 0.0),
+                        ("params", 1e-3)):
+        check(worst[part] <= limit, f"{tag}: {part} {err[part]} (limit "
+              f"{limit}; {flips} routes differ between the card and the CPU)")
+    del card, cpu, host0, cm, cv, pm, p0s
+    torch.cuda.empty_cache()
+
+    # 14c: the driver at smoke size on the card; resume; checkpoint
+    tag = "phase 14c driver danube smoke"
+    smoke = ["--arch", "h2o-danube-1.8b", "--smoke", "--global-batch", "2",
+             "--seq", "32", "--steps", "6", "--log-every", "1",
+             "--device", "cuda"]
+    straight, resumed = (os.path.join(tmp, f"14c_{n}") for n in "ab")
+    ops.reset_launch_counts()
+    check(train_mod.main(smoke + ["--ckpt-dir", straight, "--ckpt-every", "3",
+                                  "--metrics-out", straight + ".json"]) == 0,
+          f"{tag}: the straight run failed")
+    ckpt3 = CheckpointManager(straight)._path(3)
+    check(os.path.isdir(ckpt3), f"{tag}: no step-3 checkpoint")
+    os.makedirs(resumed)
+    shutil.copytree(ckpt3, os.path.join(resumed, os.path.basename(ckpt3)))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = train_mod.main(smoke + ["--ckpt-dir", resumed, "--resume",
+                                     "auto", "--metrics-out",
+                                     resumed + ".json"])
+    check(rc == 0 and "resumed from step 3" in out.getvalue(),
+          f"{tag}: the resumed run: {out.getvalue()[-2000:]}")
+    runs[tag] = zero_launches(tag)
+    a_rows = json.load(open(straight + ".json"))
+    b_rows = json.load(open(resumed + ".json"))
+    check([r["step"] for r in b_rows] == [4, 5, 6], f"{tag}: resumed rows "
+          f"{[r['step'] for r in b_rows]}")
+    diffs = {"loss": 0.0, "grad_norm": 0.0, "lr": 0.0}
+    for a, b in zip(a_rows[3:], b_rows):
+        for k in diffs:
+            diffs[k] = max(diffs[k], abs(a[k] - b[k]) / abs(a[k]))
+    check(all(v == 0.0 for v in diffs.values()), f"{tag}: 6 straight against"
+          f" 3 + resume + 3: relative differences {diffs}")
+    ends = [tree_items(CheckpointManager(d).restore(6)[1])
+            for d in (straight, resumed)]
+    check([p for p, _ in ends[0]] == [p for p, _ in ends[1]] and all(
+        a.dtype == b.dtype and np.array_equal(a, b)
+        for (_, a), (_, b) in zip(*ends)),
+        f"{tag}: the step-6 states of 6 straight and 3 + resume + 3 differ "
+        "in " + ", ".join("/".join(p) for (p, a), (_, b) in zip(*ends)
+                          if not np.array_equal(a, b)))
+    scfg = get_smoke_config("h2o-danube-1.8b")
+    st = TS.init_train_state(scfg, torch.Generator(device=dev).manual_seed(3),
+                             device=dev)
+    fn = TS.make_train_step(scfg, None, TS.TrainConfig(warmup_steps=1))
+    sb = {k: torch.from_numpy(v).to(dev) for k, v in
+          TokenPipeline(scfg, 2, 32, seed=3).batch_at(0).items()}
+    for _ in range(2):
+        st, _ = fn(st, sb)
+    mgr = CheckpointManager(os.path.join(tmp, "14c_roundtrip"))
+    mgr.save(2, st, block=False)
+    mgr.wait()
+    _, back = mgr.restore(template=st, device="cpu")
+    pairs = list(zip(tree_items(st), tree_items(back)))
+    check(len(pairs) == len(tree_items(back)) and all(
+        pa == pb and b.device.type == "cpu" and a.dtype == b.dtype
+        and torch.equal(a.detach().cpu(), b) for (pa, a), (pb, b) in pairs),
+        f"{tag}: a checkpoint written on the card does not restore leaf "
+        "for leaf on the CPU")
+    log(f"{tag}: 6 steps straight against 3 + --resume auto + 3: the rows "
+        f"of steps 4-6 equal (loss, grad norm, lr) and the step-6 states "
+        f"equal in all {len(ends[0])} leaves of params, opt/m, opt/v, "
+        f"opt/step, data_step; a checkpoint of {len(pairs)} leaves written on"
+        " the card restores with device='cpu' leaf for leaf equal")
+
+    # 14d: the supervised crash, restart and resume, as the example runs it
+    tag = "phase 14d supervisor"
+    t0 = time.perf_counter()
+    sys.path.insert(0, str(ROOT / "examples"))
+    import torch_fault_tolerance_demo
+    torch_fault_tolerance_demo.main(["--device", "cuda"])
+    log(f"{tag}: examples/torch_fault_tolerance_demo.py on the card: the "
+        f"injected crash (rc 42), the restart resumed from its last "
+        f"checkpoint and ran to step 60 ({time.perf_counter() - t0:.1f} s)")
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3263,6 +3603,9 @@ def main() -> int:
 
     # -- phase 13: the multi-process serving plane ------------------------------
     runs10.update(phase13(bib))
+
+    # -- phase 14: training -----------------------------------------------------
+    runs10.update(phase14())
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")

@@ -147,12 +147,11 @@ class ModelConfig:
 #: the ROADMAP item whose slice will read it.  The port's entry points
 #: (``models.api.get_model``, ``models.telemetry.collect_moe_routing``)
 #: reject a config that sets one away from its default rather than ignore
-#: it, through :func:`check_ported`.
+#: it, through :func:`check_ported`.  The training knobs are read since
+#: A13b: ``remat`` and ``router_aux_weight`` by ``models.lm``,
+#: ``microbatch`` by ``train.step``; ``scan_layers`` changes no number
+#: (the port loops over its layers either way).
 UNPORTED_KNOBS = {
-    "remat": "A13b",               # training
-    "microbatch": "A13b",
-    "router_aux_weight": "A13b",   # a term of the loss
-    "scan_layers": "A13b",         # the port runs its layers one by one
     "fsdp": "A13c",                # the model on a mesh
     "hier_allreduce": "A13c",
     "moe_impl": "A13c",

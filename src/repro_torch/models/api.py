@@ -4,13 +4,13 @@ family.  Port of ``repro.models.api``.
   model = get_model(cfg)
   params = model.init(cfg, generator, device=device)
   logits, aux = model.forward(cfg, params, batch)
+  loss, metrics = model.loss(cfg, params, batch)     # lm.loss_fn
   cache, logits = model.prefill(cfg, params, inputs, max_len)
   cache, logits = model.decode_step(cfg, params, cache, tokens)
 
-``loss`` raises ``NotImplementedError`` until the training slice lands
-(ROADMAP A13b); so do the families other than ``dense`` and ``moe``
-(A13d-f).  ``cache_structs`` (sharded dry-run inputs) comes with the mesh
-(A13c).
+The families other than ``dense`` and ``moe`` raise
+``NotImplementedError`` naming their ROADMAP items (A13d-f).
+``cache_structs`` (sharded dry-run inputs) comes with the mesh (A13c).
 """
 from __future__ import annotations
 
@@ -33,11 +33,14 @@ class Model(NamedTuple):
     init_cache: Callable       # (cfg, batch, max_len, dtype, rules, device)
 
     def init(self, cfg: ModelConfig, generator: torch.Generator,
-             dtype: torch.dtype = torch.float32, device=None) -> ParamTree:
+             dtype: torch.dtype = torch.float32, device=None,
+             requires_grad: bool = False) -> ParamTree:
         """Parameters drawn from ``generator`` on ``device`` (default: the
         card; raises without one).  The generator must live on the same
-        device type: ``torch.Generator(device=device)``."""
-        return init_params(self.param_defs(cfg), generator, dtype, device)
+        device type: ``torch.Generator(device=device)``.
+        ``requires_grad=True``: a trainable tree."""
+        return init_params(self.param_defs(cfg), generator, dtype, device,
+                           requires_grad)
 
 
 def _lm_forward(cfg, params, batch, rules=None):

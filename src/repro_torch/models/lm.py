@@ -1,12 +1,18 @@
 """Decoder-only LM, dense and MoE families.  Port of ``repro.models.lm``.
 
 One parameter-declaration table per family (``param_defs``), one forward
-for full sequences (``forward``), and serving: ``prefill`` (one full
-forward that also packs each layer's K/V into a ring cache) and
-``decode_step`` (one token per sequence against that cache).  Layers run
-as a Python loop over the stacked parameters (the JAX package's
-``lax.scan``); there is no remat, since the port's model slice runs no
-backward.
+for full sequences (``forward``), the training loss (``loss_fn``), and
+serving: ``prefill`` (one full forward that also packs each layer's K/V
+into a ring cache) and ``decode_step`` (one token per sequence against
+that cache).  Layers run as a Python loop over the stacked parameters
+(the JAX package's ``lax.scan``; ``cfg.scan_layers`` changes no number,
+so the port reads it and loops either way).  ``prefill`` and
+``decode_step`` take each layer's views with ``params.layer_slice``;
+``forward`` (and so ``loss_fn``) takes all of them at once with
+``params.layer_views`` (one ``unbind`` per stacked leaf, whose backward
+is one ``stack``) and, with ``cfg.remat == "block"`` while grad is
+enabled, recomputes each block in the backward
+(``torch.utils.checkpoint``, the JAX package's ``jax.remat``).
 
 Every RMSNorm passes ``use_pallas=cfg.use_pallas`` (True: the ``rmsnorm``
 kernel).  Decode attention follows ``cfg.attn_impl`` (``"pallas"``: the
@@ -15,26 +21,28 @@ attention is the JAX package's: ``common._sdpa``, or
 ``common.blocked_sdpa`` when ``attn_impl == "blocked"`` and the prompt is
 longer than ``q_block``; it never calls ``flash_attention``.
 ``decode_step`` writes the cache's K/V tensors in place and reads its
-``pos`` on the host once per step.
+``pos`` on the host once per step.  The kernels have no backward, in
+either package, so training (``repro_torch.train.step``) refuses their
+switches.
 
 Not ported yet, each raising ``NotImplementedError`` that names its item
 of ROADMAP.md:
 
 * the ``hybrid_ssm`` family (Zamba2, ``models/ssm.py``) — A13d;
 * the ``xlstm`` family (``models/xlstm.py``) — A13e;
-* ``loss_fn`` (training) — A13b;
-* serving over a device mesh (``rules``) — A13c.
+* the model over a device mesh (``rules``) — A13c.
 """
 from __future__ import annotations
 
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from . import common
-from .params import ParamDef, layer_slice
+from .params import ParamDef, layer_slice, layer_views
 
 #: ROADMAP items of the families the port does not declare yet.
 _FAMILY_ITEMS = {"hybrid_ssm": "A13d (models/ssm.py)",
@@ -174,12 +182,13 @@ def _as_index(tokens, device) -> torch.Tensor:
     return torch.as_tensor(tokens, dtype=torch.int64, device=device)
 
 
-@torch.no_grad()
 def forward(cfg: ModelConfig, params, tokens, patches=None,
             positions=None, rules=None):
     """Full-sequence forward -> (logits (B,S,V), aux_loss scalar).
     ``tokens`` (and ``patches``) may be numpy arrays; they move to the
-    parameters' device."""
+    parameters' device.  Autograd records only what a trainable tree
+    (``requires_grad=True``) feeds; with ``cfg.remat == "block"`` while
+    grad is enabled, each block is recomputed in the backward."""
     if cfg.family not in ("dense", "moe"):
         raise not_ported(f"forward of the {cfg.family!r} family",
                          _FAMILY_ITEMS.get(cfg.family, "A13"))
@@ -192,15 +201,36 @@ def forward(cfg: ModelConfig, params, tokens, patches=None,
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=dev)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
-    lp = params["layers"]
-    for i in range(cfg.n_layers):
-        x, aux = _dense_block(cfg, layer_slice(lp, i), x, positions, aux,
-                              rules)
+    remat = cfg.remat == "block" and torch.is_grad_enabled()
+    for p in layer_views(params["layers"], cfg.n_layers):
+        if remat:
+            x, aux = checkpoint(_dense_block, cfg, p, x, positions, aux,
+                                rules, use_reentrant=False)
+        else:
+            x, aux = _dense_block(cfg, p, x, positions, aux, rules)
     return lm_logits(cfg, params, x), aux
 
 
 def loss_fn(cfg: ModelConfig, params, batch, rules=None):
-    raise not_ported("loss_fn (training)", "A13b")
+    """Next-token cross entropy; label -100 is ignored.  -> (loss,
+    {"nll", "aux"}): the mean over the valid labels (at least one) of the
+    fp32 log-softmax's negative log-likelihood, plus
+    ``cfg.router_aux_weight`` times the MoE load-balancing loss.  The
+    patch frontend's ``frontend_len`` positions carry no labels."""
+    _check_rules(rules, "loss_fn")
+    logits, aux = forward(cfg, params, batch["tokens"], batch.get("patches"),
+                          rules=rules)
+    labels = _as_index(batch["labels"], logits.device)
+    if cfg.frontend == "patch":
+        pad = torch.full((labels.shape[0], cfg.frontend_len), -100,
+                         dtype=labels.dtype, device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    valid = labels >= 0
+    safe = torch.clamp(labels, min=0)
+    lp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.gather(lp, -1, safe[..., None])[..., 0]
+    loss = torch.sum(nll * valid) / torch.clamp(valid.sum(), min=1)
+    return loss + cfg.router_aux_weight * aux, {"nll": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,9 @@ initialisation and parameter counts.  The parameter tree itself is an
 ``nn.Module`` of nested ``nn.ParameterDict``s (:class:`ParamTree`): its
 ``state_dict()`` keys are the JAX tree paths joined by ``.``, and stacked
 layer tensors keep their leading ``(n_layers, ...)`` axis.  Parameters are
-frozen (``requires_grad=False``): the port's model slice is inference only.
+frozen (``requires_grad=False``) by default, as serving and routing want
+them; ``requires_grad=True`` builds a trainable tree (the training slice,
+``repro_torch.train``).
 
 The sharding helpers of the JAX module (``param_specs``,
 ``param_shardings``, ``param_structs``) are not ported yet (ROADMAP A13c,
@@ -63,22 +65,23 @@ class ParamTree(nn.ParameterDict):
     """A nested parameter tree: ``tree["layers"]["attn"]["wq"]``.
 
     Inner nodes are ``ParamTree``s (registered as submodules), leaves are
-    frozen ``nn.Parameter``s, so ``state_dict()`` keys read
-    ``"layers.attn.wq"``."""
+    ``nn.Parameter``s (frozen unless ``requires_grad``), so
+    ``state_dict()`` keys read ``"layers.attn.wq"``."""
 
     @classmethod
-    def from_tensors(cls, tree: Mapping) -> "ParamTree":
+    def from_tensors(cls, tree: Mapping,
+                     requires_grad: bool = False) -> "ParamTree":
         out = cls()
         for k in sorted(tree):
             v = tree[k]
-            out[k] = (cls.from_tensors(v) if _is_node(v)
-                      else nn.Parameter(v, requires_grad=False))
+            out[k] = (cls.from_tensors(v, requires_grad) if _is_node(v)
+                      else nn.Parameter(v, requires_grad=requires_grad))
         return out
 
 
 def init_params(defs, generator: torch.Generator,
                 dtype: torch.dtype = torch.float32,
-                device=None) -> ParamTree:
+                device=None, requires_grad: bool = False) -> ParamTree:
     """Initialise a parameter tree from its declaration (deterministic).
 
     The same per-leaf distributions and scales as the JAX package: N(0, 1)
@@ -88,7 +91,8 @@ def init_params(defs, generator: torch.Generator,
     see :func:`repro_torch.device.resolve_device`; pass ``device="cpu"``
     with a CPU generator to run on the CPU).  The draws differ from
     ``jax.random``'s; tests that compare the packages convert one tree
-    with :func:`from_jax_params`."""
+    with :func:`from_jax_params`.  ``requires_grad=True``: a trainable
+    tree."""
     device = resolve_device(device)
     if torch.device(generator.device).type != device.type:
         raise ValueError(f"generator on {generator.device} cannot draw "
@@ -103,7 +107,7 @@ def init_params(defs, generator: torch.Generator,
                 collect(d[k], path + (k,))
 
     collect(defs, ())
-    out: dict = {}
+    out = []
     for path, d in leaves:
         if d.init == "zeros":
             arr = torch.zeros(d.shape, dtype=dtype, device=device)
@@ -115,20 +119,19 @@ def init_params(defs, generator: torch.Generator,
             arr = torch.randn(d.shape, generator=generator,
                               dtype=torch.float32, device=device)
             arr = arr.mul_(scale).to(dtype)
-        node = out
-        for p in path[:-1]:
-            node = node.setdefault(p, {})
-        node[path[-1]] = arr
-    return ParamTree.from_tensors(out)
+        out.append((path, arr))
+    return ParamTree.from_tensors(tree_from_items(out), requires_grad)
 
 
 def from_jax_params(tree: Mapping, device=None,
-                    dtype: Optional[torch.dtype] = None) -> ParamTree:
+                    dtype: Optional[torch.dtype] = None,
+                    requires_grad: bool = False) -> ParamTree:
     """The JAX package's parameter tree (nested dict of arrays; anything
     ``np.asarray`` takes) as a :class:`ParamTree` on ``device`` (default:
     the card, as :func:`init_params`), in ``dtype`` (default float32, the
     JAX package's parameter type).  The parity tests use it so that both
-    packages compute with the same weights."""
+    packages compute with the same weights.  ``requires_grad=True``: a
+    trainable tree."""
     device = resolve_device(device)
 
     def convert(node):
@@ -136,11 +139,61 @@ def from_jax_params(tree: Mapping, device=None,
             return {k: convert(v) for k, v in node.items()}
         t = torch.from_numpy(np.array(np.asarray(node, np.float32)))
         return t.to(device=device, dtype=dtype or torch.float32)
-    return ParamTree.from_tensors(convert(tree))
+    return ParamTree.from_tensors(convert(tree), requires_grad)
+
+
+def tree_items(tree, prefix: tuple = ()) -> list:
+    """``[(path, leaf), ...]`` of a nested tree (dicts, ``ParamTree``s) in
+    ``jax.tree.leaves`` order: keys sorted at every level."""
+    if not _is_node(tree):
+        return [(prefix, tree)]
+    out = []
+    for k in sorted(tree.keys()):
+        out.extend(tree_items(tree[k], prefix + (k,)))
+    return out
+
+
+def tree_map(fn, tree):
+    """A nested dict of ``fn(leaf)`` with ``tree``'s structure."""
+    if not _is_node(tree):
+        return fn(tree)
+    return {k: tree_map(fn, tree[k]) for k in sorted(tree.keys())}
+
+
+def tree_from_items(items) -> dict:
+    """The nested dict of ``[(path, leaf), ...]`` (:func:`tree_items`)."""
+    out: dict = {}
+    for path, leaf in items:
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
 
 
 def layer_slice(tree: Mapping, i: int) -> dict:
     """Layer ``i`` of a stacked parameter subtree (the leading axis), as a
-    nested dict of views: the twin of ``jax.tree.map(lambda a: a[i], t)``."""
+    nested dict of views: the twin of ``jax.tree.map(lambda a: a[i], t)``.
+    For prefill and decode; ``forward`` takes :func:`layer_views`."""
     return {k: (layer_slice(v, i) if _is_node(v) else v[i])
             for k, v in tree.items()}
+
+
+def layer_views(tree: Mapping, n: int) -> list:
+    """Every layer of a stacked parameter subtree: ``n`` nested dicts of
+    views, from one ``torch.unbind(0)`` per stacked leaf.  Under autograd
+    the leaf's gradient is then one ``stack`` of the layers' gradients
+    (``lax.scan``'s transpose), where ``n`` calls of :func:`layer_slice`
+    would each add into a zero tensor of the whole stack."""
+    out = [dict() for _ in range(n)]
+
+    def fill(node, dests):
+        for k, v in node.items():
+            if _is_node(v):
+                subs = [d.setdefault(k, {}) for d in dests]
+                fill(v, subs)
+            else:
+                for d, view in zip(dests, torch.unbind(v, 0)):
+                    d[k] = view
+    fill(tree, out)
+    return out

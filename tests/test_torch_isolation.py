@@ -417,3 +417,72 @@ def test_obs_none_adds_no_synchronisation(monkeypatch):
     # __call__, mine_chunked, and each window of the windowed path's
     # three stages (4 windows; 3 modes in Stage 1)
     assert calls == {"timer_sync": 1 + 1 + 4 * 3 + 4 + 4, "synchronize": 0}
+
+
+_BLOCKED_TRAIN = r"""
+import importlib.abc, io, contextlib, json, os, sys, tempfile
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import torch
+from repro_torch import train
+from repro_torch.configs import get_smoke_config
+from repro_torch.data.tokens import TokenPipeline
+from repro_torch.launch import train as train_mod
+from repro_torch.train import checkpoints, fault_tolerance, optim, step
+
+cfg = get_smoke_config("granite-moe-3b-a800m")
+state = train.init_train_state(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+fn = train.make_train_step(cfg, tc=train.TrainConfig(warmup_steps=1))
+batch = {k: torch.from_numpy(v)
+         for k, v in TokenPipeline(cfg, 2, 16, seed=0).batch_at(0).items()}
+for _ in range(2):
+    state, m = fn(state, batch)
+d = tempfile.mkdtemp()
+mgr = checkpoints.CheckpointManager(d)
+mgr.save(2, state)
+assert mgr.restore(template=state)[0] == 2
+fault_tolerance.beat(os.path.join(d, "hb"), 2)
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    rc = train_mod.main(["--arch", "qwen3-0.6b", "--smoke", "--steps", "2",
+                         "--global-batch", "2", "--seq", "16",
+                         "--device", "cpu", "--ckpt-dir", d,
+                         "--ckpt-every", "1", "--log-every", "1"])
+assert rc == 0 and out.getvalue().count("[train] step") == 2, out.getvalue()
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not leaked, leaked
+print("OK", int(state["opt"]["step"]), float(m["loss"]) > 0)
+"""
+
+
+def test_training_runs_without_jax():
+    """``repro_torch.train.*`` and ``repro_torch.launch.train`` with JAX
+    and the JAX package blocked: two steps of the MoE smoke config, a
+    checkpoint round trip, a heartbeat and the driver."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC)
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_TRAIN], env=env,
+                         capture_output=True, text=True, timeout=300,
+                         cwd=str(SRC.parent))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-3:] == ["OK", "2", "True"], out.stdout
+
+
+def test_training_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    from repro_torch.launch import train as train_mod
+    from repro_torch.train import init_train_state
+    cfg = get_smoke_config("qwen3-0.6b")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        init_train_state(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        train_mod.main(["--arch", "qwen3-0.6b", "--smoke", "--steps", "1"])
