@@ -78,7 +78,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    (B, 4096, Hkv, D) ring view, kv_len 2049 and 4096 and at the
    boundaries of the split-KV ranges, k x splitlen +- 1; one split at
    B x Hkv = 264; D 80; RMSNorm 4 x 2046 and 4 rows of D 1536, whose
-   plans must be the 16-byte vector path), each timed beside its bound,
+   plans must be the 16-byte vector path); at each decode shape also
+   ``return_lse`` (the same O, the log-sum-exp within 2e-5 of the plain
+   version's) and ``kv_len`` 0 (o = 0, lse = -inf, no launch); each
+   timed beside its bound,
    its plain version and one PyTorch call (RMSNorm at the prefill and at
    the decode shape; SDPA
    over the kv_len slice with ``enable_gqa``; ``F.rms_norm``); decode
@@ -193,7 +196,36 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    written on the card restored with ``device="cpu"`` leaf for leaf
    equal to the state it saved; (d) ``examples/torch_fault_tolerance_demo
    .py`` on the card: an injected crash under the ``Supervisor``, a
-   restart, a resume from the last checkpoint, exit 0.
+   restart, a resume from the last checkpoint, exit 0;
+15. the model on a device mesh (``phase15``, ``sharding``, ``models``,
+   ``train``, ``serve``): (a) an NCCL group of one rank, mesh (1, 1):
+   granite-moe-3b-a800m at full width and depth serving the phase-9b
+   prompts (8 new tokens) through both kernels, tokens and every logit
+   row bit for bit equal to ``rules=None``, and two training steps at
+   14a's shape whose loss and grad norm equal two ``rules=None`` steps
+   (held to two ``rules=None`` runs' own spread if those differ); (b)
+   two gloo ranks on ``cuda:0`` (collectives staged through host
+   memory), mesh (data 1, model 2), granite-moe at full width and depth
+   in bf16 with both kernels: 4 prompts of ~1,024 tokens, 16 new tokens,
+   per rank prefill and decode ms, peak device bytes and the staged
+   collectives' calls and bytes, ``decode_attention`` and ``rmsnorm``
+   launching on every rank as many times as the plan gives, the greedy
+   tokens' agreement with the one-rank card run (reported), and an fp32
+   gate at ``GATE_LAYERS`` depth: the prefill's and each decode step's
+   logits within 2e-5 of the row's max of the one-rank card run; (c)
+   four gloo ranks, mesh (2, 2), granite-moe at full width and
+   ``GATE_LAYERS`` depth in fp32, 2 x 512 tokens, ZeRO-1: three steps
+   and one with the ``gspmd`` MoE dispatch, and one fsdp step from a
+   fresh state; every rank also runs the one-rank card step from the
+   same state on the mesh's routes (a route may differ only at a near
+   tie: 1e-4 of the row's router probability), holds its blocks against
+   that state's after each step (loss rtol 1e-5, grad norm 5e-4, ``m``
+   and ``v`` 1e-2 of the leaf's max; at a state's first step the
+   parameters 1e-3 lr where the update is not rounding noise; at every
+   step each block's update AdamW of its own moments bit for bit) and
+   takes them for the next; the host-staged step ms; and
+   a checkpoint the four ranks saved, restored whole on each rank, byte
+   for byte equal block for block to the live state.
 
 Before the last line it prints the card's name and power limit
 (``nvidia-smi``) and one JSON line ``{"kernels": [...]}``; the last line is
@@ -2124,6 +2156,686 @@ def phase14() -> dict:
     return runs
 
 
+#: Phase 15: the model on a device mesh.  15b's serving mesh (data, model)
+#: and 15c's training mesh, both gloo groups on the one card (NCCL takes
+#: one rank a card, so their collectives stage through host memory);
+#: 15b's prompts (4 of about MESH_PROMPT tokens), new tokens and ring
+#: (MESH_MAX_LEN slots, split in two blocks of 640 over "model", both
+#: holding filled slots from the prefill on); 15c's batch of
+#: MESH_TRAIN_BATCH x MESH_TRAIN_SEQ tokens (the batch splits over
+#: "data") and the steps of its ZeRO-1 state: three, then one with the
+#: gspmd MoE dispatch (a fresh state in the fsdp layout takes one more).
+SERVE_MESH, TRAIN_MESH = (1, 2), (2, 2)
+MESH_PROMPT, MESH_NEW, MESH_MAX_LEN = 1024, 16, 1280
+MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 2, 512
+MESH_STEPS = ("zero1", "zero1", "zero1", "gspmd")
+
+
+def _rank_setup(rank: int, world: int, tmp: str, name: str):
+    """A spawned gloo rank on ``cuda:0``: (torch, dist) after joining."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the ranks share the host's cores (host work: gloo, staging, launches)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/{name}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=600))
+    return torch, dist
+
+
+class _Recorder:
+    """A model's ``prefill``/``decode_step`` that keep each call's logits
+    and the staged collectives it issued (``ServeEngine.model``)."""
+
+    def __init__(self, model, keep_logits: bool = False):
+        from repro_torch.core.collectives import Collectives
+        self.model, self.keep = model, keep_logits
+        self.C = Collectives
+        self.logits, self.comms = [], []
+
+    def _call(self, fn, *args):
+        c0, b0 = self.C.calls, self.C.bytes
+        cache, logits = fn(*args)
+        self.comms.append((self.C.calls - c0, self.C.bytes - b0))
+        if self.keep:
+            self.logits.append(logits.detach().clone())
+        return cache, logits
+
+    def prefill(self, *args):
+        return self._call(self.model.prefill, *args)
+
+    def decode_step(self, *args):
+        return self._call(self.model.decode_step, *args)
+
+
+def phase15b_rank(rank: int, tmp: str) -> None:
+    """One of 15b's two serving ranks (mesh ``SERVE_MESH``): granite-moe at
+    full width and depth, bf16, both kernels; then the fp32 gate at
+    ``GATE_LAYERS`` depth.  Rank 0 also runs the one-rank references on
+    the card.  Writes ``tmp/rank<r>.json``."""
+    torch, dist = _rank_setup(rank, 2, tmp, "pg15b")
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.collectives import Collectives
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm as L
+    from repro_torch.models.api import get_model
+    from repro_torch.serve import ServeEngine
+    from repro_torch.sharding import MeshRules
+    dev = torch.device("cuda", 0)
+    report = {"rank": rank}
+    try:
+        mesh = make_mesh(SERVE_MESH, ("data", "model"), device=dev)
+        rules = MeshRules(mesh)
+        report["staged"] = mesh.staged
+        cfg = dataclasses.replace(get_config("granite-moe-3b-a800m"),
+                                  attn_impl="pallas", use_pallas=True)
+        model = get_model(cfg)
+        t0 = time.perf_counter()
+        params = model.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev, rules=rules)
+        torch.cuda.synchronize()
+        report["init_s"] = time.perf_counter() - t0
+        report["param_bytes"] = sum(p.numel() * p.element_size()
+                                    for p in params.parameters())
+        prompts = TokenPipeline(cfg, 4, MESH_PROMPT, seed=0).prompts(
+            4, MESH_PROMPT)
+        report["prompt_lens"] = [len(p) for p in prompts]
+        engine = ServeEngine(cfg, params, max_len=MESH_MAX_LEN, rules=rules)
+        engine.generate(prompts, 2)                           # warm-up
+        rec = _Recorder(engine.model)
+        engine.model = rec
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        ops.reset_launch_counts()
+        Collectives.reset_counts()
+        res = engine.generate(prompts, MESH_NEW)
+        report["counts"] = ops.launch_counts()
+        report["peak_bytes"] = torch.cuda.max_memory_allocated()
+        report.update(prefill_ms=res.prefill_s * 1e3,
+                      decode_ms=res.decode_s * 1e3, steps=res.steps,
+                      tokens=res.tokens,
+                      prefill_comms=list(rec.comms[0]),
+                      decode_comms=[sum(c[0] for c in rec.comms[1:]),
+                                    sum(c[1] for c in rec.comms[1:])])
+        del engine, rec, params
+        torch.cuda.empty_cache()
+        dist.barrier()
+        if rank == 0:          # the one-rank card run of the same draws
+            full = model.init(cfg, torch.Generator(device=dev)
+                              .manual_seed(0), device=dev)
+            one = ServeEngine(cfg, full, max_len=MESH_MAX_LEN).generate(
+                prompts, MESH_NEW)
+            report["one_rank_tokens"] = one.tokens
+            del full
+            torch.cuda.empty_cache()
+        dist.barrier()
+
+        # the fp32 gate at GATE_LAYERS depth, teacher-forced on the mesh's
+        # greedy tokens: prefill and every decode step's logits
+        gcfg = dataclasses.replace(cfg, dtype="float32",
+                                   n_layers=GATE_LAYERS)
+        gmodel = get_model(gcfg)
+        toks = TokenPipeline(gcfg, 4, MESH_PROMPT, seed=1).batch_at(0)[
+            "tokens"]
+
+        def teacher_forced(p, rules_, feed=None):
+            cache, lg = gmodel.prefill(gcfg, p, {"tokens": toks},
+                                       MESH_MAX_LEN, rules_)
+            rows, fed = [lg], []
+            for i in range(MESH_NEW):
+                nxt = torch.argmax(lg, -1) if feed is None else feed[i]
+                fed.append(nxt)
+                cache, lg = gmodel.decode_step(gcfg, p, cache, nxt, rules_)
+                rows.append(lg)
+            return rows, fed
+
+        def teacher_forced_cfg(c, p, feed):
+            cache, lg = gmodel.prefill(c, p, {"tokens": toks},
+                                       MESH_MAX_LEN, None)
+            out = [lg]
+            for nxt in feed:
+                cache, lg = gmodel.decode_step(c, p, cache, nxt, None)
+                out.append(lg)
+            return out
+
+        gp = gmodel.init(gcfg, torch.Generator(device=dev).manual_seed(1),
+                         device=dev, rules=rules)
+        ops.reset_launch_counts()
+        rows, fed = teacher_forced(gp, rules)
+        report["gate_counts"] = ops.launch_counts()
+        del gp
+        if rank == 0:
+            gfull = gmodel.init(gcfg, torch.Generator(device=dev)
+                                .manual_seed(1), device=dev)
+            want, _ = teacher_forced(gfull, None, fed)
+
+            def rel(xs, ys):
+                return [float((a - b).abs().max() / b.abs().max())
+                        for a, b in zip(xs, ys)]
+            report["gate_rel"] = rel(rows, want)
+            report["gate_tokens_equal"] = all(
+                torch.equal(torch.argmax(a, -1), torch.argmax(b, -1))
+                for a, b in zip(rows, want))
+            # two correct one-rank runs at this depth and width: kernels
+            # on against off (phase 9b's gate), and float32 against the
+            # compute in float64 (``lm.compute_dtype`` swapped, the plain
+            # paths; scripts/torch_mesh_conditioning.py does the same)
+            gcfg_off = dataclasses.replace(gcfg, attn_impl="blocked",
+                                           use_pallas=False)
+            off = teacher_forced_cfg(gcfg_off, gfull, fed)
+            report["gate_rel_kernels_off"] = rel(want, off)
+            del gfull
+            real = L.compute_dtype
+            L.compute_dtype = lambda c: torch.float64
+            try:
+                g64 = gmodel.init(gcfg, torch.Generator(device=dev)
+                                  .manual_seed(1), dtype=torch.float64,
+                                  device=dev)
+                exact = [x.double() for x in
+                         teacher_forced_cfg(gcfg_off, g64, fed)]
+            finally:
+                L.compute_dtype = real
+            del g64
+            report["gate_rel_f64"] = {
+                "mesh": rel([x.double() for x in rows], exact),
+                "one rank": rel([x.double() for x in want], exact)}
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+        with open(f"{tmp}/rank{rank}.json", "w") as f:
+            json.dump(report, f)
+
+
+def phase15c_rank(rank: int, tmp: str) -> None:
+    """One of 15c's four training ranks (mesh ``TRAIN_MESH``): granite-moe
+    at full width and ``GATE_LAYERS`` depth in fp32, ZeRO-1.  A state in
+    the ZeRO-1 layout takes the steps of ``MESH_STEPS`` (three, then one
+    with the gspmd dispatch), and a fresh state in the fsdp layout one
+    step.  Each rank also runs the one-rank train step on the card from
+    the same state, on the mesh's routes (its own top-k is recorded,
+    then replaced by the mesh's, gathered over ``data``), holds its
+    blocks against the matching blocks of that state after every step,
+    and takes them for the next step.
+    Then a checkpoint the four ranks saved is restored, whole, on each
+    rank and held block for block against the live state.  Writes
+    ``tmp/rank<r>.json``."""
+    torch, dist = _rank_setup(rank, 4, tmp, "pg15c")
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import common as C
+    from repro_torch.models.params import tree_items
+    from repro_torch.sharding import MeshRules
+    from repro_torch.train import step as TS
+    from repro_torch.train.checkpoints import CheckpointManager
+    dev = torch.device("cuda", 0)
+    report = {"rank": rank, "steps": []}
+    try:
+        mesh = make_mesh(TRAIN_MESH, ("data", "model"), device=dev)
+        report["staged"] = mesh.staged
+        base = dataclasses.replace(get_config("granite-moe-3b-a800m"),
+                                   dtype="float32", n_layers=GATE_LAYERS)
+        cfgs = {"zero1": base,
+                "fsdp": dataclasses.replace(base, fsdp=True),
+                "gspmd": dataclasses.replace(base, moe_impl="gspmd")}
+        rules = {k: MeshRules(mesh, fsdp=c.fsdp) for k, c in cfgs.items()}
+        tc = TS.TrainConfig(peak_lr=3e-3, warmup_steps=0,
+                            total_steps=TRAIN_STEPS, zero1=True)
+        shard = {k: TS.state_shardings(cfgs[k], rules[k], tc) for k in cfgs}
+        steps = {k: TS.make_train_step(cfgs[k], rules[k], tc) for k in cfgs}
+        one_step = TS.make_train_step(base, None, tc)
+        data = rules["zero1"].comm(("data",))
+        pipe = TokenPipeline(base, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ, seed=0)
+
+        def init(layout=None):
+            return TS.init_train_state(
+                base, torch.Generator(device=dev).manual_seed(0),
+                device=dev, shardings=None if layout is None
+                else shard[layout])
+
+        # routes: the mesh's top-k recorded; the one-rank step records its
+        # own and is given the mesh's (gathered over "data": the full
+        # batch), so both steps train the same experts
+        # (the gap: how much router probability the mesh's choice gives
+        # up in the one-rank step, over the row's largest: 0 where they
+        # agree, rounding noise at a near tie)
+        routes, forced, gaps = [], [], []
+        top_k = C.top_k
+
+        def routed_top_k(x, k):
+            v, i = top_k(x, k)
+            routes.append(i.detach().reshape(-1))
+            if forced:
+                i = forced.pop(0).reshape(i.shape)
+                w = torch.gather(x, -1, i)
+                gaps.append(((v.sum(-1) - w.sum(-1)) / x.amax(-1)).max()
+                            .detach())
+                v = w
+            return v, i
+        C.top_k = routed_top_k
+
+        def compare(state, ref, layout, lr):
+            """This rank's blocks against the one-rank state's (``m``,
+            ``v``, the parameters), then the
+            blocks set to the one-rank state's: each step starts both from
+            the same state.  (Two states that have parted once part for
+            good: AdamW's first update is lr times the sign of the
+            gradient, so a gradient at rounding noise moves a weight by
+            2 lr one way or the other.)  The ranks' one-rank steps are the
+            same computation on the same card, bit for bit."""
+            sh = dict(tree_items(shard[layout]))
+            refs = dict(tree_items(ref))
+            bc1 = 1.0 - tc.b1 ** float(ref["opt"]["step"])
+            err = {"m": 0.0, "v": 0.0, "params": 0.0, "scalars_equal": True}
+            for p, x in tree_items(state):
+                full = refs[p].detach()
+                y = sh[p].local(full)
+                x = x.detach()
+                if p[0] == "opt" and p[1] in ("m", "v"):
+                    e = float((x - y).abs().max()) / max(
+                        float(full.abs().max()), 1e-30)
+                    err[p[1]] = max(err[p[1]], e)
+                elif p[0] == "params":
+                    mfull = refs[("opt", "m") + p[1:]].abs()
+                    mc = sh[("opt", "m") + p[1:]].local(mfull)
+                    sure = (mc >= 2e-2 * float(mfull.max())) \
+                        & (mc / bc1 >= 1e-5)
+                    d = (x - y)[sure].abs()
+                    if d.numel():
+                        err["params"] = max(err["params"],
+                                            float(d.max()) / lr)
+                else:
+                    err["scalars_equal"] &= bool(torch.equal(x, y))
+            with torch.no_grad():
+                for p, x in tree_items(state):
+                    x.copy_(sh[p].local(refs[p]))
+            return err
+
+        def run(kind, layout, state, ref, i):
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in pipe.batch_at(i).items()}
+            routes.clear()
+            old = {p: x.detach().clone() for p, x in tree_items(state)
+                   if p[0] == "params"}
+            t_old = state["opt"]["step"].clone()
+            ops.reset_launch_counts()
+            dist.barrier()
+            t0 = time.perf_counter()
+            state, m = steps[kind](state, batch)
+            loss = float(m["loss"])
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = ops.launch_counts()
+            mine = data.all_gather(torch.stack(routes), 1)  # (calls, B.S.k)
+            routes.clear()
+            gaps.clear()
+            forced.extend(mine.unbind(0))
+            ref, rm = one_step(ref, batch)
+            check(not forced, "phase 15c: the one-rank step took fewer "
+                  "routes than the mesh's")
+            theirs = torch.stack(routes)
+            flips = mine != theirs
+            row = {"kind": kind, "ms": ms, "counts": counts, "loss": loss,
+                   "grad_norm": float(m["grad_norm"]),
+                   "ref_loss": float(rm["loss"]),
+                   "ref_grad_norm": float(rm["grad_norm"]),
+                   "lr": float(rm["lr"]), "routes": int(theirs.numel()),
+                   "route_flips": int(flips.sum()),
+                   "route_gap": float(torch.stack(gaps).max())}
+            # the blocks' update is AdamW of their own new moments, in the
+            # optimizer's operations and order on the same card: bit for
+            # bit (the optimizer on blocks)
+            with torch.no_grad():
+                lr_t = TS.cosine_lr(t_old, peak=tc.peak_lr,
+                                    warmup=tc.warmup_steps,
+                                    total=tc.total_steps)
+                t = state["opt"]["step"].to(torch.float32)
+                bc1, bc2 = 1.0 - tc.b1 ** t, 1.0 - tc.b2 ** t
+                mv = dict(tree_items(state["opt"]))
+                row["update_equal"] = all(
+                    torch.equal(x.detach(), old[p].clone().sub_(
+                        (mv[("m",) + p[1:]] / bc1).div_(
+                            torch.div(mv[("v",) + p[1:]], bc2).sqrt_()
+                            .add_(1e-8)).add_(tc.weight_decay * old[p])
+                        .mul_(lr_t)))
+                    for p, x in tree_items(state) if p[0] == "params")
+            del old
+            row["err"] = compare(state, ref, layout, row["lr"])
+            report["steps"].append(row)
+            print(f"[chip_smoke] phase 15c rank {rank} step {len(report['steps'])}"
+                  f" ({kind}): {ms:.1f} ms", flush=True)
+            return state, ref
+
+        t0 = time.perf_counter()
+        state, ref = init("zero1"), init()
+        report["init_s"] = time.perf_counter() - t0
+        for i, kind in enumerate(MESH_STEPS):
+            state, ref = run(kind, "zero1", state, ref, i)
+        del ref
+        fstate, fref = init("fsdp"), init()
+        run("fsdp", "fsdp", fstate, fref, 0)
+        del fstate, fref
+        torch.cuda.empty_cache()
+
+        # a checkpoint of the four ranks, restored whole on each rank
+        mgr = CheckpointManager(f"{tmp}/ckpt15c", verify_hashes=rank == 0)
+        t0 = time.perf_counter()
+        mgr.save(len(MESH_STEPS), state, shardings=shard["zero1"])
+        report["save_s"] = time.perf_counter() - t0
+        print(f"[chip_smoke] phase 15c rank {rank} checkpoint saved in "
+              f"{report['save_s']:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        step_, back = mgr.restore()
+        report["restore_s"] = time.perf_counter() - t0
+        print(f"[chip_smoke] phase 15c rank {rank} restored in "
+              f"{report['restore_s']:.1f} s", flush=True)
+        back = dict(tree_items(back))
+        sh = dict(tree_items(shard["zero1"]))
+        live = dict(tree_items(state))
+        report["ckpt_step"] = step_
+        report["ckpt_leaves"] = len(back)
+        report["ckpt_equal"] = sorted(back) == sorted(live) and all(
+            back[p].dtype == x.detach().cpu().numpy().dtype
+            and np.array_equal(sh[p].local(back[p]),
+                               x.detach().cpu().numpy())
+            for p, x in live.items())
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+        with open(f"{tmp}/rank{rank}.json", "w") as f:
+            json.dump(report, f)
+
+
+def phase15() -> dict:
+    """The model on a device mesh (``sharding``, ``models``, ``train``,
+    ``serve``): (a) an NCCL group of one rank, mesh (1, 1), granite-moe
+    at full width and depth, serving and two training steps bit for bit
+    equal to no mesh; (b) two gloo ranks on the card serving it tensor-
+    parallel (``SERVE_MESH``) through both kernels, with the fp32 gate;
+    (c) four gloo ranks training it at ``GATE_LAYERS`` depth
+    (``TRAIN_MESH``), ZeRO-1, fsdp, the gspmd dispatch, a checkpoint.
+    -> {run: launch counts}."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.api import get_model
+    from repro_torch.models.params import tree_items
+    from repro_torch.serve import ServeEngine
+    from repro_torch.sharding import MeshRules
+    from repro_torch.train import step as TS
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    runs = {}
+    arch = "granite-moe-3b-a800m"
+    with tempfile.TemporaryDirectory() as tmp:
+        # 15a: (1, 1) over an NCCL group of one rank
+        t0 = time.perf_counter()
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg15a",
+                                rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=300))
+        try:
+            mesh = make_local_mesh(device="cuda")
+            check(mesh.group is not None and not mesh.staged
+                  and dist.get_backend(mesh.group) == "nccl",
+                  "phase 15a: not an NCCL group of one rank")
+            rules = MeshRules(mesh)
+            cfg = dataclasses.replace(get_config(arch), attn_impl="pallas",
+                                      use_pallas=True)
+            model = get_model(cfg)
+            params = model.init(cfg, torch.Generator(device=dev)
+                                .manual_seed(0), device=dev)
+            mine = model.init(cfg, torch.Generator(device=dev)
+                              .manual_seed(0), device=dev, rules=rules)
+            check(all(torch.equal(a, b) for (_, a), (_, b) in
+                      zip(tree_items(params), tree_items(mine))),
+                  "phase 15a: Model.init(rules=(1, 1)) differs")
+            del mine
+            prompts = TokenPipeline(cfg, 4, 2048, seed=0).prompts(4, 2048)
+            out = {}
+            for name, r in (("mesh", rules), ("none", None)):
+                eng = ServeEngine(cfg, params, max_len=4096, rules=r)
+                eng.model = _Recorder(eng.model, keep_logits=True)
+                ops.reset_launch_counts()
+                res = eng.generate(prompts, 8)
+                out[name] = (res.tokens, eng.model.logits,
+                             ops.launch_counts())
+            tag = "phase 15a serving (1, 1) mesh"
+            runs[tag] = out["mesh"][2]
+            check(all(runs[tag][k] > 0 for k in ops.PATH_KERNELS["serving"]),
+                  f"{tag}: a kernel of the path was not launched: "
+                  f"{runs[tag]}")
+            check(out["mesh"][0] == out["none"][0],
+                  f"{tag}: tokens differ from rules=None")
+            rows = list(zip(out["mesh"][1], out["none"][1]))
+            check(all(torch.equal(a, b) for a, b in rows),
+                  f"{tag}: logits differ from rules=None at rows "
+                  f"{[i for i, (a, b) in enumerate(rows) if not torch.equal(a, b)]}")
+            log(f"{tag}: {arch} full width and depth (bf16, both kernels), "
+                f"the phase-9b prompts, 8 new tokens: tokens and all "
+                f"{len(rows)} logit rows (prefill and each decode step) equal"
+                f" to rules=None bit for bit; launches {runs[tag]} (equal to "
+                f"rules=None's: {runs[tag] == out['none'][2]})")
+            del params, out, rows, eng
+            torch.cuda.empty_cache()
+
+            tcfg = get_config(arch)
+            tc = TS.TrainConfig(peak_lr=3e-3, warmup_steps=2,
+                                total_steps=TRAIN_STEPS)
+            pipe = TokenPipeline(tcfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+
+            def two_steps(r):
+                state = TS.init_train_state(
+                    tcfg, torch.Generator(device=dev).manual_seed(0),
+                    device=dev, shardings=None if r is None
+                    else TS.state_shardings(tcfg, r, tc))
+                fn = TS.make_train_step(tcfg, r, tc)
+                got = []
+                for i in range(2):
+                    batch = {k: torch.from_numpy(v).to(dev)
+                             for k, v in pipe.batch_at(i).items()}
+                    state, m = fn(state, batch)
+                    got.append((float(m["loss"]), float(m["grad_norm"])))
+                del state, fn
+                torch.cuda.empty_cache()
+                return got
+
+            tag = "phase 15a training (1, 1) mesh"
+            ops.reset_launch_counts()
+            with_mesh = two_steps(rules)
+            runs[tag] = ops.launch_counts()
+            without = two_steps(None)
+            spread = None
+            if with_mesh != without:
+                again = two_steps(None)
+                spread = [max(abs(a - b) / abs(b) for a, b in zip(x, y))
+                          for x, y in zip(without, again)]
+                log(f"{tag}: two rules=None runs differ on the card by "
+                    f"{spread} (relative, per step)")
+                for x, y, lim in zip(with_mesh, without, spread):
+                    d = max(abs(a - b) / abs(b) for a, b in zip(x, y))
+                    check(d <= lim, f"{tag}: {x} against {y}, beyond the "
+                          f"spread of two rules=None runs {lim}")
+            log(f"{tag}: 2 steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens at full"
+                f" width and depth (bf16 over fp32 master): (loss, grad norm) "
+                f"{with_mesh} with the mesh, {without} without; bit for bit "
+                f"equal: {with_mesh == without}"
+                + ("" if spread is None else f" (held to rules=None's own "
+                   f"spread {spread})")
+                + f"; launches {runs[tag]}; 15a "
+                f"{time.perf_counter() - t0:.1f} s")
+        finally:
+            dist.destroy_process_group()
+
+        # 15b: two gloo ranks serve tensor-parallel on the one card
+        t0 = time.perf_counter()
+        mp.start_processes(phase15b_rank, args=(tmp,), nprocs=2,
+                           start_method="spawn")
+        wall = time.perf_counter() - t0
+        reports = [json.load(open(f"{tmp}/rank{r}.json")) for r in range(2)]
+        cfg = get_config(arch)
+        tag = f"phase 15b serving {SERVE_MESH} mesh"
+        check(all(r["staged"] for r in reports),
+              f"{tag}: the gloo mesh on the card did not stage")
+        n_norm = 2 * cfg.n_layers + 1
+        for r in reports:
+            steps = r["steps"]
+            want = {"decode_attention": cfg.n_layers * steps,
+                    "rmsnorm": n_norm * (1 + steps)}
+            got = {k: r["counts"][k] for k in want}
+            check(got == want and all(n == 0 for k, n in r["counts"].items()
+                                      if k not in want),
+                  f"{tag} rank {r['rank']}: launches {r['counts']} != {want}")
+            runs[f"{tag} rank {r['rank']}"] = r["counts"]
+            check(all(len(t) == MESH_NEW for t in r["tokens"]),
+                  f"{tag} rank {r['rank']}: tokens {r['tokens']}")
+            log(f"{tag} rank {r['rank']} (host-staged gloo): prefill "
+                f"{r['prefill_ms']:.3f} ms, decode {r['decode_ms']:.3f} ms "
+                f"over {steps} steps ({r['decode_ms'] / steps:.3f} ms a "
+                f"step); peak device bytes {r['peak_bytes']} (parameter "
+                f"blocks {r['param_bytes']}); staged collectives: prefill "
+                f"{r['prefill_comms'][0]} calls {r['prefill_comms'][1]} "
+                f"bytes, decode {r['decode_comms'][0] / steps:.1f} calls "
+                f"{r['decode_comms'][1] / steps:.0f} bytes a step; launches "
+                f"{got}; init {r['init_s']:.1f} s")
+        check(reports[0]["tokens"] == reports[1]["tokens"],
+              f"{tag}: the ranks' tokens differ")
+        one = reports[0]["one_rank_tokens"]
+        agree = sum(a == b for x, y in zip(reports[0]["tokens"], one)
+                    for a, b in zip(x, y))
+        log(f"{tag}: bf16 greedy tokens agreeing with the one-rank card run "
+            f"{agree} of {sum(len(t) for t in one)} (reported, not gated: "
+            f"bf16 routes cascade at depth); prompts "
+            f"{reports[0]['prompt_lens']}; {wall:.1f} s wall with start-up")
+        rel = reports[0]["gate_rel"]
+        for r in reports:
+            gate = r["gate_counts"]
+            check(gate["decode_attention"] == GATE_LAYERS * MESH_NEW
+                  and gate["rmsnorm"] == (2 * GATE_LAYERS + 1)
+                  * (1 + MESH_NEW),
+                  f"{tag} fp32 gate rank {r['rank']}: launches {gate}")
+            runs[f"{tag} fp32 gate rank {r['rank']}"] = gate
+        spread = reports[0]["gate_rel_kernels_off"]
+        f64 = reports[0]["gate_rel_f64"]
+        check(all(x <= 1e-3 for x in rel),
+              f"{tag} fp32 gate: max |d logit| of the row's max {rel} "
+              f"(limit 1e-3; one rank, kernels on against off: {spread})")
+        check(max(f64["mesh"]) <= 2 * max(f64["one rank"]),
+              f"{tag} fp32 gate: the mesh's logits {f64['mesh']} of the "
+              f"row's max from the float64 compute, more than twice the "
+              f"one-rank run's {f64['one rank']}")
+        log(f"{tag} fp32 gate ({GATE_LAYERS} layers, full width, both "
+            f"kernels, teacher-forced): prefill and {MESH_NEW} decode steps' "
+            f"logits within {max(rel):.3e} of the row's max of the one-rank "
+            f"card run (limit 1e-3, phase 9b's for two correct float32 "
+            f"runs at this depth and width; here one rank with the kernels "
+            f"on against off: {max(spread):.3e}); by row "
+            f"{[float('%.3e' % x) for x in rel]}; against the float64 "
+            f"compute the mesh within {max(f64['mesh']):.3e}, one rank "
+            f"{max(f64['one rank']):.3e} (the mesh held to twice one "
+            f"rank's); greedy tokens equal at every row: "
+            f"{reports[0]['gate_tokens_equal']}")
+
+        # 15c: four gloo ranks train on the one card
+        t0 = time.perf_counter()
+        mp.start_processes(phase15c_rank, args=(tmp,), nprocs=4,
+                           start_method="spawn")
+        wall = time.perf_counter() - t0
+        reports = [json.load(open(f"{tmp}/rank{r}.json")) for r in range(4)]
+    tag = f"phase 15c training {TRAIN_MESH} mesh"
+    check(all(r["staged"] for r in reports),
+          f"{tag}: the gloo mesh on the card did not stage")
+    lead = reports[0]
+    # each rank's blocks against the one-rank step's (the largest error
+    # over the ranks), with 14b's limits but m's: a route may differ only
+    # at a near tie (the mesh's choice gives up at most 1e-4 of the row's
+    # largest router probability in the one-rank step), and the one-rank
+    # step takes the mesh's routes, so the limits hold for the same
+    # experts.  m (a gradient): 1e-2 of the leaf's max.  14b's 5e-3 is ~4
+    # times one float32 run's error from float64 at its 1 x 512 tokens
+    # (1.191e-3); at this batch, 2 x 512, one run's is 2.213e-3
+    # (scripts/torch_mesh_conditioning.py --train, CPU), and the mesh's
+    # forward rounds otherwise than one rank's (its tensor-parallel sums),
+    # so the two part by up to about twice that.  The parameters: 1e-3 lr
+    # where the update is not rounding noise, at a state's first step,
+    # where AdamW's update is lr times the gradient's sign; at a later
+    # step the update is m / sqrt(v), and m's error over a small m moves
+    # it by far more, so there the blocks' update is held, bit for bit,
+    # to AdamW of their own moments (the optimizer on blocks) and the
+    # parameters' difference is reported.
+    for i, row in enumerate(lead["steps"]):
+        label = f"{tag} step {i + 1} ({row['kind']})"
+        first = i == 0 or row["kind"] == "fsdp"
+        err = {k: max(r["steps"][i]["err"][k] for r in reports)
+               for k in ("m", "v", "params")}
+        scalars = all(r["steps"][i]["err"]["scalars_equal"] for r in reports)
+        update = all(r["steps"][i]["update_equal"] for r in reports)
+        for r in reports:
+            check(all(n == 0 for n in r["steps"][i]["counts"].values()),
+                  f"{label} rank {r['rank']}: launches "
+                  f"{r['steps'][i]['counts']} (training has no kernel)")
+            runs[f"{label} rank {r['rank']}"] = r["steps"][i]["counts"]
+        rl = abs(row["loss"] - row["ref_loss"]) / abs(row["ref_loss"])
+        rg = abs(row["grad_norm"] - row["ref_grad_norm"]) \
+            / abs(row["ref_grad_norm"])
+        log(f"{label}: {row['ms']:.1f} ms (host-staged gloo, rank 0); loss "
+            f"{row['loss']:.6f} / one rank {row['ref_loss']:.6f} (rel "
+            f"{rl:.3e}), grad norm {row['grad_norm']:.6f} / "
+            f"{row['ref_grad_norm']:.6f} (rel {rg:.3e}); routes differing "
+            f"{row['route_flips']} of {row['routes']} (largest gap "
+            f"{row['route_gap']:.3e} of the row's max probability); m "
+            f"{err['m']:.3e}, v {err['v']:.3e} of the leaf's max, params "
+            f"{err['params']:.3e} lr (lr {row['lr']:.3e}"
+            + ("" if first else ", reported") + f"); every block's update "
+            f"AdamW of its own moments bit for bit: {update}; step and data "
+            f"cursor equal: {scalars}")
+        check(row["route_gap"] <= 1e-4, f"{label}: {row['route_flips']} "
+              f"MoE routes differ from the one-rank step's, giving up "
+              f"{row['route_gap']} of the row's router probability (limit "
+              "1e-4: a near tie)")
+        check(rl <= 1e-5 and rg <= 5e-4, f"{label}: loss rel {rl}, grad "
+              f"norm rel {rg} (limits 1e-5, 5e-4)")
+        check(err["m"] <= 1e-2 and err["v"] <= 1e-2 and scalars and update
+              and (err["params"] <= 1e-3 or not first),
+              f"{label}: {err}, scalars {scalars}, update {update} (limits m "
+              "1e-2, v 1e-2, params 1e-3 lr at a first step)")
+    for r in reports:
+        check(r["ckpt_equal"] and r["ckpt_step"] == len(MESH_STEPS),
+              f"{tag} rank {r['rank']}: the 4-rank checkpoint, restored, "
+              "differs from the live blocks")
+    log(f"{tag}: {GATE_LAYERS} layers at full width, fp32, "
+        f"{MESH_TRAIN_BATCH} x {MESH_TRAIN_SEQ} tokens a step, steps "
+        f"{list(MESH_STEPS)} and an fsdp step from a fresh state; each "
+        f"held against the one-rank card step from the same state on the "
+        f"mesh's routes (14b's limits, m 1e-2); a checkpoint saved by the 4 "
+        f"ranks "
+        f"({lead['save_s']:.1f} s) restored whole on every rank "
+        f"({lead['restore_s']:.1f} s on rank 0) equal byte for byte, block "
+        f"for block, to the live state ({lead['ckpt_leaves']} leaves); "
+        f"{wall:.1f} s wall with start-up")
+    log(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3165,7 +3877,35 @@ def main() -> int:
                      f"{str(dtype)[6:]}")
             check(ok, f"phase 9a {label}: max |err| {e}")
             dec_errs[label] = e
-            log(f"phase 9a {label}: max |err| {e:.3e}")
+            # the log-sum-exp beside O (what ranks holding blocks of a
+            # sharded ring combine with): the same O, and the lse within
+            # 2e-5 of the plain version's (both from fp32 scores)
+            o_l, lse = KD.decode_attention(q9, k9, v9, kv_len=kv_len,
+                                           window=window, return_lse=True)
+            w_lse = ref.decode_attention_ref(q9, k9, v9, kv_len=kv_len,
+                                             window=window,
+                                             return_lse=True)[1]
+            e_l = float((lse - w_lse).abs().max())
+            check(torch.equal(o_l, got) and lse.dtype == fp32
+                  and torch.allclose(lse, w_lse, rtol=2e-5, atol=2e-5),
+                  f"phase 9a {label} lse: max |err| {e_l}, O equal "
+                  f"{torch.equal(o_l, got)}")
+            log(f"phase 9a {label}: max |err| {e:.3e}; lse {e_l:.3e}")
+    # a block of a sharded ring with no filled slot: o = 0, lse = -inf,
+    # no launch, as the plain version gives
+    for dtype in (fp32, bf16):
+        q9 = randn(g9, (4, 24, 64), dtype)
+        k9 = randn(g9, (4, 2048, 8, 64), dtype).permute(0, 2, 1, 3)
+        before = KD.decode_attention.launches
+        o0, l0 = KD.decode_attention(q9, k9, k9, kv_len=0, return_lse=True)
+        w0, wl0 = ref.decode_attention_ref(q9, k9, k9, kv_len=0,
+                                           return_lse=True)
+        check(KD.decode_attention.launches == before and torch.equal(o0, w0)
+              and torch.equal(l0, wl0) and bool(torch.isneginf(l0).all()),
+              f"phase 9a decode_attention kv_len 0 {dtype}")
+    log("phase 9a decode_attention kv_len 0 (an empty block of a sharded "
+        "ring), fp32 and bf16: o = 0, lse = -inf, no launch, equal to the "
+        "plain version")
     for shape, dtype in [(s, t) for s in ((4, 64), (2, 3, 128), (256, 512),
                                           (5, 96)) for t in (fp32, bf16)] + [
             ((4 * 2046, 1536), bf16), ((4, 1536), bf16)]:
@@ -3606,6 +4346,9 @@ def main() -> int:
 
     # -- phase 14: training -----------------------------------------------------
     runs10.update(phase14())
+
+    # -- phase 15: the model on a device mesh -----------------------------------
+    runs10.update(phase15())
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")

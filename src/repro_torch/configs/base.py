@@ -18,9 +18,10 @@ decode) to ``kernels/csrc/rmsnorm.cu`` (its plain version on CPU
 tensors); the default ``False`` computes exactly what the JAX package
 computes.  ``n_params()`` resolves through the
 port's ``models.api``, which declares the dense and MoE families so far.
-The knobs that nothing in the port reads yet (:data:`UNPORTED_KNOBS`)
-are kept for that parity, and the port's entry points reject a config
-that changes one.
+``fsdp`` and ``moe_impl`` are read by the model on a mesh
+(``sharding.MeshRules``, ``models.common.moe_ffn``); ``hier_allreduce``
+is read by nothing, in the JAX package as in the port, and is kept for
+the field-for-field parity.
 """
 from __future__ import annotations
 
@@ -78,6 +79,7 @@ class ModelConfig:
     logits_fp32: bool = True
     fsdp: bool = False             # shard params over data axis (ZeRO-3-ish)
     hier_allreduce: bool = False   # pod-hierarchical gradient reduction
+                                   # (read by nothing, as in the JAX package)
     scan_layers: bool = True       # scan-over-layers (False: unrolled)
     attn_impl: str = "blocked"     # einsum | blocked | pallas (einsum = naive
                                    # baseline; blocked tiles q so 32k prefill
@@ -141,33 +143,6 @@ class ModelConfig:
             d = defs["layers"]["moe"][key]
             expert += int(np.prod(d.shape))
         return total - expert + expert * self.top_k // self.n_experts
-
-
-#: Knobs of the JAX package that nothing in the port reads yet, each with
-#: the ROADMAP item whose slice will read it.  The port's entry points
-#: (``models.api.get_model``, ``models.telemetry.collect_moe_routing``)
-#: reject a config that sets one away from its default rather than ignore
-#: it, through :func:`check_ported`.  The training knobs are read since
-#: A13b: ``remat`` and ``router_aux_weight`` by ``models.lm``,
-#: ``microbatch`` by ``train.step``; ``scan_layers`` changes no number
-#: (the port loops over its layers either way).
-UNPORTED_KNOBS = {
-    "fsdp": "A13c",                # the model on a mesh
-    "hier_allreduce": "A13c",
-    "moe_impl": "A13c",
-}
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item when ``cfg``
-    sets a knob of :data:`UNPORTED_KNOBS` away from its default."""
-    fields = ModelConfig.__dataclass_fields__
-    for name, item in UNPORTED_KNOBS.items():
-        value, default = getattr(cfg, name), fields[name].default
-        if value != default:
-            raise NotImplementedError(
-                f"{cfg.name}: {name}={value!r} is not read by the PyTorch "
-                f"port yet (ROADMAP {item}); leave it at {default!r}")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -346,8 +346,9 @@ class DistributedMiner:
       sizes: mode cardinalities.
       mesh: ``launch.mesh.Mesh`` containing ``axes``.
       axes: data-parallel mesh axis name(s) the tuple table is
-        block-partitioned over; they must cover every mesh axis larger
-        than 1 (a sub-mesh is ROADMAP A9b).
+        block-partitioned over; ranks that differ only on the mesh
+        axes they leave out mine the same block (replicated compute), as
+        in the JAX package.
       theta: minimal density threshold (paper Alg. 7 θ; prime variant).
       strategy: 'replicate' | 'shuffle'.
       capacity_factor: shuffle per-destination buffer slack (≥1).

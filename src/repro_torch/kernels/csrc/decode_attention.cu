@@ -46,7 +46,11 @@
 // one split the block writes O itself; otherwise it writes its (acc, m,
 // l) to an fp32 scratch (B, Hq, n_split, D + 2) and decode_combine forms
 // O = sum_s e^(m_s - m*) acc_s / max(sum_s e^(m_s - m*) l_s, 1e-30): a
-// split with no live key (l = 0, m = -1e30) weighs 0, never NaN.
+// split with no live key (l = 0, m = -1e30) weighs 0, never NaN.  When
+// the wrapper asks for it (lse != nullptr) the kernel that writes O also
+// writes the fp32 log-sum-exp of the scaled scores, m + log l (the
+// combine: m* + log sum_s e^(m_s - m*) l_s), (B, Hq): the state ranks
+// that each hold a block of a ring's slots combine their outputs with.
 // Measured by chip_smoke.py on one H100 80GB HBM3 at 700 W at granite-
 // moe's decode: 0.0224 ms with the cache in L2, 0.0246 ms with it out of
 // L2 (PyTorch's SDPA 0.0110 / 0.0147 ms), five times the bytes' bound.
@@ -55,6 +59,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cmath>
 #include <cstdint>
 
 namespace {
@@ -72,6 +77,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;              // (B, Hq) or nullptr
   float* part;             // (B, Hq, n_split, D + 2) when n_split > 1
   int hq, hkv, group, d, kv_len;
   long long sb, sh, ss;    // element strides of K and V: batch, head, key
@@ -326,6 +332,9 @@ __global__ void __launch_bounds__(NT) decode_split(Args a) {
     T* O = (T*)a.o + qrow * D;
     for (int i = tid; i < G * D; i += NT)
       O[i] = from_f32<T>(acc[i] / fmaxf(l[i / D], 1e-30f));
+    if (a.lse != nullptr)
+      for (int g = tid; g < G; g += NT)
+        a.lse[qrow + g] = l[g] > 0.f ? m[g] + logf(l[g]) : -INFINITY;
   } else {
     const int W = D + 2;
     for (int i = tid; i < G * W; i += NT) {
@@ -340,8 +349,8 @@ __global__ void __launch_bounds__(NT) decode_split(Args a) {
 // O[row, c] from the splits' (acc, m, l): one thread per output element
 template <typename T>
 __global__ void __launch_bounds__(NT) decode_combine(const float* part, T* o,
-                                                     int rows, int n_split,
-                                                     int d) {
+                                                     float* lse, int rows,
+                                                     int n_split, int d) {
   const int i = blockIdx.x * NT + threadIdx.x;
   if (i >= rows * d) return;
   const int row = i / d;
@@ -357,6 +366,8 @@ __global__ void __launch_bounds__(NT) decode_combine(const float* part, T* o,
     den = fmaf(w, p[s * W + d + 1], den);
   }
   o[i] = from_f32<T>(num / fmaxf(den, 1e-30f));
+  if (lse != nullptr && c == 0)
+    lse[row] = den > 0.f ? ms + logf(den) : -INFINITY;
 }
 
 template <typename T>
@@ -382,7 +393,7 @@ cudaError_t launch(Args a, int batch, int n_split, cudaStream_t stream) {
   if (err != cudaSuccess || n_split == 1) return err;
   const int rows = batch * a.hq;
   decode_combine<T><<<(rows * a.d + NT - 1) / NT, NT, 0, stream>>>(
-      a.part, (T*)a.o, rows, n_split, a.d);
+      a.part, (T*)a.o, a.lse, rows, n_split, a.d);
   return cudaGetLastError();
 }
 
@@ -406,10 +417,11 @@ long long decode_attention_smem_bytes(int group, int d, int is_bf16) {
 // at least 0) lie in tiles t_first = lo / 64 .. (kv_len - 1) / 64; split s
 // takes tiles_per_split of them from t_first + s * tiles_per_split, and
 // none is empty.  part: fp32 (batch, hq, n_split, d + 2), read only when
-// n_split > 1.  Launches on `stream` (a second kernel combines the
+// n_split > 1.  lse: fp32 (batch, hq), written when not null.  Launches on `stream` (a second kernel combines the
 // splits when n_split > 1) and returns cudaGetLastError() (0 when taken).
 int decode_attention_launch(const void* q, const void* k, const void* v,
-                            void* o, void* part, int batch, int hq, int hkv,
+                            void* o, void* lse, void* part, int batch,
+                            int hq, int hkv,
                             int s, int d, long long sb, long long sh,
                             long long ss, int kv_len, int has_window,
                             int window, float scale, int is_bf16, int vec,
@@ -427,7 +439,8 @@ int decode_attention_launch(const void* q, const void* k, const void* v,
       t_first + n_split * tiles_per_split <= t_last ||
       (n_split > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
-  Args a{q, k, v, o, (float*)part, hq, hkv, hq / hkv, d, kv_len, sb, sh,
+  Args a{q, k, v, o, (float*)lse, (float*)part, hq, hkv, hq / hkv, d,
+         kv_len, sb, sh,
          ss, has_window, window, vec, 2, t_first, tiles_per_split, scale};
   cudaStream_t st = (cudaStream_t)stream;
   return (int)(is_bf16 ? launch<__nv_bfloat16>(a, batch, n_split, st)

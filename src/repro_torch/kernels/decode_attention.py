@@ -20,6 +20,13 @@ CUDA kernel combines the splits' partial softmax states from an fp32
 scratch that the wrapper allocates.  One call is one launch in
 ``decode_attention.launches``, whether it runs one CUDA kernel
 (``n_split = 1``) or two.
+
+``return_lse=True`` also gives the fp32 log-sum-exp of the scaled scores
+over the keys, (B, Hq), which the kernel writes beside O (``m + log l``
+of its softmax state, combined over the splits): what ranks that each
+hold a block of a ring's slots need to combine their outputs.  A
+``kv_len`` of 0 (a block with no filled slot) is answered without a
+launch: o = 0, lse = -inf.
 """
 from __future__ import annotations
 
@@ -74,7 +81,7 @@ def _lib() -> ctypes.CDLL:
     if not _argtypes_set:
         vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.decode_attention_launch.argtypes = (
-            [vp] * 5 + [ci] * 5 + [ll] * 3 + [ci] * 3 + [ctypes.c_float]
+            [vp] * 6 + [ci] * 5 + [ll] * 3 + [ci] * 3 + [ctypes.c_float]
             + [ci] * 5 + [vp])
         lib.decode_attention_launch.restype = ci
         lib.decode_attention_smem_bytes.argtypes = [ci, ci, ci]
@@ -84,7 +91,7 @@ def _lib() -> ctypes.CDLL:
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           kv_len: int, window: Optional[int]) -> None:
+           kv_len: int, window: Optional[int], lse: bool = False) -> None:
     if any(x.requires_grad for x in (q, k, v)):
         raise ValueError("decode_attention: there is no backward kernel; "
                          "call it on tensors that do not require a gradient "
@@ -111,9 +118,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d not in HEAD_DIMS:
         raise ValueError(f"decode_attention: head dim {d} not supported "
                          f"(one of {HEAD_DIMS})")
-    if not 1 <= kv_len <= s:
+    if not (0 if lse else 1) <= kv_len <= s:
         raise ValueError(f"decode_attention: kv_len={kv_len} outside "
-                         f"[1, S={s}]")
+                         f"[{0 if lse else 1}, S={s}] (0 only with "
+                         "return_lse)")
     if window is not None and window < 1:
         raise ValueError(f"decode_attention: window={window} must be >= 1")
     if not q.is_contiguous():
@@ -142,12 +150,13 @@ def _vec16(k: torch.Tensor, v: torch.Tensor) -> bool:
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      window: Optional[int] = None,
                      kv_len: Optional[int] = None,
-                     scale: Optional[float] = None) -> torch.Tensor:
+                     scale: Optional[float] = None,
+                     return_lse: bool = False):
     """Decode attention computed on the card; ``kv_len`` defaults to S and
-    ``scale`` to D**-0.5."""
+    ``scale`` to D**-0.5.  ``return_lse``: (o, lse (B, Hq) fp32)."""
     if kv_len is None:
         kv_len = k.shape[2] if k.dim() == 4 else 0
-    _check(q, k, v, kv_len, window)
+    _check(q, k, v, kv_len, window, return_lse)
     b, hq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
     if scale is None:
@@ -159,8 +168,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"dim {d} needs {smem} bytes of shared memory, "
                          f"more than {MAX_SMEM_BYTES}")
     out = torch.empty_like(q)
+    lse = (torch.empty((b, hq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    if kv_len == 0:              # no key: nothing to launch
+        out.zero_()
+        lse.fill_(float("-inf"))
+        return out, lse
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     sb, sh, ss, _ = k.stride()
     t_first, per, n_split = split_plan(int(kv_len), window, b * hkv,
                                        sm_count(q.device))
@@ -171,13 +186,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.decode_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             None if part is None else part.data_ptr(), b, hq, hkv, s, d, sb,
             sh, ss, int(kv_len), int(window is not None), int(window or 0),
             float(scale), _DTYPES[q.dtype], int(_vec16(k, v)), t_first, per,
             n_split, stream)
     build.check(lib, _NAME, err)
     decode_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 #: Launches of the kernel since the last reset (``kernels.ops``).

@@ -157,18 +157,22 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      window: Optional[int] = None,
                      kv_len: Optional[int] = None,
                      scale: Optional[float] = None,
-                     use_kernels: Optional[bool] = None) -> torch.Tensor:
+                     return_lse: bool = False,
+                     use_kernels: Optional[bool] = None):
     """Single-token decode. q (B, Hq, D); k, v (B, Hkv, S, D) -> (B, Hq,
     D) in q's dtype.  The query sits at position ``kv_len - 1`` (default
     S - 1) and attends to keys ``[max(0, kv_len - window), kv_len)``.  k
     and v may be strided views (the kernel reads them where they lie);
     the kernel takes fp32 or bf16 and head dims
-    ``kernels.decode_attention.HEAD_DIMS``."""
+    ``kernels.decode_attention.HEAD_DIMS``.  ``return_lse``: (o, the fp32
+    log-sum-exp (B, Hq) of the scaled scores), and ``kv_len`` may be 0
+    (o = 0, lse = -inf)."""
     if resolve_use_kernels(use_kernels, q):
         return _decode.decode_attention(q.contiguous(), k, v, window=window,
-                                        kv_len=kv_len, scale=scale)
+                                        kv_len=kv_len, scale=scale,
+                                        return_lse=return_lse)
     return ref.decode_attention_ref(q, k, v, window=window, kv_len=kv_len,
-                                    scale=scale)
+                                    scale=scale, return_lse=return_lse)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6, *,

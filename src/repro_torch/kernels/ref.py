@@ -349,17 +349,37 @@ def flash_bf16_gate(got: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, window: Optional[int] = None,
                          kv_len: Optional[int] = None,
-                         scale: Optional[float] = None) -> torch.Tensor:
+                         scale: Optional[float] = None,
+                         return_lse: bool = False):
     """Single-token decode. q: (B, Hq, D); k, v: (B, Hkv, S, D), any
     strides. The query position is kv_len-1 (attends to keys
-    [max(0, kv_len-window), kv_len))."""
+    [max(0, kv_len-window), kv_len)).  ``return_lse``: also the fp32
+    log-sum-exp of the scaled scores over those keys, (B, Hq); a
+    ``kv_len`` of 0 then gives o = 0 and lse = -inf (the empty block of a
+    ring whose slots are split over ranks)."""
     s = k.shape[2]
     if kv_len is None:
         kv_len = s
+    if kv_len == 0:
+        if not return_lse:
+            raise ValueError("decode_attention: kv_len=0 needs "
+                             "return_lse=True")
+        return (torch.zeros_like(q),
+                torch.full(q.shape[:2], float("-inf"), dtype=torch.float32,
+                           device=q.device))
     out = flash_attention_ref(q[:, :, None, :], k, v, causal=True,
                               window=window, q_offset=kv_len - 1,
                               scale=scale)
-    return out[:, :, 0, :]
+    if not return_lse:
+        return out[:, :, 0, :]
+    b, hq, d = q.shape
+    hkv = k.shape[1]
+    qf = q.to(torch.float32).reshape(b, hkv, hq // hkv, d) * (
+        d ** -0.5 if scale is None else scale)
+    logits = torch.einsum("bhgd,bhkd->bhgk", qf, k.to(torch.float32))
+    mask = _attn_mask(1, s, kv_len - 1, True, window, q.device)[0]
+    lse = torch.logsumexp(logits.masked_fill(~mask, float("-inf")), -1)
+    return out[:, :, 0, :], lse.reshape(b, hq)
 
 
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor,

@@ -10,8 +10,20 @@ sample of generated ids.  The weights are drawn from a seeded
 ``torch.Generator``, so they are not the JAX entry point's.  ``--attn-impl
 pallas`` decodes through the ``decode_attention`` kernel and
 ``--use-pallas`` sends every RMSNorm through the ``rmsnorm`` kernel, on
-the card (their plain versions with ``--device cpu``).  ``--model-shards`` above 1 (a
-device mesh) is not ported yet.
+the card (their plain versions with ``--device cpu``).
+
+As the JAX launcher, it always serves over a ``(data, model)`` mesh of
+the ranks there are, ``--model-shards`` of them on ``model``
+(``sharding.MeshRules``; one rank alone makes a ``(1, 1)`` mesh, which
+computes what no mesh computes, bit for bit).  Several ranks come from
+``torchrun``:
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --arch granite-moe-3b-a800m --smoke --model-shards 2 --device cpu
+
+Each rank takes ``cuda:LOCAL_RANK`` (modulo the cards there are; NCCL
+when every rank has a card of its own, else a gloo group staged through
+host memory), or the CPU with ``--device cpu``; rank 0 prints.
 """
 from __future__ import annotations
 
@@ -45,37 +57,46 @@ def main(argv=None) -> int:
 
     from ..configs import get_config, get_smoke_config
     from ..data.tokens import TokenPipeline
-    from ..device import resolve_device
     from ..models.api import get_model
-    from ..models.lm import not_ported
     from ..serve.engine import ServeEngine
+    from ..sharding import MeshRules
+    from .mesh import init_distributed, make_local_mesh, mesh_name
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if cfg.family == "encdec":
         print("[serve] enc-dec serving demo uses the audio example; "
               "use examples/translate_stream.py")
         return 0
-    if args.model_shards > 1:
-        raise not_ported(f"--model-shards {args.model_shards} (a device "
-                         "mesh)", "A13c")
     if args.attn_impl:
         cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
     if args.use_pallas:
         cfg = dataclasses.replace(cfg, use_pallas=True)
-    dev = resolve_device(args.device)
-    model = get_model(cfg)
-    params = model.init(cfg, torch.Generator(device=dev)
-                        .manual_seed(args.seed), device=dev)
-    engine = ServeEngine(cfg, params, max_len=args.max_len,
-                         temperature=args.temperature, seed=args.seed)
-    pipeline = TokenPipeline(cfg, args.batch, args.prompt_len,
-                             seed=args.seed)
-    prompts = pipeline.prompts(args.batch, args.prompt_len)
-    res = engine.generate(prompts, max_new_tokens=args.new_tokens)
+    joined = not torch.distributed.is_initialized()
+    dev = init_distributed(args.device)
+    try:
+        mesh = make_local_mesh(model=args.model_shards, device=dev)
+        rules = MeshRules(mesh, fsdp=cfg.fsdp)
+        model = get_model(cfg)
+        params = model.init(cfg, torch.Generator(device=dev)
+                            .manual_seed(args.seed), device=dev,
+                            rules=rules)
+        engine = ServeEngine(cfg, params, max_len=args.max_len, rules=rules,
+                             temperature=args.temperature, seed=args.seed)
+        pipeline = TokenPipeline(cfg, args.batch, args.prompt_len,
+                                 seed=args.seed)
+        prompts = pipeline.prompts(args.batch, args.prompt_len)
+        res = engine.generate(prompts, max_new_tokens=args.new_tokens)
+        rank, name = mesh.rank, mesh_name(mesh)
+    finally:
+        if joined and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    if rank != 0:
+        return 0
     print(f"[serve] arch={cfg.name} batch={args.batch} "
           f"prompt_len≈{args.prompt_len} new={args.new_tokens} "
           f"(attention {cfg.attn_impl}, use_pallas {cfg.use_pallas}, on "
           f"{dev})")
+    print(f"[serve] mesh {name} (data x model)")
     print(f"[serve] prefill {res.prefill_s * 1e3:.1f} ms, decode "
           f"{res.decode_s * 1e3:.1f} ms over {res.steps} steps "
           f"({res.tokens_per_s:.1f} tok/s)")

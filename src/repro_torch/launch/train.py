@@ -13,8 +13,23 @@ weights are drawn from ``torch.Generator(device).manual_seed(seed)``, so
 a fresh run does not start from the JAX driver's weights; a resumed run
 continues whatever checkpoint it finds, also one the JAX driver wrote.
 Metrics are read to the host on log rows only (each read waits for the
-card).  ``--model-shards`` above 1 (a device mesh) is not ported yet
-(ROADMAP A13c).
+card).
+
+As the JAX driver, it always trains over a ``(data, model)`` mesh of the
+ranks there are, ``--model-shards`` of them on ``model``, with the state
+in ``train.step.state_shardings``'s ZeRO-1 layout; one rank alone makes a
+``(1, 1)`` mesh, which computes what no mesh computes, bit for bit.
+Several ranks come from ``torchrun``:
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch h2o-danube-1.8b --smoke --model-shards 2 --device cpu
+
+Each rank takes ``cuda:LOCAL_RANK`` (modulo the cards there are; NCCL
+when every rank has a card of its own, else a gloo group staged through
+host memory), or the CPU with ``--device cpu``.  Every rank takes part in
+each checkpoint (rank 0 writes the gathered arrays) and in the crash and
+hang injection; rank 0 alone prints, beats the heartbeat and writes
+``--metrics-out``.
 """
 from __future__ import annotations
 
@@ -57,25 +72,39 @@ def main(argv=None):
     import torch
 
     from ..configs import get_config, get_smoke_config
-    from ..data.tokens import TokenPipeline
-    from ..device import resolve_device
-    from ..models.lm import not_ported
-    from ..train.checkpoints import CheckpointManager
-    from ..train.fault_tolerance import beat
-    from ..train.step import (TrainConfig, check_trainable, from_jax_state,
-                              init_train_state, jit_train_step)
+    from ..train.step import check_trainable
+    from .mesh import init_distributed
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = dataclasses.replace(cfg, microbatch=args.microbatch)
-    if args.model_shards > 1:
-        raise not_ported(f"--model-shards {args.model_shards} (a device "
-                         "mesh)", "A13c")
     check_trainable(cfg)
+    joined = not torch.distributed.is_initialized()
     try:
-        dev = resolve_device(args.device)
+        dev = init_distributed(args.device)
     except RuntimeError as e:
         raise RuntimeError(f"{e} (on the command line: --device cpu)") \
             from e
+    try:
+        return _train(args, cfg, dev)
+    finally:
+        if joined and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, cfg, dev) -> int:
+    import torch
+
+    from ..data.tokens import TokenPipeline
+    from ..sharding import MeshRules
+    from ..train.checkpoints import CheckpointManager
+    from ..train.fault_tolerance import beat
+    from ..train.step import (TrainConfig, from_jax_state, init_train_state,
+                              jit_train_step, state_shardings)
+    from .mesh import make_local_mesh
+
+    mesh = make_local_mesh(model=args.model_shards, device=dev)
+    rules = MeshRules(mesh, fsdp=cfg.fsdp)
+    lead = mesh.rank == 0
     tc = TrainConfig(peak_lr=args.lr, warmup_steps=args.warmup,
                      total_steps=args.steps)
 
@@ -83,29 +112,33 @@ def main(argv=None):
                              seed=args.seed)
     mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
 
+    shard = state_shardings(cfg, rules, tc)
     state = init_train_state(
-        cfg, torch.Generator(device=dev).manual_seed(args.seed), device=dev)
+        cfg, torch.Generator(device=dev).manual_seed(args.seed), device=dev,
+        shardings=shard)
     start = 0
     if mgr is not None and args.resume:
         want = None if args.resume == "auto" else int(args.resume)
         if mgr.latest_step() is not None or want is not None:
-            start, host = mgr.restore(want, template=state)
+            start, host = mgr.restore(want, template=state, shardings=shard)
             del state
             state = from_jax_state(host, dev)
             del host
-            print(f"[train] resumed from step {start}", flush=True)
-    step_fn = jit_train_step(cfg, None, tc)
+            if lead:
+                print(f"[train] resumed from step {start}", flush=True)
+    step_fn = jit_train_step(cfg, rules, tc)
 
     t0 = time.time()
     metrics_log = []
     for step in range(start, args.steps):
         if step == args.crash_at:
-            print(f"[train] injected crash at step {step}", flush=True)
+            if lead:
+                print(f"[train] injected crash at step {step}", flush=True)
             os._exit(42)
         batch = {k: torch.from_numpy(v).to(dev)
                  for k, v in pipeline.batch_at(step).items()}
         state, metrics = step_fn(state, batch)
-        if args.heartbeat and step != args.hang_at:
+        if lead and args.heartbeat and step != args.hang_at:
             beat(args.heartbeat, step)
         if args.hang_at >= 0 and step >= args.hang_at:
             time.sleep(3600)             # simulated straggler
@@ -117,24 +150,29 @@ def main(argv=None):
                    "tok_per_s": args.global_batch * args.seq
                    * args.log_every / max(dt, 1e-9)}
             metrics_log.append(row)
-            print(f"[train] step {row['step']:5d} "
-                  f"loss {row['loss']:.4f} gnorm {row['grad_norm']:.3f} "
-                  f"lr {row['lr']:.2e} {row['tok_per_s']:.0f} tok/s",
-                  flush=True)
+            if lead:
+                print(f"[train] step {row['step']:5d} "
+                      f"loss {row['loss']:.4f} "
+                      f"gnorm {row['grad_norm']:.3f} "
+                      f"lr {row['lr']:.2e} {row['tok_per_s']:.0f} tok/s",
+                      flush=True)
             t0 = time.time()
         if (mgr is not None and args.ckpt_every
                 and (step + 1) % args.ckpt_every == 0):
             mgr.save(step + 1, state, block=False,
                      metadata={"arch": args.arch, "seq": args.seq,
-                               "global_batch": args.global_batch})
+                               "global_batch": args.global_batch},
+                     shardings=shard)
     if mgr is not None:
         mgr.wait()
         mgr.save(args.steps, state,
-                 metadata={"arch": args.arch, "final": True})
-    if args.metrics_out:
+                 metadata={"arch": args.arch, "final": True},
+                 shardings=shard)
+    if lead and args.metrics_out:
         with open(args.metrics_out, "w") as f:
             json.dump(metrics_log, f)
-    print("[train] done", flush=True)
+    if lead:
+        print("[train] done", flush=True)
     return 0
 
 

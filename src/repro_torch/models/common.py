@@ -19,7 +19,16 @@ and ``attention_decode`` with ``cfg.attn_impl == "pallas"`` runs
 its plain version on CPU tensors).  ``attention_decode`` writes the ring
 cache in place.
 
-Not ported yet: the ``shard_map`` branch of ``moe_ffn`` (ROADMAP A13c).
+Over a device mesh every function takes a ``models.layout.Layout``
+(``lay``) and this rank's blocks of the weights, and computes SPMD by
+hand what GSPMD partitions in the JAX package: Megatron's tensor
+parallelism (``core.collectives.copy_to`` in front of a column-parallel
+projection and of each replicated weight used on the local heads,
+``reduce_from`` after the row-parallel one), both MoE dispatch paths of
+``moe_ffn`` (``cfg.moe_impl``), and split-KV decode over a ring whose
+slots are sharded (``pmax`` of the maxima, ``psum`` of the sums and of
+the values).  Where ``lay`` is ``None``, or every dimension it names is
+whole on this rank, the code is the one-device code.
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..core.collectives import copy_to, gather_from, reduce_from
 from ..kernels import ops, ref
 
 _NEG = -1e30
@@ -89,6 +99,63 @@ def _qkv(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor):
     return q, k, v
 
 
+def _qkv_local(cfg: ModelConfig, p, x: torch.Tensor,
+               positions: torch.Tensor, lay=None):
+    """``_qkv`` on this rank's heads: q (B,S,Hl,hd) of its query heads and
+    k/v (B,S,KVh,hd) of its KV heads (all of them where ``wk`` is not
+    sharded).  Returns (q, k, v)."""
+    heads = None if lay is None else lay.heads
+    if heads is None:
+        return _qkv(cfg, p, x, positions)
+    xf = copy_to(heads, x)
+    q = torch.einsum("bsd,dhk->bshk", xf, p["wq"].to(x.dtype))
+    wk, wv = p["wk"].to(x.dtype), p["wv"].to(x.dtype)
+    if lay.kv is None:                    # replicated KV weights
+        wk, wv = copy_to(heads, wk), copy_to(heads, wv)
+    k = torch.einsum("bsd,dhk->bshk", xf, wk)
+    v = torch.einsum("bsd,dhk->bshk", xf, wv)
+    if cfg.qk_norm:
+        q = rmsnorm(q, copy_to(heads, p["q_norm"]), cfg.norm_eps,
+                    cfg.use_pallas)
+        k = rmsnorm(k, copy_to(heads, p["k_norm"]), cfg.norm_eps,
+                    cfg.use_pallas)
+    cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def kv_for_heads(cfg: ModelConfig, k: torch.Tensor, lay, whole: bool,
+                 all_heads: bool = False):
+    """KV heads (dim 2 of ``k``) for this rank's query heads -> (k', g):
+    query head j reads KV head j // g of ``k'``.  ``whole``: ``k`` holds
+    every KV head (else the block of ``lay.heads``' axes); ``all_heads``:
+    the queries are every head, not this rank's."""
+    group = cfg.n_heads // cfg.n_kv_heads
+    heads = None if lay is None or all_heads else lay.heads
+    if heads is None or not whole:
+        return k, group
+    hl = cfg.n_heads // heads.size
+    first = heads.index() * hl
+    if hl % group == 0:
+        return k[:, :, first // group:(first + hl) // group], group
+    idx = torch.div(torch.arange(first, first + hl, device=k.device),
+                    group, rounding_mode="floor")
+    return k.index_select(2, idx), 1
+
+
+def out_proj(o: torch.Tensor, wo: torch.Tensor, d: int, lay=None,
+             all_heads: bool = False):
+    """o (B,S,Hl·hd) @ wo's rows -> (B,S,D): row-parallel over the heads'
+    axes, then ``psum``; whole heads (``all_heads``, or heads that are not
+    sharded) with sharded rows take their columns of o first."""
+    w = wo.to(o.dtype).reshape(-1, d)
+    c = None if lay is None else lay.wo
+    if c is None:
+        return torch.einsum("bse,ed->bsd", o, w)
+    if lay.heads is None or all_heads:
+        o = c.local(copy_to(c, o), -1)
+    return reduce_from(c, torch.einsum("bse,ed->bsd", o, w))
+
+
 def _mask(q_pos, k_pos, window: Optional[int]) -> torch.Tensor:
     """(..., Sq, Sk) causal/window mask from position arrays."""
     m = k_pos[..., None, :] <= q_pos[..., :, None]
@@ -128,7 +195,7 @@ def blocked_sdpa(q, k, v, positions, window, scale: float,
 
 def attention(cfg: ModelConfig, p, x: torch.Tensor,
               positions: torch.Tensor, *, impl: str = "einsum",
-              q_block: int = 2048) -> torch.Tensor:
+              q_block: int = 2048, lay=None) -> torch.Tensor:
     """Full-sequence causal/SWA GQA attention (train / prefill).
 
     impl:
@@ -136,11 +203,14 @@ def attention(cfg: ModelConfig, p, x: torch.Tensor,
       blocked — q blocks one at a time, peak scores (B,H,q_block,S).
       pallas  — ``kernels.ops.flash_attention``: the CUDA kernel on CUDA
                 tensors, its plain version on CPU tensors.
-    """
+
+    Over a mesh (``lay``): this rank's query heads, their KV heads, then
+    the row-parallel ``wo`` and a ``psum``."""
     b, s, d = x.shape
-    q, k, v = _qkv(cfg, p, x, positions)
+    q, k, v = _qkv_local(cfg, p, x, positions, lay)
+    k, group = kv_for_heads(cfg, k, lay, lay is None or lay.kv is None)
+    v, _ = kv_for_heads(cfg, v, lay, lay is None or lay.kv is None)
     scale = cfg.head_dim ** -0.5
-    group = cfg.n_heads // cfg.n_kv_heads
     if impl == "pallas":
         o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                 v.transpose(1, 2), causal=True,
@@ -156,13 +226,43 @@ def attention(cfg: ModelConfig, p, x: torch.Tensor,
             o = blocked_sdpa(q, k, v, positions, cfg.window, scale, q_block)
         else:
             raise ValueError(impl)
-    o = o.reshape(b, s, cfg.n_heads * cfg.head_dim)
-    return torch.einsum("bse,ed->bsd", o, p["wo"].to(x.dtype).reshape(-1, d))
+    o = o.reshape(b, s, q.shape[2] * cfg.head_dim)
+    return out_proj(o, p["wo"], d, lay)
+
+
+def kv_to_ring(k: torch.Tensor, lay, ring) -> torch.Tensor:
+    """New K/V rows (B,·,KVh,hd) as computed (the KV heads of
+    :func:`_qkv_local`) in the ring's KV-head layout: gathered over the
+    heads' axes where the ring keeps every KV head, cut to the ring's
+    block where it shards them."""
+    if lay is None:
+        return k
+    whole = lay.kv is None
+    ck = ring[1]
+    if ck is None and not whole:
+        return lay.kv.all_gather(k, 2)
+    if ck is not None and whole:
+        return ck.local(k, 2)
+    return k
+
+
+def ring_kv_len(pos: int, sc: int, cs) -> int:
+    """Filled slots of this rank's block of a ring of ``sc`` slots at
+    absolute position ``pos`` (after its write).  The ring holds the last
+    ``min(pos + 1, sc)`` positions in slots ``0 .. min(pos + 1, sc) - 1``
+    (prefill fills slots ``0..s-1``, or all of them; decode writes slot
+    ``pos % sc``), so a block of slots ``[lo, lo + n)`` holds
+    ``clamp(min(pos + 1, sc) - lo, 0, n)`` of them."""
+    filled = min(pos + 1, sc)
+    if cs is None:
+        return filled
+    n = sc // cs.size
+    return max(0, min(filled - cs.index() * n, n))
 
 
 def attention_decode(cfg: ModelConfig, p, x: torch.Tensor,
                      k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     slot_pos: torch.Tensor, pos: int):
+                     slot_pos: torch.Tensor, pos: int, lay=None, ring=None):
     """One-token decode with a ring-buffer KV cache.
 
     x (B,1,D); k_cache/v_cache (B,Sc,KV,hd); slot_pos (Sc,) stored
@@ -174,45 +274,85 @@ def attention_decode(cfg: ModelConfig, p, x: torch.Tensor,
     GQA reads the cache without repeating it.  With ``cfg.attn_impl ==
     "pallas"`` the attention is ``ops.decode_attention`` over the ring
     with ``kv_len = min(pos + 1, Sc)`` and no window: the ring holds
-    exactly the last ``min(pos + 1, Sc)`` positions (prefill fills slots
-    ``0..s-1``, or all of them; decode writes slot ``pos % Sc``; ``Sc =
-    min(max_len, window)``), which are the slots the JAX function's
-    ``slot_pos``/window mask keeps, and the softmax does not depend on
-    their order.  Otherwise the JAX function's einsum over the masked
-    ring."""
+    exactly the last ``min(pos + 1, Sc)`` positions (:func:`ring_kv_len`;
+    ``Sc = min(max_len, window)``), which are the slots the JAX
+    function's ``slot_pos``/window mask keeps, and the softmax does not
+    depend on their order.  Otherwise the JAX function's einsum over the
+    masked ring.
+
+    Over a mesh the caches are this rank's block (its rows of the batch,
+    its slots where ``ring[0]`` shards them, its KV heads where
+    ``ring[1]`` does; ``slot_pos`` whole): only the rank holding slot
+    ``pos % Sc`` writes it, and where the slots are sharded each rank
+    attends over its own (the kernel over its filled ones, giving the
+    log-sum-exp too) and the ranks combine their partial softmaxes: the
+    split-KV formula of the JAX function's sharded scores.  Where the
+    slots and the query heads are sharded over the same axes, the query is
+    gathered to every head first: each rank attends with every head over
+    its slots, then keeps its heads' columns for the row-parallel
+    ``wo``."""
     b = x.shape[0]
-    kv, group, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, \
-        cfg.head_dim
+    hd = cfg.head_dim
+    cs = None if ring is None else ring[0]
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    q, k, v = _qkv(cfg, p, x, positions)
-    sc = k_cache.shape[1]
+    q, k, v = _qkv_local(cfg, p, x, positions, lay)
+    k, v = kv_to_ring(k, lay, ring), kv_to_ring(v, lay, ring)
+    all_heads = (cs is not None and lay.heads is not None
+                 and bool(set(cs.axes) & set(lay.heads.axes)))
+    if all_heads:
+        q = lay.heads.all_gather(q, 2)
+    sc = slot_pos.shape[0]
     slot = pos % sc
-    k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
-    v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
+    n = k_cache.shape[1]                  # this rank's slots
+    lo = 0 if cs is None else cs.index() * n
+    if lo <= slot < lo + n:
+        k_cache[:, slot - lo] = k[:, 0].to(k_cache.dtype)
+        v_cache[:, slot - lo] = v[:, 0].to(v_cache.dtype)
     slot_pos[slot:slot + 1].fill_(pos)   # a fill: item assignment syncs
+    whole = ring is None or ring[1] is None
+    kc, group = kv_for_heads(cfg, k_cache, lay, whole, all_heads)
+    vc, _ = kv_for_heads(cfg, v_cache, lay, whole, all_heads)
+    kvh, hq = kc.shape[2], q.shape[2]
     scale = hd ** -0.5
     if cfg.attn_impl == "pallas":
-        o = ops.decode_attention(q[:, 0].to(k_cache.dtype),
-                                 k_cache.permute(0, 2, 1, 3),
-                                 v_cache.permute(0, 2, 1, 3),
-                                 kv_len=min(pos + 1, sc), scale=scale)
-        o = o.to(x.dtype).reshape(b, 1, cfg.n_heads * hd)
+        kl = ring_kv_len(pos, sc, cs)
+        qk = q[:, 0].to(k_cache.dtype)
+        if cs is None:
+            o = ops.decode_attention(qk, kc.permute(0, 2, 1, 3),
+                                     vc.permute(0, 2, 1, 3), kv_len=kl,
+                                     scale=scale)
+        else:
+            o, lse = ops.decode_attention(qk, kc.permute(0, 2, 1, 3),
+                                          vc.permute(0, 2, 1, 3),
+                                          kv_len=kl, scale=scale,
+                                          return_lse=True)
+            top = cs.pmax(lse)
+            w = torch.exp(lse - top)
+            o = (cs.psum(o.to(torch.float32) * w[..., None])
+                 / cs.psum(w)[..., None])
+        o = o.to(x.dtype).reshape(b, 1, hq * hd)
     else:
         f32 = torch.float32
-        q5 = q.reshape(b, 1, kv, group, hd).to(k_cache.dtype).to(f32)
+        q5 = q.reshape(b, 1, kvh, group, hd).to(k_cache.dtype).to(f32)
         s = torch.einsum("bqkgh,btkh->bkgqt", q5,
-                         k_cache.to(f32)) * scale           # (B,KV,G,1,Sc)
-        valid = (slot_pos >= 0) & (slot_pos <= pos)
+                         kc.to(f32)) * scale                # (B,KV,G,1,Sc)
+        sp = slot_pos[lo:lo + n]
+        valid = (sp >= 0) & (sp <= pos)
         if cfg.window is not None:
-            valid &= slot_pos > pos - cfg.window
+            valid &= sp > pos - cfg.window
         s = torch.where(valid[None, None, None, None, :], s,
                         torch.tensor(_NEG, dtype=f32, device=s.device))
-        a = torch.softmax(s, dim=-1)
-        o = torch.einsum("bkgqt,btkh->bqkgh",
-                         a.to(v_cache.dtype).to(f32), v_cache.to(f32))
-        o = o.to(x.dtype).reshape(b, 1, cfg.n_heads * hd)
-    out = torch.einsum("bse,ed->bsd", o,
-                       p["wo"].to(x.dtype).reshape(-1, x.shape[-1]))
+        if cs is None:
+            a = torch.softmax(s, dim=-1)
+        else:
+            e = torch.exp(s - cs.pmax(s.amax(-1, keepdim=True)))
+            a = e / cs.psum(e.sum(-1, keepdim=True))
+        o = torch.einsum("bkgqt,btkh->bqkgh", a.to(v_cache.dtype).to(f32),
+                         vc.to(f32))
+        if cs is not None:
+            o = cs.psum(o)
+        o = o.to(x.dtype).reshape(b, 1, hq * hd)
+    out = out_proj(o, p["wo"], x.shape[-1], lay, all_heads)
     return out, k_cache, v_cache, slot_pos
 
 
@@ -220,11 +360,15 @@ def attention_decode(cfg: ModelConfig, p, x: torch.Tensor,
 # MLPs
 # ---------------------------------------------------------------------------
 
-def swiglu(p, x: torch.Tensor) -> torch.Tensor:
+def swiglu(p, x: torch.Tensor, lay=None) -> torch.Tensor:
+    """SwiGLU; over a mesh column-parallel gate/up and row-parallel down
+    over ``lay.ff``, then ``psum``."""
+    c = None if lay is None else lay.ff
+    x = copy_to(c, x)
     g = torch.einsum("bsd,df->bsf", x, p["w_gate"].to(x.dtype))
     u = torch.einsum("bsd,df->bsf", x, p["w_up"].to(x.dtype))
-    return torch.einsum("bsf,fd->bsd", F.silu(g) * u,
-                        p["w_down"].to(x.dtype))
+    return reduce_from(c, torch.einsum("bsf,fd->bsd", F.silu(g) * u,
+                                       p["w_down"].to(x.dtype)))
 
 
 # ---------------------------------------------------------------------------
@@ -300,16 +444,34 @@ def _moe_dispatch_ffn(cfg: ModelConfig, p, x, top_e, top_w):
     return y
 
 
-def moe_ffn(cfg: ModelConfig, p, x: torch.Tensor, rules=None):
+def _batch_mean(x: torch.Tensor, lay) -> torch.Tensor:
+    """Mean over dims (0, 1) of the global batch: a ``psum`` of the rows'
+    sums over ``lay.batch`` before the division (the mean of per-shard
+    means differs where the product with another mean follows)."""
+    if lay is None or lay.batch is None:
+        return x.mean((0, 1))
+    n = x.shape[0] * lay.batch.size * x.shape[1]
+    return reduce_from(lay.batch, x.sum((0, 1))) / n
+
+
+def moe_ffn(cfg: ModelConfig, p, x: torch.Tensor, lay=None):
     """Top-k MoE with per-sequence capacity. x (B,S,D) -> (y, aux_loss).
 
-    S == 1 (decode) uses the dense all-expert combine.  The ``shard_map``
-    dispatch of the JAX package (``rules`` given) is not ported yet
-    (ROADMAP A13c)."""
-    if rules is not None:
-        raise NotImplementedError(
-            "moe_ffn over a device mesh (the JAX package's shard_map "
-            "dispatch) is not ported yet (ROADMAP A13c); pass rules=None")
+    Two dispatch paths over a mesh (``cfg.moe_impl``), as the JAX
+    package's:
+
+    * ``shard_map`` (default) — dispatch, expert SwiGLU and combine on
+      this rank's rows of the batch (exact: the dispatch is per
+      sequence), ``moe_ff`` row-parallel over ``lay.moe_ff``, one
+      ``psum`` of y;
+    * ``gspmd`` — the batch all-gathered over its axes and the whole
+      batch's experts computed on every rank (the redundant FLOPs the
+      partitioner's layout costs, DESIGN.md), then this rank's rows.
+
+    S == 1 (decode) uses the dense all-expert combine, ``moe_ff`` sharded,
+    then ``psum``.  The load-balancing loss is ``e · Σ frac_tokens ·
+    frac_prob`` of the global batch: both means are summed over the batch
+    axes before their product."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     logits = torch.einsum("bsd,de->bse", x, p["router"].to(x.dtype)
@@ -319,22 +481,39 @@ def moe_ffn(cfg: ModelConfig, p, x: torch.Tensor, rules=None):
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
     # load-balancing aux (switch-style)
     sel = F.one_hot(top_e, e).to(torch.float32).sum(2)      # (B,S,E)
-    frac_tokens = sel.mean((0, 1)) / k
-    frac_prob = probs.mean((0, 1))
+    frac_tokens = _batch_mean(sel, lay) / k
+    frac_prob = _batch_mean(probs, lay)
     aux = e * torch.sum(frac_tokens * frac_prob)
+    mf = None if lay is None else lay.moe_ff
 
     if s == 1:
         # dense all-expert combine
-        g = torch.einsum("bqd,edf->beqf", x, p["w_gate"].to(x.dtype))
-        u = torch.einsum("bqd,edf->beqf", x, p["w_up"].to(x.dtype))
+        xf = copy_to(mf, x)
+        g = torch.einsum("bqd,edf->beqf", xf, p["w_gate"].to(x.dtype))
+        u = torch.einsum("bqd,edf->beqf", xf, p["w_up"].to(x.dtype))
         y_all = torch.einsum("beqf,efd->beqd", F.silu(g) * u,
                              p["w_down"].to(x.dtype))
         comb = torch.zeros((b, e), dtype=torch.float32, device=x.device)
-        comb.scatter_add_(1, top_e[:, 0], top_w[:, 0])
-        y = torch.einsum("beld,be->bld", y_all.to(torch.float32), comb)
-        return y.to(x.dtype), aux
+        comb = comb.scatter_add(1, top_e[:, 0], top_w[:, 0])
+        y = torch.einsum("beld,be->bld", y_all.to(torch.float32),
+                         copy_to(mf, comb))
+        return reduce_from(mf, y).to(x.dtype), aux
 
-    y = _moe_dispatch_ffn(cfg, p, x, top_e, top_w.to(x.dtype))
+    rows = None
+    if (lay is not None and lay.batch is not None
+            and (cfg.moe_impl != "shard_map" or not lay.batch_even)):
+        # the gspmd path: the batch gathered; the backward keeps this
+        # rank's rows of the cotangent, exact since the dispatch does not
+        # mix rows (another rank's cotangent of these rows is zero)
+        rows = lay.batch
+        x = gather_from(rows, x, 0)
+        top_e = rows.all_gather(top_e, 0)
+        top_w = gather_from(rows, top_w, 0)
+    y = _moe_dispatch_ffn(cfg, p, copy_to(mf, x), top_e,
+                          copy_to(mf, top_w.to(x.dtype)))
+    y = reduce_from(mf, y)
+    if rows is not None:
+        y = rows.local(y, 0)
     return y.to(x.dtype), aux
 
 

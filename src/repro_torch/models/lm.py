@@ -25,12 +25,24 @@ longer than ``q_block``; it never calls ``flash_attention``.
 either package, so training (``repro_torch.train.step``) refuses their
 switches.
 
+Over a device mesh (``rules``, a ``sharding.MeshRules``) each rank holds
+its blocks of the parameters (``params.init_params(rules=...)``) and of
+the cache (``init_cache(rules=...)``), takes the global batch and
+computes on its rows of it (``models.layout``): the embedding
+vocab-parallel where ``vocab`` is sharded (a masked local lookup, then a
+``psum``), the blocks tensor-parallel (``models.common``), the logits
+vocab-sharded.  ``forward``, ``prefill`` and ``decode_step`` return the
+global logits, gathered (no backward through the gather); ``loss_fn``
+computes a vocab-parallel cross entropy where the vocabulary is sharded,
+and its mean over the global batch's valid labels.  On a ``(1, 1)`` mesh
+every collective is the identity and the numbers are those without one,
+bit for bit.
+
 Not ported yet, each raising ``NotImplementedError`` that names its item
 of ROADMAP.md:
 
 * the ``hybrid_ssm`` family (Zamba2, ``models/ssm.py``) — A13d;
-* the ``xlstm`` family (``models/xlstm.py``) — A13e;
-* the model over a device mesh (``rules``) — A13c.
+* the ``xlstm`` family (``models/xlstm.py``) — A13e.
 """
 from __future__ import annotations
 
@@ -40,8 +52,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..core.collectives import copy_to, gather_from, reduce_from
 from ..device import resolve_device
 from . import common
+from .layout import gather_batch, layout
 from .params import ParamDef, layer_slice, layer_views
 
 #: ROADMAP items of the families the port does not declare yet.
@@ -126,16 +140,17 @@ def param_defs(cfg: ModelConfig) -> dict:
 # Blocks (forward)
 # ---------------------------------------------------------------------------
 
-def _dense_block(cfg, p, x, positions, aux, rules=None):
+def _dense_block(cfg, p, x, positions, aux, lay=None):
     h = common.rmsnorm(x, p["attn_norm"], cfg.norm_eps, cfg.use_pallas)
     x = x + common.attention(cfg, p["attn"], h, positions,
-                             impl=cfg.attn_impl, q_block=cfg.q_block)
+                             impl=cfg.attn_impl, q_block=cfg.q_block,
+                             lay=lay)
     h = common.rmsnorm(x, p["mlp_norm"], cfg.norm_eps, cfg.use_pallas)
     if cfg.is_moe:
-        y, a = common.moe_ffn(cfg, p["moe"], h, rules)
+        y, a = common.moe_ffn(cfg, p["moe"], h, lay)
         aux = aux + a
     else:
-        y = common.swiglu(p["mlp"], h)
+        y = common.swiglu(p["mlp"], h, lay)
     return x + y, aux
 
 
@@ -147,29 +162,76 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
+def _lookup(emb: torch.Tensor, tokens: torch.Tensor, lay) -> torch.Tensor:
+    """Rows ``tokens`` of the embedding table: over a mesh whose vocab is
+    sharded, the rows of this rank's block (zeros for the others), then a
+    ``psum`` (exactly one rank holds each row)."""
+    c = None if lay is None else lay.vocab
+    if c is None:
+        return emb[tokens]
+    n = emb.shape[0]
+    local = tokens - c.index() * n
+    hit = (local >= 0) & (local < n)
+    rows = emb[torch.clamp(local, 0, n - 1)]
+    rows = torch.where(hit[..., None], rows,
+                       torch.zeros((), dtype=rows.dtype, device=rows.device))
+    return reduce_from(c, rows)
+
+
 def embed_tokens(cfg: ModelConfig, params, tokens, patches=None,
-                 compute_dtype=torch.bfloat16):
+                 compute_dtype=torch.bfloat16, lay=None):
     """tokens (B,St) [+ patches (B,Fl,frontend_dim)] -> x (B,S,D)."""
     emb = params["embed"].to(compute_dtype)
-    x = emb[tokens]
+    if lay is not None:
+        emb = gather_from(lay.embed_fsdp, emb, 1,
+                          lay.reduce_for(lay.embed_fsdp))
+    x = _lookup(emb, tokens, lay)
     if cfg.frontend == "patch":
         if patches is None:
             raise ValueError(f"{cfg.name} takes patch embeddings")
-        pe = torch.einsum("bpf,fd->bpd", patches.to(compute_dtype),
-                          params["frontend_adapter"].to(compute_dtype))
+        adapter = params["frontend_adapter"].to(compute_dtype)
+        if lay is not None:
+            adapter = gather_from(lay.adapter_fsdp, adapter, 1,
+                                  lay.reduce_for(lay.adapter_fsdp))
+        pe = torch.einsum("bpf,fd->bpd", patches.to(compute_dtype), adapter)
         x = torch.cat([pe, x], dim=1)
     return x
 
 
-def lm_logits(cfg: ModelConfig, params, x):
+def lm_logits(cfg: ModelConfig, params, x, lay=None):
+    """Logits (B,S,V) of the hidden states; over a mesh whose vocab is
+    sharded, this rank's block of the vocabulary (B,S,V/shards)."""
     x = common.rmsnorm(x, params["out_norm"], cfg.norm_eps, cfg.use_pallas)
     w = (params["embed"] if cfg.tie_embeddings
          else params["lm_head"]).to(x.dtype)
+    vocab = None
+    if lay is not None:
+        fsdp, dim = ((lay.embed_fsdp, 1) if cfg.tie_embeddings
+                     else (lay.head_fsdp, 0))
+        w = gather_from(fsdp, w, dim, lay.reduce_for(fsdp))
+        vocab = lay.vocab if cfg.tie_embeddings else lay.head_vocab
+        x = copy_to(vocab, x)
     if cfg.logits_fp32:      # preferred_element_type=float32
         x, w = x.to(torch.float32), w.to(torch.float32)
     if cfg.tie_embeddings:
         return torch.einsum("bsd,vd->bsv", x, w)
     return torch.einsum("bsd,dv->bsv", x, w)
+
+
+def _logits_vocab(cfg: ModelConfig, lay):
+    """The collectives over the logits' vocabulary (``None``: whole)."""
+    if lay is None:
+        return None
+    return lay.vocab if cfg.tie_embeddings else lay.head_vocab
+
+
+def global_logits(cfg: ModelConfig, logits: torch.Tensor, lay):
+    """Every rank's block of the logits (rows, vocabulary) as the global
+    logits (no backward)."""
+    c = _logits_vocab(cfg, lay)
+    if c is not None:
+        logits = c.all_gather(logits.detach(), -1)
+    return gather_batch(lay, logits)
 
 
 # ---------------------------------------------------------------------------
@@ -182,21 +244,25 @@ def _as_index(tokens, device) -> torch.Tensor:
     return torch.as_tensor(tokens, dtype=torch.int64, device=device)
 
 
-def forward(cfg: ModelConfig, params, tokens, patches=None,
-            positions=None, rules=None):
-    """Full-sequence forward -> (logits (B,S,V), aux_loss scalar).
-    ``tokens`` (and ``patches``) may be numpy arrays; they move to the
-    parameters' device.  Autograd records only what a trainable tree
-    (``requires_grad=True``) feeds; with ``cfg.remat == "block"`` while
-    grad is enabled, each block is recomputed in the backward."""
+def _layout(cfg: ModelConfig, rules, batch: int):
+    return layout(cfg, rules, batch, param_defs)
+
+
+def _forward(cfg: ModelConfig, params, tokens, patches=None,
+             positions=None, rules=None):
+    """The forward on this rank's rows -> (logits block, aux, layout)."""
     if cfg.family not in ("dense", "moe"):
         raise not_ported(f"forward of the {cfg.family!r} family",
                          _FAMILY_ITEMS.get(cfg.family, "A13"))
     dev = params["embed"].device
+    lay = _layout(cfg, rules, len(tokens))
+    if lay is not None:
+        tokens = lay.rows(tokens)
+        patches = None if patches is None else lay.rows(patches)
     if patches is not None:
         patches = torch.as_tensor(patches, device=dev)
     x = embed_tokens(cfg, params, _as_index(tokens, dev), patches,
-                     compute_dtype(cfg))
+                     compute_dtype(cfg), lay)
     s = x.shape[1]
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=dev)
@@ -205,10 +271,43 @@ def forward(cfg: ModelConfig, params, tokens, patches=None,
     for p in layer_views(params["layers"], cfg.n_layers):
         if remat:
             x, aux = checkpoint(_dense_block, cfg, p, x, positions, aux,
-                                rules, use_reentrant=False)
+                                lay, use_reentrant=False)
         else:
-            x, aux = _dense_block(cfg, p, x, positions, aux, rules)
-    return lm_logits(cfg, params, x), aux
+            x, aux = _dense_block(cfg, p, x, positions, aux, lay)
+    return lm_logits(cfg, params, x, lay), aux, lay
+
+
+def forward(cfg: ModelConfig, params, tokens, patches=None,
+            positions=None, rules=None):
+    """Full-sequence forward -> (logits (B,S,V), aux_loss scalar).
+    ``tokens`` (and ``patches``) may be numpy arrays; they move to the
+    parameters' device.  Autograd records only what a trainable tree
+    (``requires_grad=True``) feeds; with ``cfg.remat == "block"`` while
+    grad is enabled, each block is recomputed in the backward.  Over a
+    mesh: the global batch in, the global logits out (gathered, with no
+    backward; ``loss_fn`` differentiates through the blocks)."""
+    logits, aux, lay = _forward(cfg, params, tokens, patches, positions,
+                                rules)
+    if lay is not None:
+        logits = global_logits(cfg, logits, lay)
+    return logits, aux
+
+
+def _vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor,
+                        comm) -> torch.Tensor:
+    """-log softmax(logits)[label] with the vocabulary in blocks over
+    ``comm``: the ``pmax`` of the maxima, the ``psum`` of the exp-sums
+    and of the target logit (on the rank that holds it)."""
+    lf = logits.to(torch.float32)
+    top = comm.pmax(lf.detach().amax(-1, keepdim=True))
+    sums = reduce_from(comm, torch.exp(lf - top).sum(-1, keepdim=True))
+    n = lf.shape[-1]
+    local = labels - comm.index() * n
+    hit = (local >= 0) & (local < n)
+    tgt = torch.gather(lf, -1, torch.clamp(local, 0, n - 1)[..., None])
+    tgt = reduce_from(comm, torch.where(hit[..., None], tgt,
+                                        torch.zeros_like(tgt)))
+    return (top + torch.log(sums) - tgt)[..., 0]
 
 
 def loss_fn(cfg: ModelConfig, params, batch, rules=None):
@@ -216,20 +315,32 @@ def loss_fn(cfg: ModelConfig, params, batch, rules=None):
     {"nll", "aux"}): the mean over the valid labels (at least one) of the
     fp32 log-softmax's negative log-likelihood, plus
     ``cfg.router_aux_weight`` times the MoE load-balancing loss.  The
-    patch frontend's ``frontend_len`` positions carry no labels."""
-    _check_rules(rules, "loss_fn")
-    logits, aux = forward(cfg, params, batch["tokens"], batch.get("patches"),
-                          rules=rules)
-    labels = _as_index(batch["labels"], logits.device)
+    patch frontend's ``frontend_len`` positions carry no labels.  Over a
+    mesh: the sum and the count of the global batch (``psum`` over the
+    batch's axes), a vocab-parallel cross entropy where the vocabulary is
+    sharded."""
+    logits, aux, lay = _forward(cfg, params, batch["tokens"],
+                                batch.get("patches"), rules=rules)
+    labels = batch["labels"]
+    if lay is not None:
+        labels = lay.rows(labels)
+    labels = _as_index(labels, logits.device)
     if cfg.frontend == "patch":
         pad = torch.full((labels.shape[0], cfg.frontend_len), -100,
                          dtype=labels.dtype, device=labels.device)
         labels = torch.cat([pad, labels], dim=1)
     valid = labels >= 0
     safe = torch.clamp(labels, min=0)
-    lp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    nll = -torch.gather(lp, -1, safe[..., None])[..., 0]
-    loss = torch.sum(nll * valid) / torch.clamp(valid.sum(), min=1)
+    vocab = _logits_vocab(cfg, lay)
+    if vocab is None:
+        lp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        nll = -torch.gather(lp, -1, safe[..., None])[..., 0]
+    else:
+        nll = _vocab_parallel_nll(logits, safe, vocab)
+    rows = None if lay is None else lay.batch
+    total = reduce_from(rows, torch.sum(nll * valid))
+    count = valid.sum() if rows is None else rows.psum(valid.sum())
+    loss = total / torch.clamp(count, min=1)
     return loss + cfg.router_aux_weight * aux, {"nll": loss, "aux": aux}
 
 
@@ -239,7 +350,7 @@ def loss_fn(cfg: ModelConfig, params, batch, rules=None):
 
 class CacheLeaf(NamedTuple):
     """Cache-leaf declaration: shape, dtype, fill, and the JAX package's
-    logical axes (names only: the port shards nothing yet)."""
+    logical axes (the layout over a mesh)."""
     shape: tuple
     dtype: torch.dtype
     fill: Any
@@ -250,11 +361,6 @@ def _check_family(cfg: ModelConfig, what: str) -> None:
     if cfg.family not in ("dense", "moe"):
         raise not_ported(f"{what} of the {cfg.family!r} family",
                          _FAMILY_ITEMS.get(cfg.family, "A13"))
-
-
-def _check_rules(rules, what: str) -> None:
-    if rules is not None:
-        raise not_ported(f"{what} over a device mesh", "A13c")
 
 
 def cache_len(cfg: ModelConfig, max_len: int) -> int:
@@ -281,30 +387,48 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16, rules=None,
                device=None) -> dict:
     """The cache of :func:`cache_defs`, filled, on ``device`` (default:
-    the card; raises without one)."""
-    _check_rules(rules, "init_cache")
+    the card; raises without one).  Over a mesh (``rules``): this rank's
+    block of each leaf."""
     dev = resolve_device(device)
-    return {name: torch.full(leaf.shape, leaf.fill, dtype=leaf.dtype,
-                             device=dev)
-            for name, leaf in cache_defs(cfg, batch, max_len,
-                                         dtype).items()}
+    out = {}
+    for name, leaf in cache_defs(cfg, batch, max_len, dtype).items():
+        shape = leaf.shape
+        if rules is not None:
+            shape = rules.sharding(leaf.axes, shape).local_shape(shape)
+        out[name] = torch.full(shape, leaf.fill, dtype=leaf.dtype,
+                               device=dev)
+    return out
+
+
+def cache_structs(*args, **kwargs):
+    """The sharded dry-run cache: ROADMAP A13g."""
+    raise not_ported("cache_structs (the sharded dry-run cache)", "A13g")
 
 
 # ---------------------------------------------------------------------------
 # Decode step
 # ---------------------------------------------------------------------------
 
-def _attn_block_decode(cfg, p, x, kc, vc, slot_pos, pos: int):
+def _attn_block_decode(cfg, p, x, kc, vc, slot_pos, pos: int, lay=None,
+                       ring=None):
     h = common.rmsnorm(x, p["attn_norm"], cfg.norm_eps, cfg.use_pallas)
     y, kc, vc, slot_pos = common.attention_decode(
-        cfg, p["attn"], h, kc, vc, slot_pos, pos)
+        cfg, p["attn"], h, kc, vc, slot_pos, pos, lay, ring)
     x = x + y
     h = common.rmsnorm(x, p["mlp_norm"], cfg.norm_eps, cfg.use_pallas)
     if cfg.is_moe:
-        y, _ = common.moe_ffn(cfg, p["moe"], h)
+        y, _ = common.moe_ffn(cfg, p["moe"], h, lay)
     else:
-        y = common.swiglu(p["mlp"], h)
+        y = common.swiglu(p["mlp"], h, lay)
     return x + y, kc, vc, slot_pos
+
+
+def _ring(cfg: ModelConfig, lay, batch: int, sc: int):
+    """(slot collectives, KV-head collectives) of a ring of ``sc`` slots
+    over ``lay`` (``None`` without a mesh)."""
+    if lay is None:
+        return None
+    return lay.cache(cache_defs(cfg, batch, sc))
 
 
 @torch.no_grad()
@@ -312,20 +436,30 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, rules=None):
     """One decode step for all sequences. tokens (B,) ints (a tensor or
     anything ``torch.as_tensor`` takes).  Returns (cache, logits (B, V)):
     the K/V rings and ``slot_pos`` are written in place, ``pos`` is a new
-    tensor one larger."""
+    tensor one larger.  Over a mesh: the global tokens in, this rank's
+    block of the cache, the global logits out."""
     _check_family(cfg, "decode_step")
-    _check_rules(rules, "decode_step")
     dev = params["embed"].device
+    lay = _layout(cfg, rules, len(tokens))
+    if lay is not None:
+        tokens = lay.rows(tokens)
     tokens = _as_index(tokens, dev)
-    x = params["embed"][tokens].to(compute_dtype(cfg))[:, None]  # (B,1,D)
     pos = int(cache["pos"])                  # the step's one host read
     slot_pos = cache["slot_pos"]
+    ring = _ring(cfg, lay, lay.batch_size if lay else 0, slot_pos.shape[0])
+    emb = params["embed"]
+    if lay is not None:
+        emb = gather_from(lay.embed_fsdp, emb, 1)
+    x = _lookup(emb, tokens, lay).to(compute_dtype(cfg))[:, None]  # (B,1,D)
     lp = params["layers"]
     for i in range(cfg.n_layers):
         x, _, _, slot_pos = _attn_block_decode(
             cfg, layer_slice(lp, i), x, cache["k"][i], cache["v"][i],
-            slot_pos, pos)
-    return dict(cache, pos=cache["pos"] + 1), lm_logits(cfg, params, x)[:, 0]
+            slot_pos, pos, lay, ring)
+    logits = lm_logits(cfg, params, x, lay)[:, 0]
+    if lay is not None:
+        logits = global_logits(cfg, logits, lay)
+    return dict(cache, pos=cache["pos"] + 1), logits
 
 
 # ---------------------------------------------------------------------------
@@ -351,30 +485,42 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, patches=None,
     """Batched prefill: one full forward that also packs every layer's K/V
     into the ring cache.  Returns (cache, logits of the last position
     (B, V)).  ``tokens`` (and ``patches``) may be numpy arrays; they move
-    to the parameters' device."""
+    to the parameters' device.  Over a mesh: the global batch in, this
+    rank's block of the cache and the global logits out."""
     _check_family(cfg, "prefill")
-    _check_rules(rules, "prefill")
     compute = compute_dtype(cfg)
     dev = params["embed"].device
+    lay = _layout(cfg, rules, len(tokens))
+    if lay is not None:
+        tokens = lay.rows(tokens)
+        patches = None if patches is None else lay.rows(patches)
     if patches is not None:
         patches = torch.as_tensor(patches, device=dev)
-    x = embed_tokens(cfg, params, _as_index(tokens, dev), patches, compute)
+    x = embed_tokens(cfg, params, _as_index(tokens, dev), patches, compute,
+                     lay)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=dev)
     sc = cache_len(cfg, max_len)
-    cache = init_cache(cfg, b, max_len, compute, device=dev)
+    batch = b if lay is None else lay.batch_size
+    cache = init_cache(cfg, batch, max_len, compute, rules, device=dev)
+    ring = _ring(cfg, lay, batch, sc)
+    cs = None if ring is None else ring[0]
     cache["pos"].fill_(s)
-    group = cfg.n_heads // cfg.n_kv_heads
     scale = cfg.head_dim ** -0.5
+    whole = lay is None or lay.kv is None
 
     def attn_with_cache(p, xx, i):
         """Attention block that also packs layer i's KV ring."""
         h = common.rmsnorm(xx, p["attn_norm"], cfg.norm_eps, cfg.use_pallas)
-        q, k, v = common._qkv(cfg, p["attn"], h, positions)
-        kr, slot_pos = _ring_pack(k, sc, s)
-        vr, _ = _ring_pack(v, sc, s)
+        q, k, v = common._qkv_local(cfg, p["attn"], h, positions, lay)
+        kr, slot_pos = _ring_pack(common.kv_to_ring(k, lay, ring), sc, s)
+        vr, _ = _ring_pack(common.kv_to_ring(v, lay, ring), sc, s)
+        if cs is not None:
+            kr, vr = cs.local(kr, 1), cs.local(vr, 1)
         cache["k"][i] = kr
         cache["v"][i] = vr
+        k, group = common.kv_for_heads(cfg, k, lay, whole)
+        v, _ = common.kv_for_heads(cfg, v, lay, whole)
         kk = torch.repeat_interleave(k, group, dim=2)
         vv = torch.repeat_interleave(v, group, dim=2)
         if cfg.attn_impl == "blocked" and s > cfg.q_block:
@@ -383,10 +529,9 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, patches=None,
         else:
             mask = common._mask(positions[None], positions[None], cfg.window)
             o = common._sdpa(q, kk, vv, mask, scale)
-        o = o.reshape(b, s, cfg.n_heads * cfg.head_dim)
-        y = torch.einsum("bse,ed->bsd", o, p["attn"]["wo"].to(xx.dtype)
-                         .reshape(-1, xx.shape[-1]))
-        return xx + y, slot_pos
+        o = o.reshape(b, s, q.shape[2] * cfg.head_dim)
+        return xx + common.out_proj(o, p["attn"]["wo"], xx.shape[-1],
+                                    lay), slot_pos
 
     lp = params["layers"]
     for i in range(cfg.n_layers):
@@ -394,9 +539,12 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, patches=None,
         x, slot_pos = attn_with_cache(p, x, i)
         h = common.rmsnorm(x, p["mlp_norm"], cfg.norm_eps, cfg.use_pallas)
         if cfg.is_moe:
-            y, _ = common.moe_ffn(cfg, p["moe"], h)
+            y, _ = common.moe_ffn(cfg, p["moe"], h, lay)
         else:
-            y = common.swiglu(p["mlp"], h)
+            y = common.swiglu(p["mlp"], h, lay)
         x = x + y
     cache["slot_pos"] = slot_pos
-    return cache, lm_logits(cfg, params, x[:, -1:])[:, 0]
+    logits = lm_logits(cfg, params, x[:, -1:], lay)[:, 0]
+    if lay is not None:
+        logits = global_logits(cfg, logits, lay)
+    return cache, logits

@@ -10,9 +10,10 @@ frozen (``requires_grad=False``) by default, as serving and routing want
 them; ``requires_grad=True`` builds a trainable tree (the training slice,
 ``repro_torch.train``).
 
-The sharding helpers of the JAX module (``param_specs``,
-``param_shardings``, ``param_structs``) are not ported yet (ROADMAP A13c,
-the distributed model slice).
+Over a device mesh (``sharding.MeshRules``) ``param_specs`` and
+``param_shardings`` give each leaf's layout, and ``init_params`` and
+``from_jax_params`` give each rank its blocks (``Sharding.local``).
+``param_structs`` (the dry-run's sharded stand-ins) is ROADMAP A13g.
 """
 from __future__ import annotations
 
@@ -79,9 +80,43 @@ class ParamTree(nn.ParameterDict):
         return out
 
 
+def param_specs(defs, rules):
+    """PartitionSpec tree matching the parameter tree structure."""
+    return map_defs(lambda d: rules.spec(d.axes, d.shape), defs)
+
+
+def param_shardings(defs, rules):
+    """``sharding.Sharding`` tree matching the parameter tree structure."""
+    return map_defs(lambda d: rules.sharding(d.axes, d.shape), defs)
+
+
+def param_structs(*args, **kwargs):
+    """The dry-run's sharded stand-ins: ROADMAP A13g."""
+    raise NotImplementedError("param_structs (the dry-run's sharded "
+                              "stand-ins) is not ported to PyTorch yet "
+                              "(ROADMAP A13g)")
+
+
+def leaf_at(tree, path):
+    """The node of ``tree`` at ``path`` (a tuple of keys)."""
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _block(t: torch.Tensor, sharding) -> torch.Tensor:
+    """This rank's block of ``t`` as a tensor of its own (no view keeping
+    the whole alive)."""
+    if sharding is None:
+        return t
+    b = sharding.local(t)
+    return b if b.shape == t.shape else b.clone()
+
+
 def init_params(defs, generator: torch.Generator,
                 dtype: torch.dtype = torch.float32,
-                device=None, requires_grad: bool = False) -> ParamTree:
+                device=None, requires_grad: bool = False, rules=None,
+                shardings=None) -> ParamTree:
     """Initialise a parameter tree from its declaration (deterministic).
 
     The same per-leaf distributions and scales as the JAX package: N(0, 1)
@@ -92,8 +127,14 @@ def init_params(defs, generator: torch.Generator,
     with a CPU generator to run on the CPU).  The draws differ from
     ``jax.random``'s; tests that compare the packages convert one tree
     with :func:`from_jax_params`.  ``requires_grad=True``: a trainable
-    tree."""
+    tree.
+
+    Over a mesh (``rules``, or a ``shardings`` tree such as the ZeRO-1
+    layout): every rank draws every leaf whole, as without one, and keeps
+    its block at once, so no rank holds more than one whole leaf."""
     device = resolve_device(device)
+    if shardings is None and rules is not None:
+        shardings = param_shardings(defs, rules)
     if torch.device(generator.device).type != device.type:
         raise ValueError(f"generator on {generator.device} cannot draw "
                          f"parameters on {device}")
@@ -119,27 +160,36 @@ def init_params(defs, generator: torch.Generator,
             arr = torch.randn(d.shape, generator=generator,
                               dtype=torch.float32, device=device)
             arr = arr.mul_(scale).to(dtype)
+        if shardings is not None:
+            arr = _block(arr, leaf_at(shardings, path))
         out.append((path, arr))
     return ParamTree.from_tensors(tree_from_items(out), requires_grad)
 
 
 def from_jax_params(tree: Mapping, device=None,
                     dtype: Optional[torch.dtype] = None,
-                    requires_grad: bool = False) -> ParamTree:
+                    requires_grad: bool = False,
+                    shardings=None) -> ParamTree:
     """The JAX package's parameter tree (nested dict of arrays; anything
     ``np.asarray`` takes) as a :class:`ParamTree` on ``device`` (default:
     the card, as :func:`init_params`), in ``dtype`` (default float32, the
     JAX package's parameter type).  The parity tests use it so that both
     packages compute with the same weights.  ``requires_grad=True``: a
-    trainable tree."""
+    trainable tree.  ``shardings`` (a tree of ``sharding.Sharding``, e.g.
+    ``param_shardings(defs, rules)``): each leaf is this rank's block of
+    the global one."""
     device = resolve_device(device)
 
-    def convert(node):
+    def convert(node, sh):
         if _is_node(node):
-            return {k: convert(v) for k, v in node.items()}
-        t = torch.from_numpy(np.array(np.asarray(node, np.float32)))
+            return {k: convert(v, None if sh is None else sh[k])
+                    for k, v in node.items()}
+        a = np.asarray(node, np.float32)
+        if sh is not None:
+            a = sh.local(a)
+        t = torch.from_numpy(np.array(a))
         return t.to(device=device, dtype=dtype or torch.float32)
-    return ParamTree.from_tensors(convert(tree), requires_grad)
+    return ParamTree.from_tensors(convert(tree, shardings), requires_grad)
 
 
 def tree_items(tree, prefix: tuple = ()) -> list:

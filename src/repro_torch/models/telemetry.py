@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..configs.base import ModelConfig, check_ported
+from ..configs.base import ModelConfig
 from ..core.context import PolyadicContext
 from . import common
 from .lm import _as_index, compute_dtype
@@ -44,7 +44,6 @@ def collect_moe_routing(cfg: ModelConfig, params, tokens) -> np.ndarray:
     if not cfg.is_moe:
         raise ValueError("routing telemetry needs a MoE config "
                          "(DESIGN.md §5 Arch-applicability)")
-    check_ported(cfg)
     dev = params["embed"].device
     x = params["embed"].to(compute_dtype(cfg))[_as_index(tokens, dev)]
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=dev)

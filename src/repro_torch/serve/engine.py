@@ -17,6 +17,12 @@ same seed gives the same tokens on the same device, but not the JAX
 engine's ``jax.random`` draws.  The engine reads the next tokens back to
 the host once per step (the replay logic runs there), which is also where
 ``decode_step`` reads the cache position.
+
+Over a device mesh (``rules``, a ``sharding.MeshRules``) every rank of
+the mesh runs the same engine on its blocks of ``params``
+(``Model.init(rules=...)``) and the same prompts: prefill and decode
+return the global logits on every rank, so every rank picks the same
+tokens (greedy, or from the same seeded generator).
 """
 from __future__ import annotations
 
@@ -29,7 +35,6 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..models.api import get_model
-from ..models.lm import not_ported
 
 
 @dataclasses.dataclass
@@ -46,16 +51,13 @@ class GenerationResult:
 
 
 class ServeEngine:
-    """Serves ``cfg`` with ``params`` on the parameters' device.
-    ``rules`` (a device mesh) is not ported yet (ROADMAP A13c)."""
+    """Serves ``cfg`` with ``params`` on the parameters' device; over a
+    mesh (``rules``) ``params`` are this rank's blocks."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_len: int = 2048,
                  rules=None, temperature: float = 0.0,
                  eos_id: Optional[int] = None, seed: int = 0):
-        if rules is not None:
-            raise not_ported("ServeEngine over a device mesh (rules)",
-                             "A13c")
-        self.cfg, self.params = cfg, params
+        self.cfg, self.params, self.rules = cfg, params, rules
         self.max_len = max_len
         self.temperature = temperature
         self.eos_id = eos_id
@@ -92,7 +94,8 @@ class ServeEngine:
 
         t0 = time.perf_counter()
         cache, logits = self.model.prefill(
-            self.cfg, self.params, {"tokens": pad[:, :s_min]}, self.max_len)
+            self.cfg, self.params, {"tokens": pad[:, :s_min]}, self.max_len,
+            self.rules)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         prefill_s = time.perf_counter() - t0
@@ -114,7 +117,7 @@ class ServeEngine:
                                            np.minimum(cursor, s_max - 1)],
                             last)
             cache, logits = self.model.decode_step(self.cfg, self.params,
-                                                   cache, feed)
+                                                   cache, feed, self.rules)
             nxt = self._next(logits).cpu().numpy()
             steps += 1
             for i in range(b):

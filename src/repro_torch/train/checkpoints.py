@@ -22,10 +22,18 @@ of the background writer (``self._error`` stays ``None``), so a failed
 ``save(block=False)`` is silent and ``wait`` returns.  The port records
 it, and ``wait`` (also the next ``save``) raises it.
 
-Restoring onto a mesh (``shardings=``) comes with the model on a mesh
-(ROADMAP A13c); ``restore(device=...)`` returns tensors there, and
-without a device numpy arrays, as the JAX package does without
-shardings.
+``restore(device=...)`` returns tensors there, and without a device
+numpy arrays, as the JAX package does without shardings.
+
+Over a mesh (``shardings=``, a tree of ``sharding.Sharding`` matching the
+state, e.g. ``train.step.state_shardings``): ``save`` gathers every leaf
+(a collective: every rank calls it), rank 0 writes the global arrays in
+the format above, byte for byte, and the other ranks wait at a barrier
+(after the write; with ``block=False`` in the next ``wait``); so a
+checkpoint of any mesh, of either package, restores in the other.
+``restore(shardings=...)`` gives each rank its blocks of the global
+arrays, on whatever mesh is alive: save at 4 ranks, restore at 2
+(elastic restore).
 """
 from __future__ import annotations
 
@@ -41,8 +49,7 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
-
-from ..models.lm import not_ported
+import torch.distributed as dist
 
 _CKPT_RE = re.compile(r"^ckpt_(\d+)$")
 
@@ -120,6 +127,8 @@ class CheckpointManager:
         os.makedirs(self.directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        #: the mesh whose ranks wait for rank 0's pending write
+        self._mesh = None
 
     # -- enumeration ---------------------------------------------------------
 
@@ -143,12 +152,36 @@ class CheckpointManager:
     # -- save ----------------------------------------------------------------
 
     def save(self, step: int, tree, metadata: Optional[dict] = None,
-             block: bool = True):
+             block: bool = True, shardings=None):
         """Write checkpoint for ``step``. With ``block=False`` the disk I/O
         runs on a background thread (the device->host copy still happens
-        here, so the step's tensors are snapshotted consistently)."""
+        here, so the step's tensors are snapshotted consistently).
+        ``shardings``: ``tree`` holds this rank's blocks; every rank calls
+        ``save``, rank 0 writes the gathered arrays."""
         self.wait()
-        host = {k: _to_host(k, v) for k, v in _flatten(tree).items()}
+        flat = _flatten(tree)
+        mesh = None
+        if shardings is not None:
+            sh = _flatten(shardings)
+            mesh = next(iter(sh.values())).mesh
+            if mesh.group is None:
+                mesh = None
+        if mesh is None:
+            host = {k: _to_host(k, v) for k, v in flat.items()}
+        else:
+            # leaf by leaf, to rank 0's host memory alone
+            host = {}
+            for k, v in flat.items():
+                if isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16:
+                    _to_host(k, v)                  # raises, on every rank
+                g = sh[k].gather_host(v)
+                if mesh.rank == 0:
+                    host[k] = g
+            self._mesh = mesh
+            if mesh.rank != 0:
+                if block:
+                    self.wait()
+                return
 
         def write():
             tmp = self._path(step, tmp=True)
@@ -172,7 +205,10 @@ class CheckpointManager:
             self._gc()
 
         if block:
-            write()
+            try:
+                write()
+            finally:
+                self.wait()
             return
 
         def background():
@@ -185,10 +221,14 @@ class CheckpointManager:
         self._thread.start()
 
     def wait(self):
-        """Join the background writer; raise what it raised, once."""
+        """Join the background writer; raise what it raised, once.  Over a
+        mesh every rank waits here until rank 0's write is on disk."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._mesh is not None:
+            mesh, self._mesh = self._mesh, None
+            dist.barrier(group=mesh.group)
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -203,11 +243,9 @@ class CheckpointManager:
     def restore(self, step: Optional[int] = None, template=None,
                 shardings=None, device=None) -> tuple[int, Any]:
         """Load a checkpoint (the latest without ``step``).  ``template``
-        (any tree of the right structure) rebuilds nesting; ``device``:
-        every leaf a tensor there, else numpy arrays."""
-        if shardings is not None:
-            raise not_ported("restore(shardings=...) onto a device mesh",
-                             "A13c")
+        (any tree of the right structure) rebuilds nesting; ``shardings``
+        (a tree of ``sharding.Sharding``): every leaf this rank's block;
+        ``device``: every leaf a tensor there, else numpy arrays."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -222,6 +260,10 @@ class CheckpointManager:
                 raise IOError(f"checkpoint corruption in {key} "
                               f"(sha1 mismatch) at {path}")
             flat[key] = arr
+        if shardings is not None:
+            sh = _flatten(shardings)
+            flat = {k: np.array(sh[k].local(a))
+                    for k, a in flat.items()}
         if device is not None:
             flat = {k: torch.from_numpy(a).to(device)
                     for k, a in flat.items()}

@@ -15,9 +15,9 @@ JobTracker semantics the paper leans on (§1, §4.1):
   re-execution analogue (idempotent steps + atomic checkpoints make
   re-execution safe, exactly the paper's at-least-once argument for
   duplicated M/R tuples);
-* restarts are *elastic* in the JAX package: the restarted process may
-  see a different device count and its restore re-shards; the port's
-  restore onto a mesh comes with ROADMAP A13c.
+* restarts are *elastic*: the restarted process may see a different
+  device count (in the port, another number of ``torchrun`` ranks) and
+  its restore re-shards (``CheckpointManager.restore(shardings=...)``).
 
 The heartbeat is a file the trainer touches every step — cheap, works over
 shared filesystems, and survives the supervisor itself restarting.

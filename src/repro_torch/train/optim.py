@@ -14,8 +14,15 @@ by a host scalar through its reciprocal, which rounds otherwise.
 ``adamw_update`` writes the parameters, the moments and the gradients
 in place (under ``torch.no_grad``), the analogue of the JAX step's
 ``donate_argnums``: a functional copy of params, ``m`` and ``v`` would
-take another 39.6 GB at granite-moe-3b-a800m's width.  The ZeRO-1
-sharding helpers come with the model on a mesh (ROADMAP A13c).
+take another 39.6 GB at granite-moe-3b-a800m's width.
+
+ZeRO-1 (``zero1_spec``, ``zero1_shardings``): master parameters and both
+moments are sharded over the data axes too, on the first free dimension
+that divides, as the JAX package lays them out.  Over a mesh
+``adamw_update`` updates this rank's blocks; its global norm sums the
+squares of the blocks each rank owns (``Sharding.owner``: a block
+replicated over some axes counts once) and ``psum``s them over the whole
+mesh.
 """
 from __future__ import annotations
 
@@ -24,18 +31,38 @@ from typing import Optional
 
 import torch
 
-from ..models.lm import not_ported
-from ..models.params import tree_items, tree_map
+from ..models.params import map_defs, tree_items, tree_map
+from ..sharding.rules import PartitionSpec, Sharding
 
 
-def zero1_spec(*args, **kwargs):
-    raise not_ported("zero1_spec (ZeRO-1 state sharding over a mesh)",
-                     "A13c")
+def zero1_spec(base: PartitionSpec, shape: tuple, rules) -> PartitionSpec:
+    """Extend ``base`` with the data axes on the first divisible free dim."""
+    data_axes = tuple(a for a in ("pod", "data")
+                      if a in rules.mesh.axis_names)
+    if not data_axes:
+        return base
+    dsize = int(math.prod(rules.mesh.shape[a] for a in data_axes))
+    entries = list(base) + [None] * (len(shape) - len(base))
+    used = set()
+    for e in entries:
+        if e is None:
+            continue
+        used.update(e if isinstance(e, tuple) else (e,))
+    if any(a in used for a in data_axes):
+        return base
+    for i, e in enumerate(entries):
+        if e is None and shape[i] % dsize == 0:
+            entries[i] = data_axes if len(data_axes) > 1 else data_axes[0]
+            return PartitionSpec(*entries)
+    return base  # nothing divides: stay TP-sharded/replicated
 
 
-def zero1_shardings(*args, **kwargs):
-    raise not_ported("zero1_shardings (ZeRO-1 state sharding over a mesh)",
-                     "A13c")
+def zero1_shardings(defs, rules):
+    """``Sharding`` tree for master params / moments (ZeRO-1 layout)."""
+    def one(d):
+        base = rules.spec(d.axes, d.shape)
+        return Sharding(rules.mesh, zero1_spec(base, d.shape, rules))
+    return map_defs(one, defs)
 
 
 def _f32(value: float, like: torch.Tensor) -> torch.Tensor:
@@ -60,12 +87,16 @@ def adamw_init(params) -> dict:
 def adamw_update(params, grads, opt, lr, *, b1: float = 0.9,
                  b2: float = 0.95, eps: float = 1e-8,
                  weight_decay: float = 0.1,
-                 grad_clip: Optional[float] = 1.0):
+                 grad_clip: Optional[float] = 1.0, norm_comm=None,
+                 owned: Optional[list] = None):
     """One AdamW step on fp32 master params, in place.  ``grads`` is a tree
     of float32 gradients shaped like ``params`` (scaled in place by the
     clip).  Returns (params, opt, gnorm): the same ``params`` tree and
     moment tensors, ``opt["step"]`` a new tensor one larger, ``gnorm`` the
-    global norm before clipping (zero without a clip)."""
+    global norm before clipping (zero without a clip).  Over a mesh:
+    ``owned`` (per leaf in ``tree_items`` order, whether this rank's block
+    counts in the norm) and ``norm_comm`` (collectives over every mesh
+    axis)."""
     ps = [p for _, p in tree_items(params)]
     gs = [g for _, g in tree_items(grads)]
     ms = [m for _, m in tree_items(opt["m"])]
@@ -75,8 +106,13 @@ def adamw_update(params, grads, opt, lr, *, b1: float = 0.9,
                          f"{len(ms)} / {len(vs)} moments")
     step = opt["step"] + 1
     if grad_clip is not None:
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                               for g in gs))
+        sq = sum(torch.sum(torch.square(g.to(torch.float32)))
+                 for i, g in enumerate(gs) if owned is None or owned[i])
+        if not isinstance(sq, torch.Tensor):      # owns no block
+            sq = torch.zeros((), dtype=torch.float32, device=ps[0].device)
+        if norm_comm is not None:
+            sq = norm_comm.psum(sq)
+        gnorm = torch.sqrt(sq)
         scale = torch.clamp(
             _f32(grad_clip, gnorm) / torch.clamp(gnorm, min=1e-9), max=1.0)
         for g in gs:

@@ -4,8 +4,10 @@
 gathered leaf bit for bit, and the final ``capacity_factor`` after the
 overflow retries; and the per-shard incremental stores (``ingest``, a
 delete, then ``snapshot``, ``snapshot(full_remine=True)`` and
-``serving_snapshot``) at 8 ranks, or alone at 4 ranks with ``python
-_torch_distributed_check.py 4``.  Invoked by
+``serving_snapshot``) at 8 ranks, or at 4 ranks with ``python
+_torch_distributed_check.py 4``, which also mines over a sub-mesh: the
+table split over ``data`` of a (2, 2) ``(data, model)`` mesh and
+replicated over ``model``.  Invoked by
 ``test_torch_distributed.py``; prints 'OK' on success.
 
 JAX is imported in the parent process only: the ranks are spawned (not
@@ -41,6 +43,16 @@ CASES = {
                              {"capacity_factor": 4.0}),
 }
 
+#: The 4-rank cases: a (2, 2) mesh mined over "data" alone (replicated
+#: compute over "model", as a JAX ``shard_map`` whose specs leave it out).
+SUBMESH_CASES = {
+    "prime_shuffle_submesh": ((2, 2), ("data", "model"), "data", "shuffle",
+                              {"theta": 0.3, "capacity_factor": 4.0}),
+    "noac_replicate_submesh": ((2, 2), ("data", "model"), "data",
+                               "replicate", {"delta": 80.0, "rho_min": 0.3,
+                                             "minsup": 2}),
+}
+
 LEAVES = ("sig_lo", "sig_hi", "is_unique", "gen_count", "volume",
           "density", "keep", "cardinalities", "n_clusters", "overflow")
 
@@ -70,11 +82,11 @@ def stream_snapshots(miner, S):
 def context(name, S):
     """(tuples, values) of a case, from either package's generators
     (which are identical), padded to the rank count."""
-    if name == "prime_replicate":
+    if name in ("prime_replicate", "prime_shuffle_submesh"):
         ctx = S.random_context((9, 7, 5), 160, seed=0)
     elif name == "prime_shuffle":
         ctx = S.random_context((6, 6, 6, 4), 240, seed=1)
-    elif name == "noac_shuffle_pod":
+    elif name in ("noac_shuffle_pod", "noac_replicate_submesh"):
         ctx = S.random_context((7, 6, 5), 120, seed=4,
                                values=True).deduplicated()
     elif name == "overflow_retry":
@@ -91,8 +103,9 @@ def context(name, S):
 
 
 def cases():
-    """The one-shot cases of this rank count (their meshes need 8)."""
-    return CASES if RANKS == 8 else {}
+    """The one-shot cases of this rank count (their meshes need 8, or 4
+    for the sub-mesh cases)."""
+    return CASES if RANKS == 8 else SUBMESH_CASES if RANKS == 4 else {}
 
 
 def jax_results(path):
@@ -173,7 +186,7 @@ def rank_main(rank, tmp):
             print(f"{STREAM} {what} at {RANKS} ranks: {len(leaves)} "
                   "leaves equal", flush=True)
         for name, (res, factor, fallback) in got.items():
-            kw = CASES[name][-1]
+            kw = cases()[name][-1]
             for leaf in LEAVES:
                 w = want[f"{name}/{leaf}"]
                 g = getattr(res, leaf).numpy()

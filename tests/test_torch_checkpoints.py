@@ -17,7 +17,9 @@ from repro.train.checkpoints import CheckpointManager as JaxManager
 from repro.train.step import init_train_state as jax_init_train_state
 
 from repro_torch import configs as tcfg
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models.params import tree_items
+from repro_torch.sharding import PartitionSpec, Sharding
 from repro_torch.train.checkpoints import CheckpointManager
 from repro_torch.train.step import from_jax_state, init_train_state
 
@@ -132,8 +134,14 @@ def test_refusals(tmp_path):
         mgr.save(1, {"w": torch.zeros(3, dtype=torch.bfloat16)})
     assert mgr.latest_step() is None
     mgr.save(1, _tree())
-    with pytest.raises(NotImplementedError, match="ROADMAP A13c"):
-        mgr.restore(shardings={})
+    # onto a mesh of one rank every leaf is its own block
+    one = Sharding(make_local_mesh(device="cpu"), PartitionSpec())
+    step, got = mgr.restore(shardings=jax.tree.map(
+        lambda _: one, _tree(),
+        is_leaf=lambda x: isinstance(x, torch.Tensor)))
+    assert step == 1
+    for g, w in zip(_leaves(got), _leaves(_tree())):
+        np.testing.assert_array_equal(g, w)
     with pytest.raises(FileNotFoundError):
         CheckpointManager(str(tmp_path / "empty")).restore()
 

@@ -669,6 +669,50 @@ def test_decode_attention_kernel(cuda, case, dtype, layout):
                                atol=atol)
 
 
+@pytest.mark.parametrize("case", DECODE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_lse(cuda, case, dtype):
+    """``return_lse``: the fp32 log-sum-exp of the scaled scores beside O
+    (written by the one-split kernel, or by the combine after a split),
+    against the plain version; the same O as without it.  Both evaluate
+    the scores in fp32 from the same inputs, so the lse is held to 2e-5
+    (relative and absolute) in both dtypes."""
+    b, hq, hkv, s, d, kv_len, window = case
+    rng = np.random.default_rng(s + d + kv_len + 1)
+    q = torch.from_numpy(rng.standard_normal((b, hq, d)).astype(np.float32)
+                         ).to(cuda, dtype)
+    k, v = (torch.from_numpy(rng.standard_normal((b, s, hkv, d))
+                             .astype(np.float32)).to(cuda, dtype)
+            .permute(0, 2, 1, 3) for _ in range(2))
+    before = KD.decode_attention.launches
+    o, lse = KD.decode_attention(q, k, v, kv_len=kv_len, window=window,
+                                 return_lse=True)
+    plain = KD.decode_attention(q, k, v, kv_len=kv_len, window=window)
+    torch.cuda.synchronize()
+    assert KD.decode_attention.launches == before + 2
+    assert torch.equal(o, plain)
+    wo, wl = ref.decode_attention_ref(q, k, v, kv_len=kv_len, window=window,
+                                      return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (b, hq)
+    torch.testing.assert_close(lse, wl, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_empty_block(cuda, dtype):
+    """A block of a sharded ring with no filled slot (``kv_len`` 0):
+    o = 0 and lse = -inf, as the plain version gives, with no launch."""
+    q = torch.randn((4, 24, 64), device=cuda).to(dtype)
+    k = torch.randn((4, 8, 128, 64), device=cuda).to(dtype)
+    before = KD.decode_attention.launches
+    o, lse = KD.decode_attention(q, k, k, kv_len=0, return_lse=True)
+    assert KD.decode_attention.launches == before
+    wo, wl = ref.decode_attention_ref(q, k, k, kv_len=0, return_lse=True)
+    assert torch.equal(o, wo) and torch.equal(lse, wl)
+    assert torch.isneginf(lse).all() and not o.any()
+    with pytest.raises(ValueError, match="kv_len"):
+        KD.decode_attention(q, k, k, kv_len=0)
+
+
 @pytest.mark.parametrize("k_splits,offset", [(8, -1), (8, 1), (1, -1),
                                              (1, 1), (3, 0)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

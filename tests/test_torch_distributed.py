@@ -34,8 +34,8 @@ from repro_torch.core import distributed as TD
 from repro_torch.core import keys as TK
 from repro_torch.core.collectives import Collectives
 from repro_torch.data import synthetic as TS
-from repro_torch.launch.mesh import (Mesh, make_local_mesh, make_mesh,
-                                     mesh_name)
+from repro_torch.launch.mesh import (Mesh, coords_of, make_local_mesh,
+                                     make_mesh, mesh_name)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -398,11 +398,17 @@ def test_mesh_and_collectives():
     assert comm.size == 1 and comm.index() == 0
     for op in (comm.all_gather, comm.all_to_all, comm.psum, comm.pmax):
         assert op(x) is x
+    # a sub-mesh's collectives (A9b) are taken; without a process group
+    # the mesh is one rank, at position 0, and they are the identity;
+    # rank r sits at row-major position r
     wide = Mesh(("data", "model"), (2, 2), torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="A9b"):
-        Collectives(wide, "data")
-    with pytest.raises(NotImplementedError, match="A9b"):
-        Collectives(wide, ("model", "data"))
+    for axes, size in (("data", 2), (("model", "data"), 4)):
+        sub = Collectives(wide, axes)
+        assert (sub.size, sub.index(), sub.group) == (size, 0, None)
+        assert sub.psum(x) is x
+    assert [coords_of(r, (2, 2)) for r in range(4)] == [
+        (0, 0), (0, 1), (1, 0), (1, 1)]
+    assert coords_of(5, (2, 2, 2)) == (1, 0, 1)
     with pytest.raises(ValueError, match="not mesh axes"):
         Collectives(mesh, "pod")
     assert Collectives(wide, ("data", "model")).size == 4
@@ -442,7 +448,10 @@ def test_four_gloo_ranks_incremental_snapshots_match_jax():
     """The per-shard incremental stores at 4 gloo ranks (the 8-rank run
     above covers 8): ``ingest`` in chunks and a delete, then
     ``snapshot``, ``snapshot(full_remine=True)`` and ``serving_snapshot``
-    against JAX's on a forced 4-device mesh, leaf for leaf."""
+    against JAX's on a forced 4-device mesh, leaf for leaf; and mining
+    over a sub-mesh (A9b): a (2, 2) ``(data, model)`` mesh mined over
+    ``data`` alone, replicated over ``model``, prime shuffle and NOAC
+    replicate, every leaf bit for bit."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([os.path.join(ROOT, "src"),
                                          os.path.join(ROOT, "tests")])
@@ -456,3 +465,6 @@ def test_four_gloo_ranks_incremental_snapshots_match_jax():
     for what, n in (("snapshot", 10), ("full_remine", 10), ("serving", 12)):
         assert f"incremental_stream {what} at 4 ranks: {n} leaves equal" \
             in lines
+    for name in ("prime_shuffle_submesh", "noac_replicate_submesh"):
+        assert any(ln.startswith(f"{name}: 10 leaves equal")
+                   for ln in lines), name

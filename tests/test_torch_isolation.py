@@ -3,7 +3,8 @@ package, runs on CUDA by default (and says so when there is no card), and
 never runs a plain version where a kernel was asked for.  Its four paths —
 mining (on one device or over the ranks of a process group), the MoE
 routing pass that feeds it, the dense validation path and LM serving —
-each have their own kernel set."""
+each have their own kernel set.  The model on a device mesh
+(``sharding/``) runs with JAX blocked too."""
 import dataclasses
 import os
 import subprocess
@@ -31,7 +32,7 @@ from repro_torch.kernels import signature as KSig
 from repro_torch.kernels import tricluster_density as KTD
 from repro_torch.launch import (cluster_serve, mine_moe_routing, serve,
                                 tricluster)
-from repro_torch.launch.mesh import Mesh, make_local_mesh
+from repro_torch.launch.mesh import Mesh, init_distributed, make_local_mesh
 from repro_torch.models.api import get_model
 from repro_torch.models.params import from_jax_params
 from repro_torch.serve import ServeEngine
@@ -121,6 +122,27 @@ from repro_torch.serve import ServeEngine
 scfg = dataclasses.replace(cfg, use_pallas=True)
 gen = ServeEngine(scfg, params, max_len=64).generate([[1, 2, 3], [4, 5]], 5)
 
+# the model on a mesh (sharding/): one rank serves and trains over a
+# (1, 1) mesh, bit for bit what no mesh gives
+from repro_torch.sharding import MeshRules
+from repro_torch.train.step import (TrainConfig, init_train_state,
+                                    make_train_step, state_shardings)
+rules = MeshRules(make_local_mesh(device="cpu"))
+assert ServeEngine(scfg, params, max_len=64, rules=rules).generate(
+    [[1, 2, 3], [4, 5]], 5).tokens == gen.tokens
+tc = TrainConfig(total_steps=4, warmup_steps=1)
+batch = {k: torch.from_numpy(v) for k, v in
+         TokenPipeline(cfg, 2, 8, seed=0).batch_at(0).items()}
+losses = []
+for r in (None, rules):
+    st = init_train_state(cfg, torch.Generator().manual_seed(0),
+                          device="cpu", shardings=None if r is None
+                          else state_shardings(cfg, r, tc))
+    losses.append(make_train_step(dataclasses.replace(cfg,
+                                                      attn_impl="blocked"),
+                                  r, tc)(st, batch)[1]["loss"])
+assert torch.equal(*losses)
+
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not leaked, leaked
@@ -167,6 +189,8 @@ def test_default_device_is_cuda_and_raises_without_a_card():
         mine(S.random_context((3, 3, 3), 10, seed=0), backend="distributed")
     with pytest.raises(RuntimeError, match='device="cpu"'):
         make_local_mesh()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        init_distributed()
     with pytest.raises(RuntimeError, match='device="cpu"'):
         DistributedMiner((3, 3, 3), Mesh(("data",), (1,),
                                          torch.device("cpu")), device="cuda")

@@ -29,14 +29,17 @@ from repro.models import telemetry as JT
 from repro.models.api import get_model as jax_get_model
 
 from repro_torch import configs as tcfg
-from repro_torch.configs.base import UNPORTED_KNOBS
+from repro_torch.configs import base as base_config
 from repro_torch.core import BatchMiner
 from repro_torch.data.tokens import TokenPipeline
 from repro_torch.launch import mine_moe_routing
 from repro_torch.models import common as C
 from repro_torch.models import lm as L
 from repro_torch.models import telemetry as T
-from repro_torch.models.api import get_model
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.models.api import get_model, input_specs
+from repro_torch.models.layout import layout
+from repro_torch.sharding import MeshRules
 from repro_torch.models.params import (ParamDef, count_params,
                                        from_jax_params, init_params,
                                        layer_slice)
@@ -257,8 +260,13 @@ def test_moe_ffn_matches(arch, dtype):
     dropped = float(C.moe_dropped_fraction(tc, pt, tx))
     assert dropped == pytest.approx(float(JC.moe_dropped_fraction(jc, pj, jx)))
     assert dropped > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP A13c"):
-        C.moe_ffn(tc, pt, tx, rules=object())
+    # on a (1, 1) mesh every collective is the identity: bit for bit
+    lay = layout(tc, MeshRules(make_local_mesh(device="cpu")), tx.shape[0],
+                 L.param_defs)
+    for impl in ("shard_map", "gspmd"):
+        c = dataclasses.replace(tc, moe_impl=impl)
+        for a, b in zip(C.moe_ffn(c, pt, tx, lay), C.moe_ffn(c, pt, tx)):
+            assert torch.equal(a, b), impl
 
 
 def test_top_k_takes_the_lower_index_on_ties():
@@ -312,12 +320,23 @@ def _check_logits(tl, jl, dtype):
 def test_unported_entry_points_name_their_roadmap_item():
     tc = tcfg.get_smoke_config("qwen3-0.6b")
     model = get_model(tc)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13c"):
-        model.loss(tc, None, {}, rules=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A13c"):
-        model.prefill(tc, None, {"tokens": None}, 8, rules=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A13c"):
-        model.decode_step(tc, None, None, None, rules=object())
+    # a mesh is taken: on a (1, 1) mesh the entries equal those without
+    rules = MeshRules(make_local_mesh(device="cpu"))
+    params = model.init(tc, torch.Generator().manual_seed(0), device="cpu")
+    batch = TokenPipeline(tc, 2, 8, seed=0).batch_at(0)
+    assert torch.equal(model.loss(tc, params, batch, rules)[0],
+                       model.loss(tc, params, batch)[0])
+    got = model.prefill(tc, params, batch, 12, rules)
+    want = model.prefill(tc, params, batch, 12)
+    assert torch.equal(got[1], want[1])
+    nxt = torch.argmax(want[1], -1)
+    assert torch.equal(model.decode_step(tc, params, got[0], nxt, rules)[1],
+                       model.decode_step(tc, params, want[0], nxt)[1])
+    # the dry-run's sharded stand-ins wait for A13g
+    for fn in (lambda: model.structs(tc, rules), model.cache_structs,
+               input_specs):
+        with pytest.raises(NotImplementedError, match="ROADMAP A13g"):
+            fn()
     with pytest.raises(NotImplementedError, match="ROADMAP A13f"):
         get_model(tcfg.get_smoke_config("seamless-m4t-large-v2"))
     with pytest.raises(NotImplementedError, match="ROADMAP A13d"):
@@ -331,23 +350,18 @@ def test_unported_entry_points_name_their_roadmap_item():
     ("router_aux_weight", 0.0), ("scan_layers", False), ("fsdp", True),
     ("hier_allreduce", True), ("moe_impl", "gspmd")])
 def test_unported_knobs_are_rejected_naming_their_roadmap_item(knob, value):
-    """The mesh knobs (A13c) are rejected; the training knobs are read
-    since A13b, so the entry points take them."""
+    """No knob is left unported: the training knobs are read since A13b,
+    the mesh knobs since A13c (``fsdp`` and ``moe_impl`` by the model on
+    a mesh; ``hier_allreduce`` by nothing, in either package), so the
+    entry points take every one."""
     tc = tcfg.get_smoke_config("granite-moe-3b-a800m")
     get_model(tc)
     bad = dataclasses.replace(tc, **{knob: value})
-    if knob in ("remat", "microbatch", "router_aux_weight", "scan_layers"):
-        assert knob not in UNPORTED_KNOBS
-        get_model(bad)
-        T.collect_moe_routing(bad, get_model(bad).init(
-            bad, torch.Generator().manual_seed(0), device="cpu"),
-            np.zeros((1, 4), np.int32))
-        return
-    item = UNPORTED_KNOBS[knob]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        get_model(bad)
-    with pytest.raises(NotImplementedError, match=f"{knob}="):
-        T.collect_moe_routing(bad, None, np.zeros((1, 4), np.int32))
+    assert not hasattr(base_config, "UNPORTED_KNOBS")
+    get_model(bad)
+    T.collect_moe_routing(bad, get_model(bad).init(
+        bad, torch.Generator().manual_seed(0), device="cpu"),
+        np.zeros((1, 4), np.int32))
 
 
 def test_use_pallas_is_accepted_and_reaches_the_rmsnorm_op(monkeypatch):
@@ -358,7 +372,6 @@ def test_use_pallas_is_accepted_and_reaches_the_rmsnorm_op(monkeypatch):
     tc = dataclasses.replace(tcfg.get_smoke_config("granite-moe-3b-a800m"),
                              dtype="float32")
     on = dataclasses.replace(tc, use_pallas=True)
-    assert "use_pallas" not in UNPORTED_KNOBS
     get_model(on)
     params = get_model(tc).init(tc, torch.Generator().manual_seed(0),
                                 device="cpu")

@@ -37,9 +37,11 @@ from repro_torch.kernels import ops
 from repro_torch.launch import serve
 from repro_torch.models import common as C
 from repro_torch.models import lm as L
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models.api import get_model
 from repro_torch.models.params import from_jax_params, layer_slice
 from repro_torch.serve import GenerationResult, ServeEngine
+from repro_torch.sharding import MeshRules
 
 MODEL_TOL = dict(rtol=2e-4, atol=2e-4)
 KERNEL_TOL = dict(rtol=2e-5, atol=2e-5)
@@ -323,8 +325,13 @@ def test_sampling_follows_its_seed_and_the_engine_checks_its_input(qwen3):
         a.generate([[1, 2], []])
     with pytest.raises(ValueError, match="exceeds engine max_len"):
         a.generate([list(range(1, 60))], 10)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13c"):
-        ServeEngine(cfg, params, rules=object())
+    # over a (1, 1) mesh the engine gives the same draws
+    rules = MeshRules(make_local_mesh(device="cpu"))
+    c = ServeEngine(cfg, params, max_len=64, temperature=0.8, seed=3,
+                    rules=rules)
+    assert c.generate(prompts, 12).tokens == ServeEngine(
+        cfg, params, max_len=64, temperature=0.8,
+        seed=3).generate(prompts, 12).tokens
 
 
 # ---------------------------------------------------------------------------
@@ -343,7 +350,10 @@ def test_serve_entry_point_runs_on_the_cpu(capsys):
     assert serve.main(["--arch", "seamless-m4t-large-v2", "--smoke",
                        "--device", "cpu"]) == 0
     assert "use examples/translate_stream.py" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP A13c"):
+    # one rank alone serves over a (1, 1) mesh; two model shards need
+    # two ranks (torchrun)
+    assert "[serve] mesh 1x1 (data x model)" in out
+    with pytest.raises(ValueError, match="torchrun"):
         serve.main(["--arch", "qwen3-0.6b", "--smoke", "--device", "cpu",
                     "--model-shards", "2"])
 

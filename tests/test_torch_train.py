@@ -45,7 +45,11 @@ from repro.train import step as JS
 from repro_torch import configs as tcfg
 from repro_torch.models import lm as L
 from repro_torch.models.api import get_model
+from repro_torch.data.tokens import TokenPipeline as TTokenPipeline
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models.params import from_jax_params, tree_items
+from repro_torch.sharding import MeshRules as TMeshRules
+from repro_torch.sharding import PartitionSpec as TPartitionSpec
 from repro_torch.train import optim as TO
 from repro_torch.train import step as TS
 
@@ -262,21 +266,30 @@ def test_adamw_update_and_cosine_lr_match_jax(grad_clip):
 
 
 def test_training_refuses_what_it_cannot_train():
-    """Kernel switches (no backward in either package), a mesh, and the
-    families of A13d-f raise before the first step, naming why."""
+    """Kernel switches (no backward in either package) and the families
+    of A13d-f raise before the first step, naming why; a mesh is taken
+    (its layouts are the twins of the JAX package's), and only the
+    dry-run's sharded stand-ins wait for A13g."""
     tc = tcfg.get_smoke_config("qwen3-0.6b")
     for bad in (dataclasses.replace(tc, attn_impl="pallas"),
                 dataclasses.replace(tc, use_pallas=True)):
         with pytest.raises(NotImplementedError, match="no backward"):
             TS.make_train_step(bad)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13c"):
-        TS.make_train_step(tc, rules=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A13c"):
-        L.loss_fn(tc, None, {}, rules=object())
-    for fn in (TS.state_shardings, TS.state_structs, TO.zero1_shardings,
-               TO.zero1_spec):
-        with pytest.raises(NotImplementedError, match="ROADMAP A13c"):
-            fn(tc, None)
+    rules = TMeshRules(make_local_mesh(device="cpu"))
+    assert callable(TS.make_train_step(tc, rules=rules))
+    params = get_model(tc).init(tc, torch.Generator().manual_seed(0),
+                                device="cpu")
+    batch = TTokenPipeline(tc, 2, 8, seed=0).batch_at(0)
+    assert torch.equal(L.loss_fn(tc, params, batch, rules=rules)[0],
+                       L.loss_fn(tc, params, batch)[0])
+    shard = TS.state_shardings(tc, rules)
+    assert shard["params"]["embed"].spec == ("model", "data")   # ZeRO-1
+    assert TO.zero1_shardings(get_model(tc).param_defs(tc), rules)[
+        "embed"].spec == ("model", "data")
+    assert TO.zero1_spec(TPartitionSpec(None, "model"), (6, 4), rules) \
+        == ("data", "model")
+    with pytest.raises(NotImplementedError, match="ROADMAP A13g"):
+        TS.state_structs(tc, rules)
     for arch, item in (("zamba2-7b", "A13d"), ("xlstm-125m", "A13e"),
                        ("seamless-m4t-large-v2", "A13f")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
