@@ -225,7 +225,34 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    step each block's update AdamW of its own moments bit for bit) and
    takes them for the next; the host-staged step ms; and
    a checkpoint the four ranks saved, restored whole on each rank, byte
-   for byte equal block for block to the live state.
+   for byte equal block for block to the live state;
+16. the hybrid Mamba2 family (``phase16``, ``models.ssm`` and
+   ``models.lm``'s ``hybrid_ssm``) at zamba2-7b's full width
+   (6,751,130,832 random fp32 parameters): its three kernels at its
+   shapes against their plain versions with 9a's gates and timed beside
+   the bound, the plain version and SDPA / ``F.rms_norm``
+   (``flash_attention`` at head dim 112, B 4 x H 32 x S 2048, causal,
+   bf16 and fp32; ``decode_attention`` at D 112, MHA, kv_len 2049 over a
+   ring view, warm and L2-cold; ``rmsnorm`` at 3,584 and 7,168, 8,192 and
+   4 rows); (a) ``ServeEngine`` at full width and depth, bf16, both
+   kernels, 4 prompts of 2,048-2,050 tokens, 32 new: prefill and decode
+   ms, tokens/s, the idle share from traces of the prefill and a decode
+   step, peak bytes against the reckoning, launches equal to the plan (13
+   ``decode_attention`` and 189 ``rmsnorm`` a step, 189 in the prefill),
+   the greedy tokens against the plain path (reported), and a forward
+   with ``attn_impl="pallas"`` (13 ``flash_attention`` launches); (b) in
+   fp32, 1 x 512 tokens and 8 steps teacher-forced: at full depth every
+   kernel launch against float64 within 1e-4 of its max |exact|, and at
+   ``ZAMBA_GATE_LAYERS`` every step's logits kernels on against off within
+   1e-3 of the row's max, beside the float64 compute
+   (``scripts/torch_hybrid_conditioning.py`` grounds the cut); (c) three
+   training steps at ``ZAMBA_TRAIN_LAYERS`` layers (4 x 1,024 tokens,
+   bf16, peak bytes, no kernel) and 14b's fp32 gate at
+   ``ZAMBA_GATE_LAYERS`` (1 x 256 tokens) against the CPU; (d) two gloo
+   ranks on ``cuda:0``, mesh (data 1, model 2), ``ZAMBA_GATE_LAYERS``
+   layers in fp32 with both kernels: prefill and 4 steps within 1e-3 of
+   the row's max of the one-rank card run, the staged collectives'
+   calls and bytes equal to ``hybrid_mesh_plan``'s.
 
 Before the last line it prints the card's name and power limit
 (``nvidia-smi``) and one JSON line ``{"kernels": [...]}``; the last line is
@@ -1863,6 +1890,132 @@ def train_reckoning(n_params: int, cfg, tokens: int) -> dict:
     return out
 
 
+def train_gate(tag: str, gcfg, depth: int, rows: int, seq: int) -> dict:
+    """One fp32 training step of ``gcfg`` (full width, a cut depth) from
+    the same seeded state and batch (``rows`` x ``seq`` tokens) on the
+    card and on the CPU, held to the limits below; -> the card step's
+    launch counts (zero: training has no kernel).  ``depth`` is the full
+    model's, for the log.
+
+    Tolerances from scripts/torch_train_conditioning.py: at this size the
+    CPU's float32 step is 8.2e-7 (loss), 6.0e-5 (grad norm) and up to
+    1.2e-3 of a leaf's max |gradient| from float64 (logits of ~100s at
+    this init leave their rounding in the softmax's gradient), and two
+    correct float32 runs can each be that far: the loss 1e-5, the grad
+    norm 5e-4, m (a gradient) 5e-3 and v (its square) 1e-2 of the leaf's
+    max.  The parameter update is held two ways: bit for bit against
+    AdamW applied on the host to the card's own moments and bias
+    corrections (the same correctly rounded float32 operations in the
+    same order; the square root through float64, since the host's
+    float32 ``torch.sqrt`` misses the correctly rounded root by an ulp
+    in ~0.5% of elements where the card's does not), and
+    against the CPU's where the update is not the sign of rounding noise
+    (|m| >= 2e-2 of its leaf's max and m / (1 - b1) >= 1e-5 = 1000 eps:
+    1e-3 lr).  No MoE route may differ: a flipped route trains another
+    expert, and no leaf tolerance covers that (a family without MoE has
+    no routes to compare)."""
+    import numpy as np
+    import torch
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models.params import tree_items, tree_map
+    from repro_torch.models.telemetry import collect_moe_routing
+    from repro_torch.train import step as TS
+
+    dev = torch.device("cuda")
+    gtc = TS.TrainConfig(peak_lr=3e-3, warmup_steps=0,
+                         total_steps=TRAIN_STEPS)
+    card = TS.init_train_state(gcfg, torch.Generator(device=dev)
+                               .manual_seed(0), device=dev)
+    host0 = tree_map(lambda t: t.detach().to("cpu", copy=True).numpy(),
+                     card)
+    cpu = TS.from_jax_state(host0, device="cpu")
+    gbatch = TokenPipeline(gcfg, rows, seq, seed=0).batch_at(0)
+    flips, n_routes = 0, 0
+    if gcfg.is_moe:
+        r_card = collect_moe_routing(gcfg, card["params"], gbatch["tokens"])
+        r_cpu = collect_moe_routing(gcfg, cpu["params"], gbatch["tokens"])
+        flips = int((np.asarray(r_card) != np.asarray(r_cpu)).sum())
+        n_routes = np.asarray(r_cpu).size
+    ops.reset_launch_counts()
+    card, m_card = TS.make_train_step(gcfg, None, gtc)(
+        card, {k: torch.from_numpy(v).to(dev) for k, v in gbatch.items()})
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    check(all(n == 0 for n in counts.values()),
+          f"{tag}: kernel launches {counts} on the training path")
+    t0 = time.perf_counter()
+    cpu, m_cpu = TS.make_train_step(gcfg, None, gtc)(
+        cpu, {k: torch.from_numpy(v) for k, v in gbatch.items()})
+    cpu_s = time.perf_counter() - t0
+    lr = float(m_cpu["lr"])
+    rel = {k: abs(float(m_card[k]) - float(m_cpu[k]))
+           / max(abs(float(m_cpu[k])), 1e-30)
+           for k in ("loss", "nll", "aux", "grad_norm")}
+    err = {"m": {}, "v": {}, "update": {}, "params": {}}
+    for part in ("m", "v"):
+        for (path, x), (_, y) in zip(tree_items(card["opt"][part]),
+                                     tree_items(cpu["opt"][part])):
+            err[part][path] = float((x.cpu() - y).abs().max()) / max(
+                float(y.abs().max()), 1e-30)
+    t = card["opt"]["step"].to(torch.float32)
+    bc1, bc2 = ((1.0 - b ** t).cpu() for b in (gtc.b1, gtc.b2))  # the card's
+    cm, cv = dict(tree_items(card["opt"]["m"])), dict(tree_items(
+        card["opt"]["v"]))
+    pm = dict(tree_items(cpu["opt"]["m"]))
+    p0s = dict(tree_items(host0["params"]))
+    compared = 0
+    for (path, pc), (_, pp) in zip(tree_items(card["params"]),
+                                   tree_items(cpu["params"])):
+        p0 = torch.from_numpy(p0s[path])
+        root = torch.sqrt((cv[path].cpu() / bc2).double()).float()
+        want = p0 - m_cpu["lr"] * (cm[path].cpu() / bc1 / (root + 1e-8)
+                                   + gtc.weight_decay * p0)
+        got = pc.detach().cpu()
+        big = torch.maximum(torch.maximum(p0.abs(), want.abs()),
+                            torch.tensor(lr))     # the operands' scale
+        ulp = torch.nextafter(big, torch.tensor(math.inf)) - big
+        err["update"][path] = float(((got - want).abs() / ulp).max())
+        mc = pm[path].abs()
+        sure = (mc >= 2e-2 * float(mc.max())) & (mc / bc1 >= 1e-5)
+        compared += int(sure.sum())
+        d = (got - pp.detach())[sure].abs()
+        err["params"][path] = float(d.max()) / lr if d.numel() else 0.0
+    worst = {k: max(v.values()) for k, v in err.items()}
+    n_el = sum(x.numel() for _, x in tree_items(cpu["params"]))
+    log(f"{tag} ({gcfg.n_layers} of {depth} layers, full width, {rows} x "
+        f"{seq} tokens, one step at lr {lr:.3e}; the CPU step {cpu_s:.1f} "
+        f"s): routes differing card/CPU {flips} of {n_routes}; "
+        f"loss {float(m_card['loss']):.6f} / {float(m_cpu['loss']):.6f}, "
+        f"grad norm {float(m_card['grad_norm']):.6f} / "
+        f"{float(m_cpu['grad_norm']):.6f}; relative differences "
+        + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+        + f" (limits 1e-5, grad norm 5e-4); max |err| of m {worst['m']:.3e} "
+        f"and v {worst['v']:.3e} of their leaves' max (limits 5e-3, 1e-2); "
+        f"the card's update from its own moments within "
+        f"{worst['update']:.3f} ulp of max(|p|, |p'|, lr) (limit 0); params "
+        f"against the CPU's "
+        f"within {worst['params']:.3e} lr (limit 1e-3) at {compared} of "
+        f"{n_el} elements")
+    for part in ("m", "v"):
+        log(f"  {part} by leaf: " + ", ".join(
+            f"{'/'.join(k)} {v:.2e}" for k, v in err[part].items()))
+    for k, v in rel.items():
+        check(v <= (5e-4 if k == "grad_norm" else 1e-5),
+              f"{tag}: {k} {float(m_card[k])} on the card, "
+              f"{float(m_cpu[k])} on the CPU ({flips} routes differ)")
+    check(flips == 0, f"{tag}: {flips} MoE routes differ between the card "
+          "and the CPU, so the two steps train different experts")
+    check(float(m_card["lr"]) == lr > 0, f"{tag}: lr {m_card['lr']} / {lr}")
+    for part, limit in (("m", 5e-3), ("v", 1e-2), ("update", 0.0),
+                        ("params", 1e-3)):
+        check(worst[part] <= limit, f"{tag}: {part} {err[part]} (limit "
+              f"{limit}; {flips} routes differ between the card and the CPU)")
+    del card, cpu, host0, cm, cv, pm, p0s
+    torch.cuda.empty_cache()
+    return counts
+
+
 def phase14() -> dict:
     """Training: ``launch.train`` at full width (14a), its fp32 gate at
     ``GATE_LAYERS`` depth against the CPU (14b), the driver's resume and a
@@ -1877,8 +2030,7 @@ def phase14() -> dict:
     from repro_torch.data.tokens import TokenPipeline
     from repro_torch.kernels import ops
     from repro_torch.launch import train as train_mod
-    from repro_torch.models.params import tree_items, tree_map
-    from repro_torch.models.telemetry import collect_moe_routing
+    from repro_torch.models.params import tree_items
     from repro_torch.train import step as TS
     from repro_torch.train.checkpoints import CheckpointManager
 
@@ -1973,110 +2125,10 @@ def phase14() -> dict:
     del box, batch, step_fn
     torch.cuda.empty_cache()
 
-    # 14b: the fp32 gate at GATE_LAYERS depth, full width: card and CPU.
-    # Tolerances from scripts/torch_train_conditioning.py: at this size the
-    # CPU's float32 step is 8.2e-7 (loss), 6.0e-5 (grad norm) and up to
-    # 1.2e-3 of a leaf's max |gradient| from float64 (logits of ~100s at
-    # this init leave their rounding in the softmax's gradient), and two
-    # correct float32 runs can each be that far: the loss 1e-5, the grad
-    # norm 5e-4, m (a gradient) 5e-3 and v (its square) 1e-2 of the leaf's
-    # max.  The parameter update is held two ways: bit for bit against
-    # AdamW applied on the host to the card's own moments and bias
-    # corrections (the same correctly rounded float32 operations in the
-    # same order; the square root through float64, since the host's
-    # float32 ``torch.sqrt`` misses the correctly rounded root by an ulp
-    # in ~0.5% of elements where the card's does not), and
-    # against the CPU's where the update is not the sign of rounding noise
-    # (|m| >= 2e-2 of its leaf's max and m / (1 - b1) >= 1e-5 = 1000 eps:
-    # 1e-3 lr).  No MoE route may differ: a flipped route trains another
-    # expert, and no leaf tolerance covers that.
+    # 14b: the fp32 gate at GATE_LAYERS depth, full width: card and CPU
     tag = "phase 14b fp32 gate"
-    gcfg = dataclasses.replace(cfg, dtype="float32", n_layers=GATE_LAYERS)
-    gtc = TS.TrainConfig(peak_lr=3e-3, warmup_steps=0,
-                         total_steps=TRAIN_STEPS)
-    card = TS.init_train_state(gcfg, torch.Generator(device=dev)
-                               .manual_seed(0), device=dev)
-    host0 = tree_map(lambda t: t.detach().to("cpu", copy=True).numpy(),
-                     card)
-    cpu = TS.from_jax_state(host0, device="cpu")
-    gbatch = TokenPipeline(gcfg, 1, 512, seed=0).batch_at(0)
-    r_card = collect_moe_routing(gcfg, card["params"], gbatch["tokens"])
-    r_cpu = collect_moe_routing(gcfg, cpu["params"], gbatch["tokens"])
-    flips = int((np.asarray(r_card) != np.asarray(r_cpu)).sum())
-    ops.reset_launch_counts()
-    card, m_card = TS.make_train_step(gcfg, None, gtc)(
-        card, {k: torch.from_numpy(v).to(dev) for k, v in gbatch.items()})
-    torch.cuda.synchronize()
-    runs[tag] = zero_launches(tag)
-    t0 = time.perf_counter()
-    cpu, m_cpu = TS.make_train_step(gcfg, None, gtc)(
-        cpu, {k: torch.from_numpy(v) for k, v in gbatch.items()})
-    cpu_s = time.perf_counter() - t0
-    lr = float(m_cpu["lr"])
-    rel = {k: abs(float(m_card[k]) - float(m_cpu[k]))
-           / max(abs(float(m_cpu[k])), 1e-30)
-           for k in ("loss", "nll", "aux", "grad_norm")}
-    err = {"m": {}, "v": {}, "update": {}, "params": {}}
-    for part in ("m", "v"):
-        for (path, x), (_, y) in zip(tree_items(card["opt"][part]),
-                                     tree_items(cpu["opt"][part])):
-            err[part][path] = float((x.cpu() - y).abs().max()) / max(
-                float(y.abs().max()), 1e-30)
-    t = card["opt"]["step"].to(torch.float32)
-    bc1, bc2 = ((1.0 - b ** t).cpu() for b in (gtc.b1, gtc.b2))  # the card's
-    cm, cv = dict(tree_items(card["opt"]["m"])), dict(tree_items(
-        card["opt"]["v"]))
-    pm = dict(tree_items(cpu["opt"]["m"]))
-    p0s = dict(tree_items(host0["params"]))
-    compared = 0
-    for (path, pc), (_, pp) in zip(tree_items(card["params"]),
-                                   tree_items(cpu["params"])):
-        p0 = torch.from_numpy(p0s[path])
-        root = torch.sqrt((cv[path].cpu() / bc2).double()).float()
-        want = p0 - m_cpu["lr"] * (cm[path].cpu() / bc1 / (root + 1e-8)
-                                   + gtc.weight_decay * p0)
-        got = pc.detach().cpu()
-        big = torch.maximum(torch.maximum(p0.abs(), want.abs()),
-                            torch.tensor(lr))     # the operands' scale
-        ulp = torch.nextafter(big, torch.tensor(math.inf)) - big
-        err["update"][path] = float(((got - want).abs() / ulp).max())
-        mc = pm[path].abs()
-        sure = (mc >= 2e-2 * float(mc.max())) & (mc / bc1 >= 1e-5)
-        compared += int(sure.sum())
-        d = (got - pp.detach())[sure].abs()
-        err["params"][path] = float(d.max()) / lr if d.numel() else 0.0
-    worst = {k: max(v.values()) for k, v in err.items()}
-    n_el = sum(x.numel() for _, x in tree_items(cpu["params"]))
-    log(f"{tag} ({GATE_LAYERS} of {cfg.n_layers} layers, full width, 1 x 512 "
-        f"tokens, one step at lr {lr:.3e}; the CPU step {cpu_s:.1f} s): "
-        f"routes differing card/CPU {flips} of {np.asarray(r_cpu).size}; "
-        f"loss {float(m_card['loss']):.6f} / {float(m_cpu['loss']):.6f}, "
-        f"grad norm {float(m_card['grad_norm']):.6f} / "
-        f"{float(m_cpu['grad_norm']):.6f}; relative differences "
-        + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
-        + f" (limits 1e-5, grad norm 5e-4); max |err| of m {worst['m']:.3e} "
-        f"and v {worst['v']:.3e} of their leaves' max (limits 5e-3, 1e-2); "
-        f"the card's update from its own moments within "
-        f"{worst['update']:.3f} ulp of max(|p|, |p'|, lr) (limit 0); params "
-        f"against the CPU's "
-        f"within {worst['params']:.3e} lr (limit 1e-3) at {compared} of "
-        f"{n_el} elements")
-    for part in ("m", "v"):
-        log(f"  {part} by leaf: " + ", ".join(
-            f"{'/'.join(k)} {v:.2e}" for k, v in err[part].items()))
-    for k, v in rel.items():
-        check(v <= (5e-4 if k == "grad_norm" else 1e-5),
-              f"{tag}: {k} {float(m_card[k])} on the card, "
-              f"{float(m_cpu[k])} on the CPU ({flips} routes differ)")
-    check(flips == 0, f"{tag}: {flips} MoE routes differ between the card "
-          "and the CPU, so the two steps train different experts")
-    check(float(m_card["lr"]) == lr > 0, f"{tag}: lr {m_card['lr']} / {lr}")
-    for part, limit in (("m", 5e-3), ("v", 1e-2), ("update", 0.0),
-                        ("params", 1e-3)):
-        check(worst[part] <= limit, f"{tag}: {part} {err[part]} (limit "
-              f"{limit}; {flips} routes differ between the card and the CPU)")
-    del card, cpu, host0, cm, cv, pm, p0s
-    torch.cuda.empty_cache()
+    runs[tag] = train_gate(tag, dataclasses.replace(
+        cfg, dtype="float32", n_layers=GATE_LAYERS), cfg.n_layers, 1, 512)
 
     # 14c: the driver at smoke size on the card; resume; checkpoint
     tag = "phase 14c driver danube smoke"
@@ -2225,7 +2277,6 @@ def phase15b_rank(rank: int, tmp: str) -> None:
     from repro_torch.data.tokens import TokenPipeline
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import lm as L
     from repro_torch.models.api import get_model
     from repro_torch.serve import ServeEngine
     from repro_torch.sharding import MeshRules
@@ -2327,23 +2378,18 @@ def phase15b_rank(rank: int, tmp: str) -> None:
                 for a, b in zip(rows, want))
             # two correct one-rank runs at this depth and width: kernels
             # on against off (phase 9b's gate), and float32 against the
-            # compute in float64 (``lm.compute_dtype`` swapped, the plain
-            # paths; scripts/torch_mesh_conditioning.py does the same)
+            # compute in float64 (``dtype="float64"``, the plain paths;
+            # scripts/torch_mesh_conditioning.py does the same)
             gcfg_off = dataclasses.replace(gcfg, attn_impl="blocked",
                                            use_pallas=False)
             off = teacher_forced_cfg(gcfg_off, gfull, fed)
             report["gate_rel_kernels_off"] = rel(want, off)
             del gfull
-            real = L.compute_dtype
-            L.compute_dtype = lambda c: torch.float64
-            try:
-                g64 = gmodel.init(gcfg, torch.Generator(device=dev)
-                                  .manual_seed(1), dtype=torch.float64,
-                                  device=dev)
-                exact = [x.double() for x in
-                         teacher_forced_cfg(gcfg_off, g64, fed)]
-            finally:
-                L.compute_dtype = real
+            g64 = gmodel.init(gcfg, torch.Generator(device=dev)
+                              .manual_seed(1), dtype=torch.float64,
+                              device=dev)
+            exact = [x.double() for x in teacher_forced_cfg(
+                dataclasses.replace(gcfg_off, dtype="float64"), g64, fed)]
             del g64
             report["gate_rel_f64"] = {
                 "mesh": rel([x.double() for x in rows], exact),
@@ -2834,6 +2880,678 @@ def phase15() -> dict:
         f"{wall:.1f} s wall with start-up")
     log(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
     return runs
+
+
+def forced(cfg_, params_, prompts_, gen_, max_len_):
+    """Every step's logits of ``prompts_`` decoded as the engine does,
+    feeding the prompt and then the tokens ``gen_`` (teacher forcing):
+    [prefill logits, step 1, ...]."""
+    import numpy as np
+    from repro_torch.models.api import get_model
+    m_ = get_model(cfg_)
+    lens_ = np.array([len(p) for p in prompts_])
+    s0, s1 = int(lens_.min()), int(lens_.max())
+    pad_ = np.zeros((len(prompts_), s1), np.int64)
+    for i, p in enumerate(prompts_):
+        pad_[i, :len(p)] = p
+    cache_, lg = m_.prefill(cfg_, params_, {"tokens": pad_[:, :s0]},
+                            max_len_)
+    out_ = [lg]
+    n_steps = s1 - s0 + max(len(t) for t in gen_)
+    for t in range(n_steps):
+        cur = s0 + t
+        feed_ = [int(pad_[i, cur]) if cur < lens_[i] else
+                 (gen_[i][cur - lens_[i]]
+                  if cur - lens_[i] < len(gen_[i]) else 0)
+                 for i in range(len(prompts_))]
+        cache_, lg = m_.decode_step(cfg_, params_, cache_, feed_)
+        out_.append(lg)
+    return out_
+
+
+def decode_f64(q, k, v, *, window=None, kv_len=None, scale=None):
+    """Decode attention evaluated in float64."""
+    import torch
+    b, hq, d = q.shape
+    hi = k.shape[2] if kv_len is None else kv_len
+    lo = 0 if window is None else max(0, hi - window)
+    qd = q.double().reshape(b, k.shape[1], -1, d) * (
+        d ** -0.5 if scale is None else scale)
+    sc = torch.einsum("bhgd,bhkd->bhgk", qd, k[:, :, lo:hi].double())
+    return torch.einsum("bhgk,bhkd->bhgd", torch.softmax(sc, -1),
+                        v[:, :, lo:hi].double()).reshape(b, hq, d)
+
+
+def rmsnorm_f64(x, w, eps=1e-6):
+    """RMSNorm evaluated in float64."""
+    import torch
+    xd = x.double()
+    return xd * torch.rsqrt((xd * xd).mean(-1, keepdim=True) + eps) \
+        * w.double()
+
+
+def forced_checked(label, *args):
+    """``forced(*args)`` with every launch of both serving kernels held
+    against a float64 evaluation on its own inputs, within 1e-4 of
+    its max |exact|; -> (logits, {kernel: [launches, max relative
+    error, the plain version's]})."""
+    from repro_torch.kernels import ops, ref
+    errs_ = {"decode_attention": [0, 0.0, 0.0], "rmsnorm": [0, 0.0, 0.0]}
+    real_ops = (ops.decode_attention, ops.rmsnorm)
+
+    def checked(name, real, plain, exact):
+        def run(*a, **kw):
+            out = real(*a, **kw)
+            want = exact(*a, **kw)
+            scale_ = float(want.abs().max())
+            e_k = float((out.double() - want).abs().max()) / scale_
+            e_p = float((plain(*a, **kw).double() - want).abs().max()) \
+                / scale_
+            n = errs_[name][0]
+            check(e_k <= 1e-4,
+                  f"{label} {name} launch {n}: max |err| {e_k:.3e} of "
+                  f"max |exact| against float64 (limit 1e-4; the plain "
+                  f"version's {e_p:.3e})")
+            errs_[name] = [n + 1, max(errs_[name][1], e_k),
+                           max(errs_[name][2], e_p)]
+            return out
+        return run
+
+    ops.decode_attention = checked("decode_attention", real_ops[0],
+                                   ref.decode_attention_ref, decode_f64)
+    ops.rmsnorm = checked("rmsnorm", real_ops[1], ref.rmsnorm_ref,
+                          rmsnorm_f64)
+    try:
+        return forced(*args), errs_
+    finally:
+        ops.decode_attention, ops.rmsnorm = real_ops
+
+
+#: Phase 16: zamba2-7b, the hybrid Mamba2 family.  Serving: 4 prompts of
+#: 2,048-2,050 tokens (the prefill runs over the shortest, 8 whole chunks
+#: of 256), 32 new tokens, a ring of 2,112 slots.  Training at 15 layers
+#: (2 groups of 6 and a tail of 3: both stacks train; full depth's fp32
+#: state, 108 GB, does not fit one card); the fp32 gates and the mesh at 7
+#: layers (one group and a tail of 1).
+ZAMBA = "zamba2-7b"
+ZAMBA_PARAMS = 6_751_130_832
+ZAMBA_PROMPT, ZAMBA_NEW, ZAMBA_MAX_LEN = 2050, 32, 2112
+ZAMBA_TRAIN_LAYERS, ZAMBA_GATE_LAYERS = 15, 7
+ZAMBA_MESH_BATCH, ZAMBA_MESH_SEQ, ZAMBA_MESH_STEPS = 2, 512, 4
+
+
+def hybrid_mesh_plan(cfg, b: int, s: int, shards: int, es: int = 4):
+    """((calls, bytes) of a prefill over b x s tokens, (calls, bytes) of a
+    decode step) that the hybrid family issues on a mesh (data 1, model
+    ``shards``) whose vocabulary and ring slots are split over ``model``,
+    at ``es`` bytes an element.  Per Mamba2 layer the prefill sums the
+    gated norm's squares and ``out_proj``'s rows and gathers the conv
+    window's ``xs`` columns; decode adds the gather of the cached window.
+    Per shared block the prefill gathers the new K and V into the ring's
+    layout and sums ``wo``'s and the MLP's rows; decode gathers q, K and V,
+    combines the split-KV softmax (``pmax`` of the log-sum-exps, ``psum``
+    of the weighted outputs and of the weights) and sums ``wo`` and the
+    MLP.  Both sum the embedding rows and gather the logits."""
+    ng = cfg.n_layers // cfg.attn_every
+    nm = cfg.n_layers
+    d, di, n = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    hq, hd = cfg.n_heads, cfg.head_dim
+    hl, kvl = hq // shards, cfg.n_kv_heads // shards
+    w = cfg.conv_width - 1
+    v = cfg.vocab_size // shards
+    prefill = (3 * nm + 4 * ng + 2,
+               es * (nm * (b * s + b * s * d + b * w * di // shards)
+                     + ng * (2 * b * s * kvl * hd + 2 * b * s * d)
+                     + b * s * d + b * v))
+    decode = (4 * nm + 8 * ng + 2,
+              es * (nm * (b * w * (di + 2 * n) // shards + b * di // shards
+                          + b + b * d)
+                    + ng * (b * hl * hd + 2 * b * kvl * hd + 2 * b * hq
+                            + b * hq * hd + 2 * b * d)
+                    + b * d + b * v))
+    return prefill, decode
+
+
+def phase16d_rank(rank: int, tmp: str) -> None:
+    """One of 16d's two ranks (mesh (data 1, model 2) on ``cuda:0``):
+    zamba2-7b at full width and ``ZAMBA_GATE_LAYERS`` depth in fp32 with
+    both kernels, a prefill and ``ZAMBA_MESH_STEPS`` greedy steps; rank 0
+    then runs the one-rank card reference.  Writes ``tmp/rank<r>.json``."""
+    torch, dist = _rank_setup(rank, 2, tmp, "pg16d")
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.collectives import Collectives
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.api import get_model
+    from repro_torch.sharding import MeshRules
+    dev = torch.device("cuda", 0)
+    report = {"rank": rank}
+    try:
+        mesh = make_mesh((1, 2), ("data", "model"), device=dev)
+        rules = MeshRules(mesh)
+        report["staged"] = mesh.staged
+        cfg = dataclasses.replace(get_config(ZAMBA), dtype="float32",
+                                  n_layers=ZAMBA_GATE_LAYERS,
+                                  attn_impl="pallas", use_pallas=True)
+        model = get_model(cfg)
+        toks = TokenPipeline(cfg, ZAMBA_MESH_BATCH, ZAMBA_MESH_SEQ,
+                             seed=1).batch_at(0)["tokens"]
+        max_len = ZAMBA_MESH_SEQ + 64
+
+        def run(params, rules_, feed=None):
+            """The prefill's and each step's logits (greedy, or fed the
+            tokens ``feed``), and the staged collectives (calls, bytes)
+            of each."""
+            Collectives.reset_counts()
+            cache, lg = model.prefill(cfg, params, {"tokens": toks},
+                                      max_len, rules_)
+            rows, comms = [lg], [(Collectives.calls, Collectives.bytes)]
+            for i in range(ZAMBA_MESH_STEPS):
+                nxt = (torch.argmax(rows[-1], -1) if feed is None
+                       else torch.argmax(feed[i], -1))
+                Collectives.reset_counts()
+                cache, lg = model.decode_step(cfg, params, cache, nxt,
+                                              rules_)
+                rows.append(lg)
+                comms.append((Collectives.calls, Collectives.bytes))
+            return rows, comms
+
+        params = model.init(cfg, torch.Generator(device=dev).manual_seed(1),
+                            device=dev, rules=rules)
+        report["param_bytes"] = sum(p.numel() * p.element_size()
+                                    for p in params.parameters())
+        torch.cuda.synchronize()
+        dist.barrier()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rows, comms = run(params, rules)
+        torch.cuda.synchronize()
+        report.update(ms=(time.perf_counter() - t0) * 1e3,
+                      counts=ops.launch_counts(), comms=comms,
+                      tokens=[torch.argmax(r, -1).tolist() for r in rows])
+        del params
+        torch.cuda.empty_cache()
+        dist.barrier()
+        if rank == 0:          # the one-rank card run of the same draws
+            full = model.init(cfg, torch.Generator(device=dev)
+                              .manual_seed(1), device=dev)
+            want, _ = run(full, None, feed=rows)   # the mesh's tokens
+            # each row's max |difference| over its max |logit|, the worst
+            # row of each step
+            report["rel"] = [float(((a.double() - b.double()).abs().amax(-1)
+                                    / b.double().abs().amax(-1)).max())
+                             for a, b in zip(rows, want)]
+            report["tokens_equal"] = all(
+                torch.equal(torch.argmax(a, -1), torch.argmax(b, -1))
+                for a, b in zip(rows, want))
+            del full
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+        with open(f"{tmp}/rank{rank}.json", "w") as f:
+            json.dump(report, f)
+
+
+def phase16() -> tuple:
+    """The hybrid Mamba2 family (``models.ssm``, ``models.lm``'s
+    ``hybrid_ssm``) at zamba2-7b's full width: (kernels) the three kernels
+    of its path at its shapes, against their plain versions, timed; (a)
+    serving at full width and depth; (b) the fp32 gate; (c) training at
+    ``ZAMBA_TRAIN_LAYERS`` layers and the fp32 training gate at
+    ``ZAMBA_GATE_LAYERS``; (d) two gloo ranks on the card, mesh (1, 2).
+    -> ({run: launch counts}, {kernel: its zamba2 timings})."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import decode_attention as KD
+    from repro_torch.kernels import flash_attention as KF
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rmsnorm as KN
+    from repro_torch.models.api import get_model
+    from repro_torch.serve import ServeEngine
+    from repro_torch.train import step as TS
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    runs, timed = {}, {}
+    bf16, fp32 = torch.bfloat16, torch.float32
+    cfg = dataclasses.replace(get_config(ZAMBA), attn_impl="pallas",
+                              use_pallas=True)
+    check(cfg.n_params() == ZAMBA_PARAMS and cfg.head_dim == 112
+          and cfg.dtype == "bfloat16", f"{ZAMBA}: {cfg.n_params()} "
+          f"parameters, head dim {cfg.head_dim}, {cfg.dtype}")
+    g = torch.Generator(device=dev).manual_seed(16)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def close(got, want, dtype):
+        """9a's gates: fp32 rtol = atol = 2e-5; bf16 one ulp of each
+        output (rtol 2**-7) plus atol 1e-5."""
+        rtol, atol = (2e-5, 2e-5) if dtype == fp32 else (2 ** -7, 1e-5)
+        e = float((got.float() - want.float()).abs().max())
+        return (got.dtype == want.dtype and got.shape == want.shape
+                and bool(torch.isfinite(got).all())
+                and torch.allclose(got.float(), want.float(), rtol=rtol,
+                                   atol=atol)), e
+
+    def timings(kernel, plain, library, nbytes, nops, ops_per_s, shape,
+                plain_iters=20):
+        k, p = measure(kernel), measure(plain, plain_iters,
+                                        min(3, plain_iters))
+        lib = measure(library)
+        b_ms, b_by = bound(nbytes, nops, ops_per_s)
+        return dict(ms=k["ms"], call_ms=k["call_ms"],
+                    ms_source=k["source"], plain_ms=p["ms"],
+                    library_ms=lib["ms"], bound_ms=b_ms, bound_by=b_by,
+                    shape=shape)
+
+    # -- 16-kernels: the three kernels at Zamba2's shapes -----------------
+    t0 = time.perf_counter()
+    b_, h_, d_, s_, sc_ = 4, cfg.n_heads, cfg.head_dim, 2048, ZAMBA_MAX_LEN
+    errs = {}
+    for dtype in (bf16, fp32):       # flash, causal, D 112 (MHA)
+        q, k, v = (randn((b_, h_, s_, d_), dtype) for _ in range(3))
+        got = KF.flash_attention(q, k, v, causal=True)
+        want = ref.flash_attention_ref(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        label = f"flash_attention D 112 causal {str(dtype)[6:]}"
+        if dtype == fp32:
+            ok, e = close(got, want, fp32)
+            check(ok, f"phase 16 {label}: max |err| {e}")
+        else:
+            e = float((got.float() - want.float()).abs().max())
+            ratio = ref.flash_bf16_gate(got, q, k, v, causal=True)
+            check(ratio <= 1.0, f"phase 16 {label}: {ratio:.3f} of the "
+                  "float64 gate")
+            log(f"phase 16 {label}: {ratio:.3f} of the float64 gate 2**-7 "
+                "(|o64| + P64 |V| / l64) + 1e-5")
+        errs[label] = e
+        log(f"phase 16 {label} (B {b_} x H {h_} x S {s_}): max |err| "
+            f"against the plain version {e:.3e}")
+    q, k, v = (randn((b_, h_, s_, d_), bf16) for _ in range(3))
+    pairs = s_ * (s_ + 1) // 2
+    timed["flash_attention"] = timings(
+        lambda: KF.flash_attention(q, k, v, causal=True),
+        lambda: ref.flash_attention_ref(q, k, v, causal=True),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+        4 * q.numel() * 2, 4 * b_ * h_ * pairs * d_, BF16_TENSOR_OPS_PER_S,
+        f"B={b_} H={h_} (MHA) S={s_} D={d_} causal bf16", plain_iters=3)
+    timed["flash_attention"]["max_abs_err_by_case"] = dict(errs)
+    del q, k, v, got, want
+
+    kvl, errs = 2049, {}             # decode, D 112 (MHA), a ring view
+    for dtype in (bf16, fp32):
+        qd = randn((b_, h_, d_), dtype)
+        kd, vd = (randn((b_, sc_, h_, d_), dtype).permute(0, 2, 1, 3)
+                  for _ in range(2))
+        ok, e = close(KD.decode_attention(qd, kd, vd, kv_len=kvl),
+                      ref.decode_attention_ref(qd, kd, vd, kv_len=kvl),
+                      dtype)
+        label = f"decode_attention D 112 kv_len {kvl} {str(dtype)[6:]}"
+        check(ok, f"phase 16 {label}: max |err| {e}")
+        errs[label] = e
+        log(f"phase 16 {label} (B {b_} x H {h_} over a (B, {sc_}, H, D) "
+            f"ring view): max |err| {e:.3e}")
+    plan = KD.split_plan(kvl, None, b_ * h_, KD.sm_count(dev))
+    rings = [tuple(randn((b_, sc_, h_, d_), bf16).permute(0, 2, 1, 3)
+                   for _ in range(2)) for _ in range(6)]
+    qd = randn((b_, h_, d_), bf16)
+    q4 = qd[:, :, None]
+    turn = [0]
+
+    def rotating(fn):
+        def call():
+            turn[0] = (turn[0] + 1) % len(rings)
+            return fn(*rings[turn[0]])
+        return call
+
+    def dec_kernel(k_, v_):
+        return KD.decode_attention(qd, k_, v_, kv_len=kvl)
+
+    def dec_sdpa(k_, v_):
+        return F.scaled_dot_product_attention(q4, k_[:, :, :kvl],
+                                              v_[:, :, :kvl])
+    kd, vd = rings[0]
+    timed["decode_attention"] = timings(
+        lambda: dec_kernel(kd, vd),
+        lambda: ref.decode_attention_ref(qd, kd, vd, kv_len=kvl),
+        lambda: dec_sdpa(kd, vd), 2 * 2 * b_ * h_ * kvl * d_
+        + 2 * 2 * b_ * h_ * d_, 4 * b_ * h_ * kvl * d_,
+        BF16_TENSOR_OPS_PER_S, f"B={b_} Hq=Hkv={h_} D={d_} kv_len={kvl} "
+        f"over a (B, Sc={sc_}, Hkv, D) bf16 ring view")
+    cold, lib_cold = measure(rotating(dec_kernel)), measure(
+        rotating(dec_sdpa))
+    timed["decode_attention"].update(
+        cold_ms=cold["ms"], library_cold_ms=lib_cold["ms"],
+        split_plan=list(plan), max_abs_err_by_case=dict(errs))
+    del rings, kd, vd, qd, q4
+
+    errs, norm_timed = {}, {}
+    for dn in (cfg.d_model, cfg.d_inner):       # 3,584 and 7,168
+        w = torch.randn((dn,), generator=g, device=dev) + 1.0
+        for rows in (8192, 4):
+            for dtype in (bf16, fp32):
+                x = randn((rows, dn), dtype)
+                check(KN.plan_for(x, w).path == "block",
+                      f"phase 16 rmsnorm {rows} x {dn}: plan "
+                      f"{KN.plan_for(x, w)}")
+                ok, e = close(KN.rmsnorm(x, w, 1e-5),
+                              ref.rmsnorm_ref(x, w, 1e-5), dtype)
+                label = f"rmsnorm {rows} x {dn} {str(dtype)[6:]}"
+                check(ok, f"phase 16 {label}: max |err| {e}")
+                errs[label] = e
+            x = randn((rows, dn), bf16)
+            norm_timed[f"{rows}x{dn}"] = timings(
+                lambda: KN.rmsnorm(x, w, 1e-5),
+                lambda: ref.rmsnorm_ref(x, w, 1e-5),
+                lambda: F.rms_norm(x, (dn,), w, 1e-5),
+                2 * 2 * rows * dn + 4 * dn, 4 * rows * dn, ALU_OPS_PER_S,
+                f"R={rows} D={dn} bf16, fp32 weight")
+    log(f"phase 16 rmsnorm at D {cfg.d_model} and {cfg.d_inner} (block "
+        f"path), 8192 and 4 rows, bf16 and fp32: max |err| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    timed["rmsnorm"] = dict(norm_timed[f"8192x{cfg.d_inner}"],
+                            by_shape=norm_timed, max_abs_err_by_case=errs)
+    del x
+    for name, t in timed.items():
+        log(f"phase 16 {name}: kernel {t['ms']:.5f} ms ({t['ms_source']}; "
+            f"{t['call_ms']:.5f} per call), plain {t['plain_ms']:.5f} ms, "
+            f"library {t['library_ms']:.5f} ms, bound {t['bound_ms']:.5f} ms "
+            f"({t['bound_by']}) at {t['shape']}"
+            + (f"; L2-cold {t['cold_ms']:.5f} ms, library cold "
+               f"{t['library_cold_ms']:.5f} ms, split plan {t['split_plan']}"
+               if "cold_ms" in t else ""))
+    for key, t in norm_timed.items():
+        log(f"phase 16 rmsnorm {key}: kernel {t['ms']:.5f} ms, plain "
+            f"{t['plain_ms']:.5f}, library {t['library_ms']:.5f}, bound "
+            f"{t['bound_ms']:.5f}")
+    torch.cuda.empty_cache()
+    log(f"phase 16 kernels: {time.perf_counter() - t0:.1f} s")
+
+    # -- 16a: serving at full width and depth ------------------------------
+    t0 = time.perf_counter()
+    model = get_model(cfg)
+    params = model.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    prompts = TokenPipeline(cfg, 4, ZAMBA_PROMPT, seed=0).prompts(
+        4, ZAMBA_PROMPT)
+    lens = [len(p) for p in prompts]
+    check(min(lens) % cfg.ssm_chunk == 0, f"prompt lengths {lens}")
+    engine = ServeEngine(cfg, params, max_len=ZAMBA_MAX_LEN)
+    engine.generate(prompts, 2)                           # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    run_a = engine.generate(prompts, ZAMBA_NEW)
+    tag = "phase 16a serving zamba2"
+    runs[tag] = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    run_b = engine.generate(prompts, ZAMBA_NEW)
+    steps, ng = run_a.steps, cfg.n_layers // cfg.attn_every
+    n_norm = 2 * cfg.n_layers + 2 * ng + 1          # 81 + 81 + 26 + 1
+    want = {"decode_attention": ng * steps, "rmsnorm": n_norm * (1 + steps)}
+    check({k: runs[tag][k] for k in want} == want
+          and all(n == 0 for k, n in runs[tag].items() if k not in want),
+          f"{tag}: launches {runs[tag]} != {want}")
+    check(steps == run_b.steps == max(lens) - min(lens) + ZAMBA_NEW
+          and all(len(t) == ZAMBA_NEW for t in run_a.tokens),
+          f"{tag}: steps {steps}, tokens {[len(t) for t in run_a.tokens]}")
+    prefill_ms = min(run_a.prefill_s, run_b.prefill_s) * 1e3
+    decode_ms = min(run_a.decode_s, run_b.decode_s) * 1e3
+    gen_ms = (run_a.prefill_s + run_a.decode_s) * 1e3
+    log(f"{tag}: the runs {time.perf_counter() - t0:.1f} s")
+    # device busy of a generate, from a trace of its prefill and one of a
+    # decode step (a whole generate's trace holds ~10^5 kernels, which
+    # the profiler takes minutes to read back)
+    pad = np.array([p[:min(lens)] for p in prompts])
+    box = {}
+
+    def prefill_once():
+        box["cache"], lg = model.prefill(cfg, params, {"tokens": pad},
+                                         ZAMBA_MAX_LEN)
+        box["feed"] = torch.argmax(lg, -1)
+
+    def step_once():
+        box["cache"], lg = model.decode_step(cfg, params, box["cache"],
+                                             box["feed"])
+        box["feed"] = torch.argmax(lg, -1)
+        box["feed"].cpu()
+
+    b_pre, _, _, c_pre = device_ms(prefill_once, iters=1)
+    b_step, _, by_op, c_step = device_ms(step_once, iters=3)
+    complete = c_pre and c_step
+    busy = (None if b_pre is None or b_step is None
+            else b_pre + steps * b_step)
+    box.clear()
+    cache_gb = (2 * ng * 4 * ZAMBA_MAX_LEN * cfg.n_kv_heads * cfg.head_dim
+                * 2 + cfg.n_layers * 4 * cfg.ssm_heads * cfg.ssm_head_dim
+                * cfg.ssm_state * 4) / 1e9
+    log(f"{tag} (bf16 over fp32 weights, both kernels; 4 prompts {lens}, "
+        f"{ZAMBA_NEW} new tokens, max_len {ZAMBA_MAX_LEN}): prefill ms "
+        f"{[round(r.prefill_s * 1e3, 3) for r in (run_a, run_b)]}; decode ms "
+        f"{[round(r.decode_s * 1e3, 3) for r in (run_a, run_b)]} over "
+        f"{steps} steps ({decode_ms / steps:.3f} ms a step, "
+        f"{4 * ZAMBA_NEW / (decode_ms / 1e3):.1f} tokens/s); launches "
+        f"{want} as planned; peak device memory {peak} bytes "
+        f"({peak / 1e9:.3f} GB; reckoning 33-38 GB: parameters "
+        f"{ZAMBA_PARAMS * 4 / 1e9:.2f} GB, rings and SSM states "
+        f"{cache_gb:.2f} GB); " + (
+            f"device busy {busy:.3f} ms of a {gen_ms:.3f} ms generate (the "
+            f"prefill's {b_pre:.3f} + {steps} x a step's {b_step:.3f}; idle "
+            f"share {1 - busy / gen_ms:.3f}; traces complete: {complete})"
+            if busy is not None else "device busy not measured"))
+    if busy is not None:
+        log(f"{tag}: a decode step's device ms by the PyTorch op that "
+            "launched it, the largest:")
+        for oname, oms in sorted(by_op.items(), key=lambda kv: -kv[1])[:8]:
+            log(f"    {oms:.3f} ms  {oname[:90]}")
+    plain = dataclasses.replace(cfg, attn_impl="blocked", use_pallas=False)
+    plain_tokens = ServeEngine(plain, params, max_len=ZAMBA_MAX_LEN
+                               ).generate(prompts, ZAMBA_NEW).tokens
+    agree = np.mean([a == b for x, y in zip(run_a.tokens, plain_tokens)
+                     for a, b in zip(x, y)])
+    # the flash kernel's path: a full-sequence forward with attn_impl pallas
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        lf, _ = model.forward(cfg, params, {"tokens": pad})
+        torch.cuda.synchronize()
+        tagf = "phase 16a forward zamba2"
+        runs[tagf] = ops.launch_counts()
+        lp, _ = model.forward(plain, params, {"tokens": pad})
+    check(runs[tagf]["flash_attention"] == ng
+          and runs[tagf]["rmsnorm"] == n_norm
+          and bool(torch.isfinite(lf).all()),
+          f"{tagf}: launches {runs[tagf]}, finite {torch.isfinite(lf).all()}")
+    f_agree = float((lf.argmax(-1) == lp.argmax(-1)).float().mean())
+    log(f"{tag}: bf16 greedy tokens agreeing with the plain path {agree:.4f} "
+        f"of {4 * ZAMBA_NEW} (reported); the forward over 4 x {min(lens)} "
+        f"with attn_impl pallas: {runs[tagf]['flash_attention']} "
+        f"flash_attention and {runs[tagf]['rmsnorm']} rmsnorm launches, "
+        f"argmax agreeing with the plain forward at {f_agree:.4f} of the "
+        f"positions (reported); 16a {time.perf_counter() - t0:.1f} s")
+    del lf, lp, engine
+
+    # -- 16b: the fp32 gate -----------------------------------------------------
+    # As 9b's: teacher-forced on the plain path's greedy tokens, (1) at full
+    # depth every launch of both kernels against a float64 evaluation on its
+    # own inputs, within 1e-4 of its max |exact| (9c), the end-to-end
+    # difference reported: two correct float32 evaluations of the randomly
+    # initialised 81 layers part by far more than any kernel's error
+    # (scripts/torch_hybrid_conditioning.py); (2) at ZAMBA_GATE_LAYERS, where
+    # float32 holds, every step's logits kernels on against off within 1e-3
+    # of the row's max (9b's limit), beside both runs' distance from the
+    # float64 compute at that depth
+    t0 = time.perf_counter()
+    on32 = dataclasses.replace(cfg, dtype="float32")
+    off32 = dataclasses.replace(plain, dtype="float32")
+    p1 = TokenPipeline(cfg, 1, 512, seed=0).prompts(1, 512)
+    gen = ServeEngine(off32, params, max_len=576).generate(p1, 8).tokens
+    ops.reset_launch_counts()
+    lg_on, lerrs = forced_checked("phase 16b fp32", on32, params, p1, gen,
+                                  576)
+    tag = "phase 16b fp32 zamba2"
+    runs[tag] = ops.launch_counts()
+    lg_off = forced(off32, params, p1, gen, 576)
+    check(runs[tag]["decode_attention"] == ng * (len(lg_on) - 1)
+          == lerrs["decode_attention"][0]
+          and runs[tag]["rmsnorm"] == n_norm * len(lg_on)
+          == lerrs["rmsnorm"][0], f"{tag}: launches {runs[tag]}, checked "
+          f"{lerrs}")
+
+    def row_rel(xs, ys):
+        return [float(((a.double() - b.double()).abs().amax(-1)
+                       / b.double().abs().amax(-1)).max())
+                for a, b in zip(xs, ys)]
+    full_rel = row_rel(lg_on, lg_off)
+    log(f"{tag}, full width and depth (1 x 512 tokens + 8 steps, "
+        f"teacher-forced): all {lerrs['decode_attention'][0]} "
+        f"decode_attention launches within {lerrs['decode_attention'][1]:.3e}"
+        f" of max |exact| of float64 (plain "
+        f"{lerrs['decode_attention'][2]:.3e}), all {lerrs['rmsnorm'][0]} "
+        f"rmsnorm launches within {lerrs['rmsnorm'][1]:.3e} (plain "
+        f"{lerrs['rmsnorm'][2]:.3e}), limit 1e-4; end to end, kernels on "
+        f"against off (reported): {max(full_rel):.3e} of the row's max")
+    del params, lg_on, lg_off
+    torch.cuda.empty_cache()
+    g_on = dataclasses.replace(on32, n_layers=ZAMBA_GATE_LAYERS)
+    g_off = dataclasses.replace(off32, n_layers=ZAMBA_GATE_LAYERS)
+    gp = get_model(g_on).init(g_on, torch.Generator(device=dev)
+                              .manual_seed(0), device=dev)
+    gen = ServeEngine(g_off, gp, max_len=576).generate(p1, 8).tokens
+    tag = "phase 16b fp32 gate zamba2"
+    ops.reset_launch_counts()
+    lg_on = forced(g_on, gp, p1, gen, 576)
+    runs[tag] = ops.launch_counts()
+    lg_off = forced(g_off, gp, p1, gen, 576)
+    g_ng = ZAMBA_GATE_LAYERS // cfg.attn_every
+    g_norm = 2 * ZAMBA_GATE_LAYERS + 2 * g_ng + 1
+    check(runs[tag]["decode_attention"] == g_ng * (len(lg_on) - 1)
+          and runs[tag]["rmsnorm"] == g_norm * len(lg_on),
+          f"{tag}: launches {runs[tag]}")
+    del gp
+    gp = get_model(g_on).init(g_on, torch.Generator(device=dev)
+                              .manual_seed(0), dtype=torch.float64,
+                              device=dev)
+    lg64 = forced(dataclasses.replace(g_off, dtype="float64"), gp, p1, gen,
+                  576)
+    del gp
+    rel = row_rel(lg_on, lg_off)
+    check(all(np.isfinite(rel)) and max(rel) <= 1e-3,
+          f"{tag}: max |d logit| of the row's max {rel} (limit 1e-3)")
+    log(f"{tag} ({ZAMBA_GATE_LAYERS} of {cfg.n_layers} layers, full width, "
+        f"1 x 512 tokens + 8 steps, teacher-forced): kernels on against off "
+        f"within {max(rel):.3e} of the row's max at every step (limit "
+        f"1e-3), by step {[float('%.2e' % x) for x in rel]}; against the "
+        f"float64 compute: kernels {max(row_rel(lg_on, lg64)):.3e}, plain "
+        f"{max(row_rel(lg_off, lg64)):.3e}; 16b "
+        f"{time.perf_counter() - t0:.1f} s")
+    del lg_on, lg_off, lg64
+    torch.cuda.empty_cache()
+
+    # -- 16c: training ---------------------------------------------------------
+    t0 = time.perf_counter()
+    tcfg = dataclasses.replace(get_config(ZAMBA),
+                               n_layers=ZAMBA_TRAIN_LAYERS)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    torch.cuda.reset_peak_memory_stats()
+    state = TS.init_train_state(tcfg, torch.Generator(device=dev)
+                                .manual_seed(0), device=dev)
+    step_fn = TS.make_train_step(tcfg, None, TS.TrainConfig(
+        peak_lr=3e-3, warmup_steps=2, total_steps=TRAIN_STEPS))
+    pipe = TokenPipeline(tcfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    tag = "phase 16c training zamba2"
+    ops.reset_launch_counts()
+    rows = []
+    for i in range(3):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in pipe.batch_at(i).items()}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        row = {k: float(m[k]) for k in ("loss", "grad_norm", "lr")}
+        row["ms"] = (time.perf_counter() - t1) * 1e3
+        rows.append(row)
+    runs[tag] = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(all(n == 0 for n in runs[tag].values())
+          and all(math.isfinite(r[k]) for r in rows
+                  for k in ("loss", "grad_norm")), f"{tag}: {rows}, "
+          f"launches {runs[tag]}")
+    n_train = tcfg.n_params()
+    warm = [r["ms"] for r in rows[1:]]
+    log(f"{tag} ({ZAMBA_TRAIN_LAYERS} of {cfg.n_layers} layers, full width, "
+        f"{n_train} parameters; {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step, "
+        f"bf16 over fp32 master, remat block): "
+        + "; ".join(f"step {i + 1} loss {r['loss']:.6f} grad norm "
+                    f"{r['grad_norm']:.6f} {r['ms']:.1f} ms"
+                    for i, r in enumerate(rows))
+        + f"; warm {sum(warm) / len(warm):.1f} ms a step "
+        f"({tokens / (sum(warm) / len(warm) / 1e3):.1f} tokens/s); peak "
+        f"device memory {peak} bytes ({peak / 1e9:.3f} GB; reckoning "
+        f"35-45 GB: the fp32 state {16 * n_train / 1e9:.2f} GB and one "
+        f"group's recompute); kernel launches 0")
+    del state, step_fn, batch
+    torch.cuda.empty_cache()
+    tag = "phase 16c fp32 gate zamba2"
+    runs[tag] = train_gate(tag, dataclasses.replace(
+        get_config(ZAMBA), dtype="float32", n_layers=ZAMBA_GATE_LAYERS),
+        cfg.n_layers, 1, 256)
+    log(f"phase 16c: {time.perf_counter() - t0:.1f} s")
+
+    # -- 16d: two gloo ranks on the card, mesh (data 1, model 2) ------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(phase16d_rank, args=(tmp,), nprocs=2,
+                           start_method="spawn")
+        reports = [json.load(open(f"{tmp}/rank{r}.json")) for r in range(2)]
+    mcfg = dataclasses.replace(cfg, n_layers=ZAMBA_GATE_LAYERS)
+    mng = mcfg.n_layers // mcfg.attn_every
+    plan_p, plan_d = hybrid_mesh_plan(mcfg, ZAMBA_MESH_BATCH,
+                                      ZAMBA_MESH_SEQ, 2)
+    tag = "phase 16d serving (1, 2) mesh zamba2"
+    m_norm = mcfg.n_layers + 2 * mng + 1   # the gated norms leave the kernel
+    want = {"decode_attention": mng * ZAMBA_MESH_STEPS,
+            "rmsnorm": m_norm * (1 + ZAMBA_MESH_STEPS)}
+    for r in reports:
+        check(r.get("staged") is True, f"{tag} rank {r['rank']}: {r}")
+        got = {k: r["counts"][k] for k in want}
+        check(got == want, f"{tag} rank {r['rank']}: launches {r['counts']} "
+              f"!= {want}")
+        comms = [tuple(c) for c in r["comms"]]
+        check(comms == [plan_p] + [plan_d] * ZAMBA_MESH_STEPS,
+              f"{tag} rank {r['rank']}: staged collectives {comms}, planned "
+              f"{plan_p} then {plan_d} a step")
+        runs[f"{tag} rank {r['rank']}"] = r["counts"]
+    check(reports[0]["tokens"] == reports[1]["tokens"],
+          f"{tag}: the ranks' tokens differ")
+    rel = reports[0]["rel"]
+    check(max(rel) <= 1e-3, f"{tag}: logits of the row's max {rel} from the "
+          "one-rank card run (limit 1e-3)")
+    log(f"{tag} ({ZAMBA_GATE_LAYERS} layers at full width, fp32, both "
+        f"kernels; {ZAMBA_MESH_BATCH} x {ZAMBA_MESH_SEQ} tokens and "
+        f"{ZAMBA_MESH_STEPS} greedy steps; host-staged gloo): the prefill's "
+        f"and each step's logits within {max(rel):.3e} of the row's max of "
+        f"the one-rank card run (limit 1e-3), by step "
+        f"{[float('%.2e' % x) for x in rel]}, greedy tokens equal: "
+        f"{reports[0]['tokens_equal']}; staged collectives as planned: "
+        f"prefill {plan_p[0]} calls {plan_p[1]} bytes, {plan_d[0]} calls "
+        f"{plan_d[1]} bytes a step; launches a rank {want} (the gated norm "
+        f"over a split d_inner sums its squares across the ranks, off the "
+        f"kernel); parameter blocks {reports[0]['param_bytes']} bytes a "
+        f"rank; the mesh's run {reports[0]['ms']:.1f} ms; 16d "
+        f"{time.perf_counter() - t0:.1f} s with start-up")
+    log(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
+    return runs, timed
 
 
 def main() -> int:
@@ -4129,30 +4847,6 @@ def main() -> int:
             log(f"    {oms:.4f} ms  {oname[:90]}")
     del cache9, state9
 
-    def forced(cfg_, params_, prompts_, gen_, max_len_):
-        """Every step's logits of ``prompts_`` decoded as the engine does,
-        feeding the prompt and then the tokens ``gen_`` (teacher forcing):
-        [prefill logits, step 1, ...]."""
-        m_ = get_model(cfg_)
-        lens_ = np.array([len(p) for p in prompts_])
-        s0, s1 = int(lens_.min()), int(lens_.max())
-        pad_ = np.zeros((len(prompts_), s1), np.int64)
-        for i, p in enumerate(prompts_):
-            pad_[i, :len(p)] = p
-        cache_, lg = m_.prefill(cfg_, params_, {"tokens": pad_[:, :s0]},
-                                max_len_)
-        out_ = [lg]
-        n_steps = s1 - s0 + max(len(t) for t in gen_)
-        for t in range(n_steps):
-            cur = s0 + t
-            feed_ = [int(pad_[i, cur]) if cur < lens_[i] else
-                     (gen_[i][cur - lens_[i]]
-                      if cur - lens_[i] < len(gen_[i]) else 0)
-                     for i in range(len(prompts_))]
-            cache_, lg = m_.decode_step(cfg_, params_, cache_, feed_)
-            out_.append(lg)
-        return out_
-
     # bf16: kernels against the plain path, reported (routes in bf16 do not
     # reproduce across attention implementations; ROADMAP queue C)
     plain9 = dataclasses.replace(cfg9, attn_impl="blocked", use_pallas=False)
@@ -4182,56 +4876,6 @@ def main() -> int:
     t0 = time.perf_counter()
     gen32 = ServeEngine(off32, params, max_len=max_len9).generate(
         prompts, n_new).tokens
-    def decode_f64(q, k, v, *, window=None, kv_len=None, scale=None):
-        b, hq, d = q.shape
-        hi = k.shape[2] if kv_len is None else kv_len
-        lo = 0 if window is None else max(0, hi - window)
-        qd = q.double().reshape(b, k.shape[1], -1, d) * (
-            d ** -0.5 if scale is None else scale)
-        sc = torch.einsum("bhgd,bhkd->bhgk", qd, k[:, :, lo:hi].double())
-        return torch.einsum("bhgk,bhkd->bhgd", torch.softmax(sc, -1),
-                            v[:, :, lo:hi].double()).reshape(b, hq, d)
-
-    def rmsnorm_f64(x, w, eps=1e-6):
-        xd = x.double()
-        return xd * torch.rsqrt((xd * xd).mean(-1, keepdim=True) + eps) \
-            * w.double()
-
-    def forced_checked(label, *args):
-        """``forced(*args)`` with every launch of both serving kernels held
-        against a float64 evaluation on its own inputs, within 1e-4 of
-        its max |exact|; -> (logits, {kernel: [launches, max relative
-        error, the plain version's]})."""
-        errs_ = {"decode_attention": [0, 0.0, 0.0], "rmsnorm": [0, 0.0, 0.0]}
-        real_ops = (ops.decode_attention, ops.rmsnorm)
-
-        def checked(name, real, plain, exact):
-            def run(*a, **kw):
-                out = real(*a, **kw)
-                want = exact(*a, **kw)
-                scale_ = float(want.abs().max())
-                e_k = float((out.double() - want).abs().max()) / scale_
-                e_p = float((plain(*a, **kw).double() - want).abs().max()) \
-                    / scale_
-                n = errs_[name][0]
-                check(e_k <= 1e-4,
-                      f"{label} {name} launch {n}: max |err| {e_k:.3e} of "
-                      f"max |exact| against float64 (limit 1e-4; the plain "
-                      f"version's {e_p:.3e})")
-                errs_[name] = [n + 1, max(errs_[name][1], e_k),
-                               max(errs_[name][2], e_p)]
-                return out
-            return run
-
-        ops.decode_attention = checked("decode_attention", real_ops[0],
-                                       ref.decode_attention_ref, decode_f64)
-        ops.rmsnorm = checked("rmsnorm", real_ops[1], ref.rmsnorm_ref,
-                              rmsnorm_f64)
-        try:
-            return forced(*args), errs_
-        finally:
-            ops.decode_attention, ops.rmsnorm = real_ops
-
     ops.reset_launch_counts()
     lg_on, launch_errs = forced_checked("phase 9b fp32", on32, params,
                                         prompts, gen32, max_len9)
@@ -4349,6 +4993,13 @@ def main() -> int:
 
     # -- phase 15: the model on a device mesh -----------------------------------
     runs10.update(phase15())
+
+    # -- phase 16: the hybrid Mamba2 family (zamba2-7b) ---------------------------
+    runs16, zamba = phase16()
+    runs10.update(runs16)
+    for k in kernels:
+        if k["name"] in zamba:
+            k["zamba2"] = zamba[k["name"]]
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")

@@ -17,9 +17,10 @@ Without it:
 Two gloo ranks on the CPU, mesh (data 1, model 2), and one rank alone
 run the same teacher-forced prefill (2 x 512 tokens) and 4 decode steps
 (the mesh's greedy tokens fed to both), in float32 and with the compute
-in float64 (this script swaps ``models.lm.compute_dtype``; the logits,
-the router and the decode scores stay float32 in the model, so the
-float64 run is the float32 computation's reference to about 1e-7).
+in float64 (the model's ``dtype="float64"``; the router
+stays float32 in the model, and before the port's ``common.wide`` the
+logits and the decode scores did too, so the float64 run is the float32
+computation's reference to about 1e-7).
 Printed per row: the largest |difference| over the row's largest
 |logit|, for the mesh against one rank in float32 and in float64, and
 for each float32 run against the float64 one-rank run.  About a minute
@@ -44,18 +45,14 @@ LAYERS, B, S, NEW, MAX_LEN = 2, 2, 512, 4, 640
 def run(cfg, params, rules, toks, feed, dtype):
     """(rows of logits, the greedy tokens fed) of a teacher-forced run."""
     from repro_torch.models import lm as L
-    real = L.compute_dtype
-    L.compute_dtype = lambda c: dtype
-    try:
-        cache, lg = L.prefill(cfg, params, toks, MAX_LEN, rules=rules)
-        rows, fed = [lg], []
-        for i in range(NEW):
-            nxt = torch.argmax(lg, -1) if feed is None else feed[i]
-            fed.append(nxt)
-            cache, lg = L.decode_step(cfg, params, cache, nxt, rules)
-            rows.append(lg)
-    finally:
-        L.compute_dtype = real
+    cfg = dataclasses.replace(cfg, dtype=str(dtype).removeprefix("torch."))
+    cache, lg = L.prefill(cfg, params, toks, MAX_LEN, rules=rules)
+    rows, fed = [lg], []
+    for i in range(NEW):
+        nxt = torch.argmax(lg, -1) if feed is None else feed[i]
+        fed.append(nxt)
+        cache, lg = L.decode_step(cfg, params, cache, nxt, rules)
+        rows.append(lg)
     return [r.double() for r in rows], fed
 
 
@@ -121,14 +118,10 @@ def train_part() -> None:
     batch = TokenPipeline(cfg, 2, 512, seed=0).batch_at(0)
 
     def grads(p, b, dtype):
-        real = L.compute_dtype
-        L.compute_dtype = lambda c: dtype
-        try:
-            loss, _ = L.loss_fn(cfg, p, b)
-            items = tree_items(p)
-            g = torch.autograd.grad(loss, [x for _, x in items])
-        finally:
-            L.compute_dtype = real
+        c = dataclasses.replace(cfg, dtype=str(dtype).removeprefix("torch."))
+        loss, _ = L.loss_fn(c, p, b)
+        items = tree_items(p)
+        g = torch.autograd.grad(loss, [x for _, x in items])
         return {path: x.double() for (path, _), x in zip(items, g)}
 
     whole = grads(p32, batch, torch.float32)

@@ -14,8 +14,8 @@ full width, on the CPU: the numbers behind the tolerances of
    the leaf's max |gradient|).  Two correct float32 runs (the card's and
    the CPU's) can each be that far from float64.
 
-The float64 run swaps ``models.lm.compute_dtype`` for this script only;
-the port trains in bfloat16 or float32.  About a minute on 8 cores.
+The float64 run is the model's ``dtype="float64"`` (the port's float64
+evaluation); the port trains in bfloat16 or float32.  About a minute on 8 cores.
 """
 from __future__ import annotations
 
@@ -37,14 +37,10 @@ from repro_torch.models.params import (ParamTree, tree_items,  # noqa: E402
 
 
 def grads(cfg, params, batch, dtype):
-    real = L.compute_dtype
-    L.compute_dtype = lambda c: dtype
-    try:
-        loss, _ = L.loss_fn(cfg, params, batch)
-        items = tree_items(params)
-        g = torch.autograd.grad(loss, [p for _, p in items])
-    finally:
-        L.compute_dtype = real
+    cfg = dataclasses.replace(cfg, dtype=str(dtype).removeprefix("torch."))
+    loss, _ = L.loss_fn(cfg, params, batch)
+    items = tree_items(params)
+    g = torch.autograd.grad(loss, [p for _, p in items])
     return float(loss.detach()), {path: x for (path, _), x in zip(items, g)}
 
 

@@ -62,6 +62,15 @@
 // as fp32 (stride D + 1 for Q and K); the probability tile P goes through
 // shared memory between the two products.
 //
+// Head dims 16, 32, 64, 112 (Zamba2's) and 128.  Nothing in either design
+// needs a power of two: bf16 takes D / 16 k-steps of Q K^T (7 at D 112),
+// each one ldmatrix.x4 of Q and one of K per pair of 8-key column tiles,
+// and D / 16 ldmatrix.x4.trans of V per 16 keys, each feeding two 8-column
+// tiles of O (14 at D 112); rows of D / 8 16-byte chunks at a stride of
+// D + 8 elements (240 bytes at D 112: the 8 rows of an ldmatrix start on
+// distinct 16-byte bank groups).  fp32 takes D / 16 output columns a
+// thread (7 at D 112).
+//
 // Statistics and accumulators are fp32 in both; the output is rounded to
 // the input type once.  Shared memory: bf16 46-87 KB, fp32 29-115 KB by
 // head dim, so the launch raises the block's limit first.
@@ -563,6 +572,7 @@ cudaError_t launch_dim(const Args& a, int batch, int d, cudaStream_t s) {
     case 16: return launch<16, IS_BF16>(a, batch, s);
     case 32: return launch<32, IS_BF16>(a, batch, s);
     case 64: return launch<64, IS_BF16>(a, batch, s);
+    case 112: return launch<112, IS_BF16>(a, batch, s);
     case 128: return launch<128, IS_BF16>(a, batch, s);
     default: return cudaErrorInvalidValue;
   }
@@ -574,7 +584,7 @@ extern "C" {
 
 // q: (batch, hq, sq, d); k, v: (batch, hkv, skv, d); o like q; all
 // contiguous, fp32 (is_bf16 = 0) or bf16 (is_bf16 = 1, and every pointer
-// on 16 bytes); d in {16, 32, 64, 128}; hq a multiple of hkv; ceil(sq /
+// on 16 bytes); d in {16, 32, 64, 112, 128}; hq a multiple of hkv; ceil(sq /
 // 64) < 65536.  window is read only when has_window.  Launches on
 // `stream` and returns cudaGetLastError() (0 when taken).
 int flash_attention_launch(const void* q, const void* k, const void* v,

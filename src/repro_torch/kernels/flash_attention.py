@@ -6,7 +6,7 @@ sliding-window GQA flash attention, forward only.
 The port of ``repro.kernels.flash_attention``; the plain version is
 ``kernels.ref.flash_attention_ref`` and ``kernels.ops.flash_attention``
 picks between them.  This wrapper takes contiguous CUDA tensors in fp32 or
-bf16 with a head dim of 16, 32, 64 or 128.  There is no backward kernel,
+bf16 with a head dim of 16, 32, 64, 112 (Zamba2's) or 128.  There is no backward kernel,
 so it refuses inputs that require a gradient.
 
 The source holds one kernel for each dtype, and the dtype picks it: bf16
@@ -27,7 +27,7 @@ from . import build
 
 _NAME = "flash_attention"
 #: Head dims the kernel is instantiated for.
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)
 #: Query rows a block of either kernel takes.
 QUERY_TILE = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}

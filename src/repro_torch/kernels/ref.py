@@ -384,10 +384,12 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor,
                 eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm rows of x (..., D) with fp32 statistics, in x's dtype."""
-    xf = x.to(torch.float32)
+    """RMSNorm rows of x (..., D) with fp32 statistics (float64 for a
+    float64 x), in x's dtype."""
+    f32 = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(f32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * w.to(torch.float32)).to(x.dtype)
+    return (xf * torch.rsqrt(var + eps) * w.to(f32)).to(x.dtype)
 
 
 def signature_ref(mask: torch.Tensor, r: torch.Tensor,

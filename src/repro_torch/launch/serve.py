@@ -24,6 +24,12 @@ computes what no mesh computes, bit for bit).  Several ranks come from
 Each rank takes ``cuda:LOCAL_RANK`` (modulo the cards there are; NCCL
 when every rank has a card of its own, else a gloo group staged through
 host memory), or the CPU with ``--device cpu``; rank 0 prints.
+
+The prompts are ragged, ``--prompt-len`` minus 0, 1 or 2 tokens, and the
+prefill runs over the shortest.  The hybrid family's chunked SSD takes a
+prefill within one ``ssm_chunk`` or of whole chunks, so its default
+prompt length is the one whose shortest prompt is two whole chunks
+(34 at the smoke config's chunk of 16); the others' is 32.
 """
 from __future__ import annotations
 
@@ -37,7 +43,9 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--prompt-len", type=int, default=None,
+                    help="longest prompt (default: 32; the hybrid "
+                         "family: two chunks + 2)")
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--model-shards", type=int, default=1)
@@ -67,6 +75,9 @@ def main(argv=None) -> int:
         print("[serve] enc-dec serving demo uses the audio example; "
               "use examples/translate_stream.py")
         return 0
+    if args.prompt_len is None:
+        args.prompt_len = (2 * cfg.ssm_chunk + 2
+                           if cfg.family == "hybrid_ssm" else 32)
     if args.attn_impl:
         cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
     if args.use_pallas:

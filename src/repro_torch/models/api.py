@@ -8,8 +8,8 @@ family.  Port of ``repro.models.api``.
   cache, logits = model.prefill(cfg, params, inputs, max_len)
   cache, logits = model.decode_step(cfg, params, cache, tokens)
 
-The families other than ``dense`` and ``moe`` raise
-``NotImplementedError`` naming their ROADMAP items (A13d-f).  Over a
+The ``dense``, ``moe`` and ``hybrid_ssm`` families are ported; the others
+raise ``NotImplementedError`` naming their ROADMAP items (A13e-f).  Over a
 device mesh every entry takes ``rules`` (``sharding.MeshRules``), and
 ``Model.init(rules=...)`` gives this rank its blocks; ``shardings`` and
 ``specs`` give the parameters' layout.  The dry-run's sharded stand-ins

@@ -45,6 +45,13 @@ from ..kernels import ops, ref
 _NEG = -1e30
 
 
+def wide(dtype: torch.dtype) -> torch.dtype:
+    """The type of the JAX package's float32 arithmetic on operands of
+    ``dtype``: float32, and float64 for float64 operands (the float64
+    evaluations that ground the float32 tolerances)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 # ---------------------------------------------------------------------------
 # Norms / RoPE
 # ---------------------------------------------------------------------------
@@ -169,7 +176,7 @@ def _sdpa(q, k, v, mask, scale: float) -> torch.Tensor:
     Scores from fp32 copies of the operands (the JAX function's
     ``preferred_element_type=float32``), fp32 softmax, probabilities
     rounded to v's dtype before the second product."""
-    f32 = torch.float32
+    f32 = wide(q.dtype)
     s = torch.einsum("bqhk,bthk->bhqt", q.to(f32), k.to(f32)) * scale
     s = torch.where(mask[:, None], s, torch.tensor(_NEG, dtype=f32,
                                                    device=s.device))
@@ -332,7 +339,7 @@ def attention_decode(cfg: ModelConfig, p, x: torch.Tensor,
                  / cs.psum(w)[..., None])
         o = o.to(x.dtype).reshape(b, 1, hq * hd)
     else:
-        f32 = torch.float32
+        f32 = wide(k_cache.dtype)
         q5 = q.reshape(b, 1, kvh, group, hd).to(k_cache.dtype).to(f32)
         s = torch.einsum("bqkgh,btkh->bkgqt", q5,
                          kc.to(f32)) * scale                # (B,KV,G,1,Sc)

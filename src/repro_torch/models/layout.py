@@ -15,6 +15,9 @@ without a mesh.
 * ``heads``, ``kv``, ``wo``: the query heads of ``wq``, the KV heads of
   ``wk``/``wv`` and the rows of ``wo`` (``model``).
 * ``ff``, ``moe_ff``: the hidden width of the SwiGLU and of the experts.
+  The hybrid family's attention+MLP block is its one shared block.
+* ``ssm``: the Mamba2 layers' ``ssm_inner`` columns and ``ssm_heads``
+  (``model``); ``conv``: the decode cache's conv-window columns.
 * ``vocab``: the vocabulary of ``embed`` and ``lm_head``; ``embed_fsdp``,
   ``head_fsdp``, ``adapter_fsdp``: their ``embed`` width under fsdp
   (``data``), gathered where they are used.
@@ -48,15 +51,24 @@ class Layout:
         self._batch_axes = set(bspec.axes(0))
 
         def comm(d, dim):
+            """The collectives over dimension ``dim`` (from the end when
+            negative: stacked and unstacked leaves alike)."""
+            dim = dim % len(d.shape)
             return live(rules.comm(rules.spec(d.axes, d.shape).axes(dim)))
-        lay = defs["layers"]
+        # the attention+MLP block: stacked per layer, or the hybrid
+        # family's one shared block
+        lay = defs.get("shared", defs["layers"])
         att = lay["attn"]
-        self.heads = comm(att["wq"], 2)
-        self.kv = comm(att["wk"], 2)
-        self.wo = comm(att["wo"], 1)
-        self.ff = comm(lay["mlp"]["w_gate"], 2) if "mlp" in lay else None
-        self.moe_ff = (comm(lay["moe"]["w_gate"], 3) if "moe" in lay
+        self.heads = comm(att["wq"], -2)
+        self.kv = comm(att["wk"], -2)
+        self.wo = comm(att["wo"], -2)
+        self.ff = comm(lay["mlp"]["w_gate"], -1) if "mlp" in lay else None
+        self.moe_ff = (comm(lay["moe"]["w_gate"], -1) if "moe" in lay
                        else None)
+        self.ssm = self.conv = None
+        mamba = defs["layers"].get("mamba_main")
+        if mamba is not None:
+            self._ssm_layout(cfg, rules, mamba, comm)
         self.vocab = comm(defs["embed"], 0)
         self.embed_fsdp = comm(defs["embed"], 1)
         self.head_fsdp = (comm(defs["lm_head"], 0) if "lm_head" in defs
@@ -77,6 +89,27 @@ class Layout:
             raise ValueError(f"{cfg.name}: KV heads over {self.kv.axes}, "
                              f"query heads over {self.heads.axes}")
         self._caches: dict = {}
+
+    def _ssm_layout(self, cfg, rules, mamba: dict, comm) -> None:
+        """``ssm``: the Mamba2 layers' ``ssm_inner`` columns and
+        ``ssm_heads`` (one set of axes for both); ``conv``: the decode
+        cache's conv-window columns (``ssm_inner`` over d_inner + 2N)."""
+        self.ssm = comm(mamba["wz"], -1)
+        want = None if self.ssm is None else self.ssm.axes
+        for name, dim in (("wx", -1), ("norm_scale", -1), ("out_proj", -2),
+                          ("wdt", -1), ("dt_bias", -1), ("A_log", -1),
+                          ("D_skip", -1)):
+            other = comm(mamba[name], dim)
+            got = None if other is None else other.axes
+            if got != want:
+                raise ValueError(f"{cfg.name}: Mamba2 {name} over {got}, "
+                                 f"wz columns over {want}")
+        width = cfg.d_inner + 2 * cfg.ssm_state
+        self.conv = live(rules.comm(rules.spec(("ssm_inner",), (width,))
+                                    .axes(0)))
+        if self.conv is not None and self.ssm is None:
+            raise ValueError(f"{cfg.name}: the conv window over "
+                             f"{self.conv.axes} with d_inner whole")
 
     def reduce_for(self, comm: Optional[Collectives]
                    ) -> Optional[Collectives]:

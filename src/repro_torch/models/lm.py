@@ -1,4 +1,5 @@
-"""Decoder-only LM, dense and MoE families.  Port of ``repro.models.lm``.
+"""Decoder-only LM: the dense, MoE and hybrid-SSM (Zamba2) families.
+Port of ``repro.models.lm``.
 
 One parameter-declaration table per family (``param_defs``), one forward
 for full sequences (``forward``), the training loss (``loss_fn``), and
@@ -38,11 +39,18 @@ and its mean over the global batch's valid labels.  On a ``(1, 1)`` mesh
 every collective is the identity and the numbers are those without one,
 bit for bit.
 
-Not ported yet, each raising ``NotImplementedError`` that names its item
-of ROADMAP.md:
+The ``hybrid_ssm`` family (Zamba2) is groups of ``attn_every`` Mamba2
+layers (``models.ssm``), each group ending with the one *shared*
+attention+MLP block, then ``n_layers % attn_every`` tail Mamba2 layers:
+``layers.mamba_main`` is stacked (n_groups, period, ...),
+``layers.mamba_tail`` (tail, ...), ``shared`` unstacked.  Its cache holds
+each Mamba2 layer's SSM state (float32) and conv window (the compute
+dtype) and one KV ring per invocation of the shared block.  A prompt
+longer than ``ssm_chunk`` must be a whole number of chunks, as in the JAX
+package.
 
-* the ``hybrid_ssm`` family (Zamba2, ``models/ssm.py``) — A13d;
-* the ``xlstm`` family (``models/xlstm.py``) — A13e.
+Not ported yet, raising ``NotImplementedError`` that names its item of
+ROADMAP.md: the ``xlstm`` family (``models/xlstm.py``) — A13e.
 """
 from __future__ import annotations
 
@@ -54,14 +62,17 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..core.collectives import copy_to, gather_from, reduce_from
 from ..device import resolve_device
-from . import common
+from . import common, ssm
 from .layout import gather_batch, layout
 from .params import ParamDef, layer_slice, layer_views
 
 #: ROADMAP items of the families the port does not declare yet.
-_FAMILY_ITEMS = {"hybrid_ssm": "A13d (models/ssm.py)",
-                 "xlstm": "A13e (models/xlstm.py)",
+_FAMILY_ITEMS = {"xlstm": "A13e (models/xlstm.py)",
                  "encdec": "A13f (models/encdec.py)"}
+
+
+#: The families the port declares.
+FAMILIES = ("dense", "moe", "hybrid_ssm")
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -109,10 +120,42 @@ def _moe_defs(cfg: ModelConfig, stack: tuple = ()) -> dict:
     }
 
 
-def param_defs(cfg: ModelConfig) -> dict:
-    if cfg.family not in ("dense", "moe"):
-        raise not_ported(f"the {cfg.family!r} family",
+def _mamba_defs(cfg: ModelConfig, stack: tuple = ()) -> dict:
+    d, di, n = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    h, w = cfg.ssm_heads, cfg.conv_width
+    sa = ("layers",) * len(stack)
+    return {
+        "norm": ParamDef(stack + (d,), sa + (None,), "ones"),
+        "wz": ParamDef(stack + (d, di), sa + (None, "ssm_inner")),
+        "wx": ParamDef(stack + (d, di), sa + (None, "ssm_inner")),
+        "wB": ParamDef(stack + (d, n), sa + (None, None)),
+        "wC": ParamDef(stack + (d, n), sa + (None, None)),
+        "wdt": ParamDef(stack + (d, h), sa + (None, "ssm_heads")),
+        "conv_w": ParamDef(stack + (w, di + 2 * n), sa + (None, None),
+                           "normal", 0.5),
+        "conv_b": ParamDef(stack + (di + 2 * n,), sa + (None,), "zeros"),
+        "dt_bias": ParamDef(stack + (h,), sa + ("ssm_heads",), "zeros"),
+        "A_log": ParamDef(stack + (h,), sa + ("ssm_heads",), "zeros"),
+        "D_skip": ParamDef(stack + (h,), sa + ("ssm_heads",), "ones"),
+        "norm_scale": ParamDef(stack + (di,), sa + ("ssm_inner",), "ones"),
+        "out_proj": ParamDef(stack + (di, d), sa + ("ssm_inner", None)),
+    }
+
+
+def _pattern(cfg: ModelConfig) -> tuple[int, int, int]:
+    """(n_groups, period, tail) of the block pattern."""
+    period = cfg.layer_pattern_period
+    return cfg.n_layers // period, period, cfg.n_layers % period
+
+
+def _check_family(cfg: ModelConfig, what: str) -> None:
+    if cfg.family not in FAMILIES:
+        raise not_ported(f"{what} of the {cfg.family!r} family",
                          _FAMILY_ITEMS.get(cfg.family, "A13"))
+
+
+def param_defs(cfg: ModelConfig) -> dict:
+    _check_family(cfg, "the parameter table")
     d, v = cfg.d_model, cfg.vocab_size
     out: dict = {
         "embed": ParamDef((v, d), ("vocab", "embed"), "normal", 1.0),
@@ -123,6 +166,18 @@ def param_defs(cfg: ModelConfig) -> dict:
     if cfg.frontend == "patch":
         out["frontend_adapter"] = ParamDef((cfg.frontend_dim, d),
                                            (None, "embed"))
+    if cfg.family == "hybrid_ssm":
+        ng, period, tail = _pattern(cfg)
+        out["layers"] = {"mamba_main": _mamba_defs(cfg, (ng, period))}
+        if tail:
+            out["layers"]["mamba_tail"] = _mamba_defs(cfg, (tail,))
+        out["shared"] = {
+            "attn_norm": ParamDef((d,), (None,), "ones"),
+            "attn": _attn_defs(cfg),
+            "mlp_norm": ParamDef((d,), (None,), "ones"),
+            "mlp": _mlp_defs(cfg),
+        }
+        return out
     stack = (cfg.n_layers,)
     out["layers"] = {
         "attn_norm": ParamDef(stack + (d,), ("layers", None), "ones"),
@@ -154,12 +209,39 @@ def _dense_block(cfg, p, x, positions, aux, lay=None):
     return x + y, aux
 
 
+def _mamba_block(cfg, p, x, lay=None):
+    h = common.rmsnorm(x, p["norm"], cfg.norm_eps, cfg.use_pallas)
+    return x + ssm.ssd_forward(cfg, p, h, lay=lay)
+
+
+def _shared_attn_block(cfg, p, x, positions, lay=None):
+    h = common.rmsnorm(x, p["attn_norm"], cfg.norm_eps, cfg.use_pallas)
+    x = x + common.attention(cfg, p["attn"], h, positions,
+                             impl=cfg.attn_impl, q_block=cfg.q_block,
+                             lay=lay)
+    h = common.rmsnorm(x, p["mlp_norm"], cfg.norm_eps, cfg.use_pallas)
+    return x + common.swiglu(p["mlp"], h, lay)
+
+
+def _hybrid_group(cfg, sl, shared, x, positions, lay=None):
+    """One group: ``period`` Mamba2 layers (the views of ``sl``), then the
+    shared attention+MLP block."""
+    for p in layer_views(sl, cfg.layer_pattern_period):
+        x = _mamba_block(cfg, p, x, lay)
+    return _shared_attn_block(cfg, shared, x, positions, lay)
+
+
 # ---------------------------------------------------------------------------
 # Embedding / head
 # ---------------------------------------------------------------------------
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
-    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    """The JAX package's compute type: bfloat16 for ``dtype="bfloat16"``,
+    else float32.  ``dtype="float64"`` (the port only) computes every
+    float32 step in float64 (``common.wide``): the evaluation that grounds
+    the float32 tolerances."""
+    return {"bfloat16": torch.bfloat16,
+            "float64": torch.float64}.get(cfg.dtype, torch.float32)
 
 
 def _lookup(emb: torch.Tensor, tokens: torch.Tensor, lay) -> torch.Tensor:
@@ -212,7 +294,8 @@ def lm_logits(cfg: ModelConfig, params, x, lay=None):
         vocab = lay.vocab if cfg.tie_embeddings else lay.head_vocab
         x = copy_to(vocab, x)
     if cfg.logits_fp32:      # preferred_element_type=float32
-        x, w = x.to(torch.float32), w.to(torch.float32)
+        f32 = common.wide(x.dtype)
+        x, w = x.to(f32), w.to(f32)
     if cfg.tie_embeddings:
         return torch.einsum("bsd,vd->bsv", x, w)
     return torch.einsum("bsd,dv->bsv", x, w)
@@ -251,9 +334,7 @@ def _layout(cfg: ModelConfig, rules, batch: int):
 def _forward(cfg: ModelConfig, params, tokens, patches=None,
              positions=None, rules=None):
     """The forward on this rank's rows -> (logits block, aux, layout)."""
-    if cfg.family not in ("dense", "moe"):
-        raise not_ported(f"forward of the {cfg.family!r} family",
-                         _FAMILY_ITEMS.get(cfg.family, "A13"))
+    _check_family(cfg, "forward")
     dev = params["embed"].device
     lay = _layout(cfg, rules, len(tokens))
     if lay is not None:
@@ -268,6 +349,9 @@ def _forward(cfg: ModelConfig, params, tokens, patches=None,
         positions = torch.arange(s, dtype=torch.int32, device=dev)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     remat = cfg.remat == "block" and torch.is_grad_enabled()
+    if cfg.family == "hybrid_ssm":
+        x = _hybrid_forward(cfg, params, x, positions, lay, remat)
+        return lm_logits(cfg, params, x, lay), aux, lay
     for p in layer_views(params["layers"], cfg.n_layers):
         if remat:
             x, aux = checkpoint(_dense_block, cfg, p, x, positions, aux,
@@ -275,6 +359,29 @@ def _forward(cfg: ModelConfig, params, tokens, patches=None,
         else:
             x, aux = _dense_block(cfg, p, x, positions, aux, lay)
     return lm_logits(cfg, params, x, lay), aux, lay
+
+
+def _hybrid_forward(cfg, params, x, positions, lay, remat: bool):
+    """The hybrid family's blocks: each group (remat as one block, as the
+    JAX package's ``jax.remat`` of the scanned group), then each tail
+    layer."""
+    ssm.check_length(cfg, x.shape[1])
+    ng, _, tail = _pattern(cfg)
+    lp, shared = params["layers"], params["shared"]
+    for sl in layer_views(lp["mamba_main"], ng):
+        if remat:
+            x = checkpoint(_hybrid_group, cfg, sl, shared, x, positions, lay,
+                           use_reentrant=False)
+        else:
+            x = _hybrid_group(cfg, sl, shared, x, positions, lay)
+    if tail:
+        for p in layer_views(lp["mamba_tail"], tail):
+            if remat:
+                x = checkpoint(_mamba_block, cfg, p, x, lay,
+                               use_reentrant=False)
+            else:
+                x = _mamba_block(cfg, p, x, lay)
+    return x
 
 
 def forward(cfg: ModelConfig, params, tokens, patches=None,
@@ -357,30 +464,46 @@ class CacheLeaf(NamedTuple):
     axes: tuple
 
 
-def _check_family(cfg: ModelConfig, what: str) -> None:
-    if cfg.family not in ("dense", "moe"):
-        raise not_ported(f"{what} of the {cfg.family!r} family",
-                         _FAMILY_ITEMS.get(cfg.family, "A13"))
-
-
 def cache_len(cfg: ModelConfig, max_len: int) -> int:
     return min(max_len, cfg.window) if cfg.window else max_len
 
 
 def cache_defs(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16) -> dict:
-    """Declaration tree of the decode cache (dense and MoE families).
-    ``pos`` = tokens consumed; ``k``/``v`` (L, B, Sc, KV, hd) rings;
-    ``slot_pos`` (Sc,) the position each slot holds (-1 = empty)."""
+    """Declaration tree of the decode cache.  ``pos`` = tokens consumed;
+    ``k``/``v`` (L, B, Sc, KV, hd) rings, L the layers (dense, MoE) or the
+    shared block's invocations (hybrid); ``slot_pos`` (Sc,) the position
+    each slot holds (-1 = empty).  The hybrid family adds each Mamba2
+    layer's ``ssm_*`` state (..., B, H, hp, N) in float32 and ``conv_*``
+    window (..., B, W-1, d_inner + 2N) in ``dtype``, for ``main``
+    (n_groups, period, ...) and ``tail`` (tail, ...)."""
     _check_family(cfg, "the decode cache")
     sc = cache_len(cfg, max_len)
     kv, hd = cfg.n_kv_heads, cfg.head_dim
     seq_ax = "long_seq" if batch == 1 else "kv_seq"
-    ring = CacheLeaf((cfg.n_layers, batch, sc, kv, hd), dtype, 0,
+    c = {"pos": CacheLeaf((), torch.int32, 0, ())}
+    lead = (cfg.n_layers,)
+    if cfg.family == "hybrid_ssm":
+        ng, period, tail = _pattern(cfg)
+        h, hp, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        di, w = cfg.d_inner, cfg.conv_width
+        stacks = {"main": (ng, period)}
+        if tail:
+            stacks["tail"] = (tail,)
+        for name, st in stacks.items():
+            la = (None,) * len(st)
+            c[f"ssm_{name}"] = CacheLeaf(
+                st + (batch, h, hp, n), common.wide(dtype), 0,
+                la + ("batch", "ssm_heads", None, None))
+            c[f"conv_{name}"] = CacheLeaf(
+                st + (batch, w - 1, di + 2 * n), dtype, 0,
+                la + ("batch", None, "ssm_inner"))
+        lead = (ng,)
+    ring = CacheLeaf(lead + (batch, sc, kv, hd), dtype, 0,
                      (None, "batch", seq_ax, "kv_heads", None))
-    return {"pos": CacheLeaf((), torch.int32, 0, ()),
-            "k": ring, "v": ring,
-            "slot_pos": CacheLeaf((sc,), torch.int32, -1, (None,))}
+    c.update(k=ring, v=ring,
+             slot_pos=CacheLeaf((sc,), torch.int32, -1, (None,)))
+    return c
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -435,8 +558,9 @@ def _ring(cfg: ModelConfig, lay, batch: int, sc: int):
 def decode_step(cfg: ModelConfig, params, cache, tokens, rules=None):
     """One decode step for all sequences. tokens (B,) ints (a tensor or
     anything ``torch.as_tensor`` takes).  Returns (cache, logits (B, V)):
-    the K/V rings and ``slot_pos`` are written in place, ``pos`` is a new
-    tensor one larger.  Over a mesh: the global tokens in, this rank's
+    the K/V rings, ``slot_pos`` and the hybrid family's SSM states and
+    conv windows are written in place, ``pos`` is a new tensor one
+    larger.  Over a mesh: the global tokens in, this rank's
     block of the cache, the global logits out."""
     _check_family(cfg, "decode_step")
     dev = params["embed"].device
@@ -452,14 +576,47 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, rules=None):
         emb = gather_from(lay.embed_fsdp, emb, 1)
     x = _lookup(emb, tokens, lay).to(compute_dtype(cfg))[:, None]  # (B,1,D)
     lp = params["layers"]
-    for i in range(cfg.n_layers):
-        x, _, _, slot_pos = _attn_block_decode(
-            cfg, layer_slice(lp, i), x, cache["k"][i], cache["v"][i],
-            slot_pos, pos, lay, ring)
+    if cfg.family == "hybrid_ssm":
+        x = _hybrid_decode(cfg, params, cache, x, pos, lay, ring)
+    else:
+        for i in range(cfg.n_layers):
+            x, _, _, slot_pos = _attn_block_decode(
+                cfg, layer_slice(lp, i), x, cache["k"][i], cache["v"][i],
+                slot_pos, pos, lay, ring)
     logits = lm_logits(cfg, params, x, lay)[:, 0]
     if lay is not None:
         logits = global_logits(cfg, logits, lay)
     return dict(cache, pos=cache["pos"] + 1), logits
+
+
+def _mamba_decode(cfg, p, x, cache, name: str, idx: tuple, lay):
+    """One Mamba2 layer's decode step; its states in ``cache[ssm_<name>]``
+    and ``cache[conv_<name>]`` at ``idx`` are written in place."""
+    h = common.rmsnorm(x, p["norm"], cfg.norm_eps, cfg.use_pallas)
+    sst, cst = cache[f"ssm_{name}"][idx], cache[f"conv_{name}"][idx]
+    y, s_new, c_new = ssm.ssd_decode(cfg, p, h, sst, cst, lay)
+    sst.copy_(s_new)
+    cst.copy_(c_new)
+    return x + y
+
+
+def _hybrid_decode(cfg, params, cache, x, pos: int, lay, ring):
+    """The hybrid family's decode step over its groups and tail."""
+    ng, period, tail = _pattern(cfg)
+    lp, shared = params["layers"], params["shared"]
+    slot_pos = cache["slot_pos"]
+    for g in range(ng):
+        sl = layer_slice(lp["mamba_main"], g)
+        for i in range(period):
+            x = _mamba_decode(cfg, layer_slice(sl, i), x, cache, "main",
+                              (g, i), lay)
+        x, _, _, slot_pos = _attn_block_decode(
+            cfg, shared, x, cache["k"][g], cache["v"][g], slot_pos, pos,
+            lay, ring)
+    for i in range(tail):
+        x = _mamba_decode(cfg, layer_slice(lp["mamba_tail"], i), x, cache,
+                          "tail", (i,), lay)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -483,7 +640,8 @@ def _ring_pack(full: torch.Tensor, sc: int, s: int):
 def prefill(cfg: ModelConfig, params, tokens, max_len: int, patches=None,
             rules=None):
     """Batched prefill: one full forward that also packs every layer's K/V
-    into the ring cache.  Returns (cache, logits of the last position
+    into the ring cache (and, in the hybrid family, writes every Mamba2
+    layer's SSM state and conv window).  Returns (cache, logits of the last position
     (B, V)).  ``tokens`` (and ``patches``) may be numpy arrays; they move
     to the parameters' device.  Over a mesh: the global batch in, this
     rank's block of the cache and the global logits out."""
@@ -499,6 +657,8 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, patches=None,
     x = embed_tokens(cfg, params, _as_index(tokens, dev), patches, compute,
                      lay)
     b, s, _ = x.shape
+    if cfg.family == "hybrid_ssm":
+        ssm.check_length(cfg, s)
     positions = torch.arange(s, dtype=torch.int32, device=dev)
     sc = cache_len(cfg, max_len)
     batch = b if lay is None else lay.batch_size
@@ -534,8 +694,34 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, patches=None,
                                     lay), slot_pos
 
     lp = params["layers"]
-    for i in range(cfg.n_layers):
-        p = layer_slice(lp, i)
+
+    def mamba_with_state(p, xx, name, idx):
+        """A Mamba2 layer that also writes its SSM state and conv
+        window."""
+        h = common.rmsnorm(xx, p["norm"], cfg.norm_eps, cfg.use_pallas)
+        y, st, cst = ssm.ssd_forward(cfg, p, h, return_state=True, lay=lay)
+        cache[f"ssm_{name}"][idx] = st
+        cache[f"conv_{name}"][idx] = cst
+        return xx + y
+
+    if cfg.family == "hybrid_ssm":
+        ng, period, tail = _pattern(cfg)
+        shared = params["shared"]
+        blocks = []
+        for g in range(ng):
+            sl = layer_slice(lp["mamba_main"], g)
+            blocks += [("main", (g, i), layer_slice(sl, i))
+                       for i in range(period)]
+            blocks.append(("shared", g, shared))
+        blocks += [("tail", (i,), layer_slice(lp["mamba_tail"], i))
+                   for i in range(tail)]
+    else:
+        blocks = [("block", i, layer_slice(lp, i))
+                  for i in range(cfg.n_layers)]
+    for kind, i, p in blocks:
+        if kind in ("main", "tail"):
+            x = mamba_with_state(p, x, kind, i)
+            continue
         x, slot_pos = attn_with_cache(p, x, i)
         h = common.rmsnorm(x, p["mlp_norm"], cfg.norm_eps, cfg.use_pallas)
         if cfg.is_moe:

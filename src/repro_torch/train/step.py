@@ -35,7 +35,7 @@ changes the numbers, not the bytes sent.  Under ``cfg.fsdp`` the ``embed`` width
 on the blocks, with the global norm of ``optim.adamw_update``.  On a
 ``(1, 1)`` mesh the step is the one without a mesh, bit for bit.
 
-Refused before the first step: the families A13d-f, and the kernel
+Refused before the first step: the families A13e-f, and the kernel
 switches (``attn_impl="pallas"``, ``use_pallas``): neither package has a
 backward for those kernels.
 """
@@ -50,7 +50,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..models.api import get_model
-from ..models.lm import _FAMILY_ITEMS, compute_dtype, not_ported
+from ..models.lm import _check_family, compute_dtype, not_ported
 from ..models.params import (from_jax_params, init_params, leaf_at,
                              param_shardings, tree_from_items, tree_items)
 from ..sharding.rules import PartitionSpec, Sharding, comm_of
@@ -193,9 +193,7 @@ class _LeafMesh:
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise before the first step for what the port cannot train."""
-    if cfg.family not in ("dense", "moe"):
-        raise not_ported(f"training the {cfg.family!r} family",
-                         _FAMILY_ITEMS.get(cfg.family, "A13"))
+    _check_family(cfg, "training")
     if cfg.attn_impl == "pallas" or cfg.use_pallas:
         raise NotImplementedError(
             f"{cfg.name}: training with attn_impl={cfg.attn_impl!r}, "

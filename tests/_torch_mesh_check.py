@@ -4,9 +4,10 @@ at the same mesh (spawned processes), in float32:
 
 * the collectives over sub-meshes ("model", "data", and both in the
   order ("model", "data")) on known values;
-* every rank's block of the dense and MoE smoke trees (fsdp off and on,
-  and the ZeRO-1 layout of a train state) equals the JAX shard on the
-  device at its mesh position (``mesh.devices.flat[r]``), bit for bit;
+* every rank's block of the dense, MoE and hybrid (zamba2) smoke trees
+  (fsdp off and on, and the ZeRO-1 layout of a train state) equals the
+  JAX shard on the device at its mesh position (``mesh.devices.flat[r]``),
+  bit for bit;
 * forward logits and the loss within 2e-5 of the largest |logit| (and
   rtol 2e-5): dense and MoE, ``moe_impl`` ``shard_map`` and ``gspmd``,
   fsdp off and on, and a vocabulary of 255, which divides by nothing, so
@@ -15,13 +16,15 @@ at the same mesh (spawned processes), in float32:
 * prefill and 4 greedy decode steps: tokens equal, logits within 2e-5
   of the largest, with the ring's slots over ``model`` (B = 4) and over
   ``(data, model)`` (B = 1, ``long_seq``), and through the
-  ``decode_attention`` op with its log-sum-exp;
+  ``decode_attention`` op with its log-sum-exp; the hybrid family's SSM
+  states split over ``ssm_heads`` and conv windows over their last axis;
 * three ``jit_train_step`` steps: ZeRO-1 with microbatch 2, no ZeRO-1
   with fsdp and the ``gspmd`` dispatch, ZeRO-1 with ``grad_compress``,
   ZeRO-1 with the vocabulary of 255:
   loss and grad norm within rtol 1e-4, every gathered leaf of
   ``params``, ``m`` and ``v`` within 2e-4 of the leaf's largest
-  magnitude (``grad_compress``: the moments within 2**-8, as
+  magnitude (a parameter leaf that starts at zero, 1e-3: it holds only
+  AdamW's updates, as ``test_torch_train.py`` states) (``grad_compress``: the moments within 2**-8, as
   ``test_torch_train.py`` states);
 * a checkpoint JAX saved on its 4 devices restores on 2 port ranks
   (each its block, equal to the saved arrays), and one the 4 port ranks
@@ -46,6 +49,9 @@ B, S, STEPS, NEW = 4, 16, 3, 4
 MAX_LEN = 32
 TOL = 2e-5
 SCALAR_RTOL, LEAF_TOL, COMPRESS_TOL = 1e-4, 2e-4, 2.0 ** -8
+#: a parameter leaf that starts at zero (the hybrid family's conv and dt
+#: biases, A_log): ``tests/test_torch_train.py``'s ZERO_INIT_TOL
+ZERO_INIT_TOL = 1e-3
 
 #: name -> (arch, config changes)
 FORWARD = {
@@ -56,12 +62,14 @@ FORWARD = {
     # a vocabulary that divides by nothing: ``embed`` replicated over
     # ``model`` (the fallback granite-moe's 49,155 takes at full width)
     "moe_vocab_fallback": ("granite-moe-3b-a800m", {"vocab_size": 255}),
+    "hybrid": ("zamba2-7b", {}),
 }
 #: name -> (arch, config changes, batch)
 SERVE = {
     "dense_decode": ("qwen3-0.6b", {}, B),
     "dense_decode_kernel_op": ("qwen3-0.6b", {"attn_impl": "pallas"}, B),
     "moe_long_seq": ("granite-moe-3b-a800m", {"attn_impl": "pallas"}, 1),
+    "hybrid_decode": ("zamba2-7b", {"attn_impl": "pallas"}, B),
 }
 #: name -> (arch, config changes, TrainConfig changes)
 TRAIN = {
@@ -73,9 +81,10 @@ TRAIN = {
                                                 "grad_compress": True}),
     "moe_vocab_fallback": ("granite-moe-3b-a800m", {"vocab_size": 255},
                            {"zero1": True}),
+    "hybrid_zero1": ("zamba2-7b", {}, {"zero1": True}),
 }
 #: the forward cases whose blocks are compared
-BLOCKS = ("dense", "moe", "moe_fsdp", "moe_vocab_fallback")
+BLOCKS = ("dense", "moe", "moe_fsdp", "moe_vocab_fallback", "hybrid")
 TC = dict(total_steps=10, warmup_steps=1)
 CKPT_CASE = "moe_zero1_microbatch"
 
@@ -459,6 +468,9 @@ def _rank(rank, tmp):
             tol = (COMPRESS_TOL if tc.grad_compress
                    and path[:2] in (("opt", "m"), ("opt", "v"))
                    else LEAF_TOL)
+            if path[0] == "params" and not np.any(
+                    init[f"train/{name}/{key}"]):
+                tol = ZERO_INIT_TOL       # the leaf holds only the updates
             worst = max(worst, close(g.numpy(),
                                      want[f"train/{name}/final/{key}"],
                                      tol, f"{name} {key}"))

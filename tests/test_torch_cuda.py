@@ -381,6 +381,10 @@ FA_CASES = [  # b, hq, hkv, sq, skv, d, causal, window, q_offset
     (2, 4, 4, 190, 300, 32, True, None, None),
     (1, 6, 2, 257, 257, 64, True, 100, None),
     (1, 4, 1, 65, 65, 128, False, None, None),
+    # Zamba2's head dim 112 (MHA): 7 k-steps, 14 output tiles
+    (2, 4, 4, 256, 256, 112, True, None, None),
+    (1, 3, 3, 130, 130, 112, False, 64, None),
+    (1, 2, 1, 70, 200, 112, True, None, None),
 ]
 
 
@@ -638,6 +642,8 @@ DECODE_CASES = [  # b, hq, hkv, s, d, kv_len, window
     (1, 64, 1, 70, 128, 1, None),
     (33, 16, 8, 512, 64, 500, None),      # B·Hkv 264: one split
     (2, 32, 8, 2048, 80, 2000, 1500),     # D 80, split, window mid-tile
+    (4, 32, 32, 2112, 112, 2049, None),   # Zamba2's decode: MHA, D 112
+    (2, 8, 8, 512, 112, 300, 100),        # D 112, window mid-tile
 ]
 
 
@@ -761,7 +767,8 @@ def test_decode_attention_kernel_unaligned_cache_view(cuda, dtype):
 
 @pytest.mark.parametrize("shape", [(4, 64), (2, 3, 128), (256, 512),
                                    (5, 96), (8184, 1536), (3, 8192),
-                                   (7, 1025), (1000, 24, 128)])
+                                   (7, 1025), (1000, 24, 128),
+                                   (4, 3584), (4, 7168), (1024, 7168)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_kernel(cuda, shape, dtype, w_dtype):
@@ -794,6 +801,11 @@ def test_rmsnorm_kernel(cuda, shape, dtype, w_dtype):
     (300, 512, torch.float32, 1, "warp"),        # 4 bytes off 16
     (3, 8192, torch.bfloat16, 0, "block"),
     (9, 100, torch.bfloat16, 0, "warp"),
+    # Zamba2: d_model 3584 and the gated norm's d_inner 7168
+    (4, 3584, torch.bfloat16, 0, "block"),
+    (8192, 3584, torch.bfloat16, 0, "block"),
+    (4, 7168, torch.float32, 0, "block"),
+    (8192, 7168, torch.bfloat16, 0, "block"),
 ])
 @pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_kernel_paths(cuda, rows, d, dtype, offset, path, w_dtype):

@@ -119,7 +119,7 @@ def test_decode_attention_kernel_refuses_what_it_does_not_take():
         KD.decode_attention(q, k, torch.zeros(1, 2, 64, 8).transpose(2, 3))
     with pytest.raises(ValueError, match="must be torch.float32"):
         KD.decode_attention(q, k.bfloat16(), k)
-    assert KD.HEAD_DIMS == (16, 32, 64, 80, 128)
+    assert KD.HEAD_DIMS == (16, 32, 64, 80, 112, 128)
     assert KD.decode_attention.launches == 0
 
 

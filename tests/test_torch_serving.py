@@ -389,6 +389,20 @@ def test_serve_entry_point_use_pallas_reaches_the_rmsnorm_op(capsys,
                                        ("seamless-m4t-large-v2", "A13f")])
 def test_unported_families_name_their_roadmap_item(arch, item):
     tc = tcfg.get_smoke_config(arch)
+    if item == "A13d":
+        # ported: the same entries serve the hybrid family
+        tc = dataclasses.replace(tc, dtype="float32")
+        params = get_model(tc).init(tc, torch.Generator().manual_seed(0),
+                                    device="cpu")
+        cache, logits = L.prefill(tc, params, np.zeros((1, 2), np.int32), 8)
+        assert logits.shape == (1, tc.vocab_size)
+        cache, logits = L.decode_step(tc, params, cache, np.zeros(1))
+        assert int(cache["pos"]) == 3 and bool(torch.isfinite(logits).all())
+        assert L.init_cache(tc, 1, 8, device="cpu")["ssm_main"].shape == (
+            2, 3, 1, tc.ssm_heads, tc.ssm_head_dim, tc.ssm_state)
+        assert get_model(tc).prefill(tc, params, {"tokens": np.ones(
+            (1, 4), np.int32)}, 8)[1].shape == (1, tc.vocab_size)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         L.prefill(tc, {"embed": torch.zeros(1)}, np.zeros((1, 2)), 8)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):

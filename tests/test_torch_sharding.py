@@ -86,7 +86,7 @@ def _spec(p) -> tuple:
 def test_specs_fallbacks_and_zero1_match_jax_for_every_leaf(arch):
     jc = jcfg.get_config(arch)
     defs = _leaves(jax_get_model(jc).param_defs(jc))
-    if jc.family in ("dense", "moe"):
+    if jc.family in ("dense", "moe", "hybrid_ssm"):
         # the port declares the same leaves
         tc = tcfg.get_config(arch)
         mine = _leaves(get_model(tc).param_defs(tc))
@@ -154,7 +154,8 @@ def _cfg(arch, dtype, **kw):
 @pytest.mark.parametrize("arch,kw", [
     ("qwen3-0.6b", {}), ("granite-moe-3b-a800m", {}),
     ("granite-moe-3b-a800m", {"moe_impl": "gspmd", "fsdp": True,
-                              "attn_impl": "pallas"})])
+                              "attn_impl": "pallas"}),
+    ("zamba2-7b", {"attn_impl": "pallas", "use_pallas": True})])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_one_by_one_mesh_serves_bit_for_bit(arch, kw, dtype):
     cfg = _cfg(arch, dtype, **kw)
@@ -186,7 +187,8 @@ def test_one_by_one_mesh_serves_bit_for_bit(arch, kw, dtype):
 @pytest.mark.parametrize("arch,kw,tkw", [
     ("qwen3-0.6b", {"microbatch": 2}, {"grad_compress": True}),
     ("granite-moe-3b-a800m", {"fsdp": True, "moe_impl": "gspmd"},
-     {"zero1": False})])
+     {"zero1": False}),
+    ("zamba2-7b", {"fsdp": True}, {})])
 def test_one_by_one_mesh_trains_bit_for_bit(arch, kw, tkw):
     cfg = _cfg(arch, "float32", **kw)
     rules = MeshRules(make_local_mesh(device="cpu"), fsdp=cfg.fsdp)
@@ -286,6 +288,11 @@ def test_four_gloo_ranks_match_jax_on_a_forced_two_by_two_mesh():
                  "equal",
                  "dense_zero1_compress: 3 steps",
                  "moe_fsdp_gspmd: 3 steps",
+                 "hybrid: 38 blocks of rank 0 equal to the JAX shards",
+                 "hybrid: forward logits within",
+                 "hybrid_decode (B 4): prefill and 4 decode steps, tokens "
+                 "equal",
+                 "hybrid_zero1: 3 steps",
                  "the JAX 4-device checkpoint restores on 2 ranks",
                  "the port's 4-rank checkpoint restores in JAX"):
         assert any(ln.startswith(want) for ln in lines), want

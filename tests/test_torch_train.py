@@ -12,7 +12,9 @@ and 2.  Tolerances:
   ``params``, ``opt.m`` and ``opt.v`` after the last step within 2e-4 of
   the leaf's largest magnitude (the repo's model-parity tolerance,
   ``tests/test_models_parity.py``, on the leaf's scale: the two packages
-  sum gradients in other orders, and ``v`` squares them);
+  sum gradients in other orders, and ``v`` squares them); a parameter
+  leaf that starts at zero within 1e-3 of its largest magnitude
+  (``ZERO_INIT_TOL``: it holds only the updates);
 * ``grad_compress``: the gradients are rounded to bfloat16, and two
   float32 values a rounding apart can land one bf16 ulp apart, so the
   moments get 2**-8 of the leaf's largest magnitude;
@@ -53,11 +55,19 @@ from repro_torch.sharding import PartitionSpec as TPartitionSpec
 from repro_torch.train import optim as TO
 from repro_torch.train import step as TS
 
-ARCHS = ["qwen3-0.6b", "granite-moe-3b-a800m", "internvl2-76b"]
+ARCHS = ["qwen3-0.6b", "granite-moe-3b-a800m", "internvl2-76b",
+         "zamba2-7b"]
 B, S, STEPS = 2, 16, 3
 TC = dict(total_steps=10, warmup_steps=1)
 SCALAR_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
 LEAF_TOL = 2e-4
+#: A parameter leaf that starts at zero (the hybrid family's conv and dt
+#: biases, A_log) holds nothing but the AdamW updates: each element moves
+#: by about lr · sign(g), and where its gradient is small beside the
+#: leaf's largest, the gradient's float32 error (held to LEAF_TOL of that
+#: largest, in ``m`` and ``v``) is a larger share of it, so the update
+#: errs by up to ~5e-4 lr (zamba2-smoke, conv_b).
+ZERO_INIT_TOL = 1e-3
 
 
 def _configs(arch, dtype, **kw):
@@ -115,7 +125,8 @@ def _leaf(tree, path):
     return np.asarray(tree)
 
 
-def _check_run(want_rows, got_rows, want, got, dtype, moment_tol=LEAF_TOL):
+def _check_run(want_rows, got_rows, want, got, dtype, moment_tol=LEAF_TOL,
+               init=None):
     rtol = SCALAR_RTOL[dtype]
     for i, (w, g) in enumerate(zip(want_rows, got_rows)):
         assert set(g) == set(w), (set(g), set(w))
@@ -141,6 +152,9 @@ def _check_run(want_rows, got_rows, want, got, dtype, moment_tol=LEAF_TOL):
             w = _leaf(w_tree, path)
             g = leaf.detach().numpy()
             assert g.shape == w.shape and g.dtype == w.dtype, path
+            if (part == "params" and init is not None
+                    and not np.any(_leaf(init["params"], path))):
+                tol = ZERO_INIT_TOL
             np.testing.assert_allclose(
                 g, w, rtol=0, atol=tol * float(np.abs(w).max()),
                 err_msg=f"{part}/{'/'.join(path)}")
@@ -149,12 +163,12 @@ def _check_run(want_rows, got_rows, want, got, dtype, moment_tol=LEAF_TOL):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_train_steps_match_jax(arch, dtype):
-    """Dense with qk-norm (qwen3), MoE with its aux loss (granite-moe) and
-    the patch frontend (internvl2): three steps against
-    ``jit_train_step``."""
+    """Dense with qk-norm (qwen3), MoE with its aux loss (granite-moe),
+    the patch frontend (internvl2) and the hybrid Mamba2 family (zamba2):
+    three steps against ``jit_train_step``."""
     init, want_rows, want = _jax_run(arch, dtype, B)
     got_rows, got = _port_run(arch, dtype, B, init)
-    _check_run(want_rows, got_rows, want, got, dtype)
+    _check_run(want_rows, got_rows, want, got, dtype, init=init)
 
 
 @pytest.mark.parametrize("case,cfg_kw,tc_kw,moment_tol", [
@@ -290,7 +304,9 @@ def test_training_refuses_what_it_cannot_train():
         == ("data", "model")
     with pytest.raises(NotImplementedError, match="ROADMAP A13g"):
         TS.state_structs(tc, rules)
-    for arch, item in (("zamba2-7b", "A13d"), ("xlstm-125m", "A13e"),
+    for arch, item in (("xlstm-125m", "A13e"),
                        ("seamless-m4t-large-v2", "A13f")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             TS.make_train_step(tcfg.get_smoke_config(arch))
+    # the hybrid family (A13d) is ported: its step builds
+    assert callable(TS.make_train_step(tcfg.get_smoke_config("zamba2-7b")))

@@ -66,6 +66,10 @@ def test_refusals():
     with pytest.raises(ValueError, match="torchrun"):
         train_mod.main(SMOKE + ["--steps", "1", "--model-shards", "2",
                                 "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A13d"):
-        train_mod.main(["--arch", "zamba2-7b", "--smoke", "--steps", "1",
+    # the hybrid family (ROADMAP A13d) is ported: it trains
+    assert train_mod.main(["--arch", "zamba2-7b", "--smoke", "--steps", "1",
+                           "--global-batch", "2", "--seq", "16",
+                           "--device", "cpu"]) == 0
+    with pytest.raises(NotImplementedError, match="ROADMAP A13e"):
+        train_mod.main(["--arch", "xlstm-125m", "--smoke", "--steps", "1",
                         "--device", "cpu"])
