@@ -252,7 +252,29 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    ranks on ``cuda:0``, mesh (data 1, model 2), ``ZAMBA_GATE_LAYERS``
    layers in fp32 with both kernels: prefill and 4 steps within 1e-3 of
    the row's max of the one-rank card run, the staged collectives'
-   calls and bytes equal to ``hybrid_mesh_plan``'s.
+   calls and bytes equal to ``hybrid_mesh_plan``'s;
+17. the xLSTM family (``phase17``, ``models.xlstm`` and ``models.lm``'s
+   ``xlstm``) at xlstm-125m's full width and depth (188,884,992 random
+   fp32 parameters; 12 layers: 3 groups of 3 mLSTM blocks and an sLSTM
+   block), whose one kernel is ``rmsnorm`` at width 768: at 8,192 and 4
+   rows in bf16 and fp32 against its plain version with 9a's gates (the
+   vector path), timed beside its bound, the plain version and
+   ``F.rms_norm``; (a) ``ServeEngine`` in bf16 with the kernel, 4 prompts
+   of 2,048-2,050 tokens (the prefill over the shortest: the mLSTM in 8
+   chunks of 256, the sLSTM's loop over 2,048 steps), 32 new: prefill
+   and decode ms, tokens/s, the idle share from traces of the prefill and
+   a decode step, peak bytes, 16 ``rmsnorm`` launches a step and in the
+   prefill, the greedy tokens against the plain path (reported); (b) in
+   fp32 at full depth, 1 x 512 tokens and 8 steps teacher-forced: every
+   launch against float64 within 1e-4 of its max |exact|, every step's
+   logits kernel on against off within 1e-3 of the row's max, beside the
+   float64 compute; (c) three training steps at full depth (4 x 1,024
+   tokens, bf16, peak bytes, no kernel) and 14b's fp32 gate at
+   ``XLSTM_GATE_LAYERS`` (1 x 256 tokens) against the CPU; (d) two gloo
+   ranks on ``cuda:0``, mesh (data 1, model 2), full depth in fp32 with
+   the kernel: prefill and 4 steps within 1e-3 of the row's max of the
+   one-rank card run, the staged collectives' calls and bytes equal to
+   ``xlstm_mesh_plan``'s.
 
 Before the last line it prints the card's name and power limit
 (``nvidia-smi``) and one JSON line ``{"kernels": [...]}``; the last line is
@@ -413,6 +435,33 @@ def device_ms(fn, iters: int = 10, warm: bool = True):
     total = sum(by_name.values())
     return ((total, by_name, by_op, complete) if total > 0
             else (None, {}, {}, False))
+
+
+def device_busy_ms(fn):
+    """(device ms, {kernel name: device ms}) of every kernel, copy and
+    fill that one call of ``fn`` puts on the card, summed from the
+    profiler's raw device records without building its operator tree (a
+    prefill through the sLSTM's loop puts ~10^5 kernels on the card, whose
+    tree takes the profiler minutes to build); (None, {}) when it records
+    no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.profiler.kineto_results.events()
+    except (RuntimeError, AttributeError) as e:
+        log(f"profiler records unavailable: {e}")
+        return None, {}
+    by_name = {}
+    for ev in events:
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            by_name[ev.name()] = (by_name.get(ev.name(), 0.0)
+                                  + ev.duration_ns() / 1e6)
+    total = sum(by_name.values())
+    return (total, by_name) if total > 0 else (None, {})
 
 
 def measure(fn, iters: int = 20, warm: int = 3) -> dict:
@@ -3554,6 +3603,468 @@ def phase16() -> tuple:
     return runs, timed
 
 
+#: Phase 17: xlstm-125m, the xLSTM family, at full width and depth (12
+#: layers: 3 groups of 3 mLSTM blocks and an sLSTM block).  Serving: 4
+#: prompts of 2,048-2,050 tokens (the prefill runs over the shortest: the
+#: mLSTM in 8 chunks of 256, the sLSTM 2,048 steps), 32 new tokens.  The
+#: fp32 logits gate at full depth (float32 lies 6.707e-5 of the row's max
+#: from float64 there: scripts/torch_hybrid_conditioning.py --arch
+#: xlstm-125m); the training gate at 4 layers (one group), where float32's
+#: gradients hold 14b's limits (2.039e-4 of a leaf's max from float64,
+#: 1.213e-3 at 8 layers, 5.872e-2 at 12: scripts/torch_train_conditioning.py
+#: --arch xlstm-125m); the mesh at full depth.
+XLSTM = "xlstm-125m"
+XLSTM_PARAMS = 188_884_992
+XLSTM_PROMPT, XLSTM_NEW, XLSTM_MAX_LEN = 2050, 32, 2112
+XLSTM_GATE_LAYERS = 4
+XLSTM_MESH_BATCH, XLSTM_MESH_SEQ, XLSTM_MESH_STEPS = 2, 512, 4
+
+
+def xlstm_norms(cfg) -> int:
+    """``rmsnorm`` launches of one xLSTM forward, prefill or decode step:
+    each mLSTM block's norm, each sLSTM block's two (the block's and the
+    norm of its hidden state), ``out_norm``."""
+    ng, period, tail = (cfg.n_layers // cfg.slstm_every, cfg.slstm_every,
+                        cfg.n_layers % cfg.slstm_every)
+    return ng * (period - 1) + tail + 2 * ng + 1
+
+
+def xlstm_mesh_plan(cfg, b: int, s: int, shards: int, es: int = 4):
+    """((calls, bytes) of a prefill over b x s tokens, (calls, bytes) of a
+    decode step) that the xLSTM family issues on a mesh (data 1, model
+    ``shards``) whose vocabulary, mLSTM ``ff`` columns and heads, sLSTM
+    heads and gated-MLP columns and rows are split over ``model``, at
+    ``es`` bytes an element (the bytes each rank sends).  Per mLSTM block
+    both gather the up-projection's columns (before the split into u and
+    z) and sum ``w_down``'s rows.  Per sLSTM block both gather
+    ``r_gates`` (the recurrence runs whole on every rank), gather the
+    gated MLP's up-projection and sum its rows; decode also gathers the
+    cached c, n and m.  Both sum the embedding rows and gather the
+    logits."""
+    ng = cfg.n_layers // cfg.slstm_every
+    nm = cfg.n_layers - ng
+    d, h = cfg.d_model, cfg.n_heads
+    dm = int(d * cfg.mlstm_proj)
+    hps = d // h
+    ds = int(2 * d * cfg.slstm_proj)
+    v = cfg.vocab_size // shards
+    rec = 4 * (h // shards) * hps * hps
+    prefill = (2 * nm + 3 * ng + 2,
+               es * (b * s * d + nm * (b * s * 2 * dm // shards + b * s * d)
+                     + ng * (rec + b * s * ds // shards + b * s * d)
+                     + b * v))
+    decode = (2 * nm + 6 * ng + 2,
+              es * (b * d + nm * (b * 2 * dm // shards + b * d)
+                    + ng * (2 * b * (h // shards) * hps + b * (h // shards)
+                            + rec + b * ds // shards + b * d)
+                    + b * v))
+    return prefill, decode
+
+
+def phase17d_rank(rank: int, tmp: str) -> None:
+    """One of 17d's two ranks (mesh (data 1, model 2) on ``cuda:0``):
+    xlstm-125m at full width and depth in fp32 with the ``rmsnorm``
+    kernel, a prefill and ``XLSTM_MESH_STEPS`` greedy steps; rank 0 then
+    runs the one-rank card reference.  Writes ``tmp/rank<r>.json``."""
+    torch, dist = _rank_setup(rank, 2, tmp, "pg17d")
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.collectives import Collectives
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.api import get_model
+    from repro_torch.sharding import MeshRules
+    dev = torch.device("cuda", 0)
+    report = {"rank": rank}
+    try:
+        mesh = make_mesh((1, 2), ("data", "model"), device=dev)
+        rules = MeshRules(mesh)
+        report["staged"] = mesh.staged
+        cfg = dataclasses.replace(get_config(XLSTM), dtype="float32",
+                                  use_pallas=True)
+        model = get_model(cfg)
+        toks = TokenPipeline(cfg, XLSTM_MESH_BATCH, XLSTM_MESH_SEQ,
+                             seed=1).batch_at(0)["tokens"]
+        max_len = XLSTM_MESH_SEQ + 64
+
+        def run(params, rules_, feed=None):
+            """The prefill's and each step's logits (greedy, or fed the
+            tokens ``feed``), and the staged collectives (calls, bytes)
+            of each."""
+            Collectives.reset_counts()
+            cache, lg = model.prefill(cfg, params, {"tokens": toks},
+                                      max_len, rules_)
+            rows, comms = [lg], [(Collectives.calls, Collectives.bytes)]
+            for i in range(XLSTM_MESH_STEPS):
+                nxt = (torch.argmax(rows[-1], -1) if feed is None
+                       else torch.argmax(feed[i], -1))
+                Collectives.reset_counts()
+                cache, lg = model.decode_step(cfg, params, cache, nxt,
+                                              rules_)
+                rows.append(lg)
+                comms.append((Collectives.calls, Collectives.bytes))
+            return rows, comms
+
+        params = model.init(cfg, torch.Generator(device=dev).manual_seed(1),
+                            device=dev, rules=rules)
+        report["param_bytes"] = sum(p.numel() * p.element_size()
+                                    for p in params.parameters())
+        torch.cuda.synchronize()
+        dist.barrier()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rows, comms = run(params, rules)
+        torch.cuda.synchronize()
+        report.update(ms=(time.perf_counter() - t0) * 1e3,
+                      counts=ops.launch_counts(), comms=comms,
+                      tokens=[torch.argmax(r, -1).tolist() for r in rows])
+        del params
+        torch.cuda.empty_cache()
+        dist.barrier()
+        if rank == 0:          # the one-rank card run of the same draws
+            full = model.init(cfg, torch.Generator(device=dev)
+                              .manual_seed(1), device=dev)
+            want, _ = run(full, None, feed=rows)   # the mesh's tokens
+            report["rel"] = [float(((a.double() - b.double()).abs().amax(-1)
+                                    / b.double().abs().amax(-1)).max())
+                             for a, b in zip(rows, want)]
+            report["tokens_equal"] = all(
+                torch.equal(torch.argmax(a, -1), torch.argmax(b, -1))
+                for a, b in zip(rows, want))
+            del full
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+        with open(f"{tmp}/rank{rank}.json", "w") as f:
+            json.dump(report, f)
+
+
+def phase17() -> tuple:
+    """The xLSTM family (``models.xlstm``, ``models.lm``'s ``xlstm``) at
+    xlstm-125m's full width and depth: (kernels) ``rmsnorm`` at width 768
+    against its plain version, timed; (a) serving; (b) the fp32 gates; (c)
+    training and its fp32 gate at ``XLSTM_GATE_LAYERS`` against the CPU;
+    (d) two gloo ranks on the card, mesh (1, 2).  -> ({run: launch
+    counts}, {kernel: its xlstm timings})."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rmsnorm as KN
+    from repro_torch.models.api import get_model
+    from repro_torch.models.params import tree_items
+    from repro_torch.serve import ServeEngine
+    from repro_torch.train import step as TS
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    runs, timed = {}, {}
+    bf16, fp32 = torch.bfloat16, torch.float32
+    cfg = dataclasses.replace(get_config(XLSTM), use_pallas=True)
+    n_norm = xlstm_norms(cfg)
+    check(cfg.n_params() == XLSTM_PARAMS and cfg.d_model == 768
+          and n_norm == 16 and cfg.dtype == "bfloat16",
+          f"{XLSTM}: {cfg.n_params()} parameters, width {cfg.d_model}, "
+          f"{n_norm} norms, {cfg.dtype}")
+    g = torch.Generator(device=dev).manual_seed(17)
+
+    def close(got, want, dtype):
+        """9a's gates: fp32 rtol = atol = 2e-5; bf16 one ulp of each
+        output (rtol 2**-7) plus atol 1e-5."""
+        rtol, atol = (2e-5, 2e-5) if dtype == fp32 else (2 ** -7, 1e-5)
+        e = float((got.float() - want.float()).abs().max())
+        return (got.dtype == want.dtype and got.shape == want.shape
+                and bool(torch.isfinite(got).all())
+                and torch.allclose(got.float(), want.float(), rtol=rtol,
+                                   atol=atol)), e
+
+    # -- 17-kernels: rmsnorm at width 768 ---------------------------------
+    t0 = time.perf_counter()
+    dn = cfg.d_model
+    w = torch.randn((dn,), generator=g, device=dev) + 1.0
+    errs, norm_timed = {}, {}
+    for rows in (8192, 4):
+        for dtype in (bf16, fp32):
+            x = torch.randn((rows, dn), generator=g, device=dev).to(dtype)
+            check(KN.plan_for(x, w).path == "vector",
+                  f"phase 17 rmsnorm {rows} x {dn}: plan {KN.plan_for(x, w)}")
+            ok, e = close(KN.rmsnorm(x, w, 1e-5), ref.rmsnorm_ref(x, w, 1e-5),
+                          dtype)
+            label = f"rmsnorm {rows} x {dn} {str(dtype)[6:]}"
+            check(ok, f"phase 17 {label}: max |err| {e}")
+            errs[label] = e
+        x = torch.randn((rows, dn), generator=g, device=dev).to(bf16)
+        k_, p_ = measure(lambda: KN.rmsnorm(x, w, 1e-5)), measure(
+            lambda: ref.rmsnorm_ref(x, w, 1e-5))
+        lib = measure(lambda: F.rms_norm(x, (dn,), w, 1e-5))
+        b_ms, b_by = bound(2 * 2 * rows * dn + 4 * dn, 4 * rows * dn)
+        norm_timed[f"{rows}x{dn}"] = dict(
+            ms=k_["ms"], call_ms=k_["call_ms"], ms_source=k_["source"],
+            plain_ms=p_["ms"], library_ms=lib["ms"], bound_ms=b_ms,
+            bound_by=b_by, shape=f"R={rows} D={dn} bf16, fp32 weight")
+    # the 12.6 MB input stays in the 50 MB L2 across repeated calls: also
+    # each call on the next of eight inputs (101 MB), as a prefill meets
+    # each layer's
+    xs = [torch.randn((8192, dn), generator=g, device=dev).to(bf16)
+          for _ in range(8)]
+    turn = [0]
+
+    def rotating(fn):
+        def call():
+            turn[0] = (turn[0] + 1) % len(xs)
+            return fn(xs[turn[0]])
+        return call
+    timed_cold = (measure(rotating(lambda x_: KN.rmsnorm(x_, w, 1e-5))),
+                  measure(rotating(lambda x_: F.rms_norm(x_, (dn,), w,
+                                                         1e-5))))
+    norm_timed[f"8192x{dn}"].update(cold_ms=timed_cold[0]["ms"],
+                                    library_cold_ms=timed_cold[1]["ms"])
+    del xs
+    timed["rmsnorm"] = dict(norm_timed[f"8192x{dn}"], by_shape=norm_timed,
+                            max_abs_err_by_case=errs)
+    log(f"phase 17 rmsnorm at D {dn} (vector path), 8192 and 4 rows, bf16 "
+        "and fp32: max |err| " + ", ".join(f"{k} {v:.3e}"
+                                           for k, v in errs.items()))
+    for key, t in norm_timed.items():
+        log(f"phase 17 rmsnorm {key} bf16: kernel {t['ms']:.6f} ms "
+            f"({t['ms_source']}; {t['call_ms']:.6f} per call), plain "
+            f"{t['plain_ms']:.6f}, F.rms_norm {t['library_ms']:.6f}, bound "
+            f"{t['bound_ms']:.6f} ({t['bound_by']})"
+            + (f"; L2-cold kernel {t['cold_ms']:.6f}, F.rms_norm "
+               f"{t['library_cold_ms']:.6f}" if "cold_ms" in t else ""))
+    del x
+    log(f"phase 17 kernels: {time.perf_counter() - t0:.1f} s")
+
+    # -- 17a: serving at full width and depth ------------------------------
+    t0 = time.perf_counter()
+    model = get_model(cfg)
+    params = model.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    prompts = TokenPipeline(cfg, 4, XLSTM_PROMPT, seed=0).prompts(
+        4, XLSTM_PROMPT)
+    lens = [len(p) for p in prompts]
+    check(min(lens) % cfg.ssm_chunk == 0 and min(lens) > cfg.ssm_chunk,
+          f"prompt lengths {lens}")
+    engine = ServeEngine(cfg, params, max_len=XLSTM_MAX_LEN)
+    engine.generate(prompts, 2)                           # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    run_a = engine.generate(prompts, XLSTM_NEW)
+    tag = "phase 17a serving xlstm"
+    runs[tag] = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    run_b = engine.generate(prompts, XLSTM_NEW)
+    steps = run_a.steps
+    want = {"rmsnorm": n_norm * (1 + steps)}
+    check({k: runs[tag][k] for k in want} == want
+          and all(n == 0 for k, n in runs[tag].items() if k not in want),
+          f"{tag}: launches {runs[tag]} != {want}")
+    check(steps == run_b.steps == max(lens) - min(lens) + XLSTM_NEW
+          and all(len(t) == XLSTM_NEW for t in run_a.tokens),
+          f"{tag}: steps {steps}, tokens {[len(t) for t in run_a.tokens]}")
+    prefill_ms = min(run_a.prefill_s, run_b.prefill_s) * 1e3
+    decode_ms = min(run_a.decode_s, run_b.decode_s) * 1e3
+    gen_ms = (run_a.prefill_s + run_a.decode_s) * 1e3
+    pad = np.array([p[:min(lens)] for p in prompts])
+    box = {}
+
+    def prefill_once():
+        box["cache"], lg = model.prefill(cfg, params, {"tokens": pad},
+                                         XLSTM_MAX_LEN)
+        box["feed"] = torch.argmax(lg, -1)
+
+    def step_once():
+        box["cache"], lg = model.decode_step(cfg, params, box["cache"],
+                                             box["feed"])
+        box["feed"] = torch.argmax(lg, -1)
+        box["feed"].cpu()
+
+    b_pre, pre_names = device_busy_ms(prefill_once)
+    b_step, _, by_op, complete = device_ms(step_once, iters=3)
+    busy = (None if b_pre is None or b_step is None
+            else b_pre + steps * b_step)
+    box.clear()
+    state_mb = sum(t.numel() * t.element_size() for _, t in tree_items(
+        model.init_cache(cfg, 4, XLSTM_MAX_LEN, bf16, device=dev))) / 1e6
+    log(f"{tag} (bf16 over fp32 weights, the rmsnorm kernel; 4 prompts "
+        f"{lens}, {XLSTM_NEW} new tokens): prefill ms "
+        f"{[round(r.prefill_s * 1e3, 3) for r in (run_a, run_b)]}; decode ms "
+        f"{[round(r.decode_s * 1e3, 3) for r in (run_a, run_b)]} over "
+        f"{steps} steps ({decode_ms / steps:.3f} ms a step, "
+        f"{4 * XLSTM_NEW / (decode_ms / 1e3):.1f} tokens/s; prefill "
+        f"{4 * min(lens) / (prefill_ms / 1e3):.1f} tokens/s); launches "
+        f"{want} as planned ({n_norm} a step and in the prefill); peak "
+        f"device memory {peak} bytes ({peak / 1e9:.3f} GB; parameters "
+        f"{XLSTM_PARAMS * 4 / 1e9:.3f} GB, the recurrent states "
+        f"{state_mb:.1f} MB); " + (
+            f"device busy {busy:.3f} ms of a {gen_ms:.3f} ms generate (the "
+            f"prefill's {b_pre:.3f}, from its raw device records, + {steps} "
+            f"x a step's {b_step:.3f}; idle share {1 - busy / gen_ms:.3f}; "
+            f"the step's trace complete: {complete})"
+            if busy is not None else "device busy not measured"))
+    if busy is not None:
+        for name_, ops_ in (("the prefill's device ms by kernel",
+                             pre_names),
+                            ("a decode step's device ms by the PyTorch op "
+                             "that launched it", by_op)):
+            log(f"{tag}: {name_}, the largest:")
+            for oname, oms in sorted(ops_.items(), key=lambda kv: -kv[1])[:6]:
+                log(f"    {oms:.3f} ms  {oname[:90]}")
+    plain = dataclasses.replace(cfg, use_pallas=False)
+    plain_tokens = ServeEngine(plain, params, max_len=XLSTM_MAX_LEN
+                               ).generate(prompts, XLSTM_NEW).tokens
+    agree = np.mean([a == b for x, y in zip(run_a.tokens, plain_tokens)
+                     for a, b in zip(x, y)])
+    log(f"{tag}: bf16 greedy tokens agreeing with the plain path {agree:.4f} "
+        f"of {4 * XLSTM_NEW} (reported); 17a {time.perf_counter() - t0:.1f} s")
+    del engine
+
+    # -- 17b: the fp32 gates ------------------------------------------------
+    # As 16b's, at full depth (float32 holds there,
+    # scripts/torch_hybrid_conditioning.py --arch xlstm-125m): teacher-forced
+    # on the plain path's greedy tokens, every rmsnorm launch against a
+    # float64 evaluation on its own inputs within 1e-4 of its max |exact|,
+    # and every step's logits kernel on against off within 1e-3 of the
+    # row's max, beside both runs' distance from the float64 compute
+    t0 = time.perf_counter()
+    on32 = dataclasses.replace(cfg, dtype="float32")
+    off32 = dataclasses.replace(plain, dtype="float32")
+    p1 = TokenPipeline(cfg, 1, 512, seed=0).prompts(1, 512)
+    gen = ServeEngine(off32, params, max_len=576).generate(p1, 8).tokens
+    ops.reset_launch_counts()
+    lg_on, lerrs = forced_checked("phase 17b fp32", on32, params, p1, gen,
+                                  576)
+    tag = "phase 17b fp32 xlstm"
+    runs[tag] = ops.launch_counts()
+    lg_off = forced(off32, params, p1, gen, 576)
+    check(runs[tag]["rmsnorm"] == n_norm * len(lg_on) == lerrs["rmsnorm"][0]
+          and all(n == 0 for k, n in runs[tag].items() if k != "rmsnorm"),
+          f"{tag}: launches {runs[tag]}, checked {lerrs}")
+    del params
+    torch.cuda.empty_cache()
+    p64 = model.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                     dtype=torch.float64, device=dev)
+    lg64 = forced(dataclasses.replace(off32, dtype="float64"), p64, p1, gen,
+                  576)
+    del p64
+
+    def row_rel(xs, ys):
+        return [float(((a.double() - b.double()).abs().amax(-1)
+                       / b.double().abs().amax(-1)).max())
+                for a, b in zip(xs, ys)]
+    rel = row_rel(lg_on, lg_off)
+    check(all(np.isfinite(rel)) and max(rel) <= 1e-3,
+          f"{tag}: max |d logit| of the row's max {rel} (limit 1e-3)")
+    log(f"{tag}, full width and depth (1 x 512 tokens + 8 steps, "
+        f"teacher-forced): all {lerrs['rmsnorm'][0]} rmsnorm launches within "
+        f"{lerrs['rmsnorm'][1]:.3e} of max |exact| of float64 (plain "
+        f"{lerrs['rmsnorm'][2]:.3e}; limit 1e-4); the kernel on against off "
+        f"within {max(rel):.3e} of the row's max at every step (limit 1e-3), "
+        f"by step {[float('%.2e' % x) for x in rel]}; against the float64 "
+        f"compute: kernel {max(row_rel(lg_on, lg64)):.3e}, plain "
+        f"{max(row_rel(lg_off, lg64)):.3e}; 17b "
+        f"{time.perf_counter() - t0:.1f} s")
+    del lg_on, lg_off, lg64
+    torch.cuda.empty_cache()
+
+    # -- 17c: training --------------------------------------------------------
+    t0 = time.perf_counter()
+    tcfg = get_config(XLSTM)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    torch.cuda.reset_peak_memory_stats()
+    state = TS.init_train_state(tcfg, torch.Generator(device=dev)
+                                .manual_seed(0), device=dev)
+    step_fn = TS.make_train_step(tcfg, None, TS.TrainConfig(
+        peak_lr=3e-3, warmup_steps=2, total_steps=TRAIN_STEPS))
+    pipe = TokenPipeline(tcfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    tag = "phase 17c training xlstm"
+    ops.reset_launch_counts()
+    rows = []
+    for i in range(3):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in pipe.batch_at(i).items()}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        row = {k: float(m[k]) for k in ("loss", "grad_norm", "lr")}
+        row["ms"] = (time.perf_counter() - t1) * 1e3
+        rows.append(row)
+    runs[tag] = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(all(n == 0 for n in runs[tag].values())
+          and all(math.isfinite(r[k]) for r in rows
+                  for k in ("loss", "grad_norm")), f"{tag}: {rows}, "
+          f"launches {runs[tag]}")
+    warm = [r["ms"] for r in rows[1:]]
+    rk = train_reckoning(XLSTM_PARAMS, tcfg, tokens)
+    log(f"{tag} (full width and depth, {XLSTM_PARAMS} parameters; "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens a step, bf16 over fp32 master, "
+        f"remat block): " + "; ".join(
+            f"step {i + 1} loss {r['loss']:.6f} grad norm "
+            f"{r['grad_norm']:.6f} {r['ms']:.1f} ms"
+            for i, r in enumerate(rows))
+        + f"; warm {sum(warm) / len(warm):.1f} ms a step "
+        f"({tokens / (sum(warm) / len(warm) / 1e3):.1f} tokens/s); peak "
+        f"device memory {peak} bytes ({peak / 1e9:.3f} GB; 14a's reckoning "
+        f"{rk['total'] / 1e9:.3f} GB); kernel launches 0")
+    del state, step_fn, batch
+    torch.cuda.empty_cache()
+    tag = "phase 17c fp32 gate xlstm"
+    runs[tag] = train_gate(tag, dataclasses.replace(
+        get_config(XLSTM), dtype="float32", n_layers=XLSTM_GATE_LAYERS),
+        cfg.n_layers, 1, 256)
+    log(f"phase 17c: {time.perf_counter() - t0:.1f} s")
+
+    # -- 17d: two gloo ranks on the card, mesh (data 1, model 2) ------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(phase17d_rank, args=(tmp,), nprocs=2,
+                           start_method="spawn")
+        reports = [json.load(open(f"{tmp}/rank{r}.json")) for r in range(2)]
+    plan_p, plan_d = xlstm_mesh_plan(cfg, XLSTM_MESH_BATCH, XLSTM_MESH_SEQ,
+                                     2)
+    tag = "phase 17d serving (1, 2) mesh xlstm"
+    want = {"rmsnorm": n_norm * (1 + XLSTM_MESH_STEPS)}
+    for r in reports:
+        check(r.get("staged") is True, f"{tag} rank {r['rank']}: {r}")
+        got = {k: r["counts"][k] for k in want}
+        check(got == want, f"{tag} rank {r['rank']}: launches {r['counts']} "
+              f"!= {want}")
+        comms = [tuple(c) for c in r["comms"]]
+        check(comms == [plan_p] + [plan_d] * XLSTM_MESH_STEPS,
+              f"{tag} rank {r['rank']}: staged collectives {comms}, planned "
+              f"{plan_p} then {plan_d} a step")
+        runs[f"{tag} rank {r['rank']}"] = r["counts"]
+    check(reports[0]["tokens"] == reports[1]["tokens"],
+          f"{tag}: the ranks' tokens differ")
+    rel = reports[0]["rel"]
+    check(max(rel) <= 1e-3, f"{tag}: logits of the row's max {rel} from the "
+          "one-rank card run (limit 1e-3)")
+    log(f"{tag} (full width and depth, fp32, the rmsnorm kernel; "
+        f"{XLSTM_MESH_BATCH} x {XLSTM_MESH_SEQ} tokens and "
+        f"{XLSTM_MESH_STEPS} greedy steps; host-staged gloo): the prefill's "
+        f"and each step's logits within {max(rel):.3e} of the row's max of "
+        f"the one-rank card run (limit 1e-3), by step "
+        f"{[float('%.2e' % x) for x in rel]}, greedy tokens equal: "
+        f"{reports[0]['tokens_equal']}; staged collectives as planned: "
+        f"prefill {plan_p[0]} calls {plan_p[1]} bytes, {plan_d[0]} calls "
+        f"{plan_d[1]} bytes a step; launches a rank {want}; parameter blocks "
+        f"{reports[0]['param_bytes']} bytes a rank; the mesh's run "
+        f"{reports[0]['ms']:.1f} ms; 17d {time.perf_counter() - t0:.1f} s "
+        "with start-up")
+    log(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
+    return runs, timed
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5000,6 +5511,13 @@ def main() -> int:
     for k in kernels:
         if k["name"] in zamba:
             k["zamba2"] = zamba[k["name"]]
+
+    # -- phase 17: the xLSTM family (xlstm-125m) ---------------------------
+    runs17, xl = phase17()
+    runs10.update(runs17)
+    for k in kernels:
+        if k["name"] in xl:
+            k["xlstm"] = xl[k["name"]]
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")

@@ -1,11 +1,13 @@
-"""How far two correct float32 evaluations of zamba2-7b lie apart at full
-width, by depth: the ground of ``chip_smoke.py`` phase 16b's fp32 gate.
+"""How far two correct float32 evaluations of zamba2-7b (or xlstm-125m)
+lie apart at full width, by depth: the ground of ``chip_smoke.py``
+phases 16b's and 17b's fp32 gates.
 
     python scripts/torch_hybrid_conditioning.py [--device cuda|cpu]
-        [--depths 7,13,25,49,81] [--seq 512]
+        [--arch zamba2-7b|xlstm-125m] [--depths 7,13,25,49,81] [--seq 512]
 
 For each depth (the first n layers' pattern: groups of 6 Mamba2 layers
-and the shared block, then the tail), the same seeded weights
+and the shared block, then the tail; for xlstm-125m groups of 3 mLSTM
+blocks and an sLSTM block, then the tail), the same seeded weights
 (``Model.init``, seed 0) serve one prompt of ``--seq`` tokens
 (``TokenPipeline`` seed 0) through ``prefill`` three ways: float32 with
 the kernels (``attn_impl="pallas"``, ``use_pallas=True``; on the card
@@ -50,7 +52,11 @@ def rel(a, b) -> float:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--depths", default="7,13,25,49,81")
+    ap.add_argument("--arch", default="zamba2-7b",
+                    choices=["zamba2-7b", "xlstm-125m"])
+    ap.add_argument("--depths", default=None,
+                    help="default: 7,13,25,49,81 (zamba2-7b), 4,8,12 "
+                         "(xlstm-125m)")
     ap.add_argument("--seq", type=int, default=512)
     args = ap.parse_args(argv)
     from repro_torch.configs import get_config
@@ -61,14 +67,16 @@ def main(argv=None) -> int:
     dev = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    base = get_config("zamba2-7b")
+    base = get_config(args.arch)
+    depths = args.depths or ("7,13,25,49,81" if args.arch == "zamba2-7b"
+                             else "4,8,12")
     toks = TokenPipeline(base, 1, args.seq, seed=0).batch_at(0)["tokens"]
     max_len = args.seq + 64
     where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
              else "cpu")
-    print(f"zamba2-7b at full width, 1 x {args.seq} tokens, prefill "
+    print(f"{args.arch} at full width, 1 x {args.seq} tokens, prefill "
           f"logits; on {where}", flush=True)
-    for depth in (int(x) for x in args.depths.split(",")):
+    for depth in (int(x) for x in depths.split(",")):
         t0 = time.perf_counter()
         off = dataclasses.replace(base, n_layers=depth, dtype="float32",
                                   attn_impl="blocked", use_pallas=False)

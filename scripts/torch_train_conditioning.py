@@ -1,14 +1,20 @@
-"""How well float32 computes granite-moe-3b-a800m's training gradients at
-full width, on the CPU: the numbers behind the tolerances of
-``chip_smoke.py`` phase 14b.
+"""How well float32 computes granite-moe-3b-a800m's (or another arch's)
+training gradients at full width, on the CPU: the numbers behind the
+tolerances of ``chip_smoke.py`` phases 14b, 16c and 17c.
 
     PYTHONPATH=src python scripts/torch_train_conditioning.py
+        [--arch granite-moe-3b-a800m] [--depths 1,2,4,8]
+        [--gate-layers 2] [--seq 512]
+
+(xlstm-125m's 17c gate: ``--arch xlstm-125m --depths 4,12 --gate-layers
+4 --seq 256``; ``--gate-layers 8`` and ``12`` show why it is cut.)
 
 1. The global gradient norm of ``lm.loss_fn`` at full width by depth (1,
    2, 4, 8 layers; 1 x 128 tokens; float32): the parameter init (the JAX
    package's: N(0, 1) times 1/sqrt(shape[-2]), so ``wq`` (d, h, hd) gets
    1/sqrt(h)) makes attention logits and gradients grow with depth.
-2. At phase 14b's size (2 layers, 1 x 512 tokens): the loss, the global
+2. At the gate's size (``--gate-layers`` layers, 1 x ``--seq`` tokens;
+   14b's: 2 layers, 1 x 512 tokens): the loss, the global
    gradient norm and every leaf's gradient in float32 against the same
    computation in float64, as relative errors (a leaf's: max |error| over
    the leaf's max |gradient|).  Two correct float32 runs (the card's and
@@ -19,6 +25,7 @@ evaluation); the port trains in bfloat16 or float32.  About a minute on 8 cores.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import os
 import sys
@@ -48,13 +55,18 @@ def norm(g: dict) -> float:
     return float(sum((x.double() ** 2).sum() for x in g.values()) ** 0.5)
 
 
-def main() -> int:
-    base = dataclasses.replace(get_config("granite-moe-3b-a800m"),
-                               dtype="float32")
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="granite-moe-3b-a800m")
+    ap.add_argument("--depths", default="1,2,4,8")
+    ap.add_argument("--gate-layers", type=int, default=2)
+    ap.add_argument("--seq", type=int, default=512)
+    args = ap.parse_args(argv)
+    base = dataclasses.replace(get_config(args.arch), dtype="float32")
     print(f"{base.name} at full width (d {base.d_model}, {base.n_experts} "
           f"experts top-{base.top_k}, vocab {base.vocab_size}), float32, "
           "on the CPU")
-    for n in (1, 2, 4, 8):
+    for n in (int(x) for x in args.depths.split(",")):
         cfg = dataclasses.replace(base, n_layers=n)
         p = get_model(cfg).init(cfg, torch.Generator().manual_seed(0),
                                 device="cpu", requires_grad=True)
@@ -63,15 +75,16 @@ def main() -> int:
         print(f"depth {n}: loss {loss:.6f}, global grad norm {norm(g):.6e}",
               flush=True)
 
-    cfg = dataclasses.replace(base, n_layers=2)
+    n = args.gate_layers
+    cfg = dataclasses.replace(base, n_layers=n)
     p32 = get_model(cfg).init(cfg, torch.Generator().manual_seed(0),
                               device="cpu", requires_grad=True)
     p64 = ParamTree.from_tensors(tree_map(lambda t: t.detach().double(),
                                           p32), requires_grad=True)
-    batch = TokenPipeline(cfg, 1, 512, seed=0).batch_at(0)
+    batch = TokenPipeline(cfg, 1, args.seq, seed=0).batch_at(0)
     l32, g32 = grads(cfg, p32, batch, torch.float32)
     l64, g64 = grads(cfg, p64, batch, torch.float64)
-    print(f"2 layers, 1 x 512 tokens, float32 against float64: loss "
+    print(f"{n} layers, 1 x {args.seq} tokens, float32 against float64: loss "
           f"{l32:.6f} / {l64:.6f} (relative error {abs(l32 / l64 - 1):.3e}),"
           f" global grad norm {norm(g32):.6f} / {norm(g64):.6f} (relative "
           f"error {abs(norm(g32) / norm(g64) - 1):.3e})")

@@ -8,9 +8,9 @@ family.  Port of ``repro.models.api``.
   cache, logits = model.prefill(cfg, params, inputs, max_len)
   cache, logits = model.decode_step(cfg, params, cache, tokens)
 
-The ``dense``, ``moe`` and ``hybrid_ssm`` families are ported; the others
-raise ``NotImplementedError`` naming their ROADMAP items (A13e-f).  Over a
-device mesh every entry takes ``rules`` (``sharding.MeshRules``), and
+The ``dense``, ``moe``, ``hybrid_ssm`` and ``xlstm`` families are ported;
+``encdec`` raises ``NotImplementedError`` naming its ROADMAP item (A13f).
+Over a device mesh every entry takes ``rules`` (``sharding.MeshRules``), and
 ``Model.init(rules=...)`` gives this rank its blocks; ``shardings`` and
 ``specs`` give the parameters' layout.  The dry-run's sharded stand-ins
 (``structs``, ``cache_structs``, ``input_specs``) are ROADMAP A13g.

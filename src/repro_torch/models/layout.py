@@ -18,6 +18,11 @@ without a mesh.
   The hybrid family's attention+MLP block is its one shared block.
 * ``ssm``: the Mamba2 layers' ``ssm_inner`` columns and ``ssm_heads``
   (``model``); ``conv``: the decode cache's conv-window columns.
+* The xLSTM family (no attention: ``kv``, ``wo`` and ``moe_ff`` are
+  ``None``): ``ff`` the mLSTM blocks' ``ff`` columns and ``heads`` their
+  heads (one set of axes for both: a rank's columns are its heads');
+  ``rec`` the sLSTM blocks' heads (``r_gates``, the cache's c, n, m);
+  ``mlp_up`` and ``mlp_down`` the sLSTM's gated MLP's columns and rows.
 * ``vocab``: the vocabulary of ``embed`` and ``lm_head``; ``embed_fsdp``,
   ``head_fsdp``, ``adapter_fsdp``: their ``embed`` width under fsdp
   (``data``), gathered where they are used.
@@ -55,17 +60,24 @@ class Layout:
             negative: stacked and unstacked leaves alike)."""
             dim = dim % len(d.shape)
             return live(rules.comm(rules.spec(d.axes, d.shape).axes(dim)))
-        # the attention+MLP block: stacked per layer, or the hybrid
-        # family's one shared block
-        lay = defs.get("shared", defs["layers"])
-        att = lay["attn"]
-        self.heads = comm(att["wq"], -2)
-        self.kv = comm(att["wk"], -2)
-        self.wo = comm(att["wo"], -2)
-        self.ff = comm(lay["mlp"]["w_gate"], -1) if "mlp" in lay else None
-        self.moe_ff = (comm(lay["moe"]["w_gate"], -1) if "moe" in lay
-                       else None)
+        self.heads = self.kv = self.wo = self.ff = self.moe_ff = None
         self.ssm = self.conv = None
+        self.rec = self.mlp_up = self.mlp_down = None
+        if "mlstm_main" in defs["layers"]:
+            self._xlstm_layout(cfg, defs["layers"], comm)
+        else:
+            # the attention+MLP block: stacked per layer, or the hybrid
+            # family's one shared block
+            lay = defs.get("shared", defs["layers"])
+            att = lay["attn"]
+            self.heads = comm(att["wq"], -2)
+            self.kv = comm(att["wk"], -2)
+            self.wo = comm(att["wo"], -2)
+            self.ff = (comm(lay["mlp"]["w_gate"], -1) if "mlp" in lay
+                       else None)
+            self.moe_ff = (comm(lay["moe"]["w_gate"], -1) if "moe" in lay
+                           else None)
+            self._check_attention(cfg)
         mamba = defs["layers"].get("mamba_main")
         if mamba is not None:
             self._ssm_layout(cfg, rules, mamba, comm)
@@ -77,6 +89,9 @@ class Layout:
                            else self.vocab)
         self.adapter_fsdp = (comm(defs["frontend_adapter"], 1)
                              if "frontend_adapter" in defs else None)
+        self._caches: dict = {}
+
+    def _check_attention(self, cfg) -> None:
         if self.heads is None and (self.kv is not None):
             raise ValueError(f"{cfg.name}: KV heads sharded over "
                              f"{self.kv.axes} with the query heads whole")
@@ -88,7 +103,6 @@ class Layout:
         if self.kv is not None and self.kv.axes != self.heads.axes:
             raise ValueError(f"{cfg.name}: KV heads over {self.kv.axes}, "
                              f"query heads over {self.heads.axes}")
-        self._caches: dict = {}
 
     def _ssm_layout(self, cfg, rules, mamba: dict, comm) -> None:
         """``ssm``: the Mamba2 layers' ``ssm_inner`` columns and
@@ -110,6 +124,39 @@ class Layout:
         if self.conv is not None and self.ssm is None:
             raise ValueError(f"{cfg.name}: the conv window over "
                              f"{self.conv.axes} with d_inner whole")
+
+    def _xlstm_layout(self, cfg, layers: dict, comm) -> None:
+        """The xLSTM blocks' axes: every mLSTM leaf split over ``ff`` or
+        ``heads`` must lie over ``w_up``'s column axes (a rank computes
+        its heads from its columns of q, k, v); the sLSTM's gated MLP
+        may keep ``w_mlp_down`` whole where its rows do not divide."""
+        def axes(c):
+            return None if c is None else c.axes
+
+        for name in ("mlstm_main", "mlstm_tail"):
+            if name not in layers:
+                continue
+            m = layers[name]
+            if self.ff is None:
+                self.ff = comm(m["w_up"], -1)
+            for leaf, dim in (("w_up", -1), ("wq", -1), ("wk", -1),
+                              ("wv", -1), ("wi", -1), ("wf", -1),
+                              ("norm_scale", -1), ("w_down", -2)):
+                got = axes(comm(m[leaf], dim))
+                if got != axes(self.ff):
+                    raise ValueError(f"{cfg.name}: mLSTM {leaf} over {got}, "
+                                     f"w_up columns over {axes(self.ff)}")
+        self.heads = self.ff
+        s = layers.get("slstm")
+        if s is not None:
+            self.rec = comm(s["r_gates"], -3)
+            self.mlp_up = comm(s["w_mlp_up"], -1)
+            self.mlp_down = comm(s["w_mlp_down"], -2)
+            if self.mlp_down is not None and axes(self.mlp_down) != axes(
+                    self.mlp_up):
+                raise ValueError(f"{cfg.name}: sLSTM w_mlp_down rows over "
+                                 f"{axes(self.mlp_down)}, w_mlp_up columns "
+                                 f"over {axes(self.mlp_up)}")
 
     def reduce_for(self, comm: Optional[Collectives]
                    ) -> Optional[Collectives]:

@@ -1,4 +1,4 @@
-"""Decoder-only LM: the dense, MoE and hybrid-SSM (Zamba2) families.
+"""Decoder-only LM: the dense, MoE, hybrid-SSM (Zamba2) and xLSTM families.
 Port of ``repro.models.lm``.
 
 One parameter-declaration table per family (``param_defs``), one forward
@@ -47,10 +47,23 @@ attention+MLP block, then ``n_layers % attn_every`` tail Mamba2 layers:
 each Mamba2 layer's SSM state (float32) and conv window (the compute
 dtype) and one KV ring per invocation of the shared block.  A prompt
 longer than ``ssm_chunk`` must be a whole number of chunks, as in the JAX
-package.
+package.  ``prefill`` refuses a pattern without a group (``n_layers <
+attn_every``), which has no ring to fill (the JAX function fails there).
+
+The ``xlstm`` family is groups of ``slstm_every`` blocks, ``period - 1``
+mLSTM blocks then one sLSTM block (``models.xlstm``), then ``n_layers %
+slstm_every`` tail mLSTM blocks: ``layers.mlstm_main`` is stacked
+(n_groups, period - 1, ...), ``layers.slstm`` (n_groups, ...),
+``layers.mlstm_tail`` (tail, ...); with ``slstm_every == 0`` every block
+is an mLSTM, ``mlstm_main`` stacked (n_layers, 1, ...).  Its cache has no
+ring: ``pos`` and each block's recurrent state, nested as the JAX
+package's (``mlstm_main``/``mlstm_tail``: ``c``, ``n``, ``m``;
+``slstm``: ``c``, ``n``, ``h``, ``m``), written in place by
+``decode_step``, which reads nothing on the host.  A group-less pattern
+(``n_layers < slstm_every``) serves, as in the JAX package.
 
 Not ported yet, raising ``NotImplementedError`` that names its item of
-ROADMAP.md: the ``xlstm`` family (``models/xlstm.py``) — A13e.
+ROADMAP.md: the ``encdec`` family (``models/encdec.py``) — A13f.
 """
 from __future__ import annotations
 
@@ -62,17 +75,16 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..core.collectives import copy_to, gather_from, reduce_from
 from ..device import resolve_device
-from . import common, ssm
+from . import common, ssm, xlstm
 from .layout import gather_batch, layout
 from .params import ParamDef, layer_slice, layer_views
 
 #: ROADMAP items of the families the port does not declare yet.
-_FAMILY_ITEMS = {"xlstm": "A13e (models/xlstm.py)",
-                 "encdec": "A13f (models/encdec.py)"}
+_FAMILY_ITEMS = {"encdec": "A13f (models/encdec.py)"}
 
 
 #: The families the port declares.
-FAMILIES = ("dense", "moe", "hybrid_ssm")
+FAMILIES = ("dense", "moe", "hybrid_ssm", "xlstm")
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -142,6 +154,42 @@ def _mamba_defs(cfg: ModelConfig, stack: tuple = ()) -> dict:
     }
 
 
+def _mlstm_defs(cfg: ModelConfig, stack: tuple = ()) -> dict:
+    d = cfg.d_model
+    dm = int(d * cfg.mlstm_proj)
+    h = cfg.n_heads
+    sa = ("layers",) * len(stack)
+    return {
+        "norm": ParamDef(stack + (d,), sa + (None,), "ones"),
+        "w_up": ParamDef(stack + (d, 2 * dm), sa + (None, "ff")),
+        "wq": ParamDef(stack + (dm, dm), sa + (None, "ff")),
+        "wk": ParamDef(stack + (dm, dm), sa + (None, "ff")),
+        "wv": ParamDef(stack + (dm, dm), sa + (None, "ff")),
+        "wi": ParamDef(stack + (dm, h), sa + (None, "heads")),
+        "wf": ParamDef(stack + (dm, h), sa + (None, "heads")),
+        "norm_scale": ParamDef(stack + (dm,), sa + ("ff",), "ones"),
+        "w_down": ParamDef(stack + (dm, d), sa + ("ff", None)),
+    }
+
+
+def _slstm_defs(cfg: ModelConfig, stack: tuple = ()) -> dict:
+    d = cfg.d_model
+    h, hp = cfg.n_heads, cfg.d_model // cfg.n_heads
+    ds = int(2 * d * cfg.slstm_proj)      # gated MLP: up to 2×(proj·d)
+    sa = ("layers",) * len(stack)
+    return {
+        "norm": ParamDef(stack + (d,), sa + (None,), "ones"),
+        "w_gates": ParamDef(stack + (d, 4, d), sa + (None, None, None)),
+        "r_gates": ParamDef(stack + (4, h, hp, hp),
+                            sa + (None, "heads", None, None), "normal", 0.1),
+        "b_i": ParamDef(stack + (d,), sa + (None,), "zeros"),
+        "b_f": ParamDef(stack + (d,), sa + (None,), "ones"),
+        "norm_scale": ParamDef(stack + (d,), sa + (None,), "ones"),
+        "w_mlp_up": ParamDef(stack + (d, ds), sa + (None, "ff")),
+        "w_mlp_down": ParamDef(stack + (ds // 2, d), sa + ("ff", None)),
+    }
+
+
 def _pattern(cfg: ModelConfig) -> tuple[int, int, int]:
     """(n_groups, period, tail) of the block pattern."""
     period = cfg.layer_pattern_period
@@ -177,6 +225,17 @@ def param_defs(cfg: ModelConfig) -> dict:
             "mlp_norm": ParamDef((d,), (None,), "ones"),
             "mlp": _mlp_defs(cfg),
         }
+        return out
+    if cfg.family == "xlstm":
+        ng, period, tail = _pattern(cfg)
+        if cfg.slstm_every:
+            out["layers"] = {"mlstm_main": _mlstm_defs(cfg, (ng, period - 1)),
+                             "slstm": _slstm_defs(cfg, (ng,))}
+            if tail:
+                out["layers"]["mlstm_tail"] = _mlstm_defs(cfg, (tail,))
+        else:
+            out["layers"] = {"mlstm_main": _mlstm_defs(cfg,
+                                                       (cfg.n_layers, 1))}
         return out
     stack = (cfg.n_layers,)
     out["layers"] = {
@@ -229,6 +288,32 @@ def _hybrid_group(cfg, sl, shared, x, positions, lay=None):
     for p in layer_views(sl, cfg.layer_pattern_period):
         x = _mamba_block(cfg, p, x, lay)
     return _shared_attn_block(cfg, shared, x, positions, lay)
+
+
+def _mlstm_block(cfg, p, x, lay=None):
+    h = common.rmsnorm(x, p["norm"], cfg.norm_eps, cfg.use_pallas)
+    return x + xlstm.mlstm_forward(cfg, p, h, lay=lay)
+
+
+def _slstm_block(cfg, p, x, lay=None):
+    h = common.rmsnorm(x, p["norm"], cfg.norm_eps, cfg.use_pallas)
+    return x + xlstm.slstm_forward(cfg, p, h, lay=lay)
+
+
+def _xlstm_group(cfg, msl, ssl, x, lay=None):
+    """One group: its mLSTM blocks (the views of ``msl``), then the sLSTM
+    block ``ssl`` (``None`` where ``slstm_every`` is 0)."""
+    for p in layer_views(msl, msl["w_up"].shape[0]):
+        x = _mlstm_block(cfg, p, x, lay)
+    return x if ssl is None else _slstm_block(cfg, ssl, x, lay)
+
+
+def _xlstm_stacks(lp) -> tuple:
+    """(n_groups, mLSTM blocks a group, tail mLSTM blocks) of an xLSTM
+    parameter tree's stacks."""
+    ng, nm = lp["mlstm_main"]["w_up"].shape[:2]
+    nt = lp["mlstm_tail"]["w_up"].shape[0] if "mlstm_tail" in lp else 0
+    return ng, nm, nt
 
 
 # ---------------------------------------------------------------------------
@@ -352,6 +437,9 @@ def _forward(cfg: ModelConfig, params, tokens, patches=None,
     if cfg.family == "hybrid_ssm":
         x = _hybrid_forward(cfg, params, x, positions, lay, remat)
         return lm_logits(cfg, params, x, lay), aux, lay
+    if cfg.family == "xlstm":
+        x = _xlstm_forward(cfg, params, x, lay, remat)
+        return lm_logits(cfg, params, x, lay), aux, lay
     for p in layer_views(params["layers"], cfg.n_layers):
         if remat:
             x, aux = checkpoint(_dense_block, cfg, p, x, positions, aux,
@@ -381,6 +469,30 @@ def _hybrid_forward(cfg, params, x, positions, lay, remat: bool):
                                use_reentrant=False)
             else:
                 x = _mamba_block(cfg, p, x, lay)
+    return x
+
+
+def _xlstm_forward(cfg, params, x, lay, remat: bool):
+    """The xLSTM family's blocks: each group (remat as one block, as the
+    JAX package's ``jax.remat`` of the scanned group), then each tail
+    mLSTM block."""
+    lp = params["layers"]
+    ng, _, nt = _xlstm_stacks(lp)
+    slstm = (layer_views(lp["slstm"], ng) if "slstm" in lp
+             else [None] * ng)
+    for msl, ssl in zip(layer_views(lp["mlstm_main"], ng), slstm):
+        if remat:
+            x = checkpoint(_xlstm_group, cfg, msl, ssl, x, lay,
+                           use_reentrant=False)
+        else:
+            x = _xlstm_group(cfg, msl, ssl, x, lay)
+    if nt:
+        for p in layer_views(lp["mlstm_tail"], nt):
+            if remat:
+                x = checkpoint(_mlstm_block, cfg, p, x, lay,
+                               use_reentrant=False)
+            else:
+                x = _mlstm_block(cfg, p, x, lay)
     return x
 
 
@@ -476,12 +588,16 @@ def cache_defs(cfg: ModelConfig, batch: int, max_len: int,
     each slot holds (-1 = empty).  The hybrid family adds each Mamba2
     layer's ``ssm_*`` state (..., B, H, hp, N) in float32 and ``conv_*``
     window (..., B, W-1, d_inner + 2N) in ``dtype``, for ``main``
-    (n_groups, period, ...) and ``tail`` (tail, ...)."""
+    (n_groups, period, ...) and ``tail`` (tail, ...).  The xLSTM family
+    has no ring (:func:`_xlstm_cache_defs`)."""
     _check_family(cfg, "the decode cache")
+    c = {"pos": CacheLeaf((), torch.int32, 0, ())}
+    if cfg.family == "xlstm":
+        c.update(_xlstm_cache_defs(cfg, batch, dtype))
+        return c
     sc = cache_len(cfg, max_len)
     kv, hd = cfg.n_kv_heads, cfg.head_dim
     seq_ax = "long_seq" if batch == 1 else "kv_seq"
-    c = {"pos": CacheLeaf((), torch.int32, 0, ())}
     lead = (cfg.n_layers,)
     if cfg.family == "hybrid_ssm":
         ng, period, tail = _pattern(cfg)
@@ -506,21 +622,66 @@ def cache_defs(cfg: ModelConfig, batch: int, max_len: int,
     return c
 
 
+def _xlstm_cache_defs(cfg: ModelConfig, batch: int,
+                      dtype: torch.dtype) -> dict:
+    """The xLSTM family's states, nested as the JAX package's: each
+    mLSTM block's ``c`` (..., B, H, P, P), ``n`` (..., B, H, P) and ``m``
+    (..., B, H) in float32 (``m`` filled with -1e30), P the mLSTM head
+    width ``d_model · mlstm_proj / n_heads``, for ``mlstm_main``
+    (n_groups, period - 1, ...) and ``mlstm_tail`` (tail, ...); each
+    sLSTM block's ``c``, ``n`` (n_groups, B, H, d_model / H), ``h``
+    (n_groups, B, D) in ``dtype`` and ``m`` (n_groups, B, H)."""
+    ng, period, tail = _pattern(cfg)
+    h = cfg.n_heads
+    hp = int(cfg.d_model * cfg.mlstm_proj) // h
+    hps = cfg.d_model // h
+    f32 = common.wide(dtype)
+
+    def mstate(lead):
+        la = (None,) * len(lead)
+        return {
+            "c": CacheLeaf(lead + (batch, h, hp, hp), f32, 0,
+                           la + ("batch", "heads", None, None)),
+            "n": CacheLeaf(lead + (batch, h, hp), f32, 0,
+                           la + ("batch", "heads", None)),
+            "m": CacheLeaf(lead + (batch, h), f32, -1e30,
+                           la + ("batch", "heads")),
+        }
+
+    if not cfg.slstm_every:
+        return {"mlstm_main": mstate((cfg.n_layers, 1))}
+    c = {"mlstm_main": mstate((ng, period - 1)),
+         "slstm": {
+             "c": CacheLeaf((ng, batch, h, hps), f32, 0,
+                            (None, "batch", "heads", None)),
+             "n": CacheLeaf((ng, batch, h, hps), f32, 0,
+                            (None, "batch", "heads", None)),
+             "h": CacheLeaf((ng, batch, cfg.d_model), dtype, 0,
+                            (None, "batch", None)),
+             "m": CacheLeaf((ng, batch, h), f32, -1e30,
+                            (None, "batch", "heads")),
+         }}
+    if tail:
+        c["mlstm_tail"] = mstate((tail,))
+    return c
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16, rules=None,
                device=None) -> dict:
     """The cache of :func:`cache_defs`, filled, on ``device`` (default:
-    the card; raises without one).  Over a mesh (``rules``): this rank's
-    block of each leaf."""
+    the card; raises without one), nested as the declarations are.  Over
+    a mesh (``rules``): this rank's block of each leaf."""
     dev = resolve_device(device)
-    out = {}
-    for name, leaf in cache_defs(cfg, batch, max_len, dtype).items():
-        shape = leaf.shape
+
+    def make(node):
+        if not isinstance(node, CacheLeaf):
+            return {k: make(v) for k, v in node.items()}
+        shape = node.shape
         if rules is not None:
-            shape = rules.sharding(leaf.axes, shape).local_shape(shape)
-        out[name] = torch.full(shape, leaf.fill, dtype=leaf.dtype,
-                               device=dev)
-    return out
+            shape = rules.sharding(node.axes, shape).local_shape(shape)
+        return torch.full(shape, node.fill, dtype=node.dtype, device=dev)
+    return make(cache_defs(cfg, batch, max_len, dtype))
 
 
 def cache_structs(*args, **kwargs):
@@ -558,35 +719,44 @@ def _ring(cfg: ModelConfig, lay, batch: int, sc: int):
 def decode_step(cfg: ModelConfig, params, cache, tokens, rules=None):
     """One decode step for all sequences. tokens (B,) ints (a tensor or
     anything ``torch.as_tensor`` takes).  Returns (cache, logits (B, V)):
-    the K/V rings, ``slot_pos`` and the hybrid family's SSM states and
-    conv windows are written in place, ``pos`` is a new tensor one
-    larger.  Over a mesh: the global tokens in, this rank's
-    block of the cache, the global logits out."""
+    the K/V rings, ``slot_pos``, the hybrid family's SSM states and conv
+    windows and the xLSTM family's states are written in place, ``pos``
+    is a new tensor one larger.  Over a mesh: the global tokens in, this
+    rank's block of the cache, the global logits out."""
     _check_family(cfg, "decode_step")
     dev = params["embed"].device
     lay = _layout(cfg, rules, len(tokens))
     if lay is not None:
         tokens = lay.rows(tokens)
     tokens = _as_index(tokens, dev)
-    pos = int(cache["pos"])                  # the step's one host read
-    slot_pos = cache["slot_pos"]
-    ring = _ring(cfg, lay, lay.batch_size if lay else 0, slot_pos.shape[0])
     emb = params["embed"]
     if lay is not None:
         emb = gather_from(lay.embed_fsdp, emb, 1)
     x = _lookup(emb, tokens, lay).to(compute_dtype(cfg))[:, None]  # (B,1,D)
-    lp = params["layers"]
-    if cfg.family == "hybrid_ssm":
-        x = _hybrid_decode(cfg, params, cache, x, pos, lay, ring)
+    if cfg.family == "xlstm":
+        x = _xlstm_decode(cfg, params, cache, x, lay)
     else:
-        for i in range(cfg.n_layers):
-            x, _, _, slot_pos = _attn_block_decode(
-                cfg, layer_slice(lp, i), x, cache["k"][i], cache["v"][i],
-                slot_pos, pos, lay, ring)
+        x = _ring_decode(cfg, params, cache, x, lay)
     logits = lm_logits(cfg, params, x, lay)[:, 0]
     if lay is not None:
         logits = global_logits(cfg, logits, lay)
     return dict(cache, pos=cache["pos"] + 1), logits
+
+
+def _ring_decode(cfg, params, cache, x, lay):
+    """The decode step of the families with a KV ring (dense, MoE,
+    hybrid) over their layers."""
+    pos = int(cache["pos"])                  # the step's one host read
+    slot_pos = cache["slot_pos"]
+    ring = _ring(cfg, lay, lay.batch_size if lay else 0, slot_pos.shape[0])
+    if cfg.family == "hybrid_ssm":
+        return _hybrid_decode(cfg, params, cache, x, pos, lay, ring)
+    lp = params["layers"]
+    for i in range(cfg.n_layers):
+        x, _, _, slot_pos = _attn_block_decode(
+            cfg, layer_slice(lp, i), x, cache["k"][i], cache["v"][i],
+            slot_pos, pos, lay, ring)
+    return x
 
 
 def _mamba_decode(cfg, p, x, cache, name: str, idx: tuple, lay):
@@ -619,6 +789,46 @@ def _hybrid_decode(cfg, params, cache, x, pos: int, lay, ring):
     return x
 
 
+def _store(states: dict, idx, new: dict) -> None:
+    """Write a block's new state leaves into the cache's stacks at
+    ``idx``, in place."""
+    for k, v in new.items():
+        states[k][idx] = v
+
+
+def _mlstm_step(cfg, p, x, states: dict, idx, lay):
+    """One mLSTM block's decode step; its state in ``states`` (a cache
+    node: ``c``, ``n``, ``m``) at ``idx`` is written in place."""
+    h = common.rmsnorm(x, p["norm"], cfg.norm_eps, cfg.use_pallas)
+    y, c, n, m = xlstm.mlstm_decode(cfg, p, h, states["c"][idx],
+                                    states["n"][idx], states["m"][idx], lay)
+    _store(states, idx, {"c": c, "n": n, "m": m})
+    return x + y
+
+
+def _xlstm_decode(cfg, params, cache, x, lay):
+    """The xLSTM family's decode step over its groups and tail."""
+    lp = params["layers"]
+    ng, nm, nt = _xlstm_stacks(lp)
+    for g in range(ng):
+        sl = layer_slice(lp["mlstm_main"], g)
+        for i in range(nm):
+            x = _mlstm_step(cfg, layer_slice(sl, i), x, cache["mlstm_main"],
+                            (g, i), lay)
+        if "slstm" in lp:
+            p, st = layer_slice(lp["slstm"], g), cache["slstm"]
+            h = common.rmsnorm(x, p["norm"], cfg.norm_eps, cfg.use_pallas)
+            y, (c, n, hs, m) = xlstm.slstm_decode(
+                cfg, p, h, (st["c"][g], st["n"][g], st["h"][g], st["m"][g]),
+                lay)
+            _store(st, g, {"c": c, "n": n, "h": hs, "m": m})
+            x = x + y
+    for i in range(nt):
+        x = _mlstm_step(cfg, layer_slice(lp["mlstm_tail"], i), x,
+                        cache["mlstm_tail"], (i,), lay)
+    return x
+
+
 # ---------------------------------------------------------------------------
 # Batched prefill (build the cache from one full forward pass)
 # ---------------------------------------------------------------------------
@@ -639,12 +849,14 @@ def _ring_pack(full: torch.Tensor, sc: int, s: int):
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params, tokens, max_len: int, patches=None,
             rules=None):
-    """Batched prefill: one full forward that also packs every layer's K/V
-    into the ring cache (and, in the hybrid family, writes every Mamba2
-    layer's SSM state and conv window).  Returns (cache, logits of the last position
-    (B, V)).  ``tokens`` (and ``patches``) may be numpy arrays; they move
-    to the parameters' device.  Over a mesh: the global batch in, this
-    rank's block of the cache and the global logits out."""
+    """Batched prefill: one full forward that also fills the decode
+    cache: every layer's K/V packed into its ring, and, in the hybrid
+    family, every Mamba2 layer's SSM state and conv window; in the xLSTM
+    family every block's recurrent state.  Returns (cache, logits of the
+    last position (B, V)).  ``tokens`` (and ``patches``) may be numpy
+    arrays; they move to the parameters' device.  Over a mesh: the global
+    batch in, this rank's block of the cache and the global logits
+    out."""
     _check_family(cfg, "prefill")
     compute = compute_dtype(cfg)
     dev = params["embed"].device
@@ -659,13 +871,67 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, patches=None,
     b, s, _ = x.shape
     if cfg.family == "hybrid_ssm":
         ssm.check_length(cfg, s)
+        ng, period, tail = _pattern(cfg)
+        if not ng:
+            raise ValueError(
+                f"{cfg.name}: the hybrid pattern of n_layers="
+                f"{cfg.n_layers}, attn_every={period} has no group (0 "
+                f"groups and {tail} tail Mamba2 layers): no shared "
+                "attention block, so no KV ring to fill")
+    batch = b if lay is None else lay.batch_size
+    cache = init_cache(cfg, batch, max_len, compute, rules, device=dev)
+    cache["pos"].fill_(s)
+    if cfg.family == "xlstm":
+        x = _xlstm_prefill(cfg, params, cache, x, lay)
+    else:
+        x = _ring_prefill(cfg, params, cache, x, max_len, lay)
+    logits = lm_logits(cfg, params, x[:, -1:], lay)[:, 0]
+    if lay is not None:
+        logits = global_logits(cfg, logits, lay)
+    return cache, logits
+
+
+def _xlstm_prefill(cfg, params, cache, x, lay):
+    """The xLSTM family's blocks over the prompt, each writing its state
+    into ``cache``."""
+    lp = params["layers"]
+    ng, nm, nt = _xlstm_stacks(lp)
+
+    def mlstm(p, xx, states, idx):
+        h = common.rmsnorm(xx, p["norm"], cfg.norm_eps, cfg.use_pallas)
+        y, c, n, m = xlstm.mlstm_forward(cfg, p, h, return_state=True,
+                                         lay=lay)
+        _store(states, idx, {"c": c, "n": n, "m": m})
+        return xx + y
+
+    for g in range(ng):
+        sl = layer_slice(lp["mlstm_main"], g)
+        for i in range(nm):
+            x = mlstm(layer_slice(sl, i), x, cache["mlstm_main"], (g, i))
+        if "slstm" in lp:
+            p = layer_slice(lp["slstm"], g)
+            h = common.rmsnorm(x, p["norm"], cfg.norm_eps, cfg.use_pallas)
+            y, (c, n, hs, m) = xlstm.slstm_forward(cfg, p, h,
+                                                   return_state=True, lay=lay)
+            _store(cache["slstm"], g, {"c": c, "n": n, "h": hs, "m": m})
+            x = x + y
+    for i in range(nt):
+        x = mlstm(layer_slice(lp["mlstm_tail"], i), x, cache["mlstm_tail"],
+                  (i,))
+    return x
+
+
+def _ring_prefill(cfg, params, cache, x, max_len: int, lay):
+    """The families with a KV ring (dense, MoE, hybrid): every layer over
+    the prompt, each packing its K/V (and Mamba2 states) into
+    ``cache``."""
+    b, s, _ = x.shape
+    dev = x.device
     positions = torch.arange(s, dtype=torch.int32, device=dev)
     sc = cache_len(cfg, max_len)
     batch = b if lay is None else lay.batch_size
-    cache = init_cache(cfg, batch, max_len, compute, rules, device=dev)
     ring = _ring(cfg, lay, batch, sc)
     cs = None if ring is None else ring[0]
-    cache["pos"].fill_(s)
     scale = cfg.head_dim ** -0.5
     whole = lay is None or lay.kv is None
 
@@ -730,7 +996,4 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, patches=None,
             y = common.swiglu(p["mlp"], h, lay)
         x = x + y
     cache["slot_pos"] = slot_pos
-    logits = lm_logits(cfg, params, x[:, -1:], lay)[:, 0]
-    if lay is not None:
-        logits = global_logits(cfg, logits, lay)
-    return cache, logits
+    return x

@@ -35,7 +35,7 @@ changes the numbers, not the bytes sent.  Under ``cfg.fsdp`` the ``embed`` width
 on the blocks, with the global norm of ``optim.adamw_update``.  On a
 ``(1, 1)`` mesh the step is the one without a mesh, bit for bit.
 
-Refused before the first step: the families A13e-f, and the kernel
+Refused before the first step: the enc-dec family (A13f), and the kernel
 switches (``attn_impl="pallas"``, ``use_pallas``): neither package has a
 backward for those kernels.
 """

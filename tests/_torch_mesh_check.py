@@ -4,8 +4,8 @@ at the same mesh (spawned processes), in float32:
 
 * the collectives over sub-meshes ("model", "data", and both in the
   order ("model", "data")) on known values;
-* every rank's block of the dense, MoE and hybrid (zamba2) smoke trees
-  (fsdp off and on, and the ZeRO-1 layout of a train state) equals the
+* every rank's block of the dense, MoE, hybrid (zamba2) and xLSTM smoke
+  trees (fsdp off and on, and the ZeRO-1 layout of a train state) equals the
   JAX shard on the device at its mesh position (``mesh.devices.flat[r]``),
   bit for bit;
 * forward logits and the loss within 2e-5 of the largest |logit| (and
@@ -18,14 +18,18 @@ at the same mesh (spawned processes), in float32:
   ``(data, model)`` (B = 1, ``long_seq``), and through the
   ``decode_attention`` op with its log-sum-exp; the hybrid family's SSM
   states split over ``ssm_heads`` and conv windows over their last axis;
+  the xLSTM family's states over ``heads`` (mLSTM and sLSTM), through the
+  ``rmsnorm`` op;
 * three ``jit_train_step`` steps: ZeRO-1 with microbatch 2, no ZeRO-1
   with fsdp and the ``gspmd`` dispatch, ZeRO-1 with ``grad_compress``,
-  ZeRO-1 with the vocabulary of 255:
+  ZeRO-1 with the vocabulary of 255, the hybrid family; two for the
+  xLSTM family (``CASE_STEPS``):
   loss and grad norm within rtol 1e-4, every gathered leaf of
   ``params``, ``m`` and ``v`` within 2e-4 of the leaf's largest
   magnitude (a parameter leaf that starts at zero, 1e-3: it holds only
-  AdamW's updates, as ``test_torch_train.py`` states) (``grad_compress``: the moments within 2**-8, as
-  ``test_torch_train.py`` states);
+  AdamW's updates, as ``test_torch_train.py`` states; the sLSTM's
+  ``b_i``, 2 Σ lr: ``NOISE_LEAVES``) (``grad_compress``: the moments
+  within 2**-8, as ``test_torch_train.py`` states);
 * a checkpoint JAX saved on its 4 devices restores on 2 port ranks
   (each its block, equal to the saved arrays), and one the 4 port ranks
   saved restores in JAX onto its mesh, within the leaf tolerance of
@@ -63,6 +67,7 @@ FORWARD = {
     # ``model`` (the fallback granite-moe's 49,155 takes at full width)
     "moe_vocab_fallback": ("granite-moe-3b-a800m", {"vocab_size": 255}),
     "hybrid": ("zamba2-7b", {}),
+    "xlstm": ("xlstm-125m", {}),
 }
 #: name -> (arch, config changes, batch)
 SERVE = {
@@ -70,6 +75,7 @@ SERVE = {
     "dense_decode_kernel_op": ("qwen3-0.6b", {"attn_impl": "pallas"}, B),
     "moe_long_seq": ("granite-moe-3b-a800m", {"attn_impl": "pallas"}, 1),
     "hybrid_decode": ("zamba2-7b", {"attn_impl": "pallas"}, B),
+    "xlstm_decode": ("xlstm-125m", {"use_pallas": True}, B),
 }
 #: name -> (arch, config changes, TrainConfig changes)
 TRAIN = {
@@ -82,9 +88,24 @@ TRAIN = {
     "moe_vocab_fallback": ("granite-moe-3b-a800m", {"vocab_size": 255},
                            {"zero1": True}),
     "hybrid_zero1": ("zamba2-7b", {}, {"zero1": True}),
+    "xlstm_zero1": ("xlstm-125m", {}, {"zero1": True}),
 }
 #: the forward cases whose blocks are compared
-BLOCKS = ("dense", "moe", "moe_fsdp", "moe_vocab_fallback", "hybrid")
+BLOCKS = ("dense", "moe", "moe_fsdp", "moe_vocab_fallback", "hybrid",
+          "xlstm")
+#: parameter leaves whose exact gradient is zero at most elements (the
+#: sLSTM's input-gate bias: the normaliser n divides out its shift), so
+#: AdamW moves those elements by the sign of float32 rounding noise:
+#: held to 2 Σ lr, the most two AdamW runs can part
+#: (``tests/test_torch_xlstm_train.py``); their moments keep LEAF_TOL
+NOISE_LEAVES = ("params/layers/slstm/b_i",)
+#: train cases of fewer steps: after the xLSTM's second step its b_i
+#: gauge elements differ between the packages by those noise-sign
+#: updates, and where the clamp acts they move the third step's
+#: gradients by more than float32's rounding (the moments part by ~6e-4
+#: of a leaf's max there, by 1.6e-5 after two steps); its first two steps
+#: take their gradients at the same parameters
+CASE_STEPS = {"xlstm_zero1": 2}
 TC = dict(total_steps=10, warmup_steps=1)
 CKPT_CASE = "moe_zero1_microbatch"
 
@@ -213,7 +234,7 @@ def jax_side(tmp):
                 blocks(f"block/{name}", state["params"])
             step = JS.jit_train_step(jc, rules, tc)
             pipe = TokenPipeline(jc, B, S, seed=0)
-            for i in range(STEPS):
+            for i in range(CASE_STEPS.get(name, STEPS)):
                 state, m = step(state, {k: jnp.asarray(v) for k, v in
                                         pipe.batch_at(i).items()})
                 for k in ("loss", "grad_norm", "nll", "aux"):
@@ -397,7 +418,7 @@ def _rank(rank, tmp):
         step = TS.make_train_step(cfg, rules, tc)
         pipe = TokenPipeline(cfg, B, S, seed=0)
         rows = []
-        for i in range(STEPS):
+        for i in range(CASE_STEPS.get(name, STEPS)):
             state, m = step(state, {k: torch.from_numpy(v) for k, v in
                                     pipe.batch_at(i).items()})
             rows.append({k: float(v) for k, v in m.items()})
@@ -471,10 +492,13 @@ def _rank(rank, tmp):
             if path[0] == "params" and not np.any(
                     init[f"train/{name}/{key}"]):
                 tol = ZERO_INIT_TOL       # the leaf holds only the updates
+            if key in NOISE_LEAVES:
+                w = want[f"train/{name}/final/{key}"]
+                tol = 2 * sum(m["lr"] for m in rows) / float(np.abs(w).max())
             worst = max(worst, close(g.numpy(),
                                      want[f"train/{name}/final/{key}"],
                                      tol, f"{name} {key}"))
-        report.append(f"{name}: {STEPS} steps, loss and grad norm within "
+        report.append(f"{name}: {len(rows)} steps, loss and grad norm within "
                       f"rtol {SCALAR_RTOL}, {len(gathered)} gathered leaves "
                       f"within {worst:.2e} of their max")
     # the JAX checkpoint of the ZeRO-1 case on 2 ranks

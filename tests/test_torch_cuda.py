@@ -806,6 +806,11 @@ def test_rmsnorm_kernel(cuda, shape, dtype, w_dtype):
     (8192, 3584, torch.bfloat16, 0, "block"),
     (4, 7168, torch.float32, 0, "block"),
     (8192, 7168, torch.bfloat16, 0, "block"),
+    # xlstm-125m: d_model 768, a decode step's and a prefill's rows
+    (4, 768, torch.bfloat16, 0, "vector"),
+    (8192, 768, torch.bfloat16, 0, "vector"),
+    (4, 768, torch.float32, 0, "vector"),
+    (8192, 768, torch.float32, 0, "vector"),
 ])
 @pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_kernel_paths(cuda, rows, d, dtype, offset, path, w_dtype):
@@ -892,6 +897,48 @@ def test_serving_on_the_card_equals_the_cpu(cuda, arch):
     got = ServeEngine(cfg, card, max_len=128).generate(prompts, 12)
     want = ServeEngine(cfg, cpu, max_len=128).generate(prompts, 12)
     assert got.tokens == want.tokens
+
+
+def test_xlstm_serving_on_the_card_equals_the_cpu(cuda):
+    """xlstm-smoke in fp32 with ``use_pallas``: the prefill (its mLSTM in
+    4 chunks of 8) and each of 12 decode steps started on the card from a
+    copy of the CPU's cache give the CPU's logits and states within the
+    model-parity tolerance; the card launches ``rmsnorm`` at every
+    module-level norm (per group its mLSTM blocks', the sLSTM's two, then
+    ``out_norm``)."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.api import get_model
+    from repro_torch.models.params import tree_items, tree_map
+    cfg = dataclasses.replace(get_smoke_config("xlstm-125m"),
+                              dtype="float32", use_pallas=True, ssm_chunk=8)
+    model = get_model(cfg)
+    cpu = model.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(1, cfg.vocab_size, (3, 32))
+
+    def close(got, want):
+        atol = max(2e-4, 2e-5 * float(want.float().abs().max()))
+        torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=atol)
+
+    ops.reset_launch_counts()
+    cache_c, lc = model.prefill(cfg, card, {"tokens": toks}, 64)
+    cache_h, lh = model.prefill(cfg, cpu, {"tokens": toks}, 64)
+    close(lc, lh)
+    for _ in range(12):
+        t = rng.integers(1, cfg.vocab_size, 3)
+        cache_c = tree_map(lambda v: v.to(cuda), cache_h)
+        cache_c, lc = model.decode_step(cfg, card, cache_c, t)
+        cache_h, lh = model.decode_step(cfg, cpu, cache_h, t)
+        close(lc, lh)
+        for (path, c), (_, h) in zip(tree_items(cache_c),
+                                     tree_items(cache_h)):
+            close(c, h)
+    ng = cfg.n_layers // cfg.slstm_every
+    norms = ng * (cfg.slstm_every + 1) + 1
+    assert ops.launch_counts()["rmsnorm"] == 13 * norms
 
 
 # ---------------------------------------------------------------------------

@@ -279,3 +279,21 @@ def test_launchers_serve_and_train_the_smoke_config(capsys, tmp_path):
                            "--ckpt-dir", str(tmp_path)]) == 0
     out = capsys.readouterr().out
     assert out.count("[train] step") == 2 and "[train] done" in out
+
+
+def test_a_pattern_without_a_group_is_refused_by_prefill():
+    """``n_layers < attn_every`` (2 layers at ``attn_every`` 3: no shared
+    block, a tail of 2 Mamba2 layers) has no KV ring: the port's prefill
+    refuses it with a ``ValueError`` naming the pattern, where the JAX
+    package's fails on an empty stack.  The forward runs in both."""
+    jc, tc = _configs(n_layers=2)
+    jp = jax_get_model(jc).init(jc, jax.random.PRNGKey(0))
+    tp = from_jax_params(jp, device="cpu")
+    toks = _tokens()[:, :16]
+    want = np.asarray(JL.forward(jc, jp, jnp.asarray(toks))[0])
+    assert _row_err(L.forward(tc, tp, toks)[0].numpy(), want) <= ROW_CAP
+    with pytest.raises(ValueError, match="n_layers=2, attn_every=3 has no "
+                       "group"):
+        L.prefill(tc, tp, toks, MAX_LEN)
+    with pytest.raises(IndexError):
+        JL.prefill(jc, jp, jnp.asarray(toks), MAX_LEN)

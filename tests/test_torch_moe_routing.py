@@ -102,7 +102,7 @@ def test_configs_match_the_jax_package(arch):
     for get in ("get_config", "get_smoke_config"):
         jc, tc = getattr(jcfg, get)(arch), getattr(tcfg, get)(arch)
         assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
-        if jc.family in ("dense", "moe", "hybrid_ssm"):
+        if jc.family in ("dense", "moe", "hybrid_ssm", "xlstm"):
             want = JL.param_defs(jc)
             assert L.param_defs(tc) == want
             assert tc.n_params() == jc.n_params()
@@ -341,8 +341,8 @@ def test_unported_entry_points_name_their_roadmap_item():
         get_model(tcfg.get_smoke_config("seamless-m4t-large-v2"))
     # the hybrid family (ROADMAP A13d) is ported: it counts its parameters
     assert tcfg.get_config("zamba2-7b").n_params() == 6_751_130_832
-    with pytest.raises(NotImplementedError, match="ROADMAP A13e"):
-        tcfg.get_smoke_config("xlstm-125m").n_params()
+    # and so is the xLSTM family (ROADMAP A13e)
+    assert tcfg.get_config("xlstm-125m").n_params() == 188_884_992
     with pytest.raises(ValueError, match="MoE"):
         T.collect_moe_routing(tc, None, np.zeros((1, 4), np.int32))
 

@@ -389,6 +389,21 @@ def test_serve_entry_point_use_pallas_reaches_the_rmsnorm_op(capsys,
                                        ("seamless-m4t-large-v2", "A13f")])
 def test_unported_families_name_their_roadmap_item(arch, item):
     tc = tcfg.get_smoke_config(arch)
+    if item == "A13e":
+        # ported: the same entries serve the xLSTM family (no ring)
+        tc = dataclasses.replace(tc, dtype="float32")
+        params = get_model(tc).init(tc, torch.Generator().manual_seed(0),
+                                    device="cpu")
+        cache, logits = L.prefill(tc, params, np.zeros((1, 2), np.int32), 8)
+        assert logits.shape == (1, tc.vocab_size)
+        cache, logits = L.decode_step(tc, params, cache, np.zeros(1))
+        assert int(cache["pos"]) == 3 and bool(torch.isfinite(logits).all())
+        st = L.init_cache(tc, 1, 8, device="cpu")
+        assert sorted(st) == ["mlstm_main", "pos", "slstm"]
+        assert st["mlstm_main"]["c"].shape == (2, 1, 1, 2, 64, 64)
+        assert get_model(tc).prefill(tc, params, {"tokens": np.ones(
+            (1, 4), np.int32)}, 8)[1].shape == (1, tc.vocab_size)
+        return
     if item == "A13d":
         # ported: the same entries serve the hybrid family
         tc = dataclasses.replace(tc, dtype="float32")

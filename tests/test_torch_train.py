@@ -68,6 +68,13 @@ LEAF_TOL = 2e-4
 #: largest, in ``m`` and ``v``) is a larger share of it, so the update
 #: errs by up to ~5e-4 lr (zamba2-smoke, conv_b).
 ZERO_INIT_TOL = 1e-3
+#: A caller may name elements of a parameter leaf whose gradient at some
+#: step was zero in exact arithmetic (the sLSTM's input-gate bias ``b_i``:
+#: its stabiliser's two paths cancel): float32 leaves rounding noise there
+#: in both packages, and AdamW moves such an element by that noise's sign
+#: (``test_torch_xlstm_train.py`` holds both packages' gradients against
+#: a float64 evaluation).  Those elements are held to ``2 Σ lr``, the most
+#: two AdamW runs can part there (``|m̂| <= sqrt(v̂)`` for b1² < b2).
 
 
 def _configs(arch, dtype, **kw):
@@ -126,8 +133,9 @@ def _leaf(tree, path):
 
 
 def _check_run(want_rows, got_rows, want, got, dtype, moment_tol=LEAF_TOL,
-               init=None):
+               init=None, noise=None):
     rtol = SCALAR_RTOL[dtype]
+    lr_sum = sum(float(w["lr"]) for w in want_rows)
     for i, (w, g) in enumerate(zip(want_rows, got_rows)):
         assert set(g) == set(w), (set(g), set(w))
         keys = ("loss", "nll", "aux") + (
@@ -155,9 +163,13 @@ def _check_run(want_rows, got_rows, want, got, dtype, moment_tol=LEAF_TOL,
             if (part == "params" and init is not None
                     and not np.any(_leaf(init["params"], path))):
                 tol = ZERO_INIT_TOL
-            np.testing.assert_allclose(
-                g, w, rtol=0, atol=tol * float(np.abs(w).max()),
-                err_msg=f"{part}/{'/'.join(path)}")
+            atol = np.full(w.shape, tol * float(np.abs(w).max()))
+            if part == "params" and noise and path in noise:
+                atol[noise[path]] = 2 * lr_sum
+            assert np.all(np.abs(g.astype(np.float64) - w) <= atol), (
+                f"{part}/{'/'.join(path)}: "
+                f"{float(np.max(np.abs(g.astype(np.float64) - w) - atol))} "
+                "beyond the limit")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -304,9 +316,10 @@ def test_training_refuses_what_it_cannot_train():
         == ("data", "model")
     with pytest.raises(NotImplementedError, match="ROADMAP A13g"):
         TS.state_structs(tc, rules)
-    for arch, item in (("xlstm-125m", "A13e"),
-                       ("seamless-m4t-large-v2", "A13f")):
+    for arch, item in (("seamless-m4t-large-v2", "A13f"),):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             TS.make_train_step(tcfg.get_smoke_config(arch))
-    # the hybrid family (A13d) is ported: its step builds
+    # the hybrid (A13d) and xLSTM (A13e) families are ported: their steps
+    # build
     assert callable(TS.make_train_step(tcfg.get_smoke_config("zamba2-7b")))
+    assert callable(TS.make_train_step(tcfg.get_smoke_config("xlstm-125m")))

@@ -70,6 +70,10 @@ def test_refusals():
     assert train_mod.main(["--arch", "zamba2-7b", "--smoke", "--steps", "1",
                            "--global-batch", "2", "--seq", "16",
                            "--device", "cpu"]) == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP A13e"):
-        train_mod.main(["--arch", "xlstm-125m", "--smoke", "--steps", "1",
-                        "--device", "cpu"])
+    # and so is the xLSTM family (A13e); the enc-dec family (A13f) is not
+    assert train_mod.main(["--arch", "xlstm-125m", "--smoke", "--steps", "1",
+                           "--global-batch", "2", "--seq", "16",
+                           "--device", "cpu"]) == 0
+    with pytest.raises(NotImplementedError, match="ROADMAP A13f"):
+        train_mod.main(["--arch", "seamless-m4t-large-v2", "--smoke",
+                        "--steps", "1", "--device", "cpu"])
