@@ -274,7 +274,40 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    ranks on ``cuda:0``, mesh (data 1, model 2), full depth in fp32 with
    the kernel: prefill and 4 steps within 1e-3 of the row's max of the
    one-rank card run, the staged collectives' calls and bytes equal to
-   ``xlstm_mesh_plan``'s.
+   ``xlstm_mesh_plan``'s;
+18. the enc-dec family (``phase18``, ``models.encdec``) at
+   seamless-m4t-large-v2's full width and depth (2,034,866,176 random
+   fp32 parameters; 24 encoder and 24 decoder layers, d_model 1,024, 16
+   heads of 64): its three kernels at its shapes against their plain
+   versions with 9a's gates and timed beside the bound, the plain version
+   and SDPA / ``F.rms_norm`` (``flash_attention`` B 4 x H 16 x S 1,024 x
+   D 64, causal, MHA, bf16 and fp32; ``decode_attention`` at D 64, MHA,
+   kv_len 48 over the serving ring's view; ``rmsnorm`` at 16,384 and 4
+   rows of 1,024); (a) serving in bf16 with both kernels through
+   ``Model.prefill`` / ``decode_step`` (``ServeEngine`` passes no frames
+   and refuses the family): 4 utterances of 4,096 fbank frames, 4 x 16
+   prompt tokens, 32 greedy steps: prefill and decode ms, tokens/s, the
+   idle share from traces of the prefill and a decode step, peak bytes
+   against the reckoning, 768 ``decode_attention`` and 2,458 ``rmsnorm``
+   launches, one layer's cross attention timed alone, and a forward over
+   4 x 1,024 tokens and frames with ``attn_impl="pallas"`` (24
+   ``flash_attention`` launches; its argmax against the plain forward's,
+   reported); (b) in fp32 at full depth every launch of the three
+   kernels against float64 within 1e-4 of its max |exact| (1 x 1,024
+   frames, 16 tokens and 8 steps teacher-forced, and a forward over 1 x
+   256), and at ``SEAM_GATE_LAYERS`` every step's logits kernels on
+   against off within 1e-3 of the row's max, beside the float64 compute
+   (float32 itself parts from float64 by 3.6e-3 at 2 + 2 layers:
+   ``scripts/torch_hybrid_conditioning.py --arch seamless-m4t-large-v2
+   --seq 1024``); (c) three training steps at full depth (4 x 1,024
+   tokens and frames, bf16, peak bytes, no kernel; the gradient norm
+   overflows float32 at this depth, the state stays finite) and 14b's
+   fp32 gate at
+   ``SEAM_GATE_LAYERS`` (1 x 256) against the CPU; (d) two gloo ranks on
+   ``cuda:0``, mesh (data 1, model 2), ``SEAM_GATE_LAYERS`` layers in
+   fp32 with both serving kernels: prefill and 4 steps within 1e-3 of
+   the row's max of the one-rank card run, the staged collectives' calls
+   and bytes equal to ``seamless_mesh_plan``'s.
 
 Before the last line it prints the card's name and power limit
 (``nvidia-smi``) and one JSON line ``{"kernels": [...]}``; the last line is
@@ -339,8 +372,12 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+#: The run's start, for the seconds each log line prints.
+T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    print(f"[chip_smoke {time.perf_counter() - T0:.1f} s] {msg}", flush=True)
 
 
 def time_ms(fn, iters: int = 20, warm: int = 3) -> float:
@@ -2931,10 +2968,11 @@ def phase15() -> dict:
     return runs
 
 
-def forced(cfg_, params_, prompts_, gen_, max_len_):
+def forced(cfg_, params_, prompts_, gen_, max_len_, frames_=None):
     """Every step's logits of ``prompts_`` decoded as the engine does,
     feeding the prompt and then the tokens ``gen_`` (teacher forcing):
-    [prefill logits, step 1, ...]."""
+    [prefill logits, step 1, ...].  ``frames_``: the enc-dec family's
+    frames, passed to its prefill."""
     import numpy as np
     from repro_torch.models.api import get_model
     m_ = get_model(cfg_)
@@ -2943,8 +2981,10 @@ def forced(cfg_, params_, prompts_, gen_, max_len_):
     pad_ = np.zeros((len(prompts_), s1), np.int64)
     for i, p in enumerate(prompts_):
         pad_[i, :len(p)] = p
-    cache_, lg = m_.prefill(cfg_, params_, {"tokens": pad_[:, :s0]},
-                            max_len_)
+    inputs_ = {"tokens": pad_[:, :s0]}
+    if frames_ is not None:
+        inputs_["frames"] = frames_
+    cache_, lg = m_.prefill(cfg_, params_, inputs_, max_len_)
     out_ = [lg]
     n_steps = s1 - s0 + max(len(t) for t in gen_)
     for t in range(n_steps):
@@ -2971,6 +3011,27 @@ def decode_f64(q, k, v, *, window=None, kv_len=None, scale=None):
                         v[:, :, lo:hi].double()).reshape(b, hq, d)
 
 
+def flash_f64(q, k, v, *, causal=True, window=None, q_offset=None,
+              scale=None):
+    """Flash attention's function evaluated in float64 (GQA by head
+    group, ``q_offset`` default Skv - Sq)."""
+    import torch
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    off = skv - sq if q_offset is None else q_offset
+    kd = k.double().repeat_interleave(hq // hkv, 1)
+    vd = v.double().repeat_interleave(hq // hkv, 1)
+    sc = torch.einsum("bhqd,bhkd->bhqk", q.double(), kd) * (
+        d ** -0.5 if scale is None else scale)
+    qi = torch.arange(sq, device=q.device)[:, None] + off
+    ki = torch.arange(skv, device=q.device)[None, :]
+    keep = (ki <= qi) if causal else torch.ones_like(ki <= qi)
+    if window is not None:
+        keep &= ki > qi - window
+    sc = sc.masked_fill(~keep, float("-inf"))
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(sc, -1), vd)
+
+
 def rmsnorm_f64(x, w, eps=1e-6):
     """RMSNorm evaluated in float64."""
     import torch
@@ -2979,14 +3040,15 @@ def rmsnorm_f64(x, w, eps=1e-6):
         * w.double()
 
 
-def forced_checked(label, *args):
-    """``forced(*args)`` with every launch of both serving kernels held
-    against a float64 evaluation on its own inputs, within 1e-4 of
-    its max |exact|; -> (logits, {kernel: [launches, max relative
-    error, the plain version's]})."""
+def forced_checked(label, *args, run=None, **kw):
+    """``forced(*args, **kw)`` (or ``run()``) with every launch of the
+    three model kernels held against a float64 evaluation on its own
+    inputs, within 1e-4 of its max |exact|; -> (logits, {kernel:
+    [launches, max relative error, the plain version's]})."""
     from repro_torch.kernels import ops, ref
-    errs_ = {"decode_attention": [0, 0.0, 0.0], "rmsnorm": [0, 0.0, 0.0]}
-    real_ops = (ops.decode_attention, ops.rmsnorm)
+    errs_ = {"decode_attention": [0, 0.0, 0.0], "rmsnorm": [0, 0.0, 0.0],
+             "flash_attention": [0, 0.0, 0.0]}
+    real_ops = (ops.decode_attention, ops.rmsnorm, ops.flash_attention)
 
     def checked(name, real, plain, exact):
         def run(*a, **kw):
@@ -3010,10 +3072,12 @@ def forced_checked(label, *args):
                                    ref.decode_attention_ref, decode_f64)
     ops.rmsnorm = checked("rmsnorm", real_ops[1], ref.rmsnorm_ref,
                           rmsnorm_f64)
+    ops.flash_attention = checked("flash_attention", real_ops[2],
+                                  ref.flash_attention_ref, flash_f64)
     try:
-        return forced(*args), errs_
+        return (run() if run is not None else forced(*args, **kw)), errs_
     finally:
-        ops.decode_attention, ops.rmsnorm = real_ops
+        ops.decode_attention, ops.rmsnorm, ops.flash_attention = real_ops
 
 
 #: Phase 16: zamba2-7b, the hybrid Mamba2 family.  Serving: 4 prompts of
@@ -4062,6 +4126,679 @@ def phase17() -> tuple:
         f"{reports[0]['ms']:.1f} ms; 17d {time.perf_counter() - t0:.1f} s "
         "with start-up")
     log(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
+    return runs, timed
+
+
+#: Phase 18: seamless-m4t-large-v2, the enc-dec family, at full width and
+#: depth (24 encoder and 24 decoder layers, d_model 1,024, 16 heads of 64,
+#: MHA, d_ff 8,192, vocab 256,206: 2,034,866,176 parameters).  Serving
+#: (18a): 4 utterances of ``frontend_len`` (4,096) fbank frames and 4 x 16
+#: prompt tokens, 32 greedy steps through ``Model.prefill`` /
+#: ``decode_step`` (``ServeEngine`` passes no frames, in either package);
+#: a forward over 4 x 1,024 tokens and frames through ``flash_attention``.
+#: The fp32 logits gate (18b) and the training gate (18c) at
+#: ``SEAM_GATE_LAYERS`` encoder and decoder layers; training (18c) at full
+#: depth, 4 x 1,024 tokens and frames; the mesh (18d) at the gate's depth.
+SEAMLESS = "seamless-m4t-large-v2"
+SEAMLESS_PARAMS = 2_034_866_176
+SEAM_BATCH, SEAM_PROMPT, SEAM_NEW, SEAM_FWD = 4, 16, 32, 1024
+SEAM_GATE_LAYERS = 1
+SEAM_MESH_BATCH, SEAM_MESH_FRAMES, SEAM_MESH_STEPS = 2, 512, 4
+
+
+def seamless_norms(cfg) -> tuple:
+    """(``rmsnorm`` launches of the encoder, of one decoder pass): two an
+    encoder layer and ``enc_out_norm``; three a decoder layer and
+    ``out_norm``.  A prefill or a forward launches both, a decode step the
+    decoder's."""
+    return 2 * cfg.enc_layers + 1, 3 * cfg.n_layers + 1
+
+
+def seamless_mesh_plan(cfg, b: int, se: int, s: int, shards: int,
+                       es: int = 4):
+    """((calls, bytes) of a prefill over b x se frames and b x s tokens,
+    (calls, bytes) of a decode step) that the enc-dec family issues on a
+    mesh (data 1, model ``shards``) whose heads, KV heads, ``ff`` columns
+    and vocabulary are split over ``model``, the self ring's slots and the
+    cross cache's frames too (``kv_seq``), at ``es`` bytes an element (the
+    bytes each rank sends; float32 throughout).  The prefill sums each
+    encoder layer's ``wo`` and ``w_down`` rows, the embedding rows, each
+    decoder layer's ``wo`` (self and cross) and ``w_down`` rows, gathers
+    each decoder layer's K and V heads for the ring (its slots split) and
+    the whole cross K/V's heads for the cache (its frames split), and
+    gathers the logits.  A decode step sums the embedding rows; per layer
+    the self attention gathers the new K, V and the query's heads, takes
+    the ranks' partial softmaxes (a ``pmax`` of the log-sum-exps, a
+    ``psum`` of the weighted outputs and of the weights) and sums ``wo``;
+    the cross attention gathers the query's heads, combines its partial
+    softmax (``pmax``, ``psum`` of the sums and of the values) and sums
+    ``wo``; the MLP sums ``w_down``; then it gathers the logits."""
+    le, ld = cfg.enc_layers, cfg.n_layers
+    d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    v = cfg.vocab_size // shards
+    kv_l, h_l = kvh // shards, h // shards
+    prefill = (2 * le + 5 * ld + 4,
+               es * (2 * le * b * se * d + b * s * d
+                     + ld * (3 * b * s * d + 2 * b * s * kv_l * hd)
+                     + 2 * ld * b * se * kv_l * hd + b * v))
+    self_attn = (2 * b * kv_l * hd + b * h_l * hd + b * h + b * h * hd
+                 + b * h + b * d)
+    cross = b * h_l * hd + b * h + b * h + b * h * hd + b * d
+    decode = (13 * ld + 2,
+              es * (b * d + ld * (self_attn + cross + b * d) + b * v))
+    return prefill, decode
+
+
+def phase18d_rank(rank: int, tmp: str) -> None:
+    """One of 18d's two ranks (mesh (data 1, model 2) on ``cuda:0``):
+    seamless-m4t-large-v2 at full width and ``SEAM_GATE_LAYERS`` encoder
+    and decoder layers in fp32 with both serving kernels, a prefill and
+    ``SEAM_MESH_STEPS`` greedy steps; rank 0 then runs the one-rank card
+    reference.  Writes ``tmp/rank<r>.json``."""
+    torch, dist = _rank_setup(rank, 2, tmp, "pg18d")
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.collectives import Collectives
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.api import get_model
+    from repro_torch.sharding import MeshRules
+    dev = torch.device("cuda", 0)
+    report = {"rank": rank}
+    try:
+        mesh = make_mesh((1, 2), ("data", "model"), device=dev)
+        rules = MeshRules(mesh)
+        report["staged"] = mesh.staged
+        cfg = dataclasses.replace(
+            get_config(SEAMLESS), dtype="float32", attn_impl="pallas",
+            use_pallas=True, n_layers=SEAM_GATE_LAYERS,
+            enc_layers=SEAM_GATE_LAYERS)
+        model = get_model(cfg)
+        inputs = {"tokens": TokenPipeline(cfg, SEAM_MESH_BATCH, SEAM_PROMPT,
+                                          seed=1).batch_at(0)["tokens"],
+                  "frames": np.random.default_rng(18).normal(
+                      0, 1, (SEAM_MESH_BATCH, SEAM_MESH_FRAMES,
+                             cfg.frontend_dim)).astype(np.float32)}
+        # a ring of 2 x 16 slots: the prompt fills rank 0's block, the
+        # decode steps rank 1's, so both ranks attend and combine
+        max_len = 2 * SEAM_PROMPT
+
+        def run(params, rules_, feed=None):
+            """The prefill's and each step's logits (greedy, or fed the
+            tokens ``feed``), and the staged collectives (calls, bytes)
+            of each."""
+            Collectives.reset_counts()
+            cache, lg = model.prefill(cfg, params, inputs, max_len, rules_)
+            rows, comms = [lg], [(Collectives.calls, Collectives.bytes)]
+            for i in range(SEAM_MESH_STEPS):
+                nxt = (torch.argmax(rows[-1], -1) if feed is None
+                       else torch.argmax(feed[i], -1))
+                Collectives.reset_counts()
+                cache, lg = model.decode_step(cfg, params, cache, nxt,
+                                              rules_)
+                rows.append(lg)
+                comms.append((Collectives.calls, Collectives.bytes))
+            return rows, comms
+
+        params = model.init(cfg, torch.Generator(device=dev).manual_seed(1),
+                            device=dev, rules=rules)
+        report["param_bytes"] = sum(p.numel() * p.element_size()
+                                    for p in params.parameters())
+        torch.cuda.synchronize()
+        dist.barrier()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rows, comms = run(params, rules)
+        torch.cuda.synchronize()
+        report.update(ms=(time.perf_counter() - t0) * 1e3,
+                      counts=ops.launch_counts(), comms=comms,
+                      tokens=[torch.argmax(r, -1).tolist() for r in rows])
+        del params
+        torch.cuda.empty_cache()
+        dist.barrier()
+        if rank == 0:          # the one-rank card run of the same draws
+            full = model.init(cfg, torch.Generator(device=dev)
+                              .manual_seed(1), device=dev)
+            want, _ = run(full, None, feed=rows)   # the mesh's tokens
+            report["rel"] = [float(((a.double() - b.double()).abs().amax(-1)
+                                    / b.double().abs().amax(-1)).max())
+                             for a, b in zip(rows, want)]
+            report["tokens_equal"] = all(
+                torch.equal(torch.argmax(a, -1), torch.argmax(b, -1))
+                for a, b in zip(rows, want))
+            del full
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+        with open(f"{tmp}/rank{rank}.json", "w") as f:
+            json.dump(report, f)
+
+
+def phase18() -> tuple:
+    """The enc-dec family (``models.encdec``) at seamless-m4t-large-v2's
+    full width: (kernels) ``flash_attention`` and ``decode_attention`` at
+    D 64 (MHA) and ``rmsnorm`` at width 1,024 against their plain versions,
+    timed; (a) serving at full width and depth, and a forward through
+    ``flash_attention``; (b) the fp32 gates; (c) training at full depth and
+    its fp32 gate at ``SEAM_GATE_LAYERS`` against the CPU; (d) two gloo
+    ranks on the card, mesh (1, 2).  -> ({run: launch counts}, {kernel:
+    its seamless timings})."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import decode_attention as KD
+    from repro_torch.kernels import flash_attention as KF
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rmsnorm as KN
+    from repro_torch.models.api import get_model
+    from repro_torch.models.params import tree_items
+    from repro_torch.serve import ServeEngine
+    from repro_torch.train import step as TS
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    runs, timed = {}, {}
+    bf16, fp32 = torch.bfloat16, torch.float32
+    cfg = dataclasses.replace(get_config(SEAMLESS), attn_impl="pallas",
+                              use_pallas=True)
+    n_enc, n_dec = seamless_norms(cfg)
+    check(cfg.n_params() == SEAMLESS_PARAMS and cfg.head_dim == 64
+          and cfg.n_heads == cfg.n_kv_heads == 16 and cfg.d_model == 1024
+          and (n_enc, n_dec) == (49, 73) and cfg.dtype == "bfloat16",
+          f"{SEAMLESS}: {cfg.n_params()} parameters, {cfg.n_heads} / "
+          f"{cfg.n_kv_heads} heads of {cfg.head_dim}, width {cfg.d_model}, "
+          f"norms {n_enc} + {n_dec}, {cfg.dtype}")
+    g = torch.Generator(device=dev).manual_seed(18)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def close(got, want, dtype):
+        """9a's gates: fp32 rtol = atol = 2e-5; bf16 one ulp of each
+        output (rtol 2**-7) plus atol 1e-5."""
+        rtol, atol = (2e-5, 2e-5) if dtype == fp32 else (2 ** -7, 1e-5)
+        e = float((got.float() - want.float()).abs().max())
+        return (got.dtype == want.dtype and got.shape == want.shape
+                and bool(torch.isfinite(got).all())
+                and torch.allclose(got.float(), want.float(), rtol=rtol,
+                                   atol=atol)), e
+
+    def timings(kernel, plain, library, nbytes, nops, ops_per_s, shape,
+                plain_iters=20):
+        k, p = measure(kernel), measure(plain, plain_iters,
+                                        min(3, plain_iters))
+        lib = measure(library)
+        b_ms, b_by = bound(nbytes, nops, ops_per_s)
+        return dict(ms=k["ms"], call_ms=k["call_ms"],
+                    ms_source=k["source"], plain_ms=p["ms"],
+                    library_ms=lib["ms"], bound_ms=b_ms, bound_by=b_by,
+                    shape=shape)
+
+    # -- 18-kernels: the three kernels at the enc-dec path's shapes -------
+    t0 = time.perf_counter()
+    b_, h_, d_, s_ = SEAM_BATCH, cfg.n_heads, cfg.head_dim, SEAM_FWD
+    errs = {}
+    for dtype in (bf16, fp32):       # flash, causal, D 64 (MHA)
+        q, k, v = (randn((b_, h_, s_, d_), dtype) for _ in range(3))
+        got = KF.flash_attention(q, k, v, causal=True)
+        want = ref.flash_attention_ref(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        label = f"flash_attention D 64 MHA causal {str(dtype)[6:]}"
+        if dtype == fp32:
+            ok, e = close(got, want, fp32)
+            check(ok, f"phase 18 {label}: max |err| {e}")
+        else:
+            e = float((got.float() - want.float()).abs().max())
+            ratio = ref.flash_bf16_gate(got, q, k, v, causal=True)
+            check(ratio <= 1.0, f"phase 18 {label}: {ratio:.3f} of the "
+                  "float64 gate")
+            log(f"phase 18 {label}: {ratio:.3f} of the float64 gate 2**-7 "
+                "(|o64| + P64 |V| / l64) + 1e-5")
+        errs[label] = e
+        log(f"phase 18 {label} (B {b_} x H {h_} x S {s_}): max |err| "
+            f"against the plain version {e:.3e}")
+    q, k, v = (randn((b_, h_, s_, d_), bf16) for _ in range(3))
+    pairs = s_ * (s_ + 1) // 2
+    timed["flash_attention"] = timings(
+        lambda: KF.flash_attention(q, k, v, causal=True),
+        lambda: ref.flash_attention_ref(q, k, v, causal=True),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+        4 * q.numel() * 2, 4 * b_ * h_ * pairs * d_, BF16_TENSOR_OPS_PER_S,
+        f"B={b_} H={h_} (MHA) S={s_} D={d_} causal bf16", plain_iters=5)
+    timed["flash_attention"]["max_abs_err_by_case"] = dict(errs)
+    del q, k, v, got, want
+
+    # decode over the serving run's ring: Sc = prompt + new slots, the
+    # last step's kv_len
+    sc_ = SEAM_PROMPT + SEAM_NEW
+    kvl, errs = sc_, {}
+    for dtype in (bf16, fp32):
+        qd = randn((b_, h_, d_), dtype)
+        kd, vd = (randn((b_, sc_, h_, d_), dtype).permute(0, 2, 1, 3)
+                  for _ in range(2))
+        for n in (kvl, SEAM_PROMPT + 1):
+            ok, e = close(KD.decode_attention(qd, kd, vd, kv_len=n),
+                          ref.decode_attention_ref(qd, kd, vd, kv_len=n),
+                          dtype)
+            label = f"decode_attention D 64 MHA kv_len {n} {str(dtype)[6:]}"
+            check(ok, f"phase 18 {label}: max |err| {e}")
+            errs[label] = e
+    log("phase 18 decode_attention (B 4 x H 16 over a (B, 48, H, 64) ring "
+        "view): max |err| " + ", ".join(f"{k_} {v_:.3e}"
+                                        for k_, v_ in errs.items()))
+    qd = randn((b_, h_, d_), bf16)
+    kd, vd = (randn((b_, sc_, h_, d_), bf16).permute(0, 2, 1, 3)
+              for _ in range(2))
+    q4 = qd[:, :, None]
+    timed["decode_attention"] = timings(
+        lambda: KD.decode_attention(qd, kd, vd, kv_len=kvl),
+        lambda: ref.decode_attention_ref(qd, kd, vd, kv_len=kvl),
+        lambda: F.scaled_dot_product_attention(q4, kd[:, :, :kvl],
+                                               vd[:, :, :kvl]),
+        2 * 2 * b_ * h_ * kvl * d_ + 2 * 2 * b_ * h_ * d_,
+        4 * b_ * h_ * kvl * d_, BF16_TENSOR_OPS_PER_S,
+        f"B={b_} Hq=Hkv={h_} D={d_} kv_len={kvl} over a (B, Sc={sc_}, Hkv, "
+        "D) bf16 ring view")
+    timed["decode_attention"].update(
+        split_plan=list(KD.split_plan(kvl, None, b_ * h_, KD.sm_count(dev))),
+        max_abs_err_by_case=dict(errs))
+    del kd, vd, qd, q4
+
+    dn, errs, norm_timed = cfg.d_model, {}, {}
+    w = torch.randn((dn,), generator=g, device=dev) + 1.0
+    for rows in (b_ * cfg.frontend_len, b_):     # the encoder's, a step's
+        for dtype in (bf16, fp32):
+            x = randn((rows, dn), dtype)
+            check(KN.plan_for(x, w).path == "vector",
+                  f"phase 18 rmsnorm {rows} x {dn}: plan "
+                  f"{KN.plan_for(x, w)}")
+            ok, e = close(KN.rmsnorm(x, w, 1e-5),
+                          ref.rmsnorm_ref(x, w, 1e-5), dtype)
+            label = f"rmsnorm {rows} x {dn} {str(dtype)[6:]}"
+            check(ok, f"phase 18 {label}: max |err| {e}")
+            errs[label] = e
+        x = randn((rows, dn), bf16)
+        norm_timed[f"{rows}x{dn}"] = timings(
+            lambda: KN.rmsnorm(x, w, 1e-5),
+            lambda: ref.rmsnorm_ref(x, w, 1e-5),
+            lambda: F.rms_norm(x, (dn,), w, 1e-5),
+            2 * 2 * rows * dn + 4 * dn, 4 * rows * dn, ALU_OPS_PER_S,
+            f"R={rows} D={dn} bf16, fp32 weight")
+    timed["rmsnorm"] = dict(norm_timed[f"{b_ * cfg.frontend_len}x{dn}"],
+                            by_shape=norm_timed, max_abs_err_by_case=errs)
+    del x
+    log(f"phase 18 rmsnorm at D {dn} (vector path): max |err| "
+        + ", ".join(f"{k_} {v_:.3e}" for k_, v_ in errs.items()))
+    for name, t in timed.items():
+        log(f"phase 18 {name}: kernel {t['ms']:.6f} ms ({t['ms_source']}; "
+            f"{t['call_ms']:.6f} per call), plain {t['plain_ms']:.6f} ms, "
+            f"library {t['library_ms']:.6f} ms, bound {t['bound_ms']:.6f} "
+            f"ms ({t['bound_by']}) at {t['shape']}")
+    for key, t in norm_timed.items():
+        log(f"phase 18 rmsnorm {key}: kernel {t['ms']:.6f} ms, plain "
+            f"{t['plain_ms']:.6f}, F.rms_norm {t['library_ms']:.6f}, bound "
+            f"{t['bound_ms']:.6f}")
+    torch.cuda.empty_cache()
+    log(f"phase 18 kernels: {time.perf_counter() - t0:.1f} s")
+
+    # -- 18a: serving at full width and depth ------------------------------
+    t0 = time.perf_counter()
+    model = get_model(cfg)
+    params = model.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    frames = randn((SEAM_BATCH, cfg.frontend_len, cfg.frontend_dim), fp32)
+    toks = TokenPipeline(cfg, SEAM_BATCH, SEAM_PROMPT, seed=0).batch_at(0)[
+        "tokens"]
+    max_len = SEAM_PROMPT + SEAM_NEW
+    check(cfg.window is None and max_len == sc_, f"ring {max_len}")
+    try:
+        ServeEngine(cfg, params, max_len=max_len)
+    except ValueError:
+        pass                  # the engine passes no frames: refused
+    else:
+        raise SmokeFailure("ServeEngine took the enc-dec family")
+
+    def greedy(cfg_, params_, inputs, steps, ml):
+        """prefill, then ``steps`` greedy decode steps -> (tokens (B,
+        1 + steps), prefill s, decode s, logits of each)."""
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cache, lg = model.prefill(cfg_, params_, inputs, ml)
+        nxt = torch.argmax(lg, -1)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out, lgs = [nxt], [lg]
+        for _ in range(steps):
+            cache, lg = model.decode_step(cfg_, params_, cache, nxt)
+            nxt = torch.argmax(lg, -1)
+            out.append(nxt)
+            lgs.append(lg)
+        torch.cuda.synchronize()
+        return (torch.stack(out, 1).tolist(), t2 - t1,
+                time.perf_counter() - t2, lgs)
+
+    inputs = {"frames": frames, "tokens": toks}
+    gb = 1e9
+    greedy(cfg, params, inputs, 2, max_len)                # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    tokens_a, pre_s, dec_s, _ = greedy(cfg, params, inputs, SEAM_NEW,
+                                       max_len)
+    tag = "phase 18a serving seamless"
+    runs[tag] = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"decode_attention": cfg.n_layers * SEAM_NEW,
+            "rmsnorm": n_enc + n_dec * (1 + SEAM_NEW)}
+    check({k_: runs[tag][k_] for k_ in want} == want
+          and all(n == 0 for k_, n in runs[tag].items() if k_ not in want)
+          and want == {"decode_attention": 768, "rmsnorm": 2458},
+          f"{tag}: launches {runs[tag]} != {want}")
+    box = {}
+
+    def prefill_once():
+        box["cache"], lg = model.prefill(cfg, params, inputs, max_len)
+        box["feed"] = torch.argmax(lg, -1)
+
+    def step_once():
+        box["cache"], lg = model.decode_step(cfg, params, box["cache"],
+                                             box["feed"])
+        box["feed"] = torch.argmax(lg, -1)
+        box["feed"].cpu()
+
+    b_pre, pre_names = device_busy_ms(prefill_once)
+    b_step, _, by_op, complete = device_ms(step_once, iters=3)
+    # one decode step's cross attention of one layer alone: the cached
+    # cross K/V cast to float32 and both products (ROADMAP's measured
+    # costs), beside the bytes it moves
+    from repro_torch.models import encdec as E
+    from repro_torch.models.params import layer_slice
+    pc = layer_slice(params["decoder"]["cross"], 0)
+    hx = randn((SEAM_BATCH, 1, cfg.d_model), bf16)
+    ck, cv = box["cache"]["cross_k"][0], box["cache"]["cross_v"][0]
+    cross_t = measure(lambda: E._cross_attention(cfg, pc, hx, ck, cv))
+    kv_b = ck.numel() * (2 + 4 + 4) * 2    # bf16 read, f32 written, read
+    box.clear()
+    gen_ms = (pre_s + dec_s) * 1e3
+    busy = (None if b_pre is None or b_step is None
+            else b_pre + SEAM_NEW * b_step)
+    reckon = {"parameters": SEAMLESS_PARAMS * 4,
+              "cross cache (bf16)": 2 * cfg.n_layers * SEAM_BATCH
+              * cfg.frontend_len * cfg.n_kv_heads * cfg.head_dim * 2,
+              "encoder scores (fp32), four alive": 4 * SEAM_BATCH
+              * cfg.n_heads * cfg.frontend_len ** 2 * 4,
+              "bf16 embed and head casts": 2 * cfg.vocab_size
+              * cfg.d_model * 2}
+    log(f"{tag} (bf16 over fp32 weights, both kernels; {SEAM_BATCH} x "
+        f"{cfg.frontend_len} frames, {SEAM_BATCH} x {SEAM_PROMPT} prompt "
+        f"tokens, {SEAM_NEW} greedy steps, ring {max_len}): prefill (encode "
+        f"and the decoder over the prompt) {pre_s * 1e3:.3f} ms "
+        f"({SEAM_BATCH * cfg.frontend_len / pre_s:.1f} frames/s); decode "
+        f"{dec_s * 1e3:.3f} ms, {dec_s * 1e3 / SEAM_NEW:.3f} ms a step on "
+        f"the host clock ({SEAM_BATCH * SEAM_NEW / dec_s:.1f} tokens/s); "
+        f"launches {want} as planned ({n_enc} + {n_dec} rmsnorm in the "
+        f"prefill, {n_dec} and {cfg.n_layers} decode_attention a step); "
+        f"peak device memory {peak} bytes ({peak / gb:.3f} GB; reckoning "
+        f"{sum(reckon.values()) / gb:.2f} GB: "
+        + ", ".join(f"{k_} {v_ / gb:.2f}" for k_, v_ in reckon.items())
+        + "); " + (
+            f"device busy {busy:.3f} ms of a {gen_ms:.3f} ms generate (the "
+            f"prefill's {b_pre:.3f} + {SEAM_NEW} x a step's {b_step:.3f} "
+            f"device ms; idle share {1 - busy / gen_ms:.3f}; the step's trace "
+            f"complete: {complete})" if busy is not None
+            else "device busy not measured"))
+    log(f"{tag}: one layer's cross attention in a decode step (the cached "
+        f"{tuple(ck.shape)} bf16 K/V cast to float32, both products): "
+        f"{cross_t['ms']:.6f} device ms ({cross_t['source']}), "
+        f"{cfg.n_layers} layers {cfg.n_layers * cross_t['ms']:.3f} ms a step; "
+        f"its K/V bytes {kv_b} ({kv_b / HBM_BYTES_PER_S * 1e3:.6f} ms at "
+        f"HBM rate), {cfg.n_layers * kv_b / gb:.3f} GB a step")
+    if busy is not None:
+        for name_, ops_ in (("the prefill's device ms by kernel",
+                             pre_names),
+                            ("a decode step's device ms by the PyTorch op "
+                             "that launched it", by_op)):
+            log(f"{tag}: {name_}, the largest:")
+            for oname, oms in sorted(ops_.items(), key=lambda kv: -kv[1])[:8]:
+                log(f"    {oms:.3f} ms  {oname[:90]}")
+    plain = dataclasses.replace(cfg, attn_impl="blocked", use_pallas=False)
+    # the flash kernel's path: a full-sequence forward with attn_impl pallas
+    fbatch = TokenPipeline(cfg, SEAM_BATCH, SEAM_FWD, seed=0).batch_at(0)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        lf, _ = model.forward(cfg, params, fbatch)
+        torch.cuda.synchronize()
+        tagf = "phase 18a forward seamless"
+        runs[tagf] = ops.launch_counts()
+        lp, _ = model.forward(plain, params, fbatch)
+    check(runs[tagf]["flash_attention"] == cfg.n_layers == 24
+          and runs[tagf]["rmsnorm"] == n_enc + n_dec
+          and bool(torch.isfinite(lf).all()),
+          f"{tagf}: launches {runs[tagf]}, finite {torch.isfinite(lf).all()}")
+    f_agree = float((lf.argmax(-1) == lp.argmax(-1)).float().mean())
+    log(f"{tag}: greedy tokens of the first sequence "
+        f"{tokens_a[0][:8]}...; the forward over "
+        f"{SEAM_BATCH} x {SEAM_FWD} tokens and frames with attn_impl pallas: "
+        f"{runs[tagf]['flash_attention']} flash_attention and "
+        f"{runs[tagf]['rmsnorm']} rmsnorm launches, argmax agreeing with the "
+        f"plain forward at {f_agree:.4f} of the positions (reported: bf16 "
+        f"rounding flips near-hard attention at this init, 18b); 18a "
+        f"{time.perf_counter() - t0:.1f} s")
+    del lf, lp
+
+    # -- 18b: the fp32 gates ------------------------------------------------
+    # As 16b's: at full depth every launch of the three kernels against a
+    # float64 evaluation on its own inputs, within 1e-4 of its max |exact|
+    # (the serving path teacher-forced on the plain path's greedy tokens,
+    # and a forward through flash_attention); at SEAM_GATE_LAYERS, where
+    # float32 holds (scripts/torch_hybrid_conditioning.py --arch
+    # seamless-m4t-large-v2), every step's logits kernels on against off
+    # within 1e-3 of the row's max, beside the float64 compute
+    t0 = time.perf_counter()
+    on32 = dataclasses.replace(cfg, dtype="float32")
+    off32 = dataclasses.replace(plain, dtype="float32")
+    p1 = TokenPipeline(cfg, 1, SEAM_PROMPT, seed=0).prompts(1, SEAM_PROMPT)
+    f1 = frames[:1, :SEAM_FWD]
+    pin = {"frames": f1, "tokens": np.array(p1)}
+    gen = greedy(off32, params, pin, 7, SEAM_PROMPT + 16)[0]   # 8 tokens
+    ops.reset_launch_counts()
+    lg_on, lerrs = forced_checked("phase 18b fp32", on32, params, p1, gen,
+                                  SEAM_PROMPT + 16, frames_=f1)
+    tag = "phase 18b fp32 seamless"
+    runs[tag] = ops.launch_counts()
+    check(runs[tag]["decode_attention"] == cfg.n_layers * (len(lg_on) - 1)
+          == lerrs["decode_attention"][0]
+          and runs[tag]["rmsnorm"] == n_enc + n_dec * len(lg_on)
+          == lerrs["rmsnorm"][0], f"{tag}: launches {runs[tag]}, checked "
+          f"{lerrs}")
+    fb1 = TokenPipeline(cfg, 1, 256, seed=0).batch_at(0)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        _, ferrs = forced_checked("phase 18b fp32 forward", run=lambda:
+                                  model.forward(on32, params, fb1)[0])
+    tagf = "phase 18b fp32 forward seamless"
+    runs[tagf] = ops.launch_counts()
+    check(runs[tagf]["flash_attention"] == cfg.n_layers
+          == ferrs["flash_attention"][0]
+          and runs[tagf]["rmsnorm"] == n_enc + n_dec == ferrs["rmsnorm"][0],
+          f"{tagf}: launches {runs[tagf]}, checked {ferrs}")
+    log(f"{tag}, full width and depth (1 x {SEAM_FWD} frames, 1 x "
+        f"{SEAM_PROMPT} tokens + 8 steps, teacher-forced; a forward over 1 x "
+        f"256): all {lerrs['decode_attention'][0]} decode_attention launches "
+        f"within {lerrs['decode_attention'][1]:.3e} of max |exact| of "
+        f"float64 (plain {lerrs['decode_attention'][2]:.3e}), all "
+        f"{lerrs['rmsnorm'][0] + ferrs['rmsnorm'][0]} rmsnorm launches within "
+        f"{max(lerrs['rmsnorm'][1], ferrs['rmsnorm'][1]):.3e} (plain "
+        f"{max(lerrs['rmsnorm'][2], ferrs['rmsnorm'][2]):.3e}), all "
+        f"{ferrs['flash_attention'][0]} flash_attention launches within "
+        f"{ferrs['flash_attention'][1]:.3e} (plain "
+        f"{ferrs['flash_attention'][2]:.3e}); limit 1e-4")
+
+    def row_rel(xs, ys):
+        return [float(((a.double() - b.double()).abs().amax(-1)
+                       / b.double().abs().amax(-1)).max())
+                for a, b in zip(xs, ys)]
+    lg_off = forced(off32, params, p1, gen, SEAM_PROMPT + 16, frames_=f1)
+    full_rel = row_rel(lg_on, lg_off)
+    del params, lg_on, lg_off
+    torch.cuda.empty_cache()
+    g_on = dataclasses.replace(on32, n_layers=SEAM_GATE_LAYERS,
+                               enc_layers=SEAM_GATE_LAYERS)
+    g_off = dataclasses.replace(off32, n_layers=SEAM_GATE_LAYERS,
+                                enc_layers=SEAM_GATE_LAYERS)
+    gp = get_model(g_on).init(g_on, torch.Generator(device=dev)
+                              .manual_seed(0), device=dev)
+    ggen = greedy(g_off, gp, pin, 7, SEAM_PROMPT + 16)[0]
+    tag = "phase 18b fp32 gate seamless"
+    ops.reset_launch_counts()
+    lg_on = forced(g_on, gp, p1, ggen, SEAM_PROMPT + 16, frames_=f1)
+    runs[tag] = ops.launch_counts()
+    lg_off = forced(g_off, gp, p1, ggen, SEAM_PROMPT + 16, frames_=f1)
+    g_enc, g_dec = seamless_norms(g_on)
+    check(runs[tag]["decode_attention"] == SEAM_GATE_LAYERS
+          * (len(lg_on) - 1)
+          and runs[tag]["rmsnorm"] == g_enc + g_dec * len(lg_on),
+          f"{tag}: launches {runs[tag]}")
+    del gp
+    gp = get_model(g_on).init(g_on, torch.Generator(device=dev)
+                              .manual_seed(0), dtype=torch.float64,
+                              device=dev)
+    lg64 = forced(dataclasses.replace(g_off, dtype="float64"), gp, p1, ggen,
+                  SEAM_PROMPT + 16, frames_=f1.double())
+    del gp
+    rel = row_rel(lg_on, lg_off)
+    check(all(np.isfinite(rel)) and max(rel) <= 1e-3,
+          f"{tag}: max |d logit| of the row's max {rel} (limit 1e-3)")
+    log(f"{tag} ({SEAM_GATE_LAYERS} + {SEAM_GATE_LAYERS} of "
+        f"{cfg.enc_layers} + {cfg.n_layers} layers, full width, 1 x "
+        f"{SEAM_FWD} frames, 1 x {SEAM_PROMPT} tokens + 8 steps, "
+        f"teacher-forced): kernels on against off within {max(rel):.3e} of "
+        f"the row's max at every step (limit 1e-3), by step "
+        f"{[float('%.2e' % x_) for x_ in rel]}; against the float64 compute: "
+        f"kernels {max(row_rel(lg_on, lg64)):.3e}, plain "
+        f"{max(row_rel(lg_off, lg64)):.3e}; at full depth (reported) "
+        f"{max(full_rel):.3e}; 18b {time.perf_counter() - t0:.1f} s")
+    del lg_on, lg_off, lg64
+    torch.cuda.empty_cache()
+
+    # -- 18c: training ---------------------------------------------------------
+    t0 = time.perf_counter()
+    tcfg = get_config(SEAMLESS)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    torch.cuda.reset_peak_memory_stats()
+    state = TS.init_train_state(tcfg, torch.Generator(device=dev)
+                                .manual_seed(0), device=dev)
+    step_fn = TS.make_train_step(tcfg, None, TS.TrainConfig(
+        peak_lr=3e-3, warmup_steps=2, total_steps=TRAIN_STEPS))
+    pipe = TokenPipeline(tcfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    tag = "phase 18c training seamless"
+    ops.reset_launch_counts()
+    rows = []
+    for i in range(3):
+        batch = {k_: torch.from_numpy(v_).to(dev)
+                 for k_, v_ in pipe.batch_at(i).items()}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        row = {k_: float(m[k_]) for k_ in ("loss", "grad_norm", "lr")}
+        row["ms"] = (time.perf_counter() - t1) * 1e3
+        rows.append(row)
+    runs[tag] = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    # at this init the gradients grow ~150x a layer (51 at 1 + 1 layers,
+    # 7,769 at 2 + 2: scripts/torch_train_conditioning.py), so at 24 + 24
+    # the float32 sum of their squares overflows and the clip scales the
+    # step's gradient to zero (the JAX step's global norm overflows the
+    # same way); the state must stay finite
+    finite = all(bool(torch.isfinite(t).all()) for part in (
+        state["params"], state["opt"]["m"], state["opt"]["v"])
+        for _, t in tree_items(part))
+    check(all(n == 0 for n in runs[tag].values())
+          and batch["frames"].shape == (TRAIN_BATCH, TRAIN_SEQ,
+                                        tcfg.frontend_dim)
+          and all(math.isfinite(r["loss"]) for r in rows)
+          and all(math.isfinite(r["grad_norm"]) or r["grad_norm"] == math.inf
+                  for r in rows) and finite, f"{tag}: {rows}, launches "
+          f"{runs[tag]}, the state finite: {finite}")
+    warm = [r["ms"] for r in rows[1:]]
+    rk = {"fp32 params, grads, m, v": 16 * SEAMLESS_PARAMS,
+          "bf16 tree and its cotangents": 4 * SEAMLESS_PARAMS,
+          "fp32 logits, log-softmax, grads": 3 * tokens * tcfg.vocab_size
+          * 4,
+          "a block's recompute": 4 * TRAIN_BATCH * tcfg.n_heads
+          * TRAIN_SEQ ** 2 * 4}
+    log(f"{tag} (full width and depth, {SEAMLESS_PARAMS} parameters; "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens and frames a step, bf16 over "
+        f"fp32 master, remat block, attn_impl blocked): "
+        + "; ".join(f"step {i + 1} loss {r['loss']:.6f} grad norm "
+                    f"{r['grad_norm']:.6f} {r['ms']:.1f} ms"
+                    for i, r in enumerate(rows))
+        + f"; warm {sum(warm) / len(warm):.1f} ms a step "
+        f"({tokens / (sum(warm) / len(warm) / 1e3):.1f} tokens/s); peak "
+        f"device memory {peak} bytes ({peak / gb:.3f} GB; reckoning "
+        f"{sum(rk.values()) / gb:.2f} GB: "
+        + ", ".join(f"{k_} {v_ / gb:.2f}" for k_, v_ in rk.items())
+        + "); kernel launches 0; the parameters and moments finite")
+    del state, step_fn, batch
+    torch.cuda.empty_cache()
+    tag = "phase 18c fp32 gate seamless"
+    runs[tag] = train_gate(tag, dataclasses.replace(
+        get_config(SEAMLESS), dtype="float32", n_layers=SEAM_GATE_LAYERS,
+        enc_layers=SEAM_GATE_LAYERS), cfg.n_layers, 1, 256)
+    log(f"phase 18c: {time.perf_counter() - t0:.1f} s")
+
+    # -- 18d: two gloo ranks on the card, mesh (data 1, model 2) ------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(phase18d_rank, args=(tmp,), nprocs=2,
+                           start_method="spawn")
+        reports = [json.load(open(f"{tmp}/rank{r}.json")) for r in range(2)]
+    mcfg = dataclasses.replace(cfg, n_layers=SEAM_GATE_LAYERS,
+                               enc_layers=SEAM_GATE_LAYERS)
+    plan_p, plan_d = seamless_mesh_plan(mcfg, SEAM_MESH_BATCH,
+                                        SEAM_MESH_FRAMES, SEAM_PROMPT, 2)
+    m_enc, m_dec = seamless_norms(mcfg)
+    tag = "phase 18d serving (1, 2) mesh seamless"
+    want = {"decode_attention": mcfg.n_layers * SEAM_MESH_STEPS,
+            "rmsnorm": m_enc + m_dec * (1 + SEAM_MESH_STEPS)}
+    for r in reports:
+        check(r.get("staged") is True, f"{tag} rank {r['rank']}: {r}")
+        got = {k_: r["counts"][k_] for k_ in want}
+        check(got == want, f"{tag} rank {r['rank']}: launches {r['counts']} "
+              f"!= {want}")
+        comms = [tuple(c) for c in r["comms"]]
+        check(comms == [plan_p] + [plan_d] * SEAM_MESH_STEPS,
+              f"{tag} rank {r['rank']}: staged collectives {comms}, planned "
+              f"{plan_p} then {plan_d} a step")
+        runs[f"{tag} rank {r['rank']}"] = r["counts"]
+    check(reports[0]["tokens"] == reports[1]["tokens"],
+          f"{tag}: the ranks' tokens differ")
+    rel = reports[0]["rel"]
+    check(max(rel) <= 1e-3, f"{tag}: logits of the row's max {rel} from the "
+          "one-rank card run (limit 1e-3)")
+    log(f"{tag} ({SEAM_GATE_LAYERS} + {SEAM_GATE_LAYERS} layers at full "
+        f"width, fp32, both serving kernels; {SEAM_MESH_BATCH} x "
+        f"{SEAM_MESH_FRAMES} frames, {SEAM_MESH_BATCH} x {SEAM_PROMPT} tokens "
+        f"and {SEAM_MESH_STEPS} greedy steps; host-staged gloo): the "
+        f"prefill's and each step's logits within {max(rel):.3e} of the "
+        f"row's max of the one-rank card run (limit 1e-3), by step "
+        f"{[float('%.2e' % x_) for x_ in rel]}, greedy tokens equal: "
+        f"{reports[0]['tokens_equal']}; staged collectives as planned: "
+        f"prefill {plan_p[0]} calls {plan_p[1]} bytes, {plan_d[0]} calls "
+        f"{plan_d[1]} bytes a step; launches a rank {want}; parameter blocks "
+        f"{reports[0]['param_bytes']} bytes a rank; the mesh's run "
+        f"{reports[0]['ms']:.1f} ms; 18d {time.perf_counter() - t0:.1f} s "
+        "with start-up")
+    log(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
     return runs, timed
 
 
@@ -5309,15 +6046,14 @@ def main() -> int:
         f"(bf16 cache {cache_gb:.3f} GB); the two runs' tokens identical: "
         f"{same9}; request 0 starts {run_a.tokens[0][:8]}")
     gen_ms = (run_a.prefill_s + run_a.decode_s) * 1e3
-    busy9, by_name9, by_op9, complete9 = device_ms(
-        lambda: engine.generate(prompts, n_new), iters=2)
-    serve_busy = busy9 if complete9 else None
-    if busy9 is not None:
-        log("phase 9b generate: " + (
-            f"device busy {busy9:.3f} ms of {gen_ms:.3f} ms (idle share "
-            f"{1 - busy9 / gen_ms:.3f})" if complete9 else
-            "device busy and idle share not measured (profiler trace "
-            "incomplete)"))
+    # one generate's device busy from the profiler's raw device records
+    # (its operator tree over ~10^4 kernels took ~175 s to build, and the
+    # trace of two generates came back incomplete)
+    serve_busy, _ = device_busy_ms(lambda: engine.generate(prompts, n_new))
+    if serve_busy is not None:
+        log(f"phase 9b generate: device busy {serve_busy:.3f} ms of "
+            f"{gen_ms:.3f} ms (idle share {1 - serve_busy / gen_ms:.3f}; "
+            "the raw device records of one generate)")
     # where a decode step's time goes: one step at a time, after a prefill
     pad9 = np.array([p[:min(lens9)] for p in prompts])
     cache9, logits9 = model9.prefill(cfg9, params, {"tokens": pad9},
@@ -5518,6 +6254,13 @@ def main() -> int:
     for k in kernels:
         if k["name"] in xl:
             k["xlstm"] = xl[k["name"]]
+
+    # -- phase 18: the enc-dec family (seamless-m4t-large-v2) ----------------
+    runs18, seam = phase18()
+    runs10.update(runs18)
+    for k in kernels:
+        if k["name"] in seam:
+            k["seamless"] = seam[k["name"]]
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")

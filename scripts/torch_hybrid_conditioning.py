@@ -1,13 +1,16 @@
-"""How far two correct float32 evaluations of zamba2-7b (or xlstm-125m)
-lie apart at full width, by depth: the ground of ``chip_smoke.py``
-phases 16b's and 17b's fp32 gates.
+"""How far two correct float32 evaluations of zamba2-7b (or xlstm-125m,
+or seamless-m4t-large-v2) lie apart at full width, by depth: the ground
+of ``chip_smoke.py`` phases 16b's, 17b's and 18b's fp32 gates.
 
     python scripts/torch_hybrid_conditioning.py [--device cuda|cpu]
-        [--arch zamba2-7b|xlstm-125m] [--depths 7,13,25,49,81] [--seq 512]
+        [--arch zamba2-7b|xlstm-125m|seamless-m4t-large-v2]
+        [--depths 7,13,25,49,81] [--seq 512]
 
 For each depth (the first n layers' pattern: groups of 6 Mamba2 layers
 and the shared block, then the tail; for xlstm-125m groups of 3 mLSTM
-blocks and an sLSTM block, then the tail), the same seeded weights
+blocks and an sLSTM block, then the tail; for seamless-m4t-large-v2 n
+encoder and n decoder layers, the prompt's ``--seq`` frames encoded
+beside 16 tokens), the same seeded weights
 (``Model.init``, seed 0) serve one prompt of ``--seq`` tokens
 (``TokenPipeline`` seed 0) through ``prefill`` three ways: float32 with
 the kernels (``attn_impl="pallas"``, ``use_pallas=True``; on the card
@@ -35,12 +38,12 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", "src"))
 
 
-def logits(cfg, params, toks, max_len, dtype=None):
+def logits(cfg, params, inputs, max_len, dtype=None):
     """The prefill's last-position logits, in float64 on the host."""
-    from repro_torch.models import lm as L
+    from repro_torch.models.api import get_model
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=str(dtype).removeprefix("torch."))
-    _, lg = L.prefill(cfg, params, toks, max_len)
+    _, lg = get_model(cfg).prefill(cfg, params, inputs, max_len)
     return lg.double().cpu()
 
 
@@ -53,10 +56,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--arch", default="zamba2-7b",
-                    choices=["zamba2-7b", "xlstm-125m"])
+                    choices=["zamba2-7b", "xlstm-125m",
+                             "seamless-m4t-large-v2"])
     ap.add_argument("--depths", default=None,
                     help="default: 7,13,25,49,81 (zamba2-7b), 4,8,12 "
-                         "(xlstm-125m)")
+                         "(xlstm-125m), 2,4,8,16,24 (seamless-m4t-large-v2)")
     ap.add_argument("--seq", type=int, default=512)
     args = ap.parse_args(argv)
     from repro_torch.configs import get_config
@@ -68,35 +72,41 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     base = get_config(args.arch)
-    depths = args.depths or ("7,13,25,49,81" if args.arch == "zamba2-7b"
-                             else "4,8,12")
-    toks = TokenPipeline(base, 1, args.seq, seed=0).batch_at(0)["tokens"]
+    depths = args.depths or {"zamba2-7b": "7,13,25,49,81",
+                             "xlstm-125m": "4,8,12"}.get(args.arch,
+                                                         "2,4,8,16,24")
+    encdec = base.family == "encdec"
+    inputs = TokenPipeline(base, 1, args.seq, seed=0).batch_at(0)
+    inputs = ({"tokens": inputs["tokens"][:, :16], "frames": inputs["frames"]}
+              if encdec else {"tokens": inputs["tokens"]})
     max_len = args.seq + 64
     where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
              else "cpu")
-    print(f"{args.arch} at full width, 1 x {args.seq} tokens, prefill "
+    print(f"{args.arch} at full width, 1 x {args.seq} "
+          f"{'frames and 16 tokens' if encdec else 'tokens'}, prefill "
           f"logits; on {where}", flush=True)
     for depth in (int(x) for x in depths.split(",")):
         t0 = time.perf_counter()
         off = dataclasses.replace(base, n_layers=depth, dtype="float32",
-                                  attn_impl="blocked", use_pallas=False)
+                                  attn_impl="blocked", use_pallas=False,
+                                  **({"enc_layers": depth} if encdec else {}))
         model = get_model(off)
 
         def draw(dtype):
             return model.init(off, torch.Generator(device=dev)
                               .manual_seed(0), dtype=dtype, device=dev)
         params = draw(torch.float32)
-        lg_off = logits(off, params, toks, max_len)
+        lg_off = logits(off, params, inputs, max_len)
         lg_on = None
         if dev.type == "cuda":
             on = dataclasses.replace(off, attn_impl="pallas",
                                      use_pallas=True)
-            lg_on = logits(on, params, toks, max_len)
+            lg_on = logits(on, params, inputs, max_len)
         del params
         if dev.type == "cuda":
             torch.cuda.empty_cache()
         params = draw(torch.float64)
-        lg64 = logits(off, params, toks, max_len, torch.float64)
+        lg64 = logits(off, params, inputs, max_len, torch.float64)
         del params
         if dev.type == "cuda":
             torch.cuda.empty_cache()

@@ -7,7 +7,11 @@ tolerances of ``chip_smoke.py`` phases 14b, 16c and 17c.
         [--gate-layers 2] [--seq 512]
 
 (xlstm-125m's 17c gate: ``--arch xlstm-125m --depths 4,12 --gate-layers
-4 --seq 256``; ``--gate-layers 8`` and ``12`` show why it is cut.)
+4 --seq 256``; ``--gate-layers 8`` and ``12`` show why it is cut.
+seamless-m4t-large-v2's 18c gate: ``--arch seamless-m4t-large-v2
+--depths 1,2 --gate-layers 1 --seq 256 --device cuda``, a depth being n
+encoder and n decoder layers and the batch's frames as long as its
+tokens.)
 
 1. The global gradient norm of ``lm.loss_fn`` at full width by depth (1,
    2, 4, 8 layers; 1 x 128 tokens; float32): the parameter init (the JAX
@@ -21,7 +25,8 @@ tolerances of ``chip_smoke.py`` phases 14b, 16c and 17c.
    the CPU's) can each be that far from float64.
 
 The float64 run is the model's ``dtype="float64"`` (the port's float64
-evaluation); the port trains in bfloat16 or float32.  About a minute on 8 cores.
+evaluation); the port trains in bfloat16 or float32.  About a minute on 8
+cores; ``--device cuda`` runs it on the card.
 """
 from __future__ import annotations
 
@@ -37,7 +42,6 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data.tokens import TokenPipeline  # noqa: E402
-from repro_torch.models import lm as L  # noqa: E402
 from repro_torch.models.api import get_model  # noqa: E402
 from repro_torch.models.params import (ParamTree, tree_items,  # noqa: E402
                                        tree_map)
@@ -45,7 +49,7 @@ from repro_torch.models.params import (ParamTree, tree_items,  # noqa: E402
 
 def grads(cfg, params, batch, dtype):
     cfg = dataclasses.replace(cfg, dtype=str(dtype).removeprefix("torch."))
-    loss, _ = L.loss_fn(cfg, params, batch)
+    loss, _ = get_model(cfg).loss(cfg, params, batch)
     items = tree_items(params)
     g = torch.autograd.grad(loss, [p for _, p in items])
     return float(loss.detach()), {path: x for (path, _), x in zip(items, g)}
@@ -61,27 +65,44 @@ def main(argv=None) -> int:
     ap.add_argument("--depths", default="1,2,4,8")
     ap.add_argument("--gate-layers", type=int, default=2)
     ap.add_argument("--seq", type=int, default=512)
+    ap.add_argument("--device", default="cpu")
     args = ap.parse_args(argv)
+    dev = torch.device(args.device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
     base = dataclasses.replace(get_config(args.arch), dtype="float32")
+    where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+             else "the CPU")
     print(f"{base.name} at full width (d {base.d_model}, {base.n_experts} "
           f"experts top-{base.top_k}, vocab {base.vocab_size}), float32, "
-          "on the CPU")
+          f"on {where}")
+
+    def cut(n):
+        return dataclasses.replace(base, n_layers=n, **(
+            {"enc_layers": n} if base.family == "encdec" else {}))
+
+    def batch_of(cfg, seq):
+        return {k: torch.from_numpy(v).to(dev) for k, v in
+                TokenPipeline(cfg, 1, seq, seed=0).batch_at(0).items()}
+
     for n in (int(x) for x in args.depths.split(",")):
-        cfg = dataclasses.replace(base, n_layers=n)
-        p = get_model(cfg).init(cfg, torch.Generator().manual_seed(0),
-                                device="cpu", requires_grad=True)
-        loss, g = grads(cfg, p, TokenPipeline(cfg, 1, 128, seed=0)
-                        .batch_at(0), torch.float32)
+        cfg = cut(n)
+        p = get_model(cfg).init(cfg, torch.Generator(device=dev)
+                                .manual_seed(0), device=dev,
+                                requires_grad=True)
+        loss, g = grads(cfg, p, batch_of(cfg, 128), torch.float32)
         print(f"depth {n}: loss {loss:.6f}, global grad norm {norm(g):.6e}",
               flush=True)
+        del p, g
 
     n = args.gate_layers
-    cfg = dataclasses.replace(base, n_layers=n)
-    p32 = get_model(cfg).init(cfg, torch.Generator().manual_seed(0),
-                              device="cpu", requires_grad=True)
+    cfg = cut(n)
+    p32 = get_model(cfg).init(cfg, torch.Generator(device=dev)
+                              .manual_seed(0), device=dev,
+                              requires_grad=True)
     p64 = ParamTree.from_tensors(tree_map(lambda t: t.detach().double(),
                                           p32), requires_grad=True)
-    batch = TokenPipeline(cfg, 1, args.seq, seed=0).batch_at(0)
+    batch = batch_of(cfg, args.seq)
     l32, g32 = grads(cfg, p32, batch, torch.float32)
     l64, g64 = grads(cfg, p64, batch, torch.float64)
     print(f"{n} layers, 1 x {args.seq} tokens, float32 against float64: loss "

@@ -17,7 +17,7 @@ CPU tensors; ``"einsum"`` and ``"blocked"`` are plain PyTorch.
 decode) to ``kernels/csrc/rmsnorm.cu`` (its plain version on CPU
 tensors); the default ``False`` computes exactly what the JAX package
 computes.  ``n_params()`` resolves through the
-port's ``models.api``, which declares the dense and MoE families so far.
+port's ``models.api``, which declares every family.
 ``fsdp`` and ``moe_impl`` are read by the model on a mesh
 (``sharding.MeshRules``, ``models.common.moe_ffn``); ``hier_allreduce``
 is read by nothing, in the JAX package as in the port, and is kept for

@@ -8,8 +8,10 @@ family.  Port of ``repro.models.api``.
   cache, logits = model.prefill(cfg, params, inputs, max_len)
   cache, logits = model.decode_step(cfg, params, cache, tokens)
 
-The ``dense``, ``moe``, ``hybrid_ssm`` and ``xlstm`` families are ported;
-``encdec`` raises ``NotImplementedError`` naming its ROADMAP item (A13f).
+Every family is ported: ``dense``, ``moe``, ``hybrid_ssm`` and ``xlstm``
+through ``models.lm``, ``encdec`` (seamless-m4t) through
+``models.encdec``, whose ``forward``, ``loss``, ``prefill`` inputs are
+``{"frames", "tokens"}`` (and ``"labels"``).
 Over a device mesh every entry takes ``rules`` (``sharding.MeshRules``), and
 ``Model.init(rules=...)`` gives this rank its blocks; ``shardings`` and
 ``specs`` give the parameters' layout.  The dry-run's sharded stand-ins
@@ -22,7 +24,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..configs.base import ModelConfig
-from . import lm
+from . import encdec, lm
 from .params import (ParamTree, init_params, param_shardings, param_specs,
                      param_structs)
 
@@ -80,9 +82,21 @@ _LM = Model(
 )
 
 
+_ENCDEC = Model(
+    param_defs=encdec.param_defs,
+    forward=encdec.forward,
+    loss=encdec.loss_fn,
+    prefill=encdec.prefill,
+    decode_step=encdec.decode_step,
+    cache_defs=encdec.cache_defs,
+    init_cache=encdec.init_cache,
+    cache_structs=encdec.cache_structs,
+)
+
+
 def get_model(cfg: ModelConfig) -> Model:
     if cfg.family == "encdec":
-        raise lm.not_ported("the 'encdec' family", "A13f (models/encdec.py)")
+        return _ENCDEC
     if cfg.family in ("dense", "moe", "hybrid_ssm", "xlstm"):
         return _LM
     raise ValueError(f"unknown family {cfg.family!r}")

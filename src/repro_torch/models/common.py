@@ -237,19 +237,19 @@ def attention(cfg: ModelConfig, p, x: torch.Tensor,
     return out_proj(o, p["wo"], d, lay)
 
 
-def kv_to_ring(k: torch.Tensor, lay, ring) -> torch.Tensor:
+def kv_to_ring(k: torch.Tensor, lay, ring, dim: int = 2) -> torch.Tensor:
     """New K/V rows (B,·,KVh,hd) as computed (the KV heads of
-    :func:`_qkv_local`) in the ring's KV-head layout: gathered over the
-    heads' axes where the ring keeps every KV head, cut to the ring's
-    block where it shards them."""
+    :func:`_qkv_local`; at ``dim``) in the ring's KV-head layout: gathered
+    over the heads' axes where the ring keeps every KV head, cut to the
+    ring's block where it shards them."""
     if lay is None:
         return k
     whole = lay.kv is None
     ck = ring[1]
     if ck is None and not whole:
-        return lay.kv.all_gather(k, 2)
+        return lay.kv.all_gather(k, dim)
     if ck is not None and whole:
-        return ck.local(k, 2)
+        return ck.local(k, dim)
     return k
 
 

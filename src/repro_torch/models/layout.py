@@ -15,7 +15,9 @@ without a mesh.
 * ``heads``, ``kv``, ``wo``: the query heads of ``wq``, the KV heads of
   ``wk``/``wv`` and the rows of ``wo`` (``model``).
 * ``ff``, ``moe_ff``: the hidden width of the SwiGLU and of the experts.
-  The hybrid family's attention+MLP block is its one shared block.
+  The hybrid family's attention+MLP block is its one shared block; the
+  enc-dec family's are its decoder's, whose declarations its encoder's
+  blocks and the cross attention share (the same axes).
 * ``ssm``: the Mamba2 layers' ``ssm_inner`` columns and ``ssm_heads``
   (``model``); ``conv``: the decode cache's conv-window columns.
 * The xLSTM family (no attention: ``kv``, ``wo`` and ``moe_ff`` are
@@ -27,7 +29,8 @@ without a mesh.
   ``head_fsdp``, ``adapter_fsdp``: their ``embed`` width under fsdp
   (``data``), gathered where they are used.
 * :meth:`cache`: the decode ring's slots (``kv_seq``/``long_seq``) and
-  KV heads.
+  KV heads, and the enc-dec family's cross-attention cache's frames
+  (``kv_seq``) and KV heads.
 """
 from __future__ import annotations
 
@@ -63,12 +66,13 @@ class Layout:
         self.heads = self.kv = self.wo = self.ff = self.moe_ff = None
         self.ssm = self.conv = None
         self.rec = self.mlp_up = self.mlp_down = None
-        if "mlstm_main" in defs["layers"]:
-            self._xlstm_layout(cfg, defs["layers"], comm)
+        layers = defs.get("layers", {})
+        if "mlstm_main" in layers:
+            self._xlstm_layout(cfg, layers, comm)
         else:
-            # the attention+MLP block: stacked per layer, or the hybrid
-            # family's one shared block
-            lay = defs.get("shared", defs["layers"])
+            # the attention+MLP block: stacked per layer, the hybrid
+            # family's one shared block, or the enc-dec decoder's
+            lay = defs.get("shared", defs.get("decoder", layers))
             att = lay["attn"]
             self.heads = comm(att["wq"], -2)
             self.kv = comm(att["wk"], -2)
@@ -78,7 +82,7 @@ class Layout:
             self.moe_ff = (comm(lay["moe"]["w_gate"], -1) if "moe" in lay
                            else None)
             self._check_attention(cfg)
-        mamba = defs["layers"].get("mamba_main")
+        mamba = layers.get("mamba_main")
         if mamba is not None:
             self._ssm_layout(cfg, rules, mamba, comm)
         self.vocab = comm(defs["embed"], 0)
@@ -177,11 +181,13 @@ class Layout:
         i = self.batch.index()
         return x[i * n:(i + 1) * n]
 
-    def cache(self, cache_defs: dict):
+    def cache(self, cache_defs: dict, name: str = "k"):
         """(slot collectives, KV-head collectives) of the decode ring
-        declared by ``cache_defs`` (``lm.cache_defs``)."""
-        leaf = cache_defs["k"]
-        key = leaf.shape
+        declared as ``cache_defs[name]`` (``lm.cache_defs``; the enc-dec
+        family's ``cross_k`` too): a (L, B, slots, KV heads, head dim)
+        leaf."""
+        leaf = cache_defs[name]
+        key = (leaf.shape, leaf.axes)
         if key not in self._caches:
             spec = self.rules.spec(leaf.axes, leaf.shape)
             cb = live(self.rules.comm(spec.axes(1)))

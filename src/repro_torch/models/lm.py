@@ -62,8 +62,12 @@ package's (``mlstm_main``/``mlstm_tail``: ``c``, ``n``, ``m``;
 ``decode_step``, which reads nothing on the host.  A group-less pattern
 (``n_layers < slstm_every``) serves, as in the JAX package.
 
-Not ported yet, raising ``NotImplementedError`` that names its item of
-ROADMAP.md: the ``encdec`` family (``models/encdec.py``) — A13f.
+The ``encdec`` family (seamless-m4t) is ``models.encdec``'s, whose
+encoder and cross-attention cache this module does not know; it shares
+``cache_len``, ``_ring_pack``, ``compute_dtype``, ``embed_tokens``, the
+cache leaves (``CacheLeaf``, ``fill_cache``) and the vocab-parallel loss
+from here.  This module's entries refuse it (``models.api.get_model``
+dispatches there).
 """
 from __future__ import annotations
 
@@ -79,12 +83,9 @@ from . import common, ssm, xlstm
 from .layout import gather_batch, layout
 from .params import ParamDef, layer_slice, layer_views
 
-#: ROADMAP items of the families the port does not declare yet.
-_FAMILY_ITEMS = {"encdec": "A13f (models/encdec.py)"}
-
-
-#: The families the port declares.
-FAMILIES = ("dense", "moe", "hybrid_ssm", "xlstm")
+#: The families the port declares: ``encdec`` in ``models.encdec``, the
+#: decoder-only ones here.
+FAMILIES = ("dense", "moe", "hybrid_ssm", "xlstm", "encdec")
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -196,10 +197,15 @@ def _pattern(cfg: ModelConfig) -> tuple[int, int, int]:
     return cfg.n_layers // period, period, cfg.n_layers % period
 
 
-def _check_family(cfg: ModelConfig, what: str) -> None:
+def _check_family(cfg: ModelConfig, what: str,
+                  decoder_only: bool = True) -> None:
+    """Raise for a family the port does not declare, and (``decoder_only``)
+    for the enc-dec family, whose entries are ``models.encdec``'s."""
     if cfg.family not in FAMILIES:
-        raise not_ported(f"{what} of the {cfg.family!r} family",
-                         _FAMILY_ITEMS.get(cfg.family, "A13"))
+        raise ValueError(f"{what}: unknown family {cfg.family!r}")
+    if decoder_only and cfg.family == "encdec":
+        raise ValueError(f"{what} of the 'encdec' family is "
+                         "models.encdec's (models.api.get_model)")
 
 
 def param_defs(cfg: ModelConfig) -> dict:
@@ -672,6 +678,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """The cache of :func:`cache_defs`, filled, on ``device`` (default:
     the card; raises without one), nested as the declarations are.  Over
     a mesh (``rules``): this rank's block of each leaf."""
+    return fill_cache(cache_defs(cfg, batch, max_len, dtype), rules,
+                      device)
+
+
+def fill_cache(defs: dict, rules=None, device=None) -> dict:
+    """The filled tensors of a tree of ``CacheLeaf`` declarations on
+    ``device`` (default: the card); over a mesh (``rules``) this rank's
+    block of each."""
     dev = resolve_device(device)
 
     def make(node):
@@ -681,7 +695,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         if rules is not None:
             shape = rules.sharding(node.axes, shape).local_shape(shape)
         return torch.full(shape, node.fill, dtype=node.dtype, device=dev)
-    return make(cache_defs(cfg, batch, max_len, dtype))
+    return make(defs)
 
 
 def cache_structs(*args, **kwargs):

@@ -18,6 +18,9 @@ engine's ``jax.random`` draws.  The engine reads the next tokens back to
 the host once per step (the replay logic runs there), which is also where
 ``decode_step`` reads the cache position.
 
+The enc-dec family is refused: its prefill takes frames, which the
+engine (the JAX package's too) does not pass.
+
 Over a device mesh (``rules``, a ``sharding.MeshRules``) every rank of
 the mesh runs the same engine on its blocks of ``params``
 (``Model.init(rules=...)``) and the same prompts: prefill and decode
@@ -57,6 +60,12 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, *, max_len: int = 2048,
                  rules=None, temperature: float = 0.0,
                  eos_id: Optional[int] = None, seed: int = 0):
+        if cfg.family == "encdec":
+            raise ValueError(
+                f"{cfg.name}: the enc-dec family serves through "
+                "Model.prefill / decode_step with frames ({'frames', "
+                "'tokens'}); ServeEngine passes tokens only, as the JAX "
+                "package's does")
         self.cfg, self.params, self.rules = cfg, params, rules
         self.max_len = max_len
         self.temperature = temperature

@@ -35,9 +35,11 @@ changes the numbers, not the bytes sent.  Under ``cfg.fsdp`` the ``embed`` width
 on the blocks, with the global norm of ``optim.adamw_update``.  On a
 ``(1, 1)`` mesh the step is the one without a mesh, bit for bit.
 
-Refused before the first step: the enc-dec family (A13f), and the kernel
-switches (``attn_impl="pallas"``, ``use_pallas``): neither package has a
-backward for those kernels.
+Every family trains (``model.loss``: the enc-dec family's batch carries
+``frames`` beside ``tokens`` and ``labels``, split into microbatches and
+over the batch's axes as they are).  Refused before the first step: the
+kernel switches (``attn_impl="pallas"``, ``use_pallas``): neither package
+has a backward for those kernels.
 """
 from __future__ import annotations
 
@@ -193,7 +195,7 @@ class _LeafMesh:
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise before the first step for what the port cannot train."""
-    _check_family(cfg, "training")
+    _check_family(cfg, "training", decoder_only=False)
     if cfg.attn_impl == "pallas" or cfg.use_pallas:
         raise NotImplementedError(
             f"{cfg.name}: training with attn_impl={cfg.attn_impl!r}, "

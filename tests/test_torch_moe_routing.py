@@ -105,11 +105,15 @@ def test_configs_match_the_jax_package(arch):
         if jc.family in ("dense", "moe", "hybrid_ssm", "xlstm"):
             want = JL.param_defs(jc)
             assert L.param_defs(tc) == want
-            assert tc.n_params() == jc.n_params()
-            assert tc.n_active_params() == jc.n_active_params()
         else:
-            with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+            # the enc-dec family's table is models.encdec's, in both
+            # packages
+            assert get_model(tc).param_defs(tc) == \
+                jax_get_model(jc).param_defs(jc)
+            with pytest.raises(ValueError, match="models.encdec"):
                 L.param_defs(tc)
+        assert tc.n_params() == jc.n_params()
+        assert tc.n_active_params() == jc.n_active_params()
     assert {k: dataclasses.asdict(v) for k, v in tcfg.SHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in jcfg.SHAPES.items()}
     assert tcfg.cells() == jcfg.cells()
@@ -337,12 +341,16 @@ def test_unported_entry_points_name_their_roadmap_item():
                input_specs):
         with pytest.raises(NotImplementedError, match="ROADMAP A13g"):
             fn()
-    with pytest.raises(NotImplementedError, match="ROADMAP A13f"):
-        get_model(tcfg.get_smoke_config("seamless-m4t-large-v2"))
+    # the enc-dec family (ROADMAP A13f) is ported: models.encdec's Model
+    from repro_torch.models import encdec as TE
+    assert get_model(tcfg.get_smoke_config(
+        "seamless-m4t-large-v2")).prefill is TE.prefill
     # the hybrid family (ROADMAP A13d) is ported: it counts its parameters
     assert tcfg.get_config("zamba2-7b").n_params() == 6_751_130_832
-    # and so is the xLSTM family (ROADMAP A13e)
+    # and so are the xLSTM (ROADMAP A13e) and enc-dec (A13f) families
     assert tcfg.get_config("xlstm-125m").n_params() == 188_884_992
+    assert tcfg.get_config("seamless-m4t-large-v2").n_params() \
+        == 2_034_866_176
     with pytest.raises(ValueError, match="MoE"):
         T.collect_moe_routing(tc, None, np.zeros((1, 4), np.int32))
 

@@ -418,14 +418,28 @@ def test_unported_families_name_their_roadmap_item(arch, item):
         assert get_model(tc).prefill(tc, params, {"tokens": np.ones(
             (1, 4), np.int32)}, 8)[1].shape == (1, tc.vocab_size)
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        L.prefill(tc, {"embed": torch.zeros(1)}, np.zeros((1, 2)), 8)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        L.decode_step(tc, {"embed": torch.zeros(1)}, {}, np.zeros(1))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    # A13f, ported: the enc-dec family serves through its Model's
+    # prefill / decode_step with frames; ServeEngine and the decoder-only
+    # entries of models.lm refuse it
+    tc = dataclasses.replace(tc, dtype="float32")
+    model = get_model(tc)
+    params = model.init(tc, torch.Generator().manual_seed(0), device="cpu")
+    frames = np.ones((1, 5, tc.frontend_dim), np.float32)
+    cache, logits = model.prefill(tc, params, {"frames": frames,
+                                               "tokens": np.zeros((1, 2))}, 8)
+    assert logits.shape == (1, tc.vocab_size)
+    assert cache["cross_k"].shape == (tc.n_layers, 1, 5, tc.n_kv_heads,
+                                      tc.head_dim)
+    cache, logits = model.decode_step(tc, params, cache, np.zeros(1))
+    assert int(cache["pos"]) == 3 and bool(torch.isfinite(logits).all())
+    assert model.init_cache(tc, 1, 8, device="cpu")["cross_v"].shape[2] \
+        == tc.frontend_len
+    with pytest.raises(ValueError, match="frames"):
+        ServeEngine(tc, params, max_len=8)
+    with pytest.raises(ValueError, match="models.encdec"):
+        L.prefill(tc, params, np.zeros((1, 2)), 8)
+    with pytest.raises(ValueError, match="models.encdec"):
         L.init_cache(tc, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        get_model(tc).prefill(tc, None, {"tokens": None}, 8)
 
 
 def test_serve_batch_example_runs_on_the_cpu():

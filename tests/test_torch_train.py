@@ -56,7 +56,7 @@ from repro_torch.train import optim as TO
 from repro_torch.train import step as TS
 
 ARCHS = ["qwen3-0.6b", "granite-moe-3b-a800m", "internvl2-76b",
-         "zamba2-7b"]
+         "zamba2-7b", "seamless-m4t-large-v2"]
 B, S, STEPS = 2, 16, 3
 TC = dict(total_steps=10, warmup_steps=1)
 SCALAR_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -68,6 +68,15 @@ LEAF_TOL = 2e-4
 #: largest, in ``m`` and ``v``) is a larger share of it, so the update
 #: errs by up to ~5e-4 lr (zamba2-smoke, conv_b).
 ZERO_INIT_TOL = 1e-3
+#: The enc-dec smoke model's float32 gradients are the worst conditioned
+#: (its encoder attends over every frame): at step 0 the JAX package's own
+#: lie 3.6e-4 in grad norm and 7.7e-4 of a leaf's max from a float64
+#: evaluation (the port's 3.5e-5 and 6.0e-4), so the two packages part by
+#: up to their sum in the gradient (3.9e-4 in grad norm at step 2), by
+#: that in ``m`` (9.9e-4 read) and by twice it in ``v``, a square (1.4e-3
+#: read).  Its grad norm is held to 1e-3 and its moments to 3e-3 of the
+#: leaf's max; the loss and the parameters keep SCALAR_RTOL and LEAF_TOL.
+ARCH_TOL = {"seamless-m4t-large-v2": dict(norm_rtol=1e-3, moment_tol=3e-3)}
 #: A caller may name elements of a parameter leaf whose gradient at some
 #: step was zero in exact arithmetic (the sLSTM's input-gate bias ``b_i``:
 #: its stabiliser's two paths cancel): float32 leaves rounding noise there
@@ -133,7 +142,7 @@ def _leaf(tree, path):
 
 
 def _check_run(want_rows, got_rows, want, got, dtype, moment_tol=LEAF_TOL,
-               init=None, noise=None):
+               init=None, noise=None, norm_rtol=None):
     rtol = SCALAR_RTOL[dtype]
     lr_sum = sum(float(w["lr"]) for w in want_rows)
     for i, (w, g) in enumerate(zip(want_rows, got_rows)):
@@ -141,8 +150,9 @@ def _check_run(want_rows, got_rows, want, got, dtype, moment_tol=LEAF_TOL,
         keys = ("loss", "nll", "aux") + (
             ("grad_norm",) if dtype == "float32" else ())
         for k in keys:
-            np.testing.assert_allclose(g[k], w[k], rtol=rtol, atol=1e-6,
-                                       err_msg=f"step {i} {k}")
+            np.testing.assert_allclose(
+                g[k], w[k], rtol=norm_rtol if k == "grad_norm"
+                and norm_rtol else rtol, atol=1e-6, err_msg=f"step {i} {k}")
         assert _lr_close(g["lr"], w["lr"], JS.TrainConfig().peak_lr), (
             i, g["lr"], w["lr"])
         assert np.isfinite(g["grad_norm"])
@@ -176,11 +186,13 @@ def _check_run(want_rows, got_rows, want, got, dtype, moment_tol=LEAF_TOL,
 @pytest.mark.parametrize("arch", ARCHS)
 def test_train_steps_match_jax(arch, dtype):
     """Dense with qk-norm (qwen3), MoE with its aux loss (granite-moe),
-    the patch frontend (internvl2) and the hybrid Mamba2 family (zamba2):
-    three steps against ``jit_train_step``."""
+    the patch frontend (internvl2), the hybrid Mamba2 family (zamba2) and
+    the enc-dec family with its frames (seamless): three steps against
+    ``jit_train_step``."""
     init, want_rows, want = _jax_run(arch, dtype, B)
     got_rows, got = _port_run(arch, dtype, B, init)
-    _check_run(want_rows, got_rows, want, got, dtype, init=init)
+    _check_run(want_rows, got_rows, want, got, dtype, init=init,
+               **ARCH_TOL.get(arch, {}))
 
 
 @pytest.mark.parametrize("case,cfg_kw,tc_kw,moment_tol", [
@@ -316,9 +328,14 @@ def test_training_refuses_what_it_cannot_train():
         == ("data", "model")
     with pytest.raises(NotImplementedError, match="ROADMAP A13g"):
         TS.state_structs(tc, rules)
-    for arch, item in (("seamless-m4t-large-v2", "A13f"),):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            TS.make_train_step(tcfg.get_smoke_config(arch))
+    # the enc-dec family (A13f) is ported: its step builds, and its kernel
+    # switches are refused as the others' are
+    enc = tcfg.get_smoke_config("seamless-m4t-large-v2")
+    assert callable(TS.make_train_step(enc))
+    for bad in (dataclasses.replace(enc, attn_impl="pallas"),
+                dataclasses.replace(enc, use_pallas=True)):
+        with pytest.raises(NotImplementedError, match="no backward"):
+            TS.make_train_step(bad)
     # the hybrid (A13d) and xLSTM (A13e) families are ported: their steps
     # build
     assert callable(TS.make_train_step(tcfg.get_smoke_config("zamba2-7b")))
