@@ -307,7 +307,22 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    ``cuda:0``, mesh (data 1, model 2), ``SEAM_GATE_LAYERS`` layers in
    fp32 with both serving kernels: prefill and 4 steps within 1e-3 of
    the row's max of the one-rank card run, the staged collectives' calls
-   and bytes equal to ``seamless_mesh_plan``'s.
+   and bytes equal to ``seamless_mesh_plan``'s;
+19. the dry run against the card (``phase19``, ``analysis``,
+   ``launch.dryrun``): (a) qwen3-0.6b at full width and depth in bf16 —
+   a training step of 4 x 1,024 tokens, a prefill of 4 x 2,048 and a
+   decode step over a 2,080-slot ring — and phase 11a's BibSonomy
+   ``replicate`` at one NCCL rank, each traced on a dry (1, 1) mesh:
+   the trace's argument bytes equal to the card call's, its peak within
+   10% of ``max_memory_allocated`` over the call, the card's device ms
+   at least 0.9 of the roofline step (the roofline fraction printed),
+   the mining kernels' recorded calls equal to their launches; (b) the
+   (1, 2) serving cells of 15b-18d traced on dry meshes: their
+   collectives equal to the staged counts and to the plans; (c)
+   granite-moe-3b-a800m ``train_4k``, ``prefill_32k``, ``decode_32k``
+   and zamba2-7b ``long_500k`` for rank 0 of the (16, 16) mesh, and the
+   mining ``shuffle`` cell on ``1pod-full``: each ``ok``, its row
+   printed.
 
 Before the last line it prints the card's name and power limit
 (``nvidia-smi``) and one JSON line ``{"kernels": [...]}``; the last line is
@@ -332,13 +347,19 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, float32 rate
-#: outside the tensor cores (used for the integer ALU work too) and the
-#: dense bf16 and int8 tensor-core rates (the int8 rate bounds work on
-#: 0/1 operands, which int8 products with int32 sums compute exactly).
-HBM_BYTES_PER_S = 3.35e12
+#: H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and the dense bf16
+#: tensor-core rate from the dry run's roofline constants
+#: (``repro_torch.analysis.roofline.H100``), the float32 rate outside the
+#: tensor cores (used for the integer ALU work too) and the dense int8
+#: tensor-core rate (it bounds work on 0/1 operands, which int8 products
+#: with int32 sums compute exactly).  Without the port next to this
+#: script ``main`` stops before any of them is read.
+if (SRC / "repro_torch" / "analysis" / "roofline.py").is_file():
+    sys.path.insert(0, str(SRC))
+    from repro_torch.analysis.roofline import H100
+    HBM_BYTES_PER_S = H100.hbm_bw
+    BF16_TENSOR_OPS_PER_S = H100.peak_flops
 ALU_OPS_PER_S = 67e12
-BF16_TENSOR_OPS_PER_S = 989.4e12
 INT8_TENSOR_OPS_PER_S = 1978.9e12
 
 GRANITE_PARAMS = 3_298_793_472
@@ -2304,6 +2325,12 @@ def phase14() -> dict:
 #: "data") and the steps of its ZeRO-1 state: three, then one with the
 #: gspmd MoE dispatch (a fresh state in the fsdp layout takes one more).
 SERVE_MESH, TRAIN_MESH = (1, 2), (2, 2)
+
+#: The staged collectives the (1, 2) serving cells of phases 15b, 16d,
+#: 17d and 18d counted on their rank 0, for phase 19b's dry traces:
+#: {cell: {"prefill": (calls, bytes), "decode": (calls, bytes) a step,
+#: "steps": decode steps}}.
+MESH_COMMS: dict = {}
 MESH_PROMPT, MESH_NEW, MESH_MAX_LEN = 1024, 16, 1280
 MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 2, 512
 MESH_STEPS = ("zero1", "zero1", "zero1", "gspmd")
@@ -2851,6 +2878,14 @@ def phase15() -> dict:
                 f"{got}; init {r['init_s']:.1f} s")
         check(reports[0]["tokens"] == reports[1]["tokens"],
               f"{tag}: the ranks' tokens differ")
+        r0 = reports[0]
+        check(all(n % r0["steps"] == 0 for n in r0["decode_comms"]),
+              f"{tag}: decode collectives {r0['decode_comms']} over "
+              f"{r0['steps']} steps")
+        MESH_COMMS["15b"] = {
+            "prefill": tuple(r0["prefill_comms"]),
+            "decode": tuple(n // r0["steps"] for n in r0["decode_comms"]),
+            "steps": r0["steps"], "prompt": min(r0["prompt_lens"])}
         one = reports[0]["one_rank_tokens"]
         agree = sum(a == b for x, y in zip(reports[0]["tokens"], one)
                     for a, b in zip(x, y))
@@ -3292,12 +3327,11 @@ def phase16() -> tuple:
         log(f"phase 16 {label} (B {b_} x H {h_} x S {s_}): max |err| "
             f"against the plain version {e:.3e}")
     q, k, v = (randn((b_, h_, s_, d_), bf16) for _ in range(3))
-    pairs = s_ * (s_ + 1) // 2
     timed["flash_attention"] = timings(
         lambda: KF.flash_attention(q, k, v, causal=True),
         lambda: ref.flash_attention_ref(q, k, v, causal=True),
         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
-        4 * q.numel() * 2, 4 * b_ * h_ * pairs * d_, BF16_TENSOR_OPS_PER_S,
+        *KF.work(q.shape, k.shape, q.element_size()), BF16_TENSOR_OPS_PER_S,
         f"B={b_} H={h_} (MHA) S={s_} D={d_} causal bf16", plain_iters=3)
     timed["flash_attention"]["max_abs_err_by_case"] = dict(errs)
     del q, k, v, got, want
@@ -3338,8 +3372,7 @@ def phase16() -> tuple:
     timed["decode_attention"] = timings(
         lambda: dec_kernel(kd, vd),
         lambda: ref.decode_attention_ref(qd, kd, vd, kv_len=kvl),
-        lambda: dec_sdpa(kd, vd), 2 * 2 * b_ * h_ * kvl * d_
-        + 2 * 2 * b_ * h_ * d_, 4 * b_ * h_ * kvl * d_,
+        lambda: dec_sdpa(kd, vd), *KD.work(b_, h_, h_, kvl, d_, 2),
         BF16_TENSOR_OPS_PER_S, f"B={b_} Hq=Hkv={h_} D={d_} kv_len={kvl} "
         f"over a (B, Sc={sc_}, Hkv, D) bf16 ring view")
     cold, lib_cold = measure(rotating(dec_kernel)), measure(
@@ -3368,7 +3401,7 @@ def phase16() -> tuple:
                 lambda: KN.rmsnorm(x, w, 1e-5),
                 lambda: ref.rmsnorm_ref(x, w, 1e-5),
                 lambda: F.rms_norm(x, (dn,), w, 1e-5),
-                2 * 2 * rows * dn + 4 * dn, 4 * rows * dn, ALU_OPS_PER_S,
+                *KN.work(rows, dn, 2, 4), ALU_OPS_PER_S,
                 f"R={rows} D={dn} bf16, fp32 weight")
     log(f"phase 16 rmsnorm at D {cfg.d_model} and {cfg.d_inner} (block "
         f"path), 8192 and 4 rows, bf16 and fp32: max |err| "
@@ -3645,6 +3678,9 @@ def phase16() -> tuple:
               f"{tag} rank {r['rank']}: staged collectives {comms}, planned "
               f"{plan_p} then {plan_d} a step")
         runs[f"{tag} rank {r['rank']}"] = r["counts"]
+        if r["rank"] == 0:
+            MESH_COMMS["16d"] = {"prefill": comms[0], "decode": comms[1],
+                                  "steps": ZAMBA_MESH_STEPS}
     check(reports[0]["tokens"] == reports[1]["tokens"],
           f"{tag}: the ranks' tokens differ")
     rel = reports[0]["rel"]
@@ -3869,7 +3905,7 @@ def phase17() -> tuple:
         k_, p_ = measure(lambda: KN.rmsnorm(x, w, 1e-5)), measure(
             lambda: ref.rmsnorm_ref(x, w, 1e-5))
         lib = measure(lambda: F.rms_norm(x, (dn,), w, 1e-5))
-        b_ms, b_by = bound(2 * 2 * rows * dn + 4 * dn, 4 * rows * dn)
+        b_ms, b_by = bound(*KN.work(rows, dn, 2, 4))
         norm_timed[f"{rows}x{dn}"] = dict(
             ms=k_["ms"], call_ms=k_["call_ms"], ms_source=k_["source"],
             plain_ms=p_["ms"], library_ms=lib["ms"], bound_ms=b_ms,
@@ -4108,6 +4144,9 @@ def phase17() -> tuple:
               f"{tag} rank {r['rank']}: staged collectives {comms}, planned "
               f"{plan_p} then {plan_d} a step")
         runs[f"{tag} rank {r['rank']}"] = r["counts"]
+        if r["rank"] == 0:
+            MESH_COMMS["17d"] = {"prefill": comms[0], "decode": comms[1],
+                                  "steps": XLSTM_MESH_STEPS}
     check(reports[0]["tokens"] == reports[1]["tokens"],
           f"{tag}: the ranks' tokens differ")
     rel = reports[0]["rel"]
@@ -4367,12 +4406,11 @@ def phase18() -> tuple:
         log(f"phase 18 {label} (B {b_} x H {h_} x S {s_}): max |err| "
             f"against the plain version {e:.3e}")
     q, k, v = (randn((b_, h_, s_, d_), bf16) for _ in range(3))
-    pairs = s_ * (s_ + 1) // 2
     timed["flash_attention"] = timings(
         lambda: KF.flash_attention(q, k, v, causal=True),
         lambda: ref.flash_attention_ref(q, k, v, causal=True),
         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
-        4 * q.numel() * 2, 4 * b_ * h_ * pairs * d_, BF16_TENSOR_OPS_PER_S,
+        *KF.work(q.shape, k.shape, q.element_size()), BF16_TENSOR_OPS_PER_S,
         f"B={b_} H={h_} (MHA) S={s_} D={d_} causal bf16", plain_iters=5)
     timed["flash_attention"]["max_abs_err_by_case"] = dict(errs)
     del q, k, v, got, want
@@ -4404,8 +4442,7 @@ def phase18() -> tuple:
         lambda: ref.decode_attention_ref(qd, kd, vd, kv_len=kvl),
         lambda: F.scaled_dot_product_attention(q4, kd[:, :, :kvl],
                                                vd[:, :, :kvl]),
-        2 * 2 * b_ * h_ * kvl * d_ + 2 * 2 * b_ * h_ * d_,
-        4 * b_ * h_ * kvl * d_, BF16_TENSOR_OPS_PER_S,
+        *KD.work(b_, h_, h_, kvl, d_, 2), BF16_TENSOR_OPS_PER_S,
         f"B={b_} Hq=Hkv={h_} D={d_} kv_len={kvl} over a (B, Sc={sc_}, Hkv, "
         "D) bf16 ring view")
     timed["decode_attention"].update(
@@ -4431,7 +4468,7 @@ def phase18() -> tuple:
             lambda: KN.rmsnorm(x, w, 1e-5),
             lambda: ref.rmsnorm_ref(x, w, 1e-5),
             lambda: F.rms_norm(x, (dn,), w, 1e-5),
-            2 * 2 * rows * dn + 4 * dn, 4 * rows * dn, ALU_OPS_PER_S,
+            *KN.work(rows, dn, 2, 4), ALU_OPS_PER_S,
             f"R={rows} D={dn} bf16, fp32 weight")
     timed["rmsnorm"] = dict(norm_timed[f"{b_ * cfg.frontend_len}x{dn}"],
                             by_shape=norm_timed, max_abs_err_by_case=errs)
@@ -4780,6 +4817,9 @@ def phase18() -> tuple:
               f"{tag} rank {r['rank']}: staged collectives {comms}, planned "
               f"{plan_p} then {plan_d} a step")
         runs[f"{tag} rank {r['rank']}"] = r["counts"]
+        if r["rank"] == 0:
+            MESH_COMMS["18d"] = {"prefill": comms[0], "decode": comms[1],
+                                  "steps": SEAM_MESH_STEPS}
     check(reports[0]["tokens"] == reports[1]["tokens"],
           f"{tag}: the ranks' tokens differ")
     rel = reports[0]["rel"]
@@ -4800,6 +4840,319 @@ def phase18() -> tuple:
         "with start-up")
     log(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
     return runs, timed
+
+
+#: Phase 19: the dry run (``analysis.ops``, ``launch.dryrun``) against the
+#: card.  (a)'s cells: qwen3-0.6b at full width and depth in bf16, a
+#: training step over DRY_TRAIN tokens, a prefill of DRY_PREFILL and a
+#: decode step over a ring of DRY_SLOTS slots, and phase 11a's BibSonomy
+#: ``replicate`` call at one NCCL rank; each traced on a dry (1, 1) mesh.
+#: The traced peak is held to DRY_PEAK_TOL of the card's
+#: ``max_memory_allocated`` over the call, and the card's time to at least
+#: DRY_ROOF_MIN of the roofline's step time (below it, the trace counted
+#: work the call does not do).
+DRY_ARCH = "qwen3-0.6b"
+DRY_TRAIN, DRY_PREFILL, DRY_SLOTS = (4, 1024), (4, 2048), 2080
+DRY_PEAK_TOL, DRY_ROOF_MIN = 0.10, 0.9
+#: (c): the production cells traced for one rank of the (16, 16) mesh on
+#: the card's host.
+DRY_CELLS = (("granite-moe-3b-a800m", "train_4k"),
+             ("granite-moe-3b-a800m", "prefill_32k"),
+             ("granite-moe-3b-a800m", "decode_32k"),
+             ("zamba2-7b", "long_500k"))
+
+
+def phase19(bib) -> dict:
+    """Phase 19: the dry run against the card.  (a) For each of its cells
+    the card call and the dry trace of the same call on a (1, 1) dry
+    mesh: the trace's argument bytes equal the bytes of the tensors the
+    card call holds, its peak within DRY_PEAK_TOL of the card's peak
+    allocation over the call, the card's device ms at least DRY_ROOF_MIN
+    of the roofline step time (printed: step_s / measured, the roofline
+    fraction), and for the mining call each kernel's recorded calls equal
+    to the card's launches.  (b) The (1, 2) serving cells of phases 15b,
+    16d, 17d and 18d traced on dry (1, 2) meshes: their recorded
+    collectives (calls, operand bytes) of the prefill and of a decode
+    step equal the staged ones those phases counted (``MESH_COMMS``) and
+    the plans of 16d-18d.  (c) The production cells ``DRY_CELLS`` and the
+    mining ``shuffle`` cell on ``1pod-full`` through ``launch.dryrun.
+    run_cell`` / ``launch.mine_dryrun.run_cell``: each ``ok``, its report
+    row printed.  -> {run: launch counts}."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.analysis.ops import storage_bytes, trace
+    from repro_torch.analysis.report import fmt_row
+    from repro_torch.analysis.roofline import roofline_from_trace
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import DistributedMiner
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, mine_dryrun
+    from repro_torch.launch.mesh import (make_dry_mesh, make_local_mesh,
+                                         make_production_mesh)
+    from repro_torch.models import encdec as E
+    from repro_torch.models import lm as L
+    from repro_torch.models.api import get_model
+    from repro_torch.models.params import ParamTree, struct_locals
+    from repro_torch.sharding import MeshRules
+    from repro_torch.train import step as TS
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    runs = {}
+    names = ("data", "model")
+    one = MeshRules(make_dry_mesh((1, 1), names))
+
+    def meta_like(batch: dict) -> dict:
+        return {k: torch.empty(tuple(v.shape), dtype=v.dtype, device="meta")
+                for k, v in batch.items()}
+
+    def card(fn, held: int):
+        """``fn()`` on the card after a warm-up call, the launch counts
+        at 0 between them; (its result, the peak bytes over the call: the
+        bytes allocated above those live before it, plus ``held``, the
+        call's arguments already on the card)."""
+        fn()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, torch.cuda.max_memory_allocated() - before + held
+
+    def held_against(label, art, shape, cfg, args, peak, ms,
+                     model_flops=None):
+        """(a)'s checks of one cell; its report."""
+        rep = roofline_from_trace(art, arch=label, shape=shape,
+                                  mesh_name="1x1", n_devices=1, cfg=cfg,
+                                  model_flops_total=model_flops)
+        check(art.argument_bytes == args,
+              f"phase 19a {label}: traced argument bytes "
+              f"{art.argument_bytes} != the card call's {args}")
+        ratio = art.peak_bytes / peak
+        check(abs(ratio - 1.0) <= DRY_PEAK_TOL,
+              f"phase 19a {label}: traced peak {art.peak_bytes} is "
+              f"{ratio:.4f} of the card's {peak} (limit 1 +- "
+              f"{DRY_PEAK_TOL})")
+        frac = rep.step_s * 1e3 / ms
+        check(ms >= DRY_ROOF_MIN * rep.step_s * 1e3,
+              f"phase 19a {label}: the card took {ms:.3f} ms, below "
+              f"{DRY_ROOF_MIN} of the roofline step {rep.step_s * 1e3:.3f} "
+              "ms: the trace counts work the call does not do")
+        log(f"phase 19a {label}: argument bytes {args} equal; peak traced "
+            f"{art.peak_bytes} / card {peak} = {ratio:.4f}; card "
+            f"{ms:.3f} ms, roofline step {rep.step_s * 1e3:.3f} ms "
+            f"({rep.bound}: compute {rep.compute_s * 1e3:.3f}, memory "
+            f"{rep.memory_s * 1e3:.3f} ms), roofline fraction step_s / "
+            f"measured {frac:.4f}; traced {art.profile.n_ops} ops, "
+            f"{art.profile.flops:.4e} flops, {art.profile.traffic_bytes:.4e}"
+            " bytes")
+        return dict(rep.to_dict(), card_ms=ms, card_peak_bytes=peak,
+                    peak_ratio=ratio, roofline_fraction=frac)
+
+    out = {}
+    # -- 19a: qwen3-0.6b, a training step, a prefill, a decode step ------
+    t0 = time.perf_counter()
+    cfg = get_config(DRY_ARCH)
+    model = get_model(cfg)
+    tc = TS.TrainConfig()
+    b, s = DRY_TRAIN
+    batch = {k: torch.from_numpy(v).to(dev, torch.int64) for k, v in
+             TokenPipeline(cfg, b, s, seed=0).batch_at(0).items()}
+    state = TS.init_train_state(cfg, torch.Generator(device=dev)
+                                .manual_seed(0), device=dev)
+    step = TS.make_train_step(cfg, None, tc)
+    args = storage_bytes((state, batch))
+    _, peak = card(lambda: step(state, batch), args)
+    ms = measure(lambda: step(state, batch), iters=3, warm=1)["ms"]
+    dstate = struct_locals(TS.state_structs(cfg, one, tc))
+    dstate["params"] = ParamTree.from_tensors(dstate["params"],
+                                              requires_grad=True)
+    art = trace(TS.make_train_step(cfg, one, tc), dstate, meta_like(batch))
+    out["train"] = held_against(
+        f"{DRY_ARCH} training step {b} x {s}", art,
+        ShapeConfig("train", "train", s, b), cfg, args, peak, ms)
+    del state, batch, step, dstate, art
+    torch.cuda.empty_cache()
+
+    b, s = DRY_PREFILL
+    params = model.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                        dtype=torch.bfloat16, device=dev)
+    toks = torch.from_numpy(TokenPipeline(cfg, b, s, seed=1).batch_at(0)[
+        "tokens"]).to(dev, torch.int64)
+    args = storage_bytes((params, toks))
+    (cache, logits), peak = card(lambda: model.prefill(
+        cfg, params, {"tokens": toks}, DRY_SLOTS), args)
+    ms = measure(lambda: model.prefill(cfg, params, {"tokens": toks},
+                                       DRY_SLOTS), iters=3, warm=1)["ms"]
+    dparams = struct_locals(model.structs(cfg, one, dtype=torch.bfloat16))
+    art = trace(lambda p, t: model.prefill(cfg, p, {"tokens": t},
+                                           DRY_SLOTS, one),
+                dparams, torch.empty((b, s), dtype=torch.int64,
+                                     device="meta"))
+    out["prefill"] = held_against(
+        f"{DRY_ARCH} prefill {b} x {s}", art,
+        ShapeConfig("prefill", "prefill", s, b), cfg, args, peak, ms)
+
+    nxt = torch.argmax(logits, -1)
+    args = storage_bytes((params, cache, nxt))
+    _, peak = card(lambda: model.decode_step(cfg, params, cache, nxt), args)
+    ms = measure(lambda: model.decode_step(cfg, params, cache, nxt),
+                 iters=5, warm=1)["ms"]
+    art = trace(lambda p, c, t: model.decode_step(cfg, p, c, t, one),
+                dparams, struct_locals(model.cache_structs(
+                    cfg, b, DRY_SLOTS, one, dtype=torch.bfloat16)),
+                torch.empty((b,), dtype=torch.int64, device="meta"))
+    out["decode"] = held_against(
+        f"{DRY_ARCH} decode step B {b} over {DRY_SLOTS} slots", art,
+        ShapeConfig("decode", "decode", DRY_SLOTS, b), cfg, args, peak, ms)
+    del params, cache, logits, dparams, art, toks, nxt
+    torch.cuda.empty_cache()
+
+    # phase 11a's call: BibSonomy replicate at one NCCL rank
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg19",
+                                rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=300))
+        try:
+            miner = DistributedMiner(bib.sizes, make_local_mesh(device=dev),
+                                     strategy="replicate")
+            lanes = storage_bytes((miner._lo, miner._hi))
+            t = bib.num_tuples
+            args = lanes + t * bib.tuples.shape[1] * 4 + t * 4
+            miner(bib.tuples).keep.cpu()                     # cold
+            _, peak = card(lambda: miner(bib.tuples), lanes)
+            counts = ops.launch_counts()
+            ms = measure(lambda: miner(bib.tuples), iters=3, warm=1)["ms"]
+            art = miner.lowered(bib.tuples)
+        finally:
+            dist.destroy_process_group()
+    tag = "phase 19a bibsonomy replicate, one NCCL rank"
+    launched = counts
+    recorded = art.profile.kernel_calls()
+    mining = ops.PATH_KERNELS["mining"]
+    check(recorded == {k: launched[k] for k in mining}
+          and all(launched[k] == 0 for k in launched if k not in mining),
+          f"{tag}: recorded kernel calls {recorded}, the card launched "
+          f"{launched}")
+    runs[tag] = launched
+    out["mining"] = held_against(
+        "bibsonomy replicate", art, "mining", None, args, peak, ms,
+        model_flops=0)
+    log(f"{tag}: recorded kernel calls {recorded} equal the card's "
+        f"launches")
+    log(f"phase 19a: {time.perf_counter() - t0:.1f} s")
+
+    # -- 19b: the (1, 2) serving cells against their staged collectives ---
+    t0 = time.perf_counter()
+    two = MeshRules(make_dry_mesh((1, 2), names, 0))
+
+    def dry_comms(cfg_, inputs, max_len, cache_defs):
+        """(calls, operand bytes) of the dry prefill and decode step."""
+        m = get_model(cfg_)
+        p = struct_locals(m.structs(cfg_, two))
+        got = []
+        for art_ in (trace(lambda p_, i_: m.prefill(cfg_, p_, i_, max_len,
+                                                    two), p, inputs),
+                     trace(lambda p_, c_, t_: m.decode_step(cfg_, p_, c_, t_,
+                                                            two),
+                           p, struct_locals(L.structs_of_cache(
+                               cache_defs, two, max_len)),
+                           torch.empty((next(iter(inputs.values()))
+                                        .shape[0],), dtype=torch.int64,
+                                       device="meta"))):
+            got.append((len(art_.profile.collectives), sum(
+                c.operand_bytes for c in art_.profile.collectives)))
+        return got
+
+    def tokens(bb, ss):
+        return torch.empty((bb, ss), dtype=torch.int64, device="meta")
+
+    cells = {}
+    c15 = dataclasses.replace(get_config("granite-moe-3b-a800m"),
+                              attn_impl="pallas", use_pallas=True)
+    s15 = MESH_COMMS["15b"]["prompt"]
+    cells["15b"] = (c15, {"tokens": tokens(4, s15)}, MESH_MAX_LEN,
+                    L.cache_defs(c15, 4, MESH_MAX_LEN, torch.bfloat16), None)
+    c16 = dataclasses.replace(get_config(ZAMBA), dtype="float32",
+                              n_layers=ZAMBA_GATE_LAYERS, attn_impl="pallas",
+                              use_pallas=True)
+    ml16 = ZAMBA_MESH_SEQ + 64
+    cells["16d"] = (c16, {"tokens": tokens(ZAMBA_MESH_BATCH, ZAMBA_MESH_SEQ)},
+                    ml16, L.cache_defs(c16, ZAMBA_MESH_BATCH, ml16,
+                                       torch.float32),
+                    hybrid_mesh_plan(c16, ZAMBA_MESH_BATCH, ZAMBA_MESH_SEQ, 2))
+    c17 = dataclasses.replace(get_config(XLSTM), dtype="float32",
+                              use_pallas=True)
+    ml17 = XLSTM_MESH_SEQ + 64
+    cells["17d"] = (c17, {"tokens": tokens(XLSTM_MESH_BATCH, XLSTM_MESH_SEQ)},
+                    ml17, L.cache_defs(c17, XLSTM_MESH_BATCH, ml17,
+                                       torch.float32),
+                    xlstm_mesh_plan(c17, XLSTM_MESH_BATCH, XLSTM_MESH_SEQ, 2))
+    c18 = dataclasses.replace(get_config(SEAMLESS), dtype="float32",
+                              attn_impl="pallas", use_pallas=True,
+                              n_layers=SEAM_GATE_LAYERS,
+                              enc_layers=SEAM_GATE_LAYERS)
+    ml18 = 2 * SEAM_PROMPT
+    cells["18d"] = (c18, {"tokens": tokens(SEAM_MESH_BATCH, SEAM_PROMPT),
+                          "frames": torch.empty(
+                              (SEAM_MESH_BATCH, SEAM_MESH_FRAMES,
+                               c18.frontend_dim), device="meta")},
+                    ml18, E.cache_defs(c18, SEAM_MESH_BATCH, ml18,
+                                       torch.float32,
+                                       frames=SEAM_MESH_FRAMES),
+                    seamless_mesh_plan(c18, SEAM_MESH_BATCH, SEAM_MESH_FRAMES,
+                                       SEAM_PROMPT, 2))
+    out["mesh"] = {}
+    for name, (cfg_, inputs, max_len, defs, plan) in cells.items():
+        staged = MESH_COMMS[name]
+        got = dry_comms(cfg_, inputs, max_len, defs)
+        want = [tuple(staged["prefill"]), tuple(staged["decode"])]
+        check(got == want, f"phase 19b {name}: dry (calls, bytes) of the "
+              f"prefill and a decode step {got}, staged {want}")
+        if plan is not None:
+            check(got == [tuple(x) for x in plan],
+                  f"phase 19b {name}: dry {got}, planned {plan}")
+        out["mesh"][name] = got
+        log(f"phase 19b {name} ({cfg_.name}, dry (1, 2) mesh): prefill "
+            f"{got[0][0]} calls {got[0][1]} bytes, decode {got[1][0]} calls "
+            f"{got[1][1]} bytes a step: equal to the staged counts of the "
+            f"card run" + ("" if plan is None else " and to the plan"))
+    log(f"phase 19b: {time.perf_counter() - t0:.1f} s")
+
+    # -- 19c: production cells for one rank of the (16, 16) mesh ----------
+    t0 = time.perf_counter()
+    mesh = make_production_mesh()
+    out["cells"] = []
+    for arch, shape in DRY_CELLS:
+        t1 = time.perf_counter()
+        row = dryrun.run_cell(arch, shape, mesh, "1pod", verbose=False)
+        check(row["status"] == "ok", f"phase 19c {arch} x {shape}: "
+              f"{row.get('error')} {row.get('traceback', '')[-800:]}")
+        log(f"phase 19c {fmt_row(row)} peak {row['peak_bytes']} bytes, "
+            f"kernels {row['kernels']}, {row['by_kind']} "
+            f"({time.perf_counter() - t1:.1f} s)")
+        out["cells"].append({k: row[k] for k in (
+            "arch", "shape", "mesh", "compute_s", "memory_s", "collective_s",
+            "bound", "step_s", "peak_bytes", "fits", "trace_s")})
+    row = mine_dryrun.run_cell(mesh, "1pod-full", "shuffle", 1_000_000, 4,
+                               (6040, 3952, 5, 2048), ("data", "model"))
+    check(row["status"] == "ok" and set(row["kernels"]) == set(
+        ops.PATH_KERNELS["mining"]), f"phase 19c mining: {row}")
+    log(f"phase 19c tricluster/shuffle 1pod-full: compute "
+        f"{row['compute_s']:.6f} s, memory {row['memory_s']:.6f} s, "
+        f"collective {row['collective_s']:.6f} s -> {row['bound']}; peak "
+        f"{row['peak_bytes']} bytes; kernels {row['kernels']}")
+    out["cells"].append(row)
+    log(f"phase 19c: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
+    print(json.dumps({"dry_run": out}), flush=True)
+    return runs
 
 
 def main() -> int:
@@ -4964,7 +5317,7 @@ def main() -> int:
         "src/repro/kernels/segment_reduce.py:69",
         lambda: KS.segment_reduce(w_lo, w_hi, first),
         lambda: ref.segment_reduce_ref(w_lo, w_hi, first), seg_library,
-        nbytes=21 * T, nops=3 * T, shape=f"T={T}"))
+        *KS.work(T, exclusive=False), shape=f"T={T}"))
     kernels[-1]["scalar_ms"] = measure(
         lambda: KS.segment_reduce(w_lo1, w_hi1, first1))["ms"]
     cfg = KS.kernel_config()
@@ -5012,8 +5365,7 @@ def main() -> int:
         lambda: KR.radix_histogram(words2, rplan2.shifts, rplan2.widths),
         lambda: ref.radix_histogram_ref(words2, rplan2.shifts,
                                         rplan2.widths), hist_library,
-        nbytes=4 * 2 * T + 4 * 256 * rplan2.passes,
-        nops=3 * T * rplan2.passes,
+        *KR.histogram_work(T, 2, rplan2.passes),
         shape=f"T={T} words=2 passes={rplan2.passes} (BibSonomy mode 0, "
               "the context's order)"))
     # the same on uniform 64-bit signature words (8 passes), and the
@@ -5026,8 +5378,7 @@ def main() -> int:
         lambda: [torch.bincount(RX.extract_digit(sig, s, wd),
                                 minlength=RX.HIST_BUCKETS)
                  for s, wd in zip(rplan64.shifts, rplan64.widths)],
-        nbytes=4 * 2 * T + 4 * 256 * rplan64.passes,
-        nops=3 * T * rplan64.passes, shape="", plain_iters=4)
+        *KR.histogram_work(T, 2, rplan64.passes), shape="", plain_iters=4)
     from repro_torch.kernels import probe_radix_histogram as PH
     designs = PH.time_designs(
         {"skewed": (words2, rplan2.shifts, rplan2.widths),
@@ -5116,7 +5467,7 @@ def main() -> int:
         "radix_rank", "radix_sort.cu", "src/repro/kernels/radix_sort.py:133",
         lambda: KR.radix_rank(dig_lo, st0),
         lambda: ref.radix_rank_ref(dig_lo, st0), rank_library,
-        nbytes=4 * T + 4 * 256 + 4 * T, nops=4 * T,
+        *KR.rank_work(T),
         shape=f"T={T} (rank-only entry)", plain_iters=4))
 
     # the fused pass (what the main path launches): each plan's passes in
@@ -5169,7 +5520,7 @@ def main() -> int:
         "radix_pass", "radix_sort.cu", "",
         lambda: KR.radix_pass(w_p1, perm_p1, sh1, wd1, st1),
         lambda: ref.radix_pass_ref(w_p1, perm_p1, sh1, wd1, st1),
-        pass_library, nbytes=2 * 12 * T + 4 * 256, nops=8 * T,
+        pass_library, *KR.pass_work(T, 2, True),
         shape=f"T={T} words=2 with payload", plain_iters=4)
     seq = measure(old_pass)
     kernels[-1].update(
@@ -5256,7 +5607,6 @@ def main() -> int:
     del q, k, v, got, want
     q, k, v = fa_inputs(full, bf16, 100)
     b_, hq_, _, s_, _, d_ = full
-    pairs = s_ * (s_ + 1) // 2             # causal (q, k) pairs per head
     kernels.append(entry(
         "flash_attention", "flash_attention.cu",
         "src/repro/kernels/flash_attention.py:102",
@@ -5264,8 +5614,8 @@ def main() -> int:
         lambda: ref.flash_attention_ref(q, k, v, causal=True),
         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                enable_gqa=True),
-        nbytes=sum(x.numel() * x.element_size() for x in (q, k, v, q)),
-        nops=4 * b_ * hq_ * pairs * d_, shape=f"B={b_} Hq={hq_} Hkv=8 "
+        *KF.work(q.shape, k.shape, q.element_size(), causal=True),
+        shape=f"B={b_} Hq={hq_} Hkv=8 "
         f"S={s_} D={d_} causal bf16", plain_iters=3,
         ops_per_s=BF16_TENSOR_OPS_PER_S))
     kernels[-1]["max_abs_err_by_case"] = fa_errs
@@ -5716,7 +6066,7 @@ def main() -> int:
     kernels.append(entry(
         "signature", "signature.cu", "src/repro/kernels/signature.py:42",
         lambda: KSig.signature(m0, r0), lambda: ref.signature_ref(m0, r0),
-        None, nbytes=T8 * G8 + 4 * G8 + 4 * T8, nops=2 * T8 * G8,
+        None, *KSig.work(T8, G8),
         shape=f"T={T8} E={G8} (movielens mode 0, one lane)",
         plain_iters=3))
     td_masks = [m[:td_rows] for m in ml_masks]
@@ -5725,8 +6075,7 @@ def main() -> int:
         "src/repro/kernels/tricluster_density.py:62",
         lambda: KTD.tricluster_density(ml_tens, *td_masks),
         lambda: ref.tricluster_density_ref(ml_tens, *td_masks), None,
-        nbytes=G8 * M8 * B8 + td_rows * (G8 + M8 + B8) + 4 * td_rows,
-        nops=2 * td_rows * G8 * M8 * B8,
+        *KTD.work(td_rows, G8, M8, B8),
         shape=f"T={td_rows} G={G8} M={M8} B={B8}"
         + (" (cut from 356877: one call took over 30 s)" if cut else ""),
         plain_iters=1, ops_per_s=INT8_TENSOR_OPS_PER_S, iters=5, warm=1))
@@ -5920,8 +6269,7 @@ def main() -> int:
         lambda: dec_kernel(k9, v9),
         lambda: ref.decode_attention_ref(q9, k9, v9, kv_len=kvl),
         lambda: dec_sdpa(k9, v9),
-        nbytes=2 * 2 * b_ * hkv_ * kvl * d_ + 2 * 2 * b_ * hq_ * d_,
-        nops=4 * b_ * hq_ * kvl * d_, ops_per_s=BF16_TENSOR_OPS_PER_S,
+        *KD.work(b_, hq_, hkv_, kvl, d_, 2), ops_per_s=BF16_TENSOR_OPS_PER_S,
         shape=f"B={b_} Hq={hq_} Hkv={hkv_} D={d_} kv_len={kvl} over a "
         f"(B, Sc={sc_}, Hkv, D) bf16 ring view"))
     cold, lib_cold = measure(rotating(dec_kernel)), measure(
@@ -5957,14 +6305,14 @@ def main() -> int:
         lambda: KN.rmsnorm(x9, w9, 1e-5),
         lambda: ref.rmsnorm_ref(x9, w9, 1e-5),
         lambda: F.rms_norm(x9, (dn_,), w9, 1e-5),
-        nbytes=2 * 2 * rows_ * dn_ + 4 * dn_, nops=4 * rows_ * dn_,
+        *KN.work(rows_, dn_, 2, 4),
         shape=f"R={rows_} D={dn_} bf16, fp32 weight (a prefill norm)"))
     dec9 = entry(
         "rmsnorm", "rmsnorm.cu", "",
         lambda: KN.rmsnorm(xd, w9, 1e-5),
         lambda: ref.rmsnorm_ref(xd, w9, 1e-5),
         lambda: F.rms_norm(xd, (dn_,), w9, 1e-5),
-        nbytes=2 * 2 * 4 * dn_ + 4 * dn_, nops=4 * 4 * dn_,
+        *KN.work(4, dn_, 2, 4),
         shape=f"R=4 D={dn_} bf16, fp32 weight (a decode step's norm)")
     kernels[-1].update(
         decode_ms=dec9["ms"], decode_call_ms=dec9["call_ms"],
@@ -6261,6 +6609,9 @@ def main() -> int:
     for k in kernels:
         if k["name"] in seam:
             k["seamless"] = seam[k["name"]]
+
+    # -- phase 19: the dry run against the card -------------------------------
+    runs10.update(phase19(bib))
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")

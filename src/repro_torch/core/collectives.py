@@ -13,7 +13,14 @@ only some axes.  Shards are numbered row-major over ``axes`` in the order
 given (``("pod", "data")``: pod major).  Axes that hold one rank (a mesh
 without a process group, or axes of size 1) make every collective the
 identity.  On a staged mesh (``Mesh.staged``) each buffer goes to host
-memory and back around the collective.
+memory and back around the collective.  On a dry mesh (``Mesh.dry``) a
+collective sends nothing: it records its kind (JAX's spelling:
+``all-gather``, ``all-to-all``, ``all-reduce``), operand and result
+bytes and group size with the active dry trace (``device.dry_trace``),
+and returns an empty buffer of the result's shape.  ``reduce_scatter`` is an
+``all-reduce`` followed by this shard's slice here (gloo has no
+reduce-scatter), and records as the ``all-reduce`` it sends.  The class
+counters ``calls``/``bytes`` count dry and real calls alike.
 
 The autograd functions at the end are the tensor- and data-parallel
 model's (``models``, ``train``): :func:`copy_to` (identity forward,
@@ -31,6 +38,7 @@ from typing import Optional, Sequence, Union
 import torch
 import torch.distributed as dist
 
+from ..device import dry_trace
 from ..launch.mesh import axis_group, coords_of
 
 # ``all_gather_single`` is the newer name of ``all_gather_into_tensor``
@@ -81,13 +89,22 @@ class Collectives:
         """This shard's linear index along the axes (``axis_index``)."""
         return self._index_of(self.mesh.rank)
 
-    def _run(self, fn, x: torch.Tensor, shape) -> torch.Tensor:
+    def _run(self, kind: str, fn, x: torch.Tensor, shape) -> torch.Tensor:
         """``fn(out, x)`` into a new ``shape`` buffer of ``x``'s dtype, on
         contiguous buffers, staged through host memory when the mesh
-        asks for it."""
+        asks for it; on a dry mesh the ``kind`` of collective is recorded
+        and ``fn`` not called."""
         x = x.contiguous()
+        nbytes = x.numel() * x.element_size()
         Collectives.calls += 1
-        Collectives.bytes += x.numel() * x.element_size()
+        Collectives.bytes += nbytes
+        if self.mesh.dry:
+            out = x.new_empty(shape)
+            trace = dry_trace()
+            if trace is not None:
+                trace.collective(kind, nbytes,
+                                 out.numel() * out.element_size(), self.size)
+            return out
         if not self.mesh.staged:
             out = x.new_empty(shape)
             fn(out, x)
@@ -108,7 +125,8 @@ class Collectives:
             return x
         if dim != 0:
             return self.all_gather(x.movedim(dim, 0), 0).movedim(0, dim)
-        out = self._run(lambda o, i: _all_gather(o, i, group=self.group),
+        out = self._run("all-gather",
+                        lambda o, i: _all_gather(o, i, group=self.group),
                         x, (self.size * x.shape[0],) + tuple(x.shape[1:]))
         return out if self._order is None else self._blocks(out,
                                                             self._order)
@@ -123,7 +141,7 @@ class Collectives:
             for j, s in enumerate(self._order):
                 inv[s] = j
             x = self._blocks(x, inv)
-        out = self._run(lambda o, i: dist.all_to_all_single(
+        out = self._run("all-to-all", lambda o, i: dist.all_to_all_single(
             o, i, group=self.group), x, x.shape)
         return out if self._order is None else self._blocks(out,
                                                             self._order)
@@ -135,7 +153,7 @@ class Collectives:
         def reduce(out, inp):
             out.copy_(inp)
             dist.all_reduce(out, op=op, group=self.group)
-        return self._run(reduce, x, x.shape)
+        return self._run("all-reduce", reduce, x, x.shape)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         return self._reduce(x, dist.ReduceOp.SUM)

@@ -112,6 +112,13 @@ def _hash_owner(h: torch.Tensor, n_shards: int) -> torch.Tensor:
     return ((h.to(torch.int64) & 0xFFFFFFFF) % n_shards).to(torch.int32)
 
 
+def _counts(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """(n,) int32 occurrences of each value of ``idx`` (in [0, n)): a
+    fixed-length ``bincount``, exact in int32, with a static shape."""
+    out = torch.zeros((n,), dtype=torch.int32, device=idx.device)
+    return out.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
+
+
 def _range_partition(words, plan: K.ModeKeyPlan, comm: Collectives,
                      n_shards: int, capacity: int,
                      fallback_owner: torch.Tensor):
@@ -130,8 +137,7 @@ def _range_partition(words, plan: K.ModeKeyPlan, comm: Collectives,
     # the digit may only read *subrelation* bits (above seg_shift)
     top_w = min(RX.HIST_DIGIT_BITS, plan.total_bits - plan.seg_shift)
     dig = RX.extract_digit(words, plan.total_bits - top_w, top_w).long()
-    hist = comm.psum(torch.bincount(dig, minlength=1 << top_w)
-                     .to(torch.int32))
+    hist = comm.psum(_counts(dig, 1 << top_w))
     cum = torch.cumsum(hist, 0, dtype=torch.int32)
     cum_before = cum - hist
     total = torch.clamp(cum[-1], min=1)
@@ -142,7 +148,7 @@ def _range_partition(words, plan: K.ModeKeyPlan, comm: Collectives,
         (cum_before.to(torch.float32) * PL._f32(n_shards, dev)
          / total.to(torch.float32)).to(torch.int32), 0, n_shards - 1)
     range_owner = shard_of_digit[dig]
-    local_link = torch.bincount(range_owner.long(), minlength=n_shards)
+    local_link = _counts(range_owner.long(), n_shards)
     link_max = comm.pmax(local_link.max().to(torch.int32))
     skewed = (hist.max() > total // n_shards) | (link_max > capacity)
     return torch.where(skewed, fallback_owner, range_owner), skewed
@@ -557,11 +563,41 @@ class DistributedMiner:
         return torch.from_numpy(K.value_domain_host(values)).to(self.device)
 
     def lowered(self, tuples, values=None):
-        """The JAX package lowers its shard body for the XLA dry-run; the
-        port's dry-run is ROADMAP A13g."""
-        raise NotImplementedError(
-            "DistributedMiner.lowered (the dry-run) is not ported; see "
-            "ROADMAP.md queue A, item A13g")
+        """The dry trace of one attempt of this rank's shard body, as the
+        JAX package lowers its shard body for the dry run: no capacity
+        retry and no host read of ``overflow``.  The body runs on a dry
+        twin of the mesh (``launch.mesh.make_dry_mesh``: the ``meta``
+        device, collectives recorded and not sent, the kernels' meta
+        functions where the card would launch them); the table gives
+        only shapes.  Returns the ``analysis.ops.Artifact`` (profile,
+        argument, output and peak bytes)."""
+        import copy
+
+        from ..analysis.ops import trace
+        from ..launch.mesh import make_dry_mesh
+        tuples, values = self._coerce(tuples, values)
+        t = tuples.shape[0]
+        if t % self.n_shards:
+            raise ValueError(
+                f"tuple count {t} not divisible by shard count "
+                f"{self.n_shards}; pad with duplicated rows (idempotent)")
+        vdom = self._value_domain(values)
+        twin = copy.copy(self)
+        mesh = self.mesh if self.mesh.dry else make_dry_mesh(
+            self.mesh.sizes, self.mesh.axis_names, self.mesh.rank,
+            grouped=self.mesh.group is not None)
+        twin.mesh, twin.device = mesh, torch.device("meta")
+        twin.comm = Collectives(mesh, self.comm.axes)
+        twin._lo = [x.to("meta") for x in self._lo]
+        twin._hi = [x.to("meta") for x in self._hi]
+        tl = t // self.n_shards
+        block = torch.empty((tl, tuples.shape[1]), dtype=torch.int32,
+                            device="meta")
+        vblock = torch.empty((tl,), dtype=torch.float32, device="meta")
+        vdom = None if vdom is None else vdom.to("meta")
+        # the hash lanes are arguments too (the JAX body takes them)
+        return trace(lambda b, v, d, lo, hi: twin._run(b, v, d), block,
+                     vblock, vdom, twin._lo, twin._hi)
 
     def _run(self, block, vblock, vdom) -> DistributedResult:
         if self.strategy == "replicate":

@@ -3,7 +3,14 @@ kernel op launches its CUDA kernel or runs its plain PyTorch version.
 
 The twin of ``repro.kernels.ops.on_tpu``/``_interpret``.  Nothing here
 falls back silently: the default device is CUDA and asking for it
-without a card raises, naming ``device="cpu"``."""
+without a card raises, naming ``device="cpu"``.
+
+Inside a dry trace (``analysis.ops.Trace``, the active :func:`dry_trace`)
+a tensor on the ``meta`` device stands for one on the card: kernel ops
+resolve as they would there and call their kernel's meta function, which
+records the call (:func:`record_kernel`) instead of launching, and a dry
+mesh's collectives record themselves with the trace too
+(``core.collectives``)."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Union
@@ -14,6 +21,40 @@ import torch
 DEFAULT_DEVICE = "cuda"
 
 _sm_counts: Dict[int, int] = {}
+
+#: The active dry trace (an object with ``kernel(name, bytes,
+#: operations, tensor)`` and ``collective(kind, operand bytes, result
+#: bytes, group size)``); ``None`` outside one.
+_dry_trace = None
+
+
+def set_dry_trace(trace):
+    """Make ``trace`` the active dry trace (``None``: none); returns the
+    one it replaces."""
+    global _dry_trace
+    prev, _dry_trace = _dry_trace, trace
+    return prev
+
+
+def dry_trace():
+    """The active dry trace, or ``None``."""
+    return _dry_trace
+
+
+def record_kernel(name: str, nbytes: int, ops: int,
+                  tensor: bool = False) -> None:
+    """Record one call of kernel ``name`` that would move ``nbytes`` and
+    do ``ops`` operations (on the tensor cores when ``tensor``)."""
+    if _dry_trace is None:
+        raise RuntimeError(f"{name}: a kernel's meta function runs only "
+                           "inside a dry trace (analysis.ops.Trace)")
+    _dry_trace.kernel(name, int(nbytes), int(ops), bool(tensor))
+
+
+def on_card(x: torch.Tensor) -> bool:
+    """True when ``x`` lies on the card, or stands for a tensor there
+    (``meta`` inside a dry trace)."""
+    return x.is_cuda or (x.is_meta and _dry_trace is not None)
 
 
 def on_cuda() -> bool:
@@ -37,12 +78,13 @@ def resolve_use_kernels(use_kernels: Optional[bool],
                         x: torch.Tensor) -> bool:
     """Whether an op on tensor ``x`` launches its CUDA kernel.
 
-    ``None``: exactly when ``x`` lies on CUDA.  ``True`` on a CPU tensor
-    raises (there is no kernel for the CPU); ``False`` runs the plain
-    PyTorch version wherever ``x`` lies."""
+    ``None``: exactly when ``x`` lies on CUDA (or on ``meta`` inside a
+    dry trace: :func:`on_card`).  ``True`` on a CPU tensor raises (there
+    is no kernel for the CPU); ``False`` runs the plain PyTorch version
+    wherever ``x`` lies."""
     if use_kernels is None:
-        return x.is_cuda
-    if use_kernels and not x.is_cuda:
+        return on_card(x)
+    if use_kernels and not on_card(x):
         raise ValueError(
             f"use_kernels=True needs CUDA tensors, got a tensor on "
             f"{x.device}; leave use_kernels=None to run the plain version "

@@ -35,7 +35,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..device import sm_count
+from ..device import record_kernel, sm_count
 from . import build
 from .flash_attention import HEAD_DIMS as _FLASH_HEAD_DIMS
 
@@ -198,3 +198,32 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 #: Launches of the kernel since the last reset (``kernels.ops``).
 decode_attention.launches = 0
+
+
+def work(b: int, hq: int, hkv: int, kv_len: int, d: int, elt: int,
+         window: Optional[int] = None, return_lse: bool = False) -> tuple:
+    """(bytes, tensor-core operations) of one call: the keys and values
+    in its range read once, q read and o (and the fp32 log-sum-exp)
+    written once, two products of 2·D operations a key and query head."""
+    keys = min(kv_len, window) if window else kv_len
+    nbytes = (2 * elt * b * hkv * keys * d + 2 * elt * b * hq * d
+              + (4 * b * hq if return_lse else 0))
+    return nbytes, 4 * b * hq * keys * d
+
+
+def meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+         window: Optional[int] = None, kv_len: Optional[int] = None,
+         scale: Optional[float] = None, return_lse: bool = False):
+    """The dry trace's :func:`decode_attention`: its outputs on ``meta``,
+    one recorded call (none at ``kv_len`` 0, as on the card)."""
+    if kv_len is None:
+        kv_len = k.shape[2] if k.dim() == 4 else 0
+    b, hq, d = q.shape
+    out = torch.empty_like(q)
+    lse = (torch.empty((b, hq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    if kv_len and out.numel():
+        record_kernel(_NAME, *work(b, hq, k.shape[1], int(kv_len), d,
+                                   q.element_size(), window, return_lse),
+                      tensor=True)
+    return (out, lse) if return_lse else out

@@ -23,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from ..device import record_kernel
 from . import build
 
 _NAME = "flash_attention"
@@ -128,3 +129,43 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 #: Launches of the kernel since the last reset (``kernels.ops``).
 flash_attention.launches = 0
+
+
+def pairs(sq: int, skv: int, causal: bool = True,
+          window: Optional[int] = None,
+          q_offset: Optional[int] = None) -> int:
+    """The (query, key) pairs a call attends: query row i sits at key
+    position ``q_offset + i`` (default Skv - Sq) and sees the keys at or
+    before it when ``causal``, and after ``position - window`` with a
+    window."""
+    import numpy as np
+    pos = np.arange(sq, dtype=np.int64) + (skv - sq if q_offset is None
+                                           else q_offset)
+    hi = np.clip(pos + 1, 0, skv) if causal else np.full(sq, skv)
+    lo = np.clip(pos - window + 1, 0, skv) if window else np.zeros(sq)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def work(q_shape, kv_shape, elt: int, causal: bool = True,
+         window: Optional[int] = None,
+         q_offset: Optional[int] = None) -> tuple:
+    """(bytes, tensor-core operations) of one call: q, k and v read once
+    and the output written once, and two products of 2·D operations for
+    every attended (query, key) pair and query head."""
+    b, hq, sq, d = q_shape
+    hkv, skv = kv_shape[1], kv_shape[2]
+    nbytes = elt * (2 * b * hq * sq * d + 2 * b * hkv * skv * d)
+    return nbytes, 4 * b * hq * pairs(sq, skv, causal, window, q_offset) * d
+
+
+def meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+         causal: bool = True, window: Optional[int] = None,
+         q_offset: Optional[int] = None,
+         scale: Optional[float] = None) -> torch.Tensor:
+    """The dry trace's :func:`flash_attention`: its output on ``meta``,
+    one recorded call."""
+    out = torch.empty_like(q)
+    if out.numel():
+        record_kernel(_NAME, *work(q.shape, k.shape, q.element_size(),
+                                   causal, window, q_offset), tensor=True)
+    return out

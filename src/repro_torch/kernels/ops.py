@@ -9,7 +9,11 @@ launches or raises; a
 CPU tensor goes to the plain version in ``ref``.  ``use_kernels`` is
 resolved by ``device.resolve_use_kernels``: ``None`` follows the tensor's
 device, ``True`` on a CPU tensor raises, ``False`` runs the plain version.
-There is no fallback from a kernel that fails to build or launch.
+There is no fallback from a kernel that fails to build or launch.  Inside
+a dry trace (``analysis.ops.Trace``) a ``meta`` tensor resolves as a CUDA
+one, and the op calls its kernel's meta function (its outputs on
+``meta`` and one recorded call with the kernel's ``work``): the plain
+version is never traced in a kernel's place.
 """
 from __future__ import annotations
 
@@ -75,6 +79,9 @@ def segment_reduce(w_lo: torch.Tensor, w_hi: torch.Tensor,
     weights (mod 2³²) and of the mask; per-segment (or δ-window) sums are
     then boundary differences of the prefixes."""
     if resolve_use_kernels(use_kernels, w_lo):
+        if w_lo.is_meta:
+            return tuple(x[1:] for x in _segment.meta_exclusive(
+                w_lo, w_hi, first))
         return _segment.segment_reduce(w_lo, w_hi, first)
     return ref.segment_reduce_ref(w_lo, w_hi, first)
 
@@ -87,6 +94,8 @@ def segment_reduce_exclusive(w_lo: torch.Tensor, w_hi: torch.Tensor,
     i masked weights (and flags).  The kernel writes this layout itself;
     the plain version puts a zero before the inclusive sums."""
     if resolve_use_kernels(use_kernels, w_lo):
+        if w_lo.is_meta:
+            return _segment.meta_exclusive(w_lo, w_hi, first)
         return _segment.segment_reduce_exclusive(w_lo, w_hi, first)
     z = torch.zeros((1,), dtype=torch.int32, device=w_lo.device)
     return tuple(torch.cat([z, x])
@@ -103,6 +112,8 @@ def radix_histogram(words: Sequence[torch.Tensor], shifts: Sequence[int],
     elements (the kernel masks its ragged tail, so no pad count has to be
     taken back out of bucket 0)."""
     if resolve_use_kernels(use_kernels, words[0]):
+        if words[0].is_meta:
+            return _radix.meta_histogram(words, shifts, widths)
         return _radix.radix_histogram(words, shifts, widths)
     return ref.radix_histogram_ref(words, shifts, widths)
 
@@ -114,6 +125,8 @@ def radix_rank(digits: torch.Tensor, starts: torch.Tensor, *,
     digits (T,) int32 in [0, 256), starts (256,) int32 exclusive bucket
     starts -> (T,) int32."""
     if resolve_use_kernels(use_kernels, digits):
+        if digits.is_meta:
+            return _radix.meta_rank(digits, starts)
         return _radix.radix_rank(digits, starts)
     return ref.radix_rank_ref(digits, starts)
 
@@ -129,6 +142,8 @@ def radix_pass(words: Sequence[torch.Tensor], perm: Optional[torch.Tensor],
     (256,) int32 -> (words, payload) in the pass's order.  The kernel
     counts as a ``radix_rank`` launch."""
     if resolve_use_kernels(use_kernels, words[0]):
+        if words[0].is_meta:
+            return _radix.meta_pass(words, perm, shift, width, starts)
         return _radix.radix_pass([w.contiguous() for w in words], perm,
                                  shift, width, starts.contiguous())
     return ref.radix_pass_ref(words, perm, shift, width, starts)
@@ -145,6 +160,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``kpos > qpos - window``.  The kernel takes fp32 or bf16 and head dims
     16-128 (``kernels.flash_attention.HEAD_DIMS``)."""
     if resolve_use_kernels(use_kernels, q):
+        if q.is_meta:
+            return _flash.meta(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset, scale=scale)
         return _flash.flash_attention(q.contiguous(), k.contiguous(),
                                       v.contiguous(), causal=causal,
                                       window=window, q_offset=q_offset,
@@ -168,6 +186,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     log-sum-exp (B, Hq) of the scaled scores), and ``kv_len`` may be 0
     (o = 0, lse = -inf)."""
     if resolve_use_kernels(use_kernels, q):
+        if q.is_meta:
+            return _decode.meta(q, k, v, window=window, kv_len=kv_len,
+                                scale=scale, return_lse=return_lse)
         return _decode.decode_attention(q.contiguous(), k, v, window=window,
                                         kv_len=kv_len, scale=scale,
                                         return_lse=return_lse)
@@ -181,8 +202,8 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6, *,
     leading shape (folded into the kernel's rows, none padded)."""
     if resolve_use_kernels(use_kernels, x):
         d = x.shape[-1]
-        out = _rmsnorm.rmsnorm(x.reshape(-1, d).contiguous(),
-                               w.contiguous(), eps)
+        norm = _rmsnorm.meta if x.is_meta else _rmsnorm.rmsnorm
+        out = norm(x.reshape(-1, d).contiguous(), w.contiguous(), eps)
         return out.reshape(x.shape)
     return ref.rmsnorm_ref(x, w, eps)
 
@@ -202,8 +223,8 @@ def set_signature(mask: torch.Tensor, r: torch.Tensor, *,
     int32 or float32; the kernel reads bool/uint8 bytes and other dtypes
     are converted first); any T and E, ragged edges masked in the kernel."""
     if resolve_use_kernels(use_kernels, mask):
-        return _signature.signature(_as_bytes(mask),
-                                    r.to(torch.int32).contiguous())
+        sig = _signature.meta if mask.is_meta else _signature.signature
+        return sig(_as_bytes(mask), r.to(torch.int32).contiguous())
     return ref.signature_ref(mask, r)
 
 
@@ -216,8 +237,10 @@ def tricluster_density(tensor: torch.Tensor, x: torch.Tensor,
     exact for counts below 2**24.  The exact-density estimator (beyond the
     paper: its Alg. 7 uses the generating-tuple count approximation)."""
     if resolve_use_kernels(use_kernels, tensor):
-        return _density.tricluster_density(
-            _as_bytes(tensor), _as_bytes(x), _as_bytes(y), _as_bytes(z))
+        dens = (_density.meta if tensor.is_meta
+                else _density.tricluster_density)
+        return dens(_as_bytes(tensor), _as_bytes(x), _as_bytes(y),
+                    _as_bytes(z))
     return ref.tricluster_density_ref(tensor, x, y, z)
 
 

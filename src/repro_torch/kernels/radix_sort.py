@@ -30,7 +30,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from ..core.radix import HIST_BUCKETS
-from ..device import sm_count
+from ..device import record_kernel, sm_count
 from . import build
 
 _NAME = "radix_sort"
@@ -307,6 +307,74 @@ def radix_pass(words: Sequence[torch.Tensor], perm: Optional[torch.Tensor],
             scratch.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, _NAME, err, "radix_rank (fused pass)")
     radix_rank.launches += 1
+    return out_words, out_perm
+
+
+def histogram_work(n: int, words: int, passes: int) -> Tuple[int, int]:
+    """(bytes, operations) of one ``radix_histogram`` call: the key words
+    read once, the (passes, 256) int32 histograms written once, three
+    operations (digit, increment, bounds) an element and pass."""
+    return 4 * words * n + 4 * HIST_BUCKETS * passes, 3 * n * passes
+
+
+def rank_work(n: int) -> Tuple[int, int]:
+    """(bytes, operations) of one rank-only ``radix_rank`` call: the
+    digits and starts read, the ranks written, four operations an
+    element."""
+    return 4 * n + 4 * HIST_BUCKETS + 4 * n, 4 * n
+
+
+def pass_work(n: int, words: int, payload: bool) -> Tuple[int, int]:
+    """(bytes, operations) of one fused ``radix_pass``: the key words and
+    the payload (when given) read once, the moved words and payload
+    written once, the starts read; eight operations an element."""
+    lanes_in = words + int(payload)
+    return 4 * n * (lanes_in + words + 1) + 4 * HIST_BUCKETS, 8 * n
+
+
+def _rank_scratch_bytes(n: int) -> int:
+    """Bytes of the rank sweep's scratch (``radix_rank_scratch_words``:
+    a tile counter and 256 status words a tile, 64-bit)."""
+    return 8 * (1 + -(-n // RANK_TILE) * HIST_BUCKETS)
+
+
+def meta_histogram(words: Sequence[torch.Tensor], shifts: Sequence[int],
+                   widths: Sequence[int]) -> torch.Tensor:
+    """The dry trace's :func:`radix_histogram`: its output on ``meta``,
+    one recorded call."""
+    n, npass = words[0].shape[0], len(shifts)
+    out = torch.empty((npass, HIST_BUCKETS), dtype=torch.int32,
+                      device=words[0].device)
+    if n and npass:
+        record_kernel("radix_histogram",
+                      *histogram_work(n, len(words), npass))
+    return out
+
+
+def meta_rank(digits: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
+    """The dry trace's :func:`radix_rank`: its output and scratch on
+    ``meta``, one recorded call."""
+    n = digits.shape[0]
+    out = torch.empty_like(digits)
+    if n:
+        torch.empty((_rank_scratch_bytes(n),), dtype=torch.uint8,
+                    device=digits.device)
+        record_kernel("radix_rank", *rank_work(n))
+    return out
+
+
+def meta_pass(words: Sequence[torch.Tensor], perm: Optional[torch.Tensor],
+              shift: int, width: int, starts: torch.Tensor):
+    """The dry trace's :func:`radix_pass`: its outputs and scratch on
+    ``meta``, one recorded ``radix_rank`` call."""
+    n = words[0].shape[0]
+    out_words = tuple(torch.empty_like(w) for w in words)
+    out_perm = torch.empty_like(words[0])
+    if n:
+        torch.empty((_rank_scratch_bytes(n),), dtype=torch.uint8,
+                    device=words[0].device)
+        record_kernel("radix_rank",
+                      *pass_work(n, len(words), perm is not None))
     return out_words, out_perm
 
 

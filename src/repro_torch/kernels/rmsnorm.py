@@ -26,6 +26,7 @@ from typing import Dict
 
 import torch
 
+from ..device import record_kernel
 from . import build
 
 _NAME = "rmsnorm"
@@ -172,3 +173,21 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor,
 #: since the module was loaded by path (read as differences).
 rmsnorm.launches = 0
 rmsnorm.path_launches = dict.fromkeys(_PATHS, 0)
+
+
+def work(rows: int, d: int, elt: int, w_elt: int = 4) -> tuple:
+    """(bytes, operations) of one call: x read and the output written
+    once in x's dtype, the weight read once; four operations an
+    element."""
+    return 2 * elt * rows * d + w_elt * d, 4 * rows * d
+
+
+def meta(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
+         ) -> torch.Tensor:
+    """The dry trace's :func:`rmsnorm` on (R, D): its output on ``meta``,
+    one recorded call."""
+    out = torch.empty_like(x)
+    if x.shape[0]:
+        record_kernel(_NAME, *work(x.shape[0], x.shape[1], x.element_size(),
+                                   w.element_size()))
+    return out

@@ -27,6 +27,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..device import record_kernel
 from . import build
 
 _NAME = "segment_reduce"
@@ -179,6 +180,27 @@ def segment_reduce(w_lo: torch.Tensor, w_hi: torch.Tensor,
     A non-bool ``first`` is taken as ``first != 0``."""
     return tuple(x[1:] for x in segment_reduce_exclusive(w_lo, w_hi,
                                                          first))
+
+
+def work(n: int, exclusive: bool = True) -> Tuple[int, int]:
+    """(bytes, operations) of one call over ``n`` elements: both weight
+    lanes and the flags read once, the three int32 sums written once
+    ((n + 1) each in the exclusive layout), three adds an element."""
+    return 9 * n + 12 * (n + int(exclusive)), 3 * n
+
+
+def meta_exclusive(w_lo: torch.Tensor, w_hi: torch.Tensor,
+                   first: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The dry trace's :func:`segment_reduce_exclusive`: its outputs and
+    scratch on ``meta``, one recorded call (``device.record_kernel``)."""
+    n = w_lo.shape[0]
+    out = tuple(torch.empty((n + 1,), dtype=torch.int32, device=w_lo.device)
+                for _ in range(3))
+    if n:
+        torch.empty((scratch_ints(n),), dtype=torch.int32,
+                    device=w_lo.device)
+        record_kernel(_NAME, *work(n))
+    return out
 
 
 #: Launches of the kernel since the last reset (``kernels.ops``); both

@@ -14,6 +14,7 @@ import ctypes
 
 import torch
 
+from ..device import record_kernel
 from . import build
 
 _NAME = "signature"
@@ -69,3 +70,20 @@ def signature(mask: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
 
 #: Launches of the kernel since the last reset (``kernels.ops``).
 signature.launches = 0
+
+
+def work(t: int, e: int) -> tuple:
+    """(bytes, operations) of one call: the (T, E) byte mask and r read
+    once, the signatures written once; a multiply and an add an
+    element."""
+    return t * e + 4 * e + 4 * t, 2 * t * e
+
+
+def meta(mask: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """The dry trace's :func:`signature`: its output on ``meta``, one
+    recorded call."""
+    t, e = mask.shape
+    out = torch.empty((t,), dtype=torch.int32, device=mask.device)
+    if t:
+        record_kernel(_NAME, *work(t, e))
+    return out

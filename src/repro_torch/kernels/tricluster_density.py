@@ -29,6 +29,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..device import record_kernel
 from . import build
 
 _NAME = "tricluster_density"
@@ -211,3 +212,22 @@ def tricluster_density(tensor: torch.Tensor, x: torch.Tensor,
 
 #: Launches of the kernel since the last reset (``kernels.ops``).
 tricluster_density.launches = 0
+
+
+def work(t: int, g: int, m: int, b: int) -> Tuple[int, int]:
+    """(bytes, tensor-core operations) of one call: the (G, M, B) byte
+    tensor and the three masks read once, the float32 numerators written
+    once; a multiply and an add for every (tricluster, cell) pair."""
+    return g * m * b + t * (g + m + b) + 4 * t, 2 * t * g * m * b
+
+
+def meta(tensor: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+         z: torch.Tensor) -> torch.Tensor:
+    """The dry trace's :func:`tricluster_density`: its output on
+    ``meta``, one recorded call."""
+    g, m, b = tensor.shape
+    t = x.shape[0]
+    out = torch.empty((t,), dtype=torch.float32, device=tensor.device)
+    if t:
+        record_kernel(_NAME, *work(t, g, m, b), tensor=True)
+    return out

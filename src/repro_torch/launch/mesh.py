@@ -14,7 +14,13 @@ without a group is one rank on its own.
 :func:`init_distributed` joins the process group that ``torchrun``
 describes in the environment, for the launchers' ``--model-shards``.
 
-``make_production_mesh`` and the dry-run wait for ROADMAP A13g.
+A *dry* mesh (:func:`make_dry_mesh`, :func:`make_production_mesh`) is one
+rank of a mesh that has no process group: its device is ``meta``, its
+collectives are recorded and not sent (``core.collectives``), and
+:func:`axis_group` gives the member lists of its sub-meshes without
+creating a group.  The dry run (``launch.dryrun``) traces one rank of the
+production meshes on it, as the JAX package lowers for 512 placeholder
+devices.
 """
 from __future__ import annotations
 
@@ -39,6 +45,8 @@ class Mesh:
     sizes: Tuple[int, ...]
     device: torch.device
     group: Optional[dist.ProcessGroup] = None
+    #: this rank's position on a dry mesh (``None``: a real mesh)
+    dry_rank: Optional[int] = None
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -46,8 +54,15 @@ class Mesh:
         return dict(zip(self.axis_names, self.sizes))
 
     @property
+    def dry(self) -> bool:
+        """True on a dry mesh: collectives are recorded, not sent."""
+        return self.dry_rank is not None
+
+    @property
     def rank(self) -> int:
         """This process's row-major position in the mesh."""
+        if self.dry:
+            return self.dry_rank
         return 0 if self.group is None else dist.get_rank(self.group)
 
     @property
@@ -62,7 +77,8 @@ class Mesh:
         card, so several ranks on one card share a gloo group; gloo's own
         CUDA paths stage through the host as well, and not all of its
         collectives take CUDA tensors)."""
-        return (self.group is not None and self.device.type == "cuda"
+        return (self.group is not None and not self.dry
+                and self.device.type == "cuda"
                 and dist.get_backend(self.group) == "gloo")
 
 
@@ -79,9 +95,13 @@ def coords_of(rank: int, sizes: Sequence[int]) -> Tuple[int, ...]:
 #: {(group, axis names, sizes): {axes: (subgroup, member mesh ranks)}}
 _SUBGROUPS: dict = {}
 
+#: The group of a dry mesh of more than one rank, and of its sub-meshes:
+#: a name, no process group.
+DRY_GROUP = "dry"
+
 
 def _global_rank(group, rank: int) -> int:
-    if group is None or group is dist.group.WORLD:
+    if group is None or group == DRY_GROUP or group is dist.group.WORLD:
         return rank
     return dist.get_global_rank(group, rank)
 
@@ -116,15 +136,22 @@ def make_subgroups(mesh: Mesh) -> dict:
     :func:`axis_group`); every rank calls it at the same point."""
     if mesh.group is None:
         return {}
+    if mesh.dry:
+        key = (DRY_GROUP, mesh.axis_names, mesh.sizes, mesh.rank)
+        if key not in _SUBGROUPS:
+            _SUBGROUPS[key] = _make_subgroups(mesh, lambda ranks: DRY_GROUP)
+        return _SUBGROUPS[key]
     key = (mesh.group, mesh.axis_names, mesh.sizes)
     if key not in _SUBGROUPS:
         _SUBGROUPS[key] = _make_subgroups(mesh)
     return _SUBGROUPS[key]
 
 
-def _make_subgroups(mesh: Mesh) -> dict:
+def _make_subgroups(mesh: Mesh, new_group=None) -> dict:
     """{live axis indices: (group, members)} for every proper sub-mesh of
-    ``mesh`` with more than one rank (see :func:`axis_group`)."""
+    ``mesh`` with more than one rank (see :func:`axis_group`);
+    ``new_group(global ranks)`` makes each group (``dist.new_group``)."""
+    new_group = new_group or dist.new_group
     sizes = mesh.sizes
     big = [i for i, n in enumerate(sizes) if n > 1]
     me = mesh.rank
@@ -138,7 +165,7 @@ def _make_subgroups(mesh: Mesh) -> dict:
                 members = [p for p in range(math.prod(sizes))
                            if all(coords_of(p, sizes)[i] == c
                                   for i, c in zip(rest, fixed))]
-                g = dist.new_group(
+                g = new_group(
                     [_global_rank(mesh.group, p) for p in members])
                 if me in members:
                     mine = (g, members)
@@ -206,6 +233,34 @@ def init_distributed(device: str = "cuda", *, timeout_s: float = 600.0):
     dist.init_process_group(backend,
                             timeout=datetime.timedelta(seconds=timeout_s))
     return dev
+
+
+def make_dry_mesh(shape: Sequence[int], names: Sequence[str],
+                  rank: int = 0, grouped: Optional[bool] = None) -> Mesh:
+    """Rank ``rank`` of a mesh of ``shape`` on the ``meta`` device, with
+    no process group (see the module's docstring).  ``grouped``: whether
+    its collectives are issued (recorded) at all; by default when it has
+    more than one rank, as a real mesh has a group.  ``True`` on one rank
+    stands for a process group of one rank (whose collectives go through
+    it)."""
+    shape = tuple(int(s) for s in shape)
+    if len(shape) != len(names):
+        raise ValueError(f"mesh shape {shape} and axis names {names} differ "
+                         "in length")
+    if not 0 <= rank < math.prod(shape):
+        raise ValueError(f"rank {rank} is not in a mesh of {shape}")
+    if grouped is None:
+        grouped = math.prod(shape) > 1
+    return Mesh(tuple(names), shape, torch.device("meta"),
+                DRY_GROUP if grouped else None, rank)
+
+
+def make_production_mesh(*, multi_pod: bool = False, rank: int = 0) -> Mesh:
+    """Rank ``rank`` of the production mesh, dry: (16, 16) over ("data",
+    "model"), or (2, 16, 16) over ("pod", "data", "model")."""
+    if multi_pod:
+        return make_dry_mesh((2, 16, 16), ("pod", "data", "model"), rank)
+    return make_dry_mesh((16, 16), ("data", "model"), rank)
 
 
 def mesh_name(mesh: Mesh) -> str:

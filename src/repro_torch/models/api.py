@@ -14,8 +14,10 @@ through ``models.lm``, ``encdec`` (seamless-m4t) through
 ``{"frames", "tokens"}`` (and ``"labels"``).
 Over a device mesh every entry takes ``rules`` (``sharding.MeshRules``), and
 ``Model.init(rules=...)`` gives this rank its blocks; ``shardings`` and
-``specs`` give the parameters' layout.  The dry-run's sharded stand-ins
-(``structs``, ``cache_structs``, ``input_specs``) are ROADMAP A13g.
+``specs`` give the parameters' layout.  The dry run's stand-ins
+(``params.Struct``: ``structs``, ``cache_structs``, :func:`input_specs`)
+hold global shapes, dtypes and layouts, and this rank's block on
+``meta``.
 """
 from __future__ import annotations
 
@@ -25,8 +27,8 @@ import torch
 
 from ..configs.base import ModelConfig
 from . import encdec, lm
-from .params import (ParamTree, init_params, param_shardings, param_specs,
-                     param_structs)
+from .params import (ParamTree, Struct, init_params, param_shardings,
+                     param_specs, param_structs)
 
 
 class Model(NamedTuple):
@@ -37,7 +39,7 @@ class Model(NamedTuple):
     decode_step: Callable      # (cfg, params, cache, tokens, rules) -> (cache, logits)
     cache_defs: Callable       # (cfg, batch, max_len, dtype) -> declarations
     init_cache: Callable       # (cfg, batch, max_len, dtype, rules, device)
-    cache_structs: Callable    # ROADMAP A13g
+    cache_structs: Callable    # (cfg, batch, max_len, rules, dtype) -> Structs
 
     def init(self, cfg: ModelConfig, generator: torch.Generator,
              dtype: torch.dtype = torch.float32, device=None,
@@ -102,7 +104,37 @@ def get_model(cfg: ModelConfig) -> Model:
     raise ValueError(f"unknown family {cfg.family!r}")
 
 
-def input_specs(*args, **kwargs):
-    """The dry-run's input stand-ins: ROADMAP A13g."""
-    raise lm.not_ported("input_specs (the dry-run's input stand-ins)",
-                        "A13g")
+def input_specs(cfg: ModelConfig, shape, rules=None, pad_vocab: bool = False):
+    """``params.Struct`` stand-ins for every model input of one dry-run
+    cell (laid out by ``rules``; no allocation).  Tokens and labels are
+    int64, the port's index type.
+
+    For train/prefill kinds: the token/label/frontend batch.
+    For decode: the (B,) token vector (the cache is produced separately via
+    ``Model.cache_structs``)."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def sds(shp, dtype, *axes):
+        if rules is None:
+            return Struct(shp, dtype)
+        return Struct(shp, dtype, rules.sharding(axes, shp))
+
+    if shape.kind == "decode":
+        return {"tokens": sds((b,), torch.int64, "batch")}
+    if cfg.family == "encdec":
+        out = {"frames": sds((b, s, cfg.frontend_dim), torch.float32,
+                             "batch", None, None),
+               "tokens": sds((b, s), torch.int64, "batch", None)}
+        if shape.kind == "train":
+            out["labels"] = sds((b, s), torch.int64, "batch", None)
+        return out
+    out = {}
+    s_text = s
+    if cfg.frontend == "patch":
+        s_text = s - cfg.frontend_len
+        out["patches"] = sds((b, cfg.frontend_len, cfg.frontend_dim),
+                             torch.float32, "batch", None, None)
+    out["tokens"] = sds((b, s_text), torch.int64, "batch", None)
+    if shape.kind == "train":
+        out["labels"] = sds((b, s_text), torch.int64, "batch", None)
+    return out

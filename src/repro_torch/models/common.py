@@ -393,7 +393,9 @@ def _dispatch_row(x, eid, tok, n_experts: int, cap: int):
     """Every sequence at once: route its S·k (token, expert) slots into
     (E, cap) buffers.  x (B,S,D), eid/tok (B,L) -> buf (B,E·cap,D) and
     per row the slot, order and ok of each sorted route.  Routes beyond
-    an expert's capacity go to a trash slot E·cap, which is dropped."""
+    an expert's capacity go to a trash slot E·cap, which is dropped: every
+    route is written (no mask, so the shapes do not depend on the routes
+    and nothing is read on the host), and the kept slots are distinct."""
     b, l = eid.shape
     order = torch.sort(eid, dim=1, stable=True).indices
     sorted_eid = torch.gather(eid, 1, order)
@@ -406,8 +408,8 @@ def _dispatch_row(x, eid, tok, n_experts: int, cap: int):
     flat = (torch.arange(b, device=x.device)[:, None] * rows + slot)
     src = torch.gather(tok, 1, order)
     buf = x.new_zeros((b * rows, x.shape[-1]))
-    buf[flat[ok]] = x[torch.arange(b, device=x.device)[:, None]
-                      .expand(b, l)[ok], src[ok]]
+    buf[flat.reshape(-1)] = x[torch.arange(b, device=x.device)[:, None]
+                              .expand(b, l), src].reshape(b * l, -1)
     return buf.view(b, rows, -1)[:, :-1], slot, order, ok
 
 

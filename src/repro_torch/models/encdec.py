@@ -360,9 +360,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                          device)
 
 
-def cache_structs(*args, **kwargs):
-    """The sharded dry-run cache: ROADMAP A13g."""
-    raise lm.not_ported("cache_structs (the sharded dry-run cache)", "A13g")
+def cache_structs(cfg: ModelConfig, batch: int, max_len: int, rules,
+                  dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The dry run's stand-ins of the cache (``lm.structs_of_cache``):
+    the ring and ``frontend_len`` frames of cross K/V."""
+    return lm.structs_of_cache(cache_defs(cfg, batch, max_len, dtype),
+                               rules, max_len)
 
 
 def _ring(cfg: ModelConfig, lay, sc: int):
@@ -423,6 +426,7 @@ def decode_step(cfg: ModelConfig, params, cache: dict, tokens, rules=None):
     lay = _layout(cfg, rules, len(tokens))
     if lay is not None:
         tokens = lay.rows(tokens)
+        params = lay.serve_params(params)
     tokens = lm._as_index(tokens, dev)
     emb = params["embed"]
     if lay is not None:
@@ -464,6 +468,8 @@ def prefill(cfg: ModelConfig, params, batch_inputs: dict, max_len: int,
     block of the cache and the global logits out."""
     compute = lm.compute_dtype(cfg)
     lay, frames, tokens = _inputs(cfg, params, batch_inputs, rules)
+    if lay is not None:
+        params = lay.serve_params(params)
     _, cross_k, cross_v = encode(cfg, params, frames, lay)
     x = lm.embed_tokens(cfg, params, tokens, None, compute, lay)
     b, sd, _ = x.shape

@@ -22,7 +22,9 @@ without a mesh.
   (``model``); ``conv``: the decode cache's conv-window columns.
 * The xLSTM family (no attention: ``kv``, ``wo`` and ``moe_ff`` are
   ``None``): ``ff`` the mLSTM blocks' ``ff`` columns and ``heads`` their
-  heads (one set of axes for both: a rank's columns are its heads');
+  heads (one set of axes for both: a rank's columns are its heads'), or
+  ``heads`` ``None`` where the heads do not divide the ``ff`` axes (4
+  heads over a 16-way ``model`` axis: every rank then runs every head);
   ``rec`` the sLSTM blocks' heads (``r_gates``, the cache's c, n, m);
   ``mlp_up`` and ``mlp_down`` the sLSTM's gated MLP's columns and rows.
 * ``vocab``: the vocabulary of ``embed`` and ``lm_head``; ``embed_fsdp``,
@@ -31,6 +33,13 @@ without a mesh.
 * :meth:`cache`: the decode ring's slots (``kv_seq``/``long_seq``) and
   KV heads, and the enc-dec family's cross-attention cache's frames
   (``kv_seq``) and KV heads.
+
+Serving under ``fsdp`` may hold every weight ZeRO-extended over the data
+axes (``train.optim.zero1_spec`` of its layout: the dry run's serve
+cells of large models, ZeRO-inference).  :meth:`Layout.serve_params`
+reads that layout from the blocks' shapes and gathers each weight where
+it is used: an unstacked one at once, a stacked one a layer (or group)
+at a time as ``params.layer_slice`` takes it (:class:`ZeroStack`).
 """
 from __future__ import annotations
 
@@ -39,6 +48,38 @@ from typing import Optional
 import torch
 
 from ..core.collectives import Collectives
+from .params import leaf_at, tree_from_items, tree_items
+
+
+class ZeroStack:
+    """A stacked weight held ZeRO-extended: ``block`` is this rank's
+    block, split over ``comm``'s (data) axes along ``dim``, below
+    ``stack`` leading stacked dimensions.  ``[i]`` is layer (or group)
+    ``i`` in the compute layout, gathered: one all-gather of this rank's
+    piece of it, or, where the layers themselves are split, of every
+    rank's layer at ``i``'s position, of which the owner's is kept.  A
+    gathered weight is contiguous, as the compute layout's block is (the
+    products then take the same path, bit for bit)."""
+
+    def __init__(self, block: torch.Tensor, dim: int, comm: Collectives,
+                 stack: int):
+        self.block, self.dim, self.comm, self.stack = block, dim, comm, stack
+
+    @property
+    def shape(self) -> torch.Size:
+        """The leaf's shape in the compute layout."""
+        s = list(self.block.shape)
+        s[self.dim] *= self.comm.size
+        return torch.Size(s)
+
+    def __getitem__(self, i: int):
+        b = self.block
+        if self.dim == 0:
+            n = b.shape[0]
+            return self.comm.all_gather(b[i % n].unsqueeze(0), 0)[i // n]
+        if self.stack > 1:
+            return ZeroStack(b[i], self.dim - 1, self.comm, self.stack - 1)
+        return self.comm.all_gather(b[i], self.dim - 1).contiguous()
 
 
 def live(comm: Optional[Collectives]) -> Optional[Collectives]:
@@ -94,6 +135,39 @@ class Layout:
         self.adapter_fsdp = (comm(defs["frontend_adapter"], 1)
                              if "frontend_adapter" in defs else None)
         self._caches: dict = {}
+        self._defs = defs
+
+    def serve_params(self, params):
+        """``params`` with every ZeRO-extended weight gathered where it is
+        used (see the module's docstring); ``params`` itself when none
+        is."""
+        from ..train.optim import zero1_spec
+        from ..sharding.rules import Sharding
+        rules, out, changed = self.rules, [], False
+        for path, d in tree_items(self._defs):
+            leaf = leaf_at(params, path)
+            compute = rules.sharding(d.axes, d.shape)
+            if tuple(leaf.shape) == compute.local_shape(d.shape):
+                out.append((path, leaf))
+                continue
+            zspec = zero1_spec(compute.spec, d.shape, rules)
+            zero = Sharding(rules.mesh, zspec)
+            if tuple(leaf.shape) != zero.local_shape(d.shape):
+                raise ValueError(
+                    f"{'.'.join(path)}: block {tuple(leaf.shape)} is "
+                    f"neither the compute layout's "
+                    f"{compute.local_shape(d.shape)} nor the ZeRO one's "
+                    f"{zero.local_shape(d.shape)} of {tuple(d.shape)}")
+            dim = next(i for i in range(len(d.shape))
+                       if zspec.axes(i) != compute.spec.axes(i))
+            comm = rules.comm(zspec.axes(dim))
+            stack = 0
+            while stack < len(d.axes) and d.axes[stack] == "layers":
+                stack += 1
+            out.append((path, ZeroStack(leaf, dim, comm, stack) if stack
+                        else comm.all_gather(leaf, dim).contiguous()))
+            changed = True
+        return tree_from_items(out) if changed else params
 
     def _check_attention(self, cfg) -> None:
         if self.heads is None and (self.kv is not None):
@@ -130,13 +204,16 @@ class Layout:
                              f"{self.conv.axes} with d_inner whole")
 
     def _xlstm_layout(self, cfg, layers: dict, comm) -> None:
-        """The xLSTM blocks' axes: every mLSTM leaf split over ``ff`` or
-        ``heads`` must lie over ``w_up``'s column axes (a rank computes
-        its heads from its columns of q, k, v); the sLSTM's gated MLP
-        may keep ``w_mlp_down`` whole where its rows do not divide."""
+        """The xLSTM blocks' axes: every mLSTM leaf split over ``ff`` must
+        lie over ``w_up``'s column axes, and its ``heads`` (``wi``,
+        ``wf``) over them too (a rank computes its heads from its columns
+        of q, k, v) or, where the heads do not divide, whole (every rank
+        gathers q, k, v and runs every head); the sLSTM's gated MLP may
+        keep ``w_mlp_down`` whole where its rows do not divide."""
         def axes(c):
             return None if c is None else c.axes
 
+        heads = {}
         for name in ("mlstm_main", "mlstm_tail"):
             if name not in layers:
                 continue
@@ -147,10 +224,16 @@ class Layout:
                               ("wv", -1), ("wi", -1), ("wf", -1),
                               ("norm_scale", -1), ("w_down", -2)):
                 got = axes(comm(m[leaf], dim))
+                if leaf in ("wi", "wf"):
+                    heads[got] = leaf
+                    if got is None:
+                        continue
                 if got != axes(self.ff):
                     raise ValueError(f"{cfg.name}: mLSTM {leaf} over {got}, "
                                      f"w_up columns over {axes(self.ff)}")
-        self.heads = self.ff
+        if len(heads) > 1:
+            raise ValueError(f"{cfg.name}: mLSTM heads over {sorted(heads)}")
+        self.heads = self.ff if axes(self.ff) in heads else None
         s = layers.get("slstm")
         if s is not None:
             self.rec = comm(s["r_gates"], -3)

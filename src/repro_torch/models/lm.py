@@ -81,16 +81,11 @@ from ..core.collectives import copy_to, gather_from, reduce_from
 from ..device import resolve_device
 from . import common, ssm, xlstm
 from .layout import gather_batch, layout
-from .params import ParamDef, layer_slice, layer_views
+from .params import ParamDef, Struct, layer_slice, layer_views
 
 #: The families the port declares: ``encdec`` in ``models.encdec``, the
 #: decoder-only ones here.
 FAMILIES = ("dense", "moe", "hybrid_ssm", "xlstm", "encdec")
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP {item})")
 
 
 # ---------------------------------------------------------------------------
@@ -698,9 +693,27 @@ def fill_cache(defs: dict, rules=None, device=None) -> dict:
     return make(defs)
 
 
-def cache_structs(*args, **kwargs):
-    """The sharded dry-run cache: ROADMAP A13g."""
-    raise not_ported("cache_structs (the sharded dry-run cache)", "A13g")
+def cache_structs(cfg: ModelConfig, batch: int, max_len: int, rules,
+                  dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The dry run's stand-ins of the cache (``params.Struct``, laid out
+    by ``rules``): see :func:`structs_of_cache`."""
+    return structs_of_cache(cache_defs(cfg, batch, max_len, dtype), rules,
+                            max_len)
+
+
+def structs_of_cache(defs: dict, rules, max_len: int) -> dict:
+    """``params.Struct`` stand-ins of a tree of ``CacheLeaf``
+    declarations.  ``pos`` is a real CPU scalar holding ``max_len - 1``
+    (a cache one token short of full), which the decode step reads on
+    the host as it reads a cache's."""
+    def make(name, node):
+        if not isinstance(node, CacheLeaf):
+            return {k: make(k, v) for k, v in node.items()}
+        sh = None if rules is None else rules.sharding(node.axes,
+                                                       node.shape)
+        return Struct(tuple(node.shape), node.dtype, sh,
+                      max_len - 1 if name == "pos" else None)
+    return make(None, defs)
 
 
 # ---------------------------------------------------------------------------
@@ -742,6 +755,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, rules=None):
     lay = _layout(cfg, rules, len(tokens))
     if lay is not None:
         tokens = lay.rows(tokens)
+        params = lay.serve_params(params)
     tokens = _as_index(tokens, dev)
     emb = params["embed"]
     if lay is not None:
@@ -878,6 +892,7 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, patches=None,
     if lay is not None:
         tokens = lay.rows(tokens)
         patches = None if patches is None else lay.rows(patches)
+        params = lay.serve_params(params)
     if patches is not None:
         patches = torch.as_tensor(patches, device=dev)
     x = embed_tokens(cfg, params, _as_index(tokens, dev), patches, compute,
@@ -984,21 +999,24 @@ def _ring_prefill(cfg, params, cache, x, max_len: int, lay):
         cache[f"conv_{name}"][idx] = cst
         return xx + y
 
-    if cfg.family == "hybrid_ssm":
+    def blocks():
+        """(kind, index, parameters) of each block in order, each layer's
+        taken as it is reached (a ZeRO-extended weight is gathered
+        then)."""
+        if cfg.family != "hybrid_ssm":
+            for i in range(cfg.n_layers):
+                yield "block", i, layer_slice(lp, i)
+            return
         ng, period, tail = _pattern(cfg)
-        shared = params["shared"]
-        blocks = []
         for g in range(ng):
             sl = layer_slice(lp["mamba_main"], g)
-            blocks += [("main", (g, i), layer_slice(sl, i))
-                       for i in range(period)]
-            blocks.append(("shared", g, shared))
-        blocks += [("tail", (i,), layer_slice(lp["mamba_tail"], i))
-                   for i in range(tail)]
-    else:
-        blocks = [("block", i, layer_slice(lp, i))
-                  for i in range(cfg.n_layers)]
-    for kind, i, p in blocks:
+            for i in range(period):
+                yield "main", (g, i), layer_slice(sl, i)
+            yield "shared", g, params["shared"]
+        for i in range(tail):
+            yield "tail", (i,), layer_slice(lp["mamba_tail"], i)
+
+    for kind, i, p in blocks():
         if kind in ("main", "tail"):
             x = mamba_with_state(p, x, kind, i)
             continue

@@ -13,12 +13,15 @@ them; ``requires_grad=True`` builds a trainable tree (the training slice,
 Over a device mesh (``sharding.MeshRules``) ``param_specs`` and
 ``param_shardings`` give each leaf's layout, and ``init_params`` and
 ``from_jax_params`` give each rank its blocks (``Sharding.local``).
-``param_structs`` (the dry-run's sharded stand-ins) is ROADMAP A13g.
+``param_structs`` gives the dry run's stand-ins (:class:`Struct`: the
+twin of ``jax.ShapeDtypeStruct``), whose :meth:`Struct.local` is this
+rank's block on the ``meta`` device.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Mapping, NamedTuple, Optional
+from typing import Any, Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -90,11 +93,62 @@ def param_shardings(defs, rules):
     return map_defs(lambda d: rules.sharding(d.axes, d.shape), defs)
 
 
-def param_structs(*args, **kwargs):
-    """The dry-run's sharded stand-ins: ROADMAP A13g."""
-    raise NotImplementedError("param_structs (the dry-run's sharded "
-                              "stand-ins) is not ported to PyTorch yet "
-                              "(ROADMAP A13g)")
+@dataclasses.dataclass(frozen=True)
+class Struct:
+    """A dry-run stand-in: a global ``shape`` and ``dtype`` laid out by
+    ``sharding`` (``sharding.Sharding``; ``None``: whole on every rank),
+    the twin of ``jax.ShapeDtypeStruct``.  ``value``: a leaf the step
+    reads on the host (the decode cache's ``pos``) is a real CPU tensor
+    filled with it."""
+    shape: tuple
+    dtype: torch.dtype
+    sharding: Any = None
+    value: Optional[float] = None
+
+    def local_shape(self) -> tuple:
+        if self.sharding is None:
+            return tuple(self.shape)
+        return self.sharding.local_shape(self.shape)
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of this rank's block."""
+        return math.prod(self.local_shape()) * torch.empty(
+            (), dtype=self.dtype).element_size()
+
+    def local(self) -> torch.Tensor:
+        """This rank's block: empty on ``meta``, or filled with ``value``
+        on the CPU."""
+        return self._make(self.local_shape())
+
+    def whole(self) -> torch.Tensor:
+        """The global tensor, as :meth:`local` makes a block: what every
+        rank passes where the port's entries take the global batch."""
+        return self._make(tuple(self.shape))
+
+    def _make(self, shape) -> torch.Tensor:
+        if self.value is not None:
+            return torch.full(shape, self.value, dtype=self.dtype)
+        return torch.empty(shape, dtype=self.dtype, device="meta")
+
+
+def param_structs(defs, rules=None, dtype: torch.dtype = torch.float32):
+    """:class:`Struct` tree of the parameters (dry-run stand-ins; no
+    allocation), laid out by ``rules`` when given."""
+    if rules is None:
+        return map_defs(lambda d: Struct(tuple(d.shape), dtype), defs)
+    return map_defs(lambda d: Struct(tuple(d.shape), dtype,
+                                     rules.sharding(d.axes, d.shape)), defs)
+
+
+def struct_locals(tree):
+    """This rank's blocks of a tree of :class:`Struct` (nested dicts),
+    with the tree's structure; other leaves pass as they are."""
+    if isinstance(tree, Struct):
+        return tree.local()
+    if isinstance(tree, Mapping):
+        return {k: struct_locals(v) for k, v in tree.items()}
+    return tree
 
 
 def leaf_at(tree, path):
@@ -234,7 +288,11 @@ def layer_views(tree: Mapping, n: int) -> list:
     views, from one ``torch.unbind(0)`` per stacked leaf.  Under autograd
     the leaf's gradient is then one ``stack`` of the layers' gradients
     (``lax.scan``'s transpose), where ``n`` calls of :func:`layer_slice`
-    would each add into a zero tensor of the whole stack."""
+    would each add into a zero tensor of the whole stack.  A tree whose
+    leaves gather on use (``models.layout.ZeroStack``, serving only)
+    gives its layers lazily, one :func:`layer_slice` each."""
+    if any(not isinstance(v, torch.Tensor) for _, v in tree_items(tree)):
+        return (layer_slice(tree, i) for i in range(n))
     out = [dict() for _ in range(n)]
 
     def fill(node, dests):

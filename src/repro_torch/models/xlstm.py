@@ -27,13 +27,19 @@ and of its ``heads`` (``wi``, ``wf``, the cache's C, n, m), which are the
 same heads.  ``w_up``'s column block is not a block of both halves
 (u, z), so the projection is all-gathered before the split: every rank
 takes all of u and its heads' columns of z; ``w_down`` is row-parallel,
-then a ``psum``.  The sLSTM runs whole on every rank: ``r_gates``
-(sharded over its heads, ``lay.rec``) is gathered once a call, so no
-collective runs inside the loop over time, and the cache keeps this
-rank's heads of c, n, m (gathered at each decode step).  Its gated MLP
-is column-parallel over ``lay.mlp_up`` (gathered before the split) and
-row-parallel over ``lay.mlp_down`` where ``w_mlp_down``'s rows divide,
-else whole.
+then a ``psum``.  Where the heads do not divide the ``ff`` axes
+(``lay.heads`` ``None``: ``wi``, ``wf`` and the cache whole) every rank
+gathers its columns of q, k and v, runs every head, and keeps its
+columns of the normalised output for ``w_down``; the gates sum their
+rows of ``wi``/``wf`` over the ranks (``psum``), so every cotangent of u
+stays a partial sum over the column blocks, and the rows' gradients are
+summed into the replicated weights'.  The sLSTM runs whole on every
+rank: ``r_gates`` (sharded over its heads, ``lay.rec``) is gathered once
+a call, so no collective runs inside the loop over time, and the cache
+keeps this rank's heads of c, n, m (gathered at each decode step).  Its
+gated MLP is column-parallel over ``lay.mlp_up`` (gathered before the
+split) and row-parallel over ``lay.mlp_down`` where ``w_mlp_down``'s
+rows divide, else whole.
 """
 from __future__ import annotations
 
@@ -50,18 +56,25 @@ _NEG = -1e30
 
 
 def _headwise_rmsnorm(x: torch.Tensor, scale: torch.Tensor,
-                      eps: float) -> torch.Tensor:
+                      eps: float, cols=None) -> torch.Tensor:
     """x (B,S,H,P); normalise per head (GroupNorm analogue) -> (B,S,H·P)
-    in x's dtype."""
+    in x's dtype; ``cols`` (collectives): this shard's block of the
+    columns, which ``scale`` is."""
     f32 = common.wide(x.dtype)
     xf = x.to(f32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
-    return (y.reshape(*x.shape[:-2], -1) * scale.to(f32)).to(x.dtype)
+    y = (xf * torch.rsqrt(var + eps)).reshape(*x.shape[:-2], -1)
+    return (_local(cols, y) * scale.to(f32)).to(x.dtype)
 
 
 def _ff(lay):
     return None if lay is None else lay.ff
+
+
+def _whole_heads(lay):
+    """The ``ff`` collectives where every rank runs every mLSTM head (the
+    heads do not divide the ``ff`` axes), else ``None``."""
+    return None if lay is None or lay.heads is not None else lay.ff
 
 
 def _halves(x: torch.Tensor, w: torch.Tensor, comm, partial: bool):
@@ -84,12 +97,15 @@ def _local(comm, t: torch.Tensor) -> torch.Tensor:
 # mLSTM
 # ---------------------------------------------------------------------------
 
-def _mlstm_chunk(q, k, v, i_raw, logf, state):
+def _mlstm_chunk(q, k, v, i_raw, logf, state, want_state: bool = True):
     """One chunk of the chunkwise-parallel stabilised mLSTM.
 
     q/k/v (B,L,H,P); i_raw/logf (B,L,H); state = (C (B,H,P,P), n (B,H,P),
     m (B,H)).  Returns (h (B,L,H,P), new_state); composes the per-step
-    recurrence of :func:`mlstm_decode` over L steps."""
+    recurrence of :func:`mlstm_decode` over L steps.  Without
+    ``want_state`` the state update is not computed (``None``): the last
+    chunk of a forward that returns no state, whose update nothing reads
+    (the JAX package's XLA drops it as dead code)."""
     cum = torch.cumsum(logf, dim=1)                       # (B,L,H)
     total = cum[:, -1]                                    # (B,H)
     c_prev, n_prev, m_prev = state
@@ -114,6 +130,8 @@ def _mlstm_chunk(q, k, v, i_raw, logf, state):
     den = torch.maximum(torch.abs(scores.sum(dim=2) + inter_w * qn),
                         torch.exp(-m_t))
     hv = num / den[..., None]
+    if not want_state:
+        return hv, None
     # state update (decay everything to the chunk end)
     logw = total[:, None, :] - cum + i_raw                # (B,L,H)
     m_w = logw.amax(dim=1)                                # (B,H)
@@ -136,26 +154,40 @@ def _mlstm_inputs(cfg: ModelConfig, p, x: torch.Tensor, lay):
     hp = dm // cfg.n_heads
     f32 = common.wide(x.dtype)
     c = _ff(lay)
+    whole = _whole_heads(lay)
     u, z = _halves(x, p["w_up"], c, partial=True)         # (B,S,dm) each
     z = _local(c, z)
     dt = x.dtype
     q = torch.einsum("bse,ef->bsf", u, p["wq"].to(dt))
-    k = torch.einsum("bse,ef->bsf", u, p["wk"].to(dt)).to(f32) / math.sqrt(hp)
+    k = torch.einsum("bse,ef->bsf", u, p["wk"].to(dt))
     v = torch.einsum("bse,ef->bsf", u, p["wv"].to(dt))
+    if whole is not None:
+        q, k, v = (gather_from(whole, t, -1) for t in (q, k, v))
+    k = k.to(f32) / math.sqrt(hp)
     hl = q.shape[-1] // hp
     q = q.reshape(b, s, hl, hp).to(f32)
     k = k.reshape(b, s, hl, hp)
     v = v.reshape(b, s, hl, hp).to(f32)
-    i_raw = torch.einsum("bse,eh->bsh", u, p["wi"].to(dt)).to(f32)
-    f_raw = torch.einsum("bse,eh->bsh", u, p["wf"].to(dt)).to(f32)
-    return q, k, v, i_raw, F.logsigmoid(f_raw), z
+
+    def gate(w):
+        if whole is None:
+            return torch.einsum("bse,eh->bsh", u, w.to(dt)).to(f32)
+        # each rank's rows of the whole weight: its gradient is summed
+        # over the ranks (``copy_to``), as it is replicated
+        return reduce_from(whole, torch.einsum(
+            "bse,eh->bsh", _local(whole, u),
+            whole.local(copy_to(whole, w), 0).to(dt))).to(f32)
+    return q, k, v, gate(p["wi"]), F.logsigmoid(gate(p["wf"])), z
 
 
 def _mlstm_out(cfg: ModelConfig, p, hv: torch.Tensor, z: torch.Tensor,
                dtype: torch.dtype, lay) -> torch.Tensor:
     """headwise norm, the gate silu(z), ``w_down`` (row-parallel over
     ``lay.ff``, then ``psum``)."""
-    hv = _headwise_rmsnorm(hv, p["norm_scale"], cfg.norm_eps)   # (B,S,Hl·P)
+    whole = _whole_heads(lay)
+    if whole is not None:        # every head here, this rank's columns out
+        hv = copy_to(whole, hv)
+    hv = _headwise_rmsnorm(hv, p["norm_scale"], cfg.norm_eps, whole)
     out = hv.to(dtype) * F.silu(z)
     return reduce_from(_ff(lay), torch.einsum("bse,ed->bsd", out,
                                               p["w_down"].to(dtype)))
@@ -182,12 +214,13 @@ def mlstm_forward(cfg: ModelConfig, p, x: torch.Tensor,
         parts = []
         for lo in range(0, s, chunk):
             ch = slice(lo, lo + chunk)
-            hv_c, state = _mlstm_chunk(q[:, ch], k[:, ch], v[:, ch],
-                                       i_raw[:, ch], logf[:, ch], state)
+            hv_c, state = _mlstm_chunk(
+                q[:, ch], k[:, ch], v[:, ch], i_raw[:, ch], logf[:, ch],
+                state, return_state or lo + chunk < s)
             parts.append(hv_c)
         hv = torch.cat(parts, dim=1)
     else:
-        hv, state = _mlstm_chunk(q, k, v, i_raw, logf, state)
+        hv, state = _mlstm_chunk(q, k, v, i_raw, logf, state, return_state)
     y = _mlstm_out(cfg, p, hv, z, x.dtype, lay)
     if return_state:
         return (y,) + tuple(state)

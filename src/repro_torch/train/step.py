@@ -52,8 +52,8 @@ import torch
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..models.api import get_model
-from ..models.lm import _check_family, compute_dtype, not_ported
-from ..models.params import (from_jax_params, init_params, leaf_at,
+from ..models.lm import _check_family, compute_dtype
+from ..models.params import (Struct, from_jax_params, init_params, leaf_at,
                              param_shardings, tree_from_items, tree_items)
 from ..sharding.rules import PartitionSpec, Sharding, comm_of
 from .optim import adamw_init, adamw_update, cosine_lr, zero1_shardings
@@ -133,8 +133,26 @@ def state_shardings(cfg: ModelConfig, rules,
             "data_step": scalar}
 
 
-def state_structs(*args, **kwargs):
-    raise not_ported("state_structs (the sharded dry-run state)", "A13g")
+def state_structs(cfg: ModelConfig, rules, tc: "TrainConfig" = None) -> dict:
+    """``params.Struct`` stand-ins of ``init_train_state``'s tree (fp32
+    master parameters and moments, int32 step scalars) in the layout of
+    :func:`state_shardings`: the dry run's training state (no
+    allocation)."""
+    defs = get_model(cfg).param_defs(cfg)
+    shard = state_shardings(cfg, rules, tc)
+
+    def params(sh):
+        return tree_from_items(
+            (path, Struct(tuple(d.shape), torch.float32, leaf_at(sh, path)))
+            for path, d in tree_items(defs))
+
+    def scalar(sh):
+        return Struct((), torch.int32, sh)
+    return {"params": params(shard["params"]),
+            "opt": {"m": params(shard["opt"]["m"]),
+                    "v": params(shard["opt"]["v"]),
+                    "step": scalar(shard["opt"]["step"])},
+            "data_step": scalar(shard["data_step"])}
 
 
 class _ComputeCast(torch.autograd.Function):

@@ -19,9 +19,11 @@ at the same mesh (spawned processes), in float32:
   ``decode_attention`` op with its log-sum-exp; the hybrid family's SSM
   states split over ``ssm_heads`` and conv windows over their last axis;
   the xLSTM family's states over ``heads`` (mLSTM and sLSTM), through the
-  ``rmsnorm`` op; the enc-dec family's cross cache over its frames
-  (``kv_seq``: the ranks' partial softmaxes combined) with both kernels'
-  ops, and over its KV heads where 9 frames do not divide;
+  ``rmsnorm`` op, and with one head, which divides no axis (every rank
+  runs every head; its forward and two training steps too); the enc-dec
+  family's cross cache over its frames (``kv_seq``: the ranks' partial
+  softmaxes combined) with both kernels' ops, and over its KV heads
+  where 9 frames do not divide;
 * three ``jit_train_step`` steps: ZeRO-1 with microbatch 2, no ZeRO-1
   with fsdp and the ``gspmd`` dispatch, ZeRO-1 with ``grad_compress``,
   ZeRO-1 with the vocabulary of 255, the hybrid family, the enc-dec
@@ -36,7 +38,19 @@ at the same mesh (spawned processes), in float32:
 * a checkpoint JAX saved on its 4 devices restores on 2 port ranks
   (each its block, equal to the saved arrays), and one the 4 port ranks
   saved restores in JAX onto its mesh, within the leaf tolerance of
-  JAX's own state.
+  JAX's own state;
+* serving under fsdp with every weight ZeRO-extended over ``data`` (the
+  dry run's layout of large models, ``launch.dryrun.
+  serve_param_structs``), gathered where it is used: prefill and decode
+  logits equal, bit for bit, to fsdp serving in the compute layout, and
+  within 2e-5 of the largest of the case's without fsdp
+  (``FSDP_SERVE``);
+* the dry trace against the real collectives: a (1, 2) serving case on
+  ranks 0 and 1 (its prefill and one decode step) and a (2, 2) ZeRO-1
+  training step (``DRY_SERVE``, ``DRY_TRAIN``), each traced at the same
+  rank on a dry mesh (``launch.mesh.make_dry_mesh``): the recorded calls
+  and operand bytes equal the ``Collectives.calls``/``bytes`` the gloo
+  ranks counted.
 
 Invoked by ``test_torch_sharding.py``; prints 'OK' on success.  JAX is
 imported in the parent process only, which writes the weights and
@@ -71,6 +85,8 @@ FORWARD = {
     "moe_vocab_fallback": ("granite-moe-3b-a800m", {"vocab_size": 255}),
     "hybrid": ("zamba2-7b", {}),
     "xlstm": ("xlstm-125m", {}),
+    # one head, which divides no ``model`` axis: every rank runs it
+    "xlstm_heads_whole": ("xlstm-125m", {"n_heads": 1}),
     "encdec": ("seamless-m4t-large-v2", {}),
 }
 #: name -> (arch, config changes, batch)
@@ -80,6 +96,7 @@ SERVE = {
     "moe_long_seq": ("granite-moe-3b-a800m", {"attn_impl": "pallas"}, 1),
     "hybrid_decode": ("zamba2-7b", {"attn_impl": "pallas"}, B),
     "xlstm_decode": ("xlstm-125m", {"use_pallas": True}, B),
+    "xlstm_heads_whole_decode": ("xlstm-125m", {"n_heads": 1}, B),
     "encdec_decode": ("seamless-m4t-large-v2", {"attn_impl": "pallas",
                                                 "use_pallas": True}, B),
     "encdec_odd_frames": ("seamless-m4t-large-v2", {}, B),
@@ -100,6 +117,8 @@ TRAIN = {
                            {"zero1": True}),
     "hybrid_zero1": ("zamba2-7b", {}, {"zero1": True}),
     "xlstm_zero1": ("xlstm-125m", {}, {"zero1": True}),
+    "xlstm_heads_whole_zero1": ("xlstm-125m", {"n_heads": 1},
+                                {"zero1": True}),
     "encdec_zero1": ("seamless-m4t-large-v2", {}, {"zero1": True}),
 }
 #: the forward cases whose blocks are compared
@@ -120,7 +139,8 @@ NOISE_LEAVES = ("params/layers/slstm/b_i",)
 #: the enc-dec family's likewise: its third step's gradients part by
 #: 1.6e-3 in norm after two updates at noise-level gradients (2.5e-5 and
 #: 7.8e-5 at the first two)
-CASE_STEPS = {"xlstm_zero1": 2, "encdec_zero1": 2}
+CASE_STEPS = {"xlstm_zero1": 2, "xlstm_heads_whole_zero1": 2,
+              "encdec_zero1": 2}
 #: cases held to wider limits, the enc-dec family's: four layers of
 #: float32 leave ~2e-5 of the row's max in its logits in either package
 #: (``tests/test_torch_encdec.py``'s MODEL_TOL: logits 1e-4), and its
@@ -132,6 +152,12 @@ CASE_TOL = {"encdec": {"logits": 1e-4}, "encdec_decode": {"logits": 1e-4},
             "encdec_zero1": {"moments": 3e-3}}
 TC = dict(total_steps=10, warmup_steps=1)
 CKPT_CASE = "moe_zero1_microbatch"
+#: serve cases also run with fsdp and ZeRO-extended weights: qwen3's 2
+#: layers split over ``data`` (a layer gathered from its owner), zamba2's
+#: group stack split and its tail's columns (a layer's block gathered)
+FSDP_SERVE = ("dense_decode", "hybrid_decode")
+#: the serve case traced dry at (1, 2) and the train case at (2, 2)
+DRY_SERVE, DRY_TRAIN = "dense_decode", "moe_zero1_microbatch"
 
 
 def _cfg(configs, arch, kw):
@@ -397,15 +423,92 @@ def collectives(mesh, rank):
     return out
 
 
+def _dry_counts(art):
+    """(calls, operand bytes) of a dry trace's recorded collectives."""
+    return len(art.profile.collectives), sum(
+        c.operand_bytes for c in art.profile.collectives)
+
+
+def dry_serve(rank, pair, init):
+    """``DRY_SERVE`` at (1, 2) on ranks 0 and 1: the prefill and one
+    decode step over gloo, then each traced at this rank on a dry (1, 2)
+    mesh; calls and bytes equal."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.analysis.ops import trace
+    from repro_torch.core.collectives import Collectives
+    from repro_torch.launch.mesh import make_dry_mesh, make_mesh
+    from repro_torch.models.api import get_model
+    from repro_torch.models.params import from_jax_params, struct_locals
+    from repro_torch.sharding import MeshRules
+    arch, kw, b = SERVE[DRY_SERVE]
+    cfg = _cfg(configs, arch, kw)
+    model = get_model(cfg)
+    rules = MeshRules(make_mesh((1, 2), NAMES, device="cpu", group=pair))
+    params = from_jax_params(init, "cpu",
+                             shardings=model.shardings(cfg, rules))
+    toks = _tokens(cfg.vocab_size, b, S, seed=2)
+    Collectives.reset_counts()
+    cache, logits = model.prefill(cfg, params, {"tokens": toks}, MAX_LEN,
+                                  rules)
+    real = [(Collectives.calls, Collectives.bytes)]
+    Collectives.reset_counts()
+    model.decode_step(cfg, params, cache, torch.argmax(logits, -1), rules)
+    real.append((Collectives.calls, Collectives.bytes))
+    drules = MeshRules(make_dry_mesh((1, 2), NAMES, rank))
+    dparams = struct_locals(model.structs(cfg, drules))
+    dry = [_dry_counts(trace(
+        lambda p, t: model.prefill(cfg, p, {"tokens": t}, MAX_LEN, drules),
+        dparams, torch.empty((b, S), dtype=torch.int64, device="meta"))),
+        _dry_counts(trace(
+            lambda p, c, t: model.decode_step(cfg, p, c, t, drules),
+            dparams, struct_locals(model.cache_structs(
+                cfg, b, MAX_LEN, drules, dtype=torch.float32)),
+            torch.empty((b,), dtype=torch.int64, device="meta")))]
+    if dry != real or not all(c for c, _ in real):
+        raise AssertionError(f"{DRY_SERVE} at (1, 2): dry (calls, bytes) "
+                             f"{dry}, gloo {real}")
+    return (f"{DRY_SERVE} at (1, 2): the dry trace's prefill and decode "
+            f"collectives {dry} equal the gloo ranks' (calls, bytes)")
+
+
+def dry_train(rank, cfg, tc, batch, real):
+    """``DRY_TRAIN``'s first step traced at this rank on a dry (2, 2)
+    mesh; its recorded calls and bytes equal the gloo step's
+    (``real``)."""
+    import torch
+    from repro_torch.analysis.ops import trace
+    from repro_torch.launch.mesh import make_dry_mesh
+    from repro_torch.models.params import ParamTree, struct_locals
+    from repro_torch.sharding import MeshRules
+    from repro_torch.train import step as TS
+    rules = MeshRules(make_dry_mesh(SHAPE, NAMES, rank), fsdp=cfg.fsdp)
+    state = struct_locals(TS.state_structs(cfg, rules, tc))
+    state["params"] = ParamTree.from_tensors(state["params"],
+                                             requires_grad=True)
+    dbatch = {k: torch.empty(v.shape, dtype=torch.int64, device="meta")
+              for k, v in batch.items()}
+    dry = _dry_counts(trace(TS.make_train_step(cfg, rules, tc), state,
+                            dbatch))
+    if dry != real or not real[0]:
+        raise AssertionError(f"{DRY_TRAIN} at (2, 2): dry (calls, bytes) "
+                             f"{dry}, gloo {real}")
+    return (f"{DRY_TRAIN} at (2, 2): the dry trace's step collectives "
+            f"{dry} equal the gloo rank's (calls, bytes)")
+
+
 def _rank(rank, tmp):
     import torch
     import torch.distributed as dist
     from repro_torch import configs
+    from repro_torch.core.collectives import Collectives
     from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import lm as L
     from repro_torch.models.api import get_model
-    from repro_torch.models.params import from_jax_params, tree_items
+    from repro_torch.models.params import (from_jax_params, tree_items,
+                                           tree_map)
     from repro_torch.sharding import MeshRules
     from repro_torch.train import step as TS
     from repro_torch.train.checkpoints import CheckpointManager
@@ -456,6 +559,40 @@ def _rank(rank, tmp):
             cache, logits = model.decode_step(cfg, params, cache, nxt, rules)
             steps.append((nxt, logits))
         got[f"serve/{name}"] = steps
+    for name in FSDP_SERVE:
+        arch, kw, b = SERVE[name]
+        cfg = _cfg(configs, arch, dict(kw, fsdp=True))
+        rules = MeshRules(mesh, fsdp=True)
+        model = get_model(cfg)
+        zero = tree_map(lambda s: s.sharding, dryrun.serve_param_structs(
+            cfg, model, rules))
+        toks = _tokens(cfg.vocab_size, b, S, seed=2)
+        runs = []
+        for sh in (zero, model.shardings(cfg, rules)):
+            params = from_jax_params(tree(f"serve/{name}"), "cpu",
+                                     shardings=sh)
+            cache, logits = L.prefill(cfg, params, toks, MAX_LEN,
+                                      rules=rules)
+            steps = [logits]
+            for nxt, _ in got[f"serve/{name}"][1:]:
+                cache, logits = model.decode_step(cfg, params, cache, nxt,
+                                                  rules)
+                steps.append(logits)
+            runs.append(steps)
+        worst = 0.0
+        for i, (zl, cl, (_, pl)) in enumerate(zip(*runs,
+                                                  got[f"serve/{name}"])):
+            if not torch.equal(zl, cl):
+                raise AssertionError(f"{name} fsdp: logits {i} of the "
+                                     "ZeRO-extended weights differ from "
+                                     "the compute layout's")
+            worst = max(worst, close(zl.numpy(), pl.numpy(), TOL,
+                                     f"{name} fsdp logits {i}"))
+        report.append(f"{name} fsdp, ZeRO-extended weights: prefill and "
+                      f"{NEW} decode steps bit-equal to fsdp's compute "
+                      f"layout, within {worst:.2e} without fsdp")
+    if rank < 2:
+        report.append(dry_serve(rank, pair, tree(f"serve/{DRY_SERVE}")))
     states = {}
     for name, (arch, kw, tkw) in TRAIN.items():
         cfg = _cfg(configs, arch, kw)
@@ -471,8 +608,13 @@ def _rank(rank, tmp):
         pipe = TokenPipeline(cfg, B, S, seed=0)
         rows = []
         for i in range(CASE_STEPS.get(name, STEPS)):
+            Collectives.reset_counts()
             state, m = step(state, {k: torch.from_numpy(v) for k, v in
                                     pipe.batch_at(i).items()})
+            if i == 0 and name == DRY_TRAIN:
+                real = (Collectives.calls, Collectives.bytes)
+                report.append(dry_train(rank, cfg, tc, pipe.batch_at(0),
+                                        real))
             rows.append({k: float(v) for k, v in m.items()})
         sh = dict(tree_items(shard))
         gathered = {path: sh[path].gather(leaf.detach())

@@ -414,8 +414,17 @@ def test_mesh_and_collectives():
     assert Collectives(wide, ("data", "model")).size == 4
     miner = DistributedMiner((4, 4, 4), mesh)
     assert miner.device == torch.device("cpu") and miner.n_shards == 1
-    with pytest.raises(NotImplementedError, match="A13g"):
-        miner.lowered(np.zeros((4, 3), np.int32))
+    # the dry trace of one attempt of the shard body (ROADMAP A13g): the
+    # mining kernels' meta functions, as many calls as a card run
+    # launches (a segment sweep a mode, a histogram a mode and one for
+    # Stage 3, 8 + 3 fused passes), and this rank's block, values and
+    # hash lanes as its arguments
+    art = miner.lowered(np.zeros((4, 3), np.int32))
+    assert art.profile.kernel_calls() == {"segment_reduce": 3,
+                                          "radix_histogram": 4,
+                                          "radix_rank": 11}
+    assert art.argument_bytes == 4 * 3 * 4 + 4 * 4 + 2 * 3 * 4 * 4
+    assert art.peak_bytes >= art.argument_bytes and art.output_bytes > 0
     with pytest.raises(ValueError, match="needs a mesh"):
         make_miner((4, 4, 4), backend="distributed", device="cpu")
     got = make_miner((4, 4, 4), backend="distributed", mesh=mesh, delta=1.0,

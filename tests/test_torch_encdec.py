@@ -42,12 +42,16 @@ from repro import configs as jcfg
 from repro.models import encdec as JE
 from repro.models.api import get_model as jax_get_model
 from repro.models.params import count_params
+from repro.launch.mesh import make_mesh as jax_make_mesh
+from repro.sharding.rules import MeshRules as JaxMeshRules
 
 from repro_torch import configs as tcfg
 from repro_torch.kernels import ops
 from repro_torch.models import encdec as E
 from repro_torch.models import lm as L
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models.api import get_model
+from repro_torch.sharding import MeshRules
 from repro_torch.models.params import from_jax_params, tree_items
 from repro_torch.serve import ServeEngine
 
@@ -189,8 +193,22 @@ def test_init_cache_matches_the_jax_package(batch, dtype):
             jcache[k].dtype))), k
         np.testing.assert_array_equal(_np(cache[k]), np.asarray(
             jcache[k], np.float32), err_msg=k)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13g"):
-        get_model(tc).cache_structs(tc, batch, 40, None)
+    # the dry run's stand-ins (ROADMAP A13g) equal JAX's leaf for leaf
+    # (shape, dtype, PartitionSpec) on a (1, 1) mesh; ``pos`` is a real
+    # CPU scalar one short of full, which the decode step reads
+    mesh = jax_make_mesh((1, 1), ("data", "model"))
+    js = JE.cache_structs(jc, batch, 40, JaxMeshRules(mesh), **kw)
+    ts = get_model(tc).cache_structs(
+        tc, batch, 40, MeshRules(make_local_mesh(device="cpu")),
+        **({} if dtype == "bfloat16" else {"dtype": torch.float32}))
+    assert sorted(js) == sorted(ts)
+    for k in js:
+        j, t = js[k], ts[k]
+        assert t.shape == tuple(j.shape), k
+        assert str(t.dtype)[6:] == str(np.dtype(j.dtype)), k
+        assert tuple(t.sharding.spec) == tuple(
+            e for e in j.sharding.spec), k
+    assert int(ts["pos"].local()) == 39 and ts["k"].local().is_meta
 
 
 # ---------------------------------------------------------------------------

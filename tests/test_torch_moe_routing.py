@@ -37,12 +37,14 @@ from repro_torch.models import common as C
 from repro_torch.models import lm as L
 from repro_torch.models import telemetry as T
 from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.analysis.ops import trace
 from repro_torch.models.api import get_model, input_specs
 from repro_torch.models.layout import layout
 from repro_torch.sharding import MeshRules
 from repro_torch.models.params import (ParamDef, count_params,
                                        from_jax_params, init_params,
-                                       layer_slice)
+                                       layer_slice, struct_locals,
+                                       tree_items)
 
 from _torch_parity import assert_results_identical
 
@@ -336,11 +338,34 @@ def test_unported_entry_points_name_their_roadmap_item():
     nxt = torch.argmax(want[1], -1)
     assert torch.equal(model.decode_step(tc, params, got[0], nxt, rules)[1],
                        model.decode_step(tc, params, want[0], nxt)[1])
-    # the dry-run's sharded stand-ins wait for A13g
-    for fn in (lambda: model.structs(tc, rules), model.cache_structs,
-               input_specs):
-        with pytest.raises(NotImplementedError, match="ROADMAP A13g"):
-            fn()
+    # the dry run's stand-ins (ROADMAP A13g): shapes and dtypes of the
+    # parameters, cache and inputs, this rank's blocks on ``meta``
+    structs = model.structs(tc, rules)
+    for (path, s), (_, p) in zip(tree_items(structs), tree_items(params)):
+        assert s.local().shape == p.shape and s.local().is_meta, path
+    cache = model.cache_structs(tc, 2, 12, rules)
+    assert cache["k"].shape == tuple(got[0]["k"].shape)
+    assert int(cache["pos"].local()) == 11
+    shape = base_config.ShapeConfig("p", "prefill", 8, 2)
+    assert input_specs(tc, shape, rules)["tokens"].shape == (2, 8)
+    # the MoE dispatch writes every route (no boolean mask): it traces on
+    # ``meta``, and its CPU output is bit-identical to the masked
+    # dispatch's on the smoke config
+    mc = tcfg.get_smoke_config("granite-moe-3b-a800m")
+    mm = get_model(mc)
+    art = trace(lambda p, b: mm.forward(mc, p, b), struct_locals(
+        mm.structs(mc)), {"tokens": torch.empty((2, 32), dtype=torch.int64,
+                                                device="meta")})
+    assert art.profile.tensor_flops > 0 and art.out[0].is_meta
+    mp = mm.init(mc, torch.Generator().manual_seed(0), device="cpu")
+    mb = TokenPipeline(mc, 2, 32, seed=0).batch_at(0)
+    static = mm.forward(mc, mp, mb)[0]
+    try:
+        C._dispatch_row, kept = _masked_dispatch_row, C._dispatch_row
+        masked = mm.forward(mc, mp, mb)[0]
+    finally:
+        C._dispatch_row = kept
+    assert torch.equal(static, masked)
     # the enc-dec family (ROADMAP A13f) is ported: models.encdec's Model
     from repro_torch.models import encdec as TE
     assert get_model(tcfg.get_smoke_config(
@@ -353,6 +378,25 @@ def test_unported_entry_points_name_their_roadmap_item():
         == 2_034_866_176
     with pytest.raises(ValueError, match="MoE"):
         T.collect_moe_routing(tc, None, np.zeros((1, 4), np.int32))
+
+
+def _masked_dispatch_row(x, eid, tok, n_experts: int, cap: int):
+    """The MoE dispatch before its static-shape form: only the routes
+    within capacity written, through a boolean mask."""
+    b, l = eid.shape
+    order = torch.sort(eid, dim=1, stable=True).indices
+    sorted_eid = torch.gather(eid, 1, order)
+    first = torch.searchsorted(sorted_eid, sorted_eid, side="left")
+    rank = (torch.arange(l)[None, :] - first)
+    ok = rank < cap
+    slot = torch.where(ok, sorted_eid * cap + rank,
+                       torch.full_like(rank, n_experts * cap))
+    rows = n_experts * cap + 1
+    flat = (torch.arange(b)[:, None] * rows + slot)
+    src = torch.gather(tok, 1, order)
+    buf = x.new_zeros((b * rows, x.shape[-1]))
+    buf[flat[ok]] = x[torch.arange(b)[:, None].expand(b, l)[ok], src[ok]]
+    return buf.view(b, rows, -1)[:, :-1], slot, order, ok
 
 
 @pytest.mark.parametrize("knob,value", [

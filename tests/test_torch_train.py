@@ -306,8 +306,8 @@ def test_adamw_update_and_cosine_lr_match_jax(grad_clip):
 def test_training_refuses_what_it_cannot_train():
     """Kernel switches (no backward in either package) and the families
     of A13d-f raise before the first step, naming why; a mesh is taken
-    (its layouts are the twins of the JAX package's), and only the
-    dry-run's sharded stand-ins wait for A13g."""
+    (its layouts are the twins of the JAX package's), and the dry run's
+    stand-ins of the state take its layout (A13g)."""
     tc = tcfg.get_smoke_config("qwen3-0.6b")
     for bad in (dataclasses.replace(tc, attn_impl="pallas"),
                 dataclasses.replace(tc, use_pallas=True)):
@@ -326,8 +326,12 @@ def test_training_refuses_what_it_cannot_train():
         "embed"].spec == ("model", "data")
     assert TO.zero1_spec(TPartitionSpec(None, "model"), (6, 4), rules) \
         == ("data", "model")
-    with pytest.raises(NotImplementedError, match="ROADMAP A13g"):
-        TS.state_structs(tc, rules)
+    # the dry run's stand-ins of the state (ROADMAP A13g): every leaf in
+    # its ZeRO-1 layout, this rank's block on ``meta``
+    structs = TS.state_structs(tc, rules)
+    assert structs["params"]["embed"].sharding.spec == ("model", "data")
+    assert structs["opt"]["m"]["embed"].local().is_meta
+    assert structs["opt"]["step"].dtype == torch.int32
     # the enc-dec family (A13f) is ported: its step builds, and its kernel
     # switches are refused as the others' are
     enc = tcfg.get_smoke_config("seamless-m4t-large-v2")
