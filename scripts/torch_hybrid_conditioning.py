@@ -1,16 +1,20 @@
 """How far two correct float32 evaluations of zamba2-7b (or xlstm-125m,
-or seamless-m4t-large-v2) lie apart at full width, by depth: the ground
-of ``chip_smoke.py`` phases 16b's, 17b's and 18b's fp32 gates.
+seamless-m4t-large-v2, h2o-danube-1.8b or mistral-nemo-12b) lie apart at
+full width, by depth: the ground of ``chip_smoke.py`` phases 16b's,
+17b's, 18b's and 20a/b's fp32 gates.
 
     python scripts/torch_hybrid_conditioning.py [--device cuda|cpu]
-        [--arch zamba2-7b|xlstm-125m|seamless-m4t-large-v2]
+        [--arch zamba2-7b|xlstm-125m|seamless-m4t-large-v2|
+                h2o-danube-1.8b|mistral-nemo-12b]
         [--depths 7,13,25,49,81] [--seq 512]
 
 For each depth (the first n layers' pattern: groups of 6 Mamba2 layers
 and the shared block, then the tail; for xlstm-125m groups of 3 mLSTM
 blocks and an sLSTM block, then the tail; for seamless-m4t-large-v2 n
 encoder and n decoder layers, the prompt's ``--seq`` frames encoded
-beside 16 tokens), the same seeded weights
+beside 16 tokens; for the dense archs the first n layers, and a prompt
+64 tokens longer than a sliding window by default, so that the window is
+in force), the same seeded weights
 (``Model.init``, seed 0) serve one prompt of ``--seq`` tokens
 (``TokenPipeline`` seed 0) through ``prefill`` three ways: float32 with
 the kernels (``attn_impl="pallas"``, ``use_pallas=True``; on the card
@@ -22,7 +26,8 @@ of the last position's logits over their largest |logit|, for kernels
 on against off, and for each float32 run against float64.  The weights
 of one precision at a time live on the device: at 81 layers 27 GB in
 float32, 54 GB in float64 (the card's 80 GB; on the CPU ~60 GB of host
-memory, so take smaller depths there).
+memory, so take smaller depths there); mistral-nemo-12b's 40 layers take
+98 GB in float64, so its depths stop at 16 (48 GB).
 """
 from __future__ import annotations
 
@@ -57,11 +62,16 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--arch", default="zamba2-7b",
                     choices=["zamba2-7b", "xlstm-125m",
-                             "seamless-m4t-large-v2"])
+                             "seamless-m4t-large-v2", "h2o-danube-1.8b",
+                             "mistral-nemo-12b"])
     ap.add_argument("--depths", default=None,
                     help="default: 7,13,25,49,81 (zamba2-7b), 4,8,12 "
-                         "(xlstm-125m), 2,4,8,16,24 (seamless-m4t-large-v2)")
-    ap.add_argument("--seq", type=int, default=512)
+                         "(xlstm-125m), 2,4,8,16 (mistral-nemo-12b), "
+                         "2,4,8,16,24 (seamless-m4t-large-v2, "
+                         "h2o-danube-1.8b)")
+    ap.add_argument("--seq", type=int, default=None,
+                    help="default: 512, or the window + 64 where a dense "
+                         "arch has one")
     args = ap.parse_args(argv)
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import TokenPipeline
@@ -73,8 +83,12 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     base = get_config(args.arch)
     depths = args.depths or {"zamba2-7b": "7,13,25,49,81",
-                             "xlstm-125m": "4,8,12"}.get(args.arch,
-                                                         "2,4,8,16,24")
+                             "xlstm-125m": "4,8,12",
+                             "mistral-nemo-12b": "2,4,8,16"}.get(
+                                 args.arch, "2,4,8,16,24")
+    if args.seq is None:
+        args.seq = (base.window + 64 if base.family == "dense"
+                    and base.window else 512)
     encdec = base.family == "encdec"
     inputs = TokenPipeline(base, 1, args.seq, seed=0).batch_at(0)
     inputs = ({"tokens": inputs["tokens"][:, :16], "frames": inputs["frames"]}

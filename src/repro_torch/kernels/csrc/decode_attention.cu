@@ -51,13 +51,14 @@
 // writes the fp32 log-sum-exp of the scaled scores, m + log l (the
 // combine: m* + log sum_s e^(m_s - m*) l_s), (B, Hq): the state ranks
 // that each hold a block of a ring's slots combine their outputs with.
-// Any D that is a multiple of 8 runs (the wrapper takes 16, 32, 64, 80,
-// 112 and 128): a K/V row is D / 8 (bf16) or D / 4 (fp32) 16-byte chunks
-// at a stride of D + 16 bytes, and the scores read q and K in 16-byte
-// steps; nothing is a power of two.  At Zamba2's MHA decode (G = 1, D
-// 112) a block holds one query head; 2-4 ring stages take 63-124 KB in
-// bf16, and in fp32 2-3 take 120-179 KB (four would pass the 227 KB a
-// block may use, so the launch steps down to three).
+// Any D that is a multiple of 8 runs (the wrapper takes each one up to
+// 128 and zero-pads any other D <= 128 to the next): a K/V row is D / 8
+// (bf16) or D / 4 (fp32) 16-byte chunks at a stride of D + 16 bytes, and
+// the scores read q and K in 16-byte steps; nothing is a power of two.
+// At Zamba2's MHA decode (G = 1, D 112) a block holds one query head;
+// 2-4 ring stages take 63-124 KB in bf16, and in fp32 2-3 take 120-179 KB
+// (four would pass the 227 KB a block may use, so the launch steps down
+// to three).
 // Measured by chip_smoke.py on one H100 80GB HBM3 at 700 W at granite-
 // moe's decode: 0.0224 ms with the cache in L2, 0.0246 ms with it out of
 // L2 (PyTorch's SDPA 0.0110 / 0.0147 ms), five times the bytes' bound.

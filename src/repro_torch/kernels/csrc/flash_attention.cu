@@ -62,18 +62,22 @@
 // as fp32 (stride D + 1 for Q and K); the probability tile P goes through
 // shared memory between the two products.
 //
-// Head dims 16, 32, 64, 112 (Zamba2's) and 128.  Nothing in either design
-// needs a power of two: bf16 takes D / 16 k-steps of Q K^T (7 at D 112),
-// each one ldmatrix.x4 of Q and one of K per pair of 8-key column tiles,
-// and D / 16 ldmatrix.x4.trans of V per 16 keys, each feeding two 8-column
-// tiles of O (14 at D 112); rows of D / 8 16-byte chunks at a stride of
-// D + 8 elements (240 bytes at D 112: the 8 rows of an ldmatrix start on
-// distinct 16-byte bank groups).  fp32 takes D / 16 output columns a
-// thread (7 at D 112).
+// Head dims: every multiple of 16 up to 128 (16, 32, 48, 64, 80, 96, 112,
+// 128); the wrapper zero-pads any other D <= 128 to the next of them.
+// Nothing in either design needs a power of two: bf16 takes D / 16 k-steps
+// of Q K^T (5 at D 80, 7 at D 112), each one ldmatrix.x4 of Q and one of K
+// per pair of 8-key column tiles, and D / 16 ldmatrix.x4.trans of V per 16
+// keys, each feeding two 8-column tiles of O (10 at D 80); rows of D / 8
+// 16-byte chunks at a stride of D + 8 elements, 2 D + 16 bytes: D / 8 + 1
+// 16-byte groups, odd at every such D (7 at D 48, 11 at D 80, 13 at D 96;
+// 3 to 17 from D 16 to 128), so the 8 rows of an ldmatrix, an odd number
+// of groups apart modulo the 8 groups of a 128-byte bank line, start on 8
+// distinct groups.  fp32 takes D / 16 output columns a thread (5 at D 80).
 //
 // Statistics and accumulators are fp32 in both; the output is rounded to
-// the input type once.  Shared memory: bf16 46-87 KB, fp32 29-115 KB by
-// head dim, so the launch raises the block's limit first.
+// the input type once.  Shared memory: bf16 640 (D + 8) bytes, 15-87 KB
+// (56 KB at D 80); fp32 256 (3 D + 67) bytes, 29-115 KB (79 KB at D 80);
+// so the launch raises the block's limit first.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -571,7 +575,10 @@ cudaError_t launch_dim(const Args& a, int batch, int d, cudaStream_t s) {
   switch (d) {
     case 16: return launch<16, IS_BF16>(a, batch, s);
     case 32: return launch<32, IS_BF16>(a, batch, s);
+    case 48: return launch<48, IS_BF16>(a, batch, s);
     case 64: return launch<64, IS_BF16>(a, batch, s);
+    case 80: return launch<80, IS_BF16>(a, batch, s);
+    case 96: return launch<96, IS_BF16>(a, batch, s);
     case 112: return launch<112, IS_BF16>(a, batch, s);
     case 128: return launch<128, IS_BF16>(a, batch, s);
     default: return cudaErrorInvalidValue;
@@ -584,8 +591,8 @@ extern "C" {
 
 // q: (batch, hq, sq, d); k, v: (batch, hkv, skv, d); o like q; all
 // contiguous, fp32 (is_bf16 = 0) or bf16 (is_bf16 = 1, and every pointer
-// on 16 bytes); d in {16, 32, 64, 112, 128}; hq a multiple of hkv; ceil(sq /
-// 64) < 65536.  window is read only when has_window.  Launches on
+// on 16 bytes); d a multiple of 16 up to 128; hq a multiple of hkv;
+// ceil(sq / 64) < 65536.  window is read only when has_window.  Launches on
 // `stream` and returns cudaGetLastError() (0 when taken).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int batch, int hq, int hkv, int sq,

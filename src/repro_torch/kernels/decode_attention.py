@@ -10,8 +10,14 @@ The query sits at position ``kv_len - 1``: it attends to the keys
 picks between them.  This wrapper takes CUDA tensors in fp32 or bf16: a
 contiguous q, and k and v with the same strides and a unit stride on D,
 read where they lie (a permuted view of a (B, S, Hkv, D) ring cache needs
-no copy).  Head dims: those of the flash kernel, and 80.  There is no
-backward kernel, so it refuses inputs that require a gradient.
+no copy).  Head dims: any from 1 to 128, as the Pallas kernel takes.  The
+kernel runs every multiple of 8 (:data:`HEAD_DIMS`); any other D is
+zero-padded to the next multiple of 8 (``flash_attention.pad_head_dim``:
+a fresh copy of q and of the keys and values up to ``kv_len``) and the
+output sliced back, exactly, with the original D's scale.  Above 128 the
+call is refused, here and in :func:`meta` alike (:func:`check_shapes`).
+There is no backward kernel, so it refuses inputs that require a
+gradient.
 
 The kernel splits the key range (flash-decoding): :func:`split_plan`
 cuts ``[lo, kv_len)`` into ranges of whole 64-key tiles so that the
@@ -37,11 +43,12 @@ import torch
 
 from ..device import record_kernel, sm_count
 from . import build
-from .flash_attention import HEAD_DIMS as _FLASH_HEAD_DIMS
+from .flash_attention import MAX_HEAD_DIM, pad_head_dim, padded_dim
 
 _NAME = "decode_attention"
-#: Head dims the wrapper takes.
-HEAD_DIMS = tuple(sorted(_FLASH_HEAD_DIMS + (80,)))
+#: Head dims the kernel runs as they are: every multiple of 8 up to
+#: :data:`MAX_HEAD_DIM`.
+HEAD_DIMS = tuple(range(8, MAX_HEAD_DIM + 1, 8))
 #: Shared memory a block may use on Hopper.
 MAX_SMEM_BYTES = 232_448
 #: Keys per tile of the kernel; a split takes whole tiles.
@@ -90,8 +97,13 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           kv_len: int, window: Optional[int], lse: bool = False) -> None:
+def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 kv_len: int, window: Optional[int],
+                 lse: bool = False) -> None:
+    """The rules on the operands' dtypes, shapes, key strides and
+    gradients, ``kv_len`` and ``window`` that the card refuses a call by;
+    :func:`meta` applies them too, so a dry trace refuses what the card
+    refuses."""
     if any(x.requires_grad for x in (q, k, v)):
         raise ValueError("decode_attention: there is no backward kernel; "
                          "call it on tensors that do not require a gradient "
@@ -115,21 +127,26 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if hkv == 0 or hq % hkv != 0:
         raise ValueError(f"decode_attention: Hq={hq} is not a multiple of "
                          f"Hkv={hkv}")
-    if d not in HEAD_DIMS:
+    if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"decode_attention: head dim {d} not supported "
-                         f"(one of {HEAD_DIMS})")
+                         f"(1 to {MAX_HEAD_DIM})")
     if not (0 if lse else 1) <= kv_len <= s:
         raise ValueError(f"decode_attention: kv_len={kv_len} outside "
                          f"[{0 if lse else 1}, S={s}] (0 only with "
                          "return_lse)")
     if window is not None and window < 1:
         raise ValueError(f"decode_attention: window={window} must be >= 1")
-    if not q.is_contiguous():
-        raise ValueError("decode_attention: q must be contiguous")
     if k.stride() != v.stride() or k.stride(3) != 1:
         raise ValueError(f"decode_attention: k and v need the same strides "
                          f"and a unit stride on D, got {k.stride()} and "
                          f"{v.stride()}")
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           kv_len: int, window: Optional[int], lse: bool = False) -> None:
+    check_shapes(q, k, v, kv_len, window, lse)
+    if not q.is_contiguous():
+        raise ValueError("decode_attention: q must be contiguous")
     if not q.is_cuda:
         raise ValueError("decode_attention: the CUDA kernel needs CUDA "
                          f"tensors, got {q.device}")
@@ -153,14 +170,25 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      scale: Optional[float] = None,
                      return_lse: bool = False):
     """Decode attention computed on the card; ``kv_len`` defaults to S and
-    ``scale`` to D**-0.5.  ``return_lse``: (o, lse (B, Hq) fp32)."""
+    ``scale`` to D**-0.5.  ``return_lse``: (o, lse (B, Hq) fp32).  A head
+    dim that is not a multiple of 8 runs zero-padded to the next."""
     if kv_len is None:
         kv_len = k.shape[2] if k.dim() == 4 else 0
     _check(q, k, v, kv_len, window, return_lse)
-    b, hq, d = q.shape
-    hkv, s = k.shape[1], k.shape[2]
     if scale is None:
-        scale = d ** -0.5
+        scale = q.shape[2] ** -0.5
+    d = q.shape[2]
+    dp = padded_dim(d, HEAD_DIMS)
+    if dp != d:
+        q, k, v = (pad_head_dim(x, dp) for x in (q, k[:, :, :kv_len],
+                                                 v[:, :, :kv_len]))
+        out = decode_attention(q, k, v, window=window, kv_len=kv_len,
+                               scale=scale, return_lse=return_lse)
+        if return_lse:
+            return out[0][..., :d].contiguous(), out[1]
+        return out[..., :d].contiguous()
+    b, hq, _ = q.shape
+    hkv, s = k.shape[1], k.shape[2]
     lib = _lib()
     smem = lib.decode_attention_smem_bytes(hq // hkv, d, _DTYPES[q.dtype])
     if smem > MAX_SMEM_BYTES:
@@ -204,7 +232,9 @@ def work(b: int, hq: int, hkv: int, kv_len: int, d: int, elt: int,
          window: Optional[int] = None, return_lse: bool = False) -> tuple:
     """(bytes, tensor-core operations) of one call: the keys and values
     in its range read once, q read and o (and the fp32 log-sum-exp)
-    written once, two products of 2·D operations a key and query head."""
+    written once, two products of 2·D operations a key and query head, at
+    the head dim the kernel runs (a padded D where the call pads)."""
+    d = padded_dim(d, HEAD_DIMS)
     keys = min(kv_len, window) if window else kv_len
     nbytes = (2 * elt * b * hkv * keys * d + 2 * elt * b * hq * d
               + (4 * b * hq if return_lse else 0))
@@ -215,9 +245,11 @@ def meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
          window: Optional[int] = None, kv_len: Optional[int] = None,
          scale: Optional[float] = None, return_lse: bool = False):
     """The dry trace's :func:`decode_attention`: its outputs on ``meta``,
-    one recorded call (none at ``kv_len`` 0, as on the card)."""
+    one recorded call (none at ``kv_len`` 0, as on the card); it refuses
+    what the card refuses (:func:`check_shapes`)."""
     if kv_len is None:
         kv_len = k.shape[2] if k.dim() == 4 else 0
+    check_shapes(q, k, v, int(kv_len), window, return_lse)
     b, hq, d = q.shape
     out = torch.empty_like(q)
     lse = (torch.empty((b, hq), dtype=torch.float32, device=q.device)

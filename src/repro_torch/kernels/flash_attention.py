@@ -6,8 +6,15 @@ sliding-window GQA flash attention, forward only.
 The port of ``repro.kernels.flash_attention``; the plain version is
 ``kernels.ref.flash_attention_ref`` and ``kernels.ops.flash_attention``
 picks between them.  This wrapper takes contiguous CUDA tensors in fp32 or
-bf16 with a head dim of 16, 32, 64, 112 (Zamba2's) or 128.  There is no backward kernel,
-so it refuses inputs that require a gradient.
+bf16 with any head dim from 1 to 128, as the Pallas kernel does.  The
+kernel is instantiated for every multiple of 16 up to 128
+(:data:`HEAD_DIMS`); any other D is zero-padded to the next of them
+(:func:`padded_dim`, :func:`pad_head_dim`) and the output sliced back.
+The padding is exact in both dtypes: the zero columns add exact zeros to
+every score and appear only in the output columns that are cut, and the
+scale stays the original D's ``D**-0.5``.  Above 128 the call is refused,
+here and in :func:`meta` alike (:func:`check_shapes`).  There is no
+backward kernel, so it refuses inputs that require a gradient.
 
 The source holds one kernel for each dtype, and the dtype picks it: bf16
 runs on the tensor cores (``mma.sync``, bf16 products with fp32 sums, P
@@ -22,13 +29,17 @@ import ctypes
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..device import record_kernel
 from . import build
 
 _NAME = "flash_attention"
-#: Head dims the kernel is instantiated for.
-HEAD_DIMS = (16, 32, 64, 112, 128)
+#: Head dims the kernel is instantiated for: every multiple of 16 up to
+#: :data:`MAX_HEAD_DIM`.
+HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
+#: The largest head dim the attention kernels take.
+MAX_HEAD_DIM = 128
 #: Query rows a block of either kernel takes.
 QUERY_TILE = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -47,7 +58,22 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def padded_dim(d: int, dims=HEAD_DIMS) -> int:
+    """The head dim a call at head dim ``d`` (1 <= d <= 128) runs at: the
+    least of ``dims`` at or above it."""
+    return min(x for x in dims if x >= d)
+
+
+def pad_head_dim(x: torch.Tensor, d: int) -> torch.Tensor:
+    """``x`` with zero columns appended to its last axis up to ``d`` (a
+    fresh contiguous tensor), or ``x`` itself when it has ``d``."""
+    return x if x.shape[-1] == d else F.pad(x, (0, d - x.shape[-1]))
+
+
+def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """The rules on the operands' dtypes, shapes and gradients that the
+    card refuses a call by; :func:`meta` applies them too, so a dry trace
+    refuses what the card refuses."""
     if any(x.requires_grad for x in (q, k, v)):
         raise ValueError("flash_attention: there is no backward kernel; "
                          "call it on tensors that do not require a gradient "
@@ -70,20 +96,26 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if k.shape[1] == 0 or hq % k.shape[1] != 0:
         raise ValueError(f"flash_attention: Hq={hq} is not a multiple of "
                          f"Hkv={k.shape[1]}")
-    if d not in HEAD_DIMS:
+    if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head dim {d} not supported "
-                         f"(one of {HEAD_DIMS})")
+                         f"(1 to {MAX_HEAD_DIM})")
     if k.shape[2] == 0:
         raise ValueError("flash_attention: no keys (Skv = 0)")
     if -(-q.shape[2] // QUERY_TILE) >= 2**16:
         raise ValueError(f"flash_attention: Sq={q.shape[2]} exceeds the "
                          "grid")
+    dp = padded_dim(d)
+    for x, what in ((q, "q"), (k, "k"), (v, "v")):
+        if x.numel() // d * dp >= 2**31:
+            raise ValueError(f"flash_attention: {what} exceeds the int32 "
+                             "index")
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    check_shapes(q, k, v)
     for x, what in ((q, "q"), (k, "k"), (v, "v")):
         if not x.is_contiguous():
             raise ValueError(f"flash_attention: {what} must be contiguous")
-        if x.numel() >= 2**31:
-            raise ValueError(f"flash_attention: {what} exceeds the int32 "
-                             "index")
     if not q.is_cuda:
         raise ValueError("flash_attention: the CUDA kernel needs CUDA "
                          f"tensors, got {q.device}")
@@ -98,7 +130,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_offset: Optional[int] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Attention computed on the card; ``q_offset`` (the key position of
-    q row 0) defaults to Skv - Sq and ``scale`` to D**-0.5."""
+    q row 0) defaults to Skv - Sq and ``scale`` to D**-0.5.  A head dim
+    that is not one of :data:`HEAD_DIMS` runs zero-padded to the next."""
     _check(q, k, v)
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -106,6 +139,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q_offset = skv - sq
     if scale is None:
         scale = d ** -0.5
+    dp = padded_dim(d)
+    q, k, v = (pad_head_dim(x, dp) for x in (q, k, v))
     if q.dtype == torch.bfloat16:
         # the bf16 kernel copies 16-byte chunks: a view that starts off a
         # 16-byte boundary is copied to a fresh (aligned) allocation
@@ -119,12 +154,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
-            hkv, sq, skv, d, _DTYPES[q.dtype], int(bool(causal)),
+            hkv, sq, skv, dp, _DTYPES[q.dtype], int(bool(causal)),
             int(window is not None), int(window or 0), int(q_offset),
             float(scale), stream)
     build.check(lib, _NAME, err)
     flash_attention.launches += 1
-    return out
+    return out if dp == d else out[..., :d].contiguous()
 
 
 #: Launches of the kernel since the last reset (``kernels.ops``).
@@ -151,8 +186,10 @@ def work(q_shape, kv_shape, elt: int, causal: bool = True,
          q_offset: Optional[int] = None) -> tuple:
     """(bytes, tensor-core operations) of one call: q, k and v read once
     and the output written once, and two products of 2·D operations for
-    every attended (query, key) pair and query head."""
+    every attended (query, key) pair and query head, at the head dim the
+    kernel runs (a padded D where the call pads)."""
     b, hq, sq, d = q_shape
+    d = padded_dim(d)
     hkv, skv = kv_shape[1], kv_shape[2]
     nbytes = elt * (2 * b * hq * sq * d + 2 * b * hkv * skv * d)
     return nbytes, 4 * b * hq * pairs(sq, skv, causal, window, q_offset) * d
@@ -163,7 +200,9 @@ def meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
          q_offset: Optional[int] = None,
          scale: Optional[float] = None) -> torch.Tensor:
     """The dry trace's :func:`flash_attention`: its output on ``meta``,
-    one recorded call."""
+    one recorded call; it refuses what the card refuses
+    (:func:`check_shapes`)."""
+    check_shapes(q, k, v)
     out = torch.empty_like(q)
     if out.numel():
         record_kernel(_NAME, *work(q.shape, k.shape, q.element_size(),

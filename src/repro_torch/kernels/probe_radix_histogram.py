@@ -46,8 +46,7 @@ launch) timed by CUDA events, queued behind a sleep kernel, in the order
 of the list and then back; the smaller of the two counts.  The last line
 is one JSON object of every reading with the card's name and power
 limit.  Needs the card and ``nvcc``; the variants are built into
-``_build/probe`` beside the port's kernels.  ``chip_smoke.py`` runs
-:func:`time_designs` in its phase 2.
+``_build/probe`` beside the port's kernels.
 """
 from __future__ import annotations
 
@@ -218,11 +217,6 @@ def shared_atomic_opcodes() -> Dict[str, int]:
     for op in re.findall(r"\b(ATOMS\.[A-Z0-9.]+)", sass):
         found[op] = found.get(op, 0) + 1
     return found
-
-
-#: The two designs of the increment that the kernel's was chosen against
-#: (``chip_smoke.py`` times them beside it).
-RIVAL_DESIGNS = ("peers", "private")
 
 
 def time_designs(inputs: Dict[str, Tuple[Sequence, Sequence[int],

@@ -385,6 +385,19 @@ FA_CASES = [  # b, hq, hkv, sq, skv, d, causal, window, q_offset
     (2, 4, 4, 256, 256, 112, True, None, None),
     (1, 3, 3, 130, 130, 112, False, 64, None),
     (1, 2, 1, 70, 200, 112, True, None, None),
+    # head dims 48, 80 (h2o-danube-1.8b's) and 96: causal and not,
+    # windowed, a ragged Sq, a q_offset
+    (2, 4, 2, 190, 190, 48, True, None, None),
+    (1, 4, 1, 130, 300, 48, False, 64, 100),
+    (2, 8, 2, 257, 257, 80, True, 100, None),
+    (1, 4, 4, 100, 100, 80, False, None, None),
+    (1, 8, 2, 70, 300, 80, True, 128, 230),
+    (1, 6, 3, 130, 130, 96, True, None, None),
+    (2, 4, 2, 65, 200, 96, False, 48, -10),
+    # head dims the wrapper zero-pads: 24 (nemo-smoke's) to 32, 37 to 48
+    (2, 4, 2, 130, 130, 24, True, None, None),
+    (1, 4, 2, 100, 160, 24, True, 40, 60),
+    (1, 3, 1, 70, 70, 37, False, None, None),
 ]
 
 
@@ -644,6 +657,12 @@ DECODE_CASES = [  # b, hq, hkv, s, d, kv_len, window
     (2, 32, 8, 2048, 80, 2000, 1500),     # D 80, split, window mid-tile
     (4, 32, 32, 2112, 112, 2049, None),   # Zamba2's decode: MHA, D 112
     (2, 8, 8, 512, 112, 300, 100),        # D 112, window mid-tile
+    (2, 8, 2, 300, 48, 290, 100),         # D 48
+    (2, 32, 8, 4096, 80, 4096, None),     # danube's wrapped ring, split
+    (2, 32, 8, 2112, 128, 2049, None),    # mistral-nemo-12b's decode
+    (2, 12, 4, 300, 96, 250, None),       # D 96
+    (2, 4, 2, 200, 24, 150, 64),          # D 24 (nemo-smoke's), as it is
+    (1, 6, 2, 120, 37, 100, None),        # D 37, zero-padded to 40
 ]
 
 
@@ -851,7 +870,9 @@ def test_rank_and_rmsnorm_kernel_config(cuda):
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "qwen3-0.6b",
-                                  "h2o-danube-1.8b", "mixtral-8x7b"])
+                                  "h2o-danube-1.8b", "mixtral-8x7b",
+                                  "granite-3-8b", "mistral-nemo-12b",
+                                  "internvl2-76b"])
 def test_serving_on_the_card_equals_the_cpu(cuda, arch):
     """fp32 smoke serving with both kernel switches on.  The prefill, and
     each of 48 decode steps started on the card from a copy of the CPU's
@@ -859,44 +880,11 @@ def test_serving_on_the_card_equals_the_cpu(cuda, arch):
     within the model-parity tolerance (rtol 2e-4, atol 2e-4 or 2e-5 of
     the largest logit: fp32 sums in another order on each side); the card
     launches both kernels at every layer; ``ServeEngine`` on the card
-    generates the CPU's greedy tokens."""
-    import copy
-    import dataclasses
-    from repro_torch.configs import get_smoke_config
-    from repro_torch.models.api import get_model
-    from repro_torch.serve import ServeEngine
-    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
-                              attn_impl="pallas", use_pallas=True)
-    model = get_model(cfg)
-    cpu = model.init(cfg, torch.Generator().manual_seed(0), device="cpu")
-    card = copy.deepcopy(cpu).to(cuda)
-    rng = np.random.default_rng(0)
-    toks = rng.integers(1, cfg.vocab_size, (3, 40))
-
-    def close(got, want):
-        atol = max(2e-4, 2e-5 * float(want.float().abs().max()))
-        torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=atol)
-
-    ops.reset_launch_counts()
-    cache_c, lc = model.prefill(cfg, card, {"tokens": toks}, 128)
-    cache_h, lh = model.prefill(cfg, cpu, {"tokens": toks}, 128)
-    close(lc, lh)
-    for _ in range(48):
-        t = rng.integers(1, cfg.vocab_size, 3)
-        cache_c = {k: v.to(cuda) for k, v in cache_h.items()}
-        cache_c, lc = model.decode_step(cfg, card, cache_c, t)
-        cache_h, lh = model.decode_step(cfg, cpu, cache_h, t)
-        close(lc, lh)
-        for k in cache_h:
-            close(cache_c[k], cache_h[k])
-    counts = ops.launch_counts()
-    assert counts["decode_attention"] == 48 * cfg.n_layers
-    norms = cfg.n_layers * (2 + 2 * cfg.qk_norm) + 1
-    assert counts["rmsnorm"] == 49 * norms
-    prompts = [list(range(1, 30)), [5, 6, 7], list(range(9, 20))]
-    got = ServeEngine(cfg, card, max_len=128).generate(prompts, 12)
-    want = ServeEngine(cfg, cpu, max_len=128).generate(prompts, 12)
-    assert got.tokens == want.tokens
+    generates the CPU's greedy tokens.  internvl2's prefill takes its
+    patch embeddings first; ``ServeEngine`` passes tokens only and refuses
+    it, as the JAX package's does (``_torch_card_parity``)."""
+    from _torch_card_parity import serve_on_card_against_cpu
+    serve_on_card_against_cpu(arch, cuda)
 
 
 def test_xlstm_serving_on_the_card_equals_the_cpu(cuda):

@@ -59,6 +59,64 @@ def test_decode_attention_shapes(b, hq, hkv, s, d, kv_len, window, dtype):
                                                  use_kernels=False))
 
 
+@pytest.mark.parametrize("d", [24, 37, 48, 80, 96])
+def test_decode_attention_head_dims(d):
+    """Head dims the kernel runs as they are (multiples of 8: 24, nemo-
+    smoke's; 48; 80, h2o-danube-1.8b's; 96) or zero-padded (37, odd),
+    fp32, windowed: the plain version against the Pallas kernel in
+    interpret mode and the JAX reference."""
+    (jq, jk, jv), (q, k, v) = _inputs(d, 2, 4, 2, 300, d, "float32")
+    got = ops.decode_attention(q, k, v, kv_len=290, window=100)
+    assert got.shape == (2, 4, d)
+    _check(got, jops.decode_attention(jq, jk, jv, kv_len=290, window=100,
+                                      bk=256), "float32")
+    _check(got, jref.decode_attention_ref(jq, jk, jv, kv_len=290,
+                                          window=100), "float32")
+
+
+@pytest.mark.parametrize("d", [37, 100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_padding_the_head_dim_is_exact(d, dtype):
+    """The wrapper's padding, on the plain version: q and the keys and
+    values up to ``kv_len`` with zero columns up to the next multiple of
+    8, at the original D's scale, sliced back, give the unpadded call's
+    output bit for bit, and its log-sum-exp up to the order of the host's
+    float32 sums."""
+    _, (q, k, v) = _inputs(d, 2, 4, 2, 90, d, dtype)
+    dp = KD.padded_dim(d, KD.HEAD_DIMS)
+    assert dp == {37: 40, 100: 104}[d]
+    for kv_len, window in ((90, None), (60, 25)):
+        padded = [KD.pad_head_dim(x, dp) for x in (q, k[:, :, :kv_len],
+                                                   v[:, :, :kv_len])]
+        got, lse = ref.decode_attention_ref(*padded, kv_len=kv_len,
+                                            window=window, scale=d ** -0.5,
+                                            return_lse=True)
+        want, w_lse = ref.decode_attention_ref(q, k, v, kv_len=kv_len,
+                                               window=window,
+                                               return_lse=True)
+        assert torch.equal(got[..., :d], want)
+        torch.testing.assert_close(lse, w_lse, rtol=1e-6, atol=1e-6)
+
+
+def test_meta_refuses_what_the_card_refuses():
+    """The dry trace's decode call applies the wrapper's shape rules:
+    above head dim 128 both refuse alike; at 24 both accept."""
+    from repro_torch.analysis.ops import Trace
+
+    def args(d, device):
+        return (torch.zeros(1, 4, d, device=device),
+                torch.zeros(1, 2, 8, d, device=device),
+                torch.zeros(1, 2, 8, d, device=device))
+    for call in (lambda d: KD.decode_attention(*args(d, "cpu")),
+                 lambda d: KD.meta(*args(d, "meta"))):
+        with pytest.raises(ValueError, match="head dim 136 not supported"):
+            call(136)
+    with Trace():
+        assert KD.meta(*args(24, "meta")).shape == (1, 4, 24)
+        with pytest.raises(ValueError, match="kv_len=9"):
+            KD.meta(*args(64, "meta"), kv_len=9)
+
+
 @pytest.mark.parametrize("kv_len,window", [(1, None), (77, 16), (200, 1),
                                            (200, 500)])
 def test_decode_attention_over_a_permuted_cache_view(kv_len, window):
@@ -100,9 +158,10 @@ def test_decode_attention_kernel_refuses_what_it_does_not_take():
         KD.decode_attention(q, k, k)
     with pytest.raises(ValueError, match="backward"):
         KD.decode_attention(q.clone().requires_grad_(), k, k)
-    with pytest.raises(ValueError, match="head dim 24"):
-        KD.decode_attention(torch.zeros(1, 4, 24), torch.zeros(1, 2, 8, 24),
-                            torch.zeros(1, 2, 8, 24))
+    with pytest.raises(ValueError, match="head dim 136"):
+        KD.decode_attention(torch.zeros(1, 4, 136),
+                            torch.zeros(1, 2, 8, 136),
+                            torch.zeros(1, 2, 8, 136))
     with pytest.raises(ValueError, match="not supported"):
         KD.decode_attention(q.half(), k.half(), k.half())
     with pytest.raises(ValueError, match="multiple"):
@@ -119,7 +178,7 @@ def test_decode_attention_kernel_refuses_what_it_does_not_take():
         KD.decode_attention(q, k, torch.zeros(1, 2, 64, 8).transpose(2, 3))
     with pytest.raises(ValueError, match="must be torch.float32"):
         KD.decode_attention(q, k.bfloat16(), k)
-    assert KD.HEAD_DIMS == (16, 32, 64, 80, 112, 128)
+    assert KD.HEAD_DIMS == tuple(range(8, 129, 8))
     assert KD.decode_attention.launches == 0
 
 

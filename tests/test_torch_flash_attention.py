@@ -19,6 +19,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 
+from repro_torch.analysis.ops import Trace, trace
 from repro_torch.kernels import flash_attention as KF
 from repro_torch.kernels import ops, ref
 
@@ -58,6 +59,21 @@ def test_flash_attention_shapes(b, hq, hkv, sq, skv, d, dtype):
     _check(got, jops.flash_attention(jq, jk, jv, causal=True, bq=64, bk=64),
            dtype)
     _check(got, jref.flash_attention_ref(jq, jk, jv, causal=True), dtype)
+
+
+@pytest.mark.parametrize("d", [24, 37, 48, 80, 96])
+def test_flash_attention_head_dims(d):
+    """Head dims the kernel takes as they are (48, 80: h2o-danube-1.8b's,
+    96) or zero-padded (24: nemo-smoke's; 37, odd), fp32, windowed, at a
+    ragged Sq: the plain version against the Pallas kernel in interpret
+    mode and the JAX reference."""
+    (jq, jk, jv), (q, k, v) = _inputs(d, 1, 4, 2, 70, 70, d, "float32")
+    got = ops.flash_attention(q, k, v, causal=True, window=50)
+    assert got.shape == (1, 4, 70, d)
+    _check(got, jops.flash_attention(jq, jk, jv, causal=True, window=50,
+                                     bq=64, bk=64), "float32")
+    _check(got, jref.flash_attention_ref(jq, jk, jv, causal=True,
+                                         window=50), "float32")
 
 
 @pytest.mark.parametrize("window", [32, 128, None])
@@ -106,9 +122,10 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="backward"):
         KF.flash_attention(q.requires_grad_(), k, k)
     q = q.detach()
-    with pytest.raises(ValueError, match="head dim 24"):
-        KF.flash_attention(torch.zeros(1, 4, 8, 24), torch.zeros(1, 2, 8, 24),
-                           torch.zeros(1, 2, 8, 24))
+    with pytest.raises(ValueError, match="head dim 136"):
+        KF.flash_attention(torch.zeros(1, 4, 8, 136),
+                           torch.zeros(1, 2, 8, 136),
+                           torch.zeros(1, 2, 8, 136))
     with pytest.raises(ValueError, match="not supported"):
         KF.flash_attention(q.half(), k.half(), k.half())
     with pytest.raises(ValueError, match="multiple"):
@@ -119,6 +136,63 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="must be torch.float32"):
         KF.flash_attention(q, k.bfloat16(), k)
     assert KF.flash_attention.launches == 0
+
+
+@pytest.mark.parametrize("d", [24, 37])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_padding_the_head_dim_is_exact(d, dtype):
+    """The wrapper's padding, on the plain version: q, k and v with zero
+    columns up to the next instantiated head dim, at the original D's
+    scale, sliced back, give the unpadded call's output bit for bit (the
+    zero columns add exact zeros to every score)."""
+    _, (q, k, v) = _inputs(d, 2, 4, 2, 70, 90, d, dtype)
+    dp = KF.padded_dim(d)
+    assert dp == {24: 32, 37: 48}[d]
+    for kw in (dict(causal=True), dict(causal=False, window=20),
+               dict(causal=True, q_offset=5, window=30)):
+        padded = [KF.pad_head_dim(x, dp) for x in (q, k, v)]
+        assert all(x.shape[-1] == dp and not x[..., d:].any()
+                   for x in padded)
+        got = ref.flash_attention_ref(*padded, scale=d ** -0.5, **kw)
+        assert torch.equal(got[..., :d], ref.flash_attention_ref(q, k, v,
+                                                                 **kw))
+
+
+def test_meta_refuses_what_the_card_refuses():
+    """The dry trace's flash call applies the wrapper's shape rules: above
+    head dim 128 both refuse alike; at 24 both accept."""
+    def args(d, device):
+        return (torch.zeros(1, 4, 8, d, device=device),
+                torch.zeros(1, 2, 8, d, device=device),
+                torch.zeros(1, 2, 8, d, device=device))
+    for call in (lambda d: KF.flash_attention(*args(d, "cpu")),
+                 lambda d: KF.meta(*args(d, "meta"))):
+        with pytest.raises(ValueError, match="head dim 136 not supported"):
+            call(136)
+    with Trace():
+        assert KF.meta(*args(24, "meta")).shape == (1, 4, 8, 24)
+        with pytest.raises(ValueError, match="multiple"):
+            KF.meta(torch.zeros(1, 3, 8, 64, device="meta"),
+                    *args(64, "meta")[1:])
+
+
+def test_dry_trace_records_the_flash_call_at_head_dim_80():
+    """``ops.flash_attention`` on ``meta`` tensors under a dry trace (the
+    dry run's view of the card) records one kernel call at D 80, h2o-
+    danube-1.8b's, with its ``work``: the windowed pairs, two products of
+    2·D operations each a query head."""
+    b, hq, hkv, s, d, w = 2, 4, 2, 96, 80, 40
+    q = torch.empty((b, hq, s, d), dtype=torch.bfloat16, device="meta")
+    kv = torch.empty((b, hkv, s, d), dtype=torch.bfloat16, device="meta")
+    art = trace(lambda q_, k_, v_: ops.flash_attention(
+        q_, k_, v_, causal=True, window=w), q, kv, kv)
+    assert art.profile.kernel_calls() == {"flash_attention": 1}
+    _, nbytes, nops = art.profile.kernels["flash_attention"]
+    pairs = sum(min(i + 1, w) for i in range(s))
+    assert (nbytes, nops) == KF.work(q.shape, kv.shape, 2, window=w)
+    assert nops == 4 * b * hq * pairs * d
+    assert nbytes == 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d)
+    assert KF.work((1, 1, 8, 24), (1, 1, 8, 24), 4)[0] == 4 * 4 * 8 * 32
 
 
 def _emulate_bf16_kernel(q, k, v, *, scale_err=1.0, drop_tile=None):
