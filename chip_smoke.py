@@ -320,7 +320,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    granite-moe-3b-a800m ``train_4k``, ``prefill_32k``, ``decode_32k``
    and zamba2-7b ``long_500k`` for rank 0 of the (16, 16) mesh, and the
    mining ``shuffle`` cell on ``1pod-full``: each ``ok``, its row
-   printed;
+   printed ((b) and (c) are host work: traced in a spawned process
+   beside phases 19-21 and checked after phase 21);
 20. the dense configs that never ran on the card (``phase20``), at full
    width and depth in bf16 over fp32 parameters with both attention
    kernels and ``rmsnorm``: (kernels) ``flash_attention`` at head dims
@@ -356,7 +357,36 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    ``tests/test_torch_cuda.py::test_serving_on_the_card_equals_the_cpu``,
    ``tests/_torch_card_parity.py``), and qwen3-0.6b at full
    width through ``ServeEngine`` (4 x 2,046-2,048 tokens, 8 new; its
-   QK-norm runs ``rmsnorm`` at width 128) and its forward with flash.
+   QK-norm runs ``rmsnorm`` at width 128) and its forward with flash;
+21. the last two configs at their full widths (``phase21``), each at a
+   cut depth, bf16 over fp32 parameters, with both attention kernels and
+   ``rmsnorm``: (kernels) flash at GQA group 8 and D 128 (windowed, a
+   ragged Sq), decode at group 8 and D 128 over ring views and
+   ``rmsnorm`` at widths 4,096 and 8,192 (the block path) against their
+   plain versions with 9a's gates; then flash at D 128 under the 4,096
+   window at mixtral-8x7b's routing pass (B 4 x 32 / 8 x 6,144) and at
+   group 8 at internvl2-76b's forward (B 2 x 64 / 8 x 2,048), each held
+   to the bf16 float64 gate, and timed with decode over mixtral's
+   4,096-slot ring and internvl's 2,064 slots (warm and L2-cold) and
+   ``rmsnorm`` at 4,096 x 8,192, beside the bound, the plain version and
+   the library call; (a) mixtral-8x7b at ``MIXTRAL_LAYERS`` layers (d_ff
+   14,336, 8 experts, top-2): ``collect_moe_routing`` over 4 x 6,144
+   tokens (8 flash launches past the window, 16 ``rmsnorm``), then
+   ``routing_context`` and ``BatchMiner(theta=0.2)`` on the card, the
+   launches exact, every leaf equal to the CPU's mining of the same
+   context, warm ms, tokens/s and the idle share; (b) mixtral served
+   through ``ServeEngine``, 2 prompts of 4,607-4,608 tokens (the
+   4,096-slot ring wraps in the prefill) and 32 new (8 decode and 17
+   ``rmsnorm`` launches a step), its peak within 10% of the dry run's,
+   its forward over the prompts (8 flash launches), its fp32 launch
+   checks over 1 x 4,160 tokens and 8 steps and its logits gate at
+   ``GATE_LAYERS_21``; (c) internvl2-76b at ``INTERNVL_LAYERS`` layers
+   served through ``Model.prefill`` / ``decode_step`` with its patch
+   embeddings, 2 requests of 256 patches and 1,792 tokens and 16 steps
+   over a ring that never wraps (12 decode and 25 ``rmsnorm`` launches a
+   step), its peak within 10% of the dry run's, its forward (12 flash
+   launches at group 8), its fp32 launch checks over 1 x (256 + 256) and
+   8 steps, and its logits gate.
 
 Before the last line it prints the card's name and power limit
 (``nvidia-smi``) and one JSON line ``{"kernels": [...]}``; the last line is
@@ -659,6 +689,44 @@ def leaves_equal(a, b, what: str) -> None:
               f"{what}: leaf {f.name} {tuple(x.shape)}/{x.dtype} vs "
               f"{tuple(y.shape)}/{y.dtype}")
         check(torch.equal(x.cpu(), y.cpu()), f"{what}: leaf {f.name} differs")
+
+
+def in_background(fn, *args):
+    """Start ``fn(*args)``, a function of this module, in a spawned
+    process: a fresh interpreter that takes no card and shares no threads
+    with this one, so host work runs beside the card's.  -> a function
+    that waits for the process and returns what ``fn`` returned, or stops
+    the run with the error ``fn`` raised."""
+    import multiprocessing
+    mp = multiprocessing.get_context("spawn")
+    recv, send = mp.Pipe(duplex=False)
+    proc = mp.Process(target=_run_and_send, args=(send, fn, args),
+                      daemon=True)
+    proc.start()
+    send.close()
+
+    def result():
+        try:
+            ok, value = recv.recv()
+        except EOFError:
+            ok, value = False, "it ended without a result"
+        proc.join()
+        check(ok, f"{fn.__name__} in a spawned process: {value}")
+        return value
+    return result
+
+
+def _run_and_send(conn, fn, args) -> None:
+    """:func:`in_background`'s process: ``fn(*args)`` or its error down
+    ``conn``."""
+    import traceback
+    try:
+        conn.send((True, fn(*args)))
+    except BaseException as e:             # reported by the parent
+        conn.send((False, f"{type(e).__name__}: {e}\n"
+                          f"{traceback.format_exc()[-2000:]}"))
+    finally:
+        conn.close()
 
 
 def route_agreement(a, b):
@@ -3036,11 +3104,13 @@ def phase15() -> dict:
     return runs
 
 
-def forced(cfg_, params_, prompts_, gen_, max_len_, frames_=None):
+def forced(cfg_, params_, prompts_, gen_, max_len_, frames_=None,
+           patches_=None):
     """Every step's logits of ``prompts_`` decoded as the engine does,
     feeding the prompt and then the tokens ``gen_`` (teacher forcing):
     [prefill logits, step 1, ...].  ``frames_``: the enc-dec family's
-    frames, passed to its prefill."""
+    frames, ``patches_`` a patch frontend's embeddings, passed to the
+    prefill."""
     import numpy as np
     from repro_torch.models.api import get_model
     m_ = get_model(cfg_)
@@ -3052,6 +3122,8 @@ def forced(cfg_, params_, prompts_, gen_, max_len_, frames_=None):
     inputs_ = {"tokens": pad_[:, :s0]}
     if frames_ is not None:
         inputs_["frames"] = frames_
+    if patches_ is not None:
+        inputs_["patches"] = patches_
     cache_, lg = m_.prefill(cfg_, params_, inputs_, max_len_)
     out_ = [lg]
     n_steps = s1 - s0 + max(len(t) for t in gen_)
@@ -3323,16 +3395,6 @@ def phase16() -> tuple:
     def randn(shape, dtype):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
 
-    def close(got, want, dtype):
-        """9a's gates: fp32 rtol = atol = 2e-5; bf16 one ulp of each
-        output (rtol 2**-7) plus atol 1e-5."""
-        rtol, atol = (2e-5, 2e-5) if dtype == fp32 else (2 ** -7, 1e-5)
-        e = float((got.float() - want.float()).abs().max())
-        return (got.dtype == want.dtype and got.shape == want.shape
-                and bool(torch.isfinite(got).all())
-                and torch.allclose(got.float(), want.float(), rtol=rtol,
-                                   atol=atol)), e
-
     def timings(kernel, plain, library, nbytes, nops, ops_per_s, shape,
                 plain_iters=20):
         k, p = measure(kernel), measure(plain, plain_iters,
@@ -3355,7 +3417,7 @@ def phase16() -> tuple:
         torch.cuda.synchronize()
         label = f"flash_attention D 112 causal {str(dtype)[6:]}"
         if dtype == fp32:
-            ok, e = close(got, want, fp32)
+            ok, e = gate_9a(got, want, fp32)
             check(ok, f"phase 16 {label}: max |err| {e}")
         else:
             e = float((got.float() - want.float()).abs().max())
@@ -3382,9 +3444,9 @@ def phase16() -> tuple:
         qd = randn((b_, h_, d_), dtype)
         kd, vd = (randn((b_, sc_, h_, d_), dtype).permute(0, 2, 1, 3)
                   for _ in range(2))
-        ok, e = close(KD.decode_attention(qd, kd, vd, kv_len=kvl),
-                      ref.decode_attention_ref(qd, kd, vd, kv_len=kvl),
-                      dtype)
+        ok, e = gate_9a(KD.decode_attention(qd, kd, vd, kv_len=kvl),
+                        ref.decode_attention_ref(qd, kd, vd, kv_len=kvl),
+                        dtype)
         label = f"decode_attention D 112 kv_len {kvl} {str(dtype)[6:]}"
         check(ok, f"phase 16 {label}: max |err| {e}")
         errs[label] = e
@@ -3432,8 +3494,8 @@ def phase16() -> tuple:
                 check(KN.plan_for(x, w).path == "block",
                       f"phase 16 rmsnorm {rows} x {dn}: plan "
                       f"{KN.plan_for(x, w)}")
-                ok, e = close(KN.rmsnorm(x, w, 1e-5),
-                              ref.rmsnorm_ref(x, w, 1e-5), dtype)
+                ok, e = gate_9a(KN.rmsnorm(x, w, 1e-5),
+                                ref.rmsnorm_ref(x, w, 1e-5), dtype)
                 label = f"rmsnorm {rows} x {dn} {str(dtype)[6:]}"
                 check(ok, f"phase 16 {label}: max |err| {e}")
                 errs[label] = e
@@ -3874,16 +3936,6 @@ def phase17() -> tuple:
           f"{n_norm} norms, {cfg.dtype}")
     g = torch.Generator(device=dev).manual_seed(17)
 
-    def close(got, want, dtype):
-        """9a's gates: fp32 rtol = atol = 2e-5; bf16 one ulp of each
-        output (rtol 2**-7) plus atol 1e-5."""
-        rtol, atol = (2e-5, 2e-5) if dtype == fp32 else (2 ** -7, 1e-5)
-        e = float((got.float() - want.float()).abs().max())
-        return (got.dtype == want.dtype and got.shape == want.shape
-                and bool(torch.isfinite(got).all())
-                and torch.allclose(got.float(), want.float(), rtol=rtol,
-                                   atol=atol)), e
-
     # -- 17-kernels: rmsnorm at width 768 ---------------------------------
     t0 = time.perf_counter()
     dn = cfg.d_model
@@ -3894,8 +3946,8 @@ def phase17() -> tuple:
             x = torch.randn((rows, dn), generator=g, device=dev).to(dtype)
             check(KN.plan_for(x, w).path == "vector",
                   f"phase 17 rmsnorm {rows} x {dn}: plan {KN.plan_for(x, w)}")
-            ok, e = close(KN.rmsnorm(x, w, 1e-5), ref.rmsnorm_ref(x, w, 1e-5),
-                          dtype)
+            ok, e = gate_9a(KN.rmsnorm(x, w, 1e-5),
+                            ref.rmsnorm_ref(x, w, 1e-5), dtype)
             label = f"rmsnorm {rows} x {dn} {str(dtype)[6:]}"
             check(ok, f"phase 17 {label}: max |err| {e}")
             errs[label] = e
@@ -4320,16 +4372,6 @@ def phase18() -> tuple:
     def randn(shape, dtype):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
 
-    def close(got, want, dtype):
-        """9a's gates: fp32 rtol = atol = 2e-5; bf16 one ulp of each
-        output (rtol 2**-7) plus atol 1e-5."""
-        rtol, atol = (2e-5, 2e-5) if dtype == fp32 else (2 ** -7, 1e-5)
-        e = float((got.float() - want.float()).abs().max())
-        return (got.dtype == want.dtype and got.shape == want.shape
-                and bool(torch.isfinite(got).all())
-                and torch.allclose(got.float(), want.float(), rtol=rtol,
-                                   atol=atol)), e
-
     def timings(kernel, plain, library, nbytes, nops, ops_per_s, shape,
                 plain_iters=20):
         k, p = measure(kernel), measure(plain, plain_iters,
@@ -4352,7 +4394,7 @@ def phase18() -> tuple:
         torch.cuda.synchronize()
         label = f"flash_attention D 64 MHA causal {str(dtype)[6:]}"
         if dtype == fp32:
-            ok, e = close(got, want, fp32)
+            ok, e = gate_9a(got, want, fp32)
             check(ok, f"phase 18 {label}: max |err| {e}")
         else:
             e = float((got.float() - want.float()).abs().max())
@@ -4383,9 +4425,9 @@ def phase18() -> tuple:
         kd, vd = (randn((b_, sc_, h_, d_), dtype).permute(0, 2, 1, 3)
                   for _ in range(2))
         for n in (kvl, SEAM_PROMPT + 1):
-            ok, e = close(KD.decode_attention(qd, kd, vd, kv_len=n),
-                          ref.decode_attention_ref(qd, kd, vd, kv_len=n),
-                          dtype)
+            ok, e = gate_9a(KD.decode_attention(qd, kd, vd, kv_len=n),
+                            ref.decode_attention_ref(qd, kd, vd, kv_len=n),
+                            dtype)
             label = f"decode_attention D 64 MHA kv_len {n} {str(dtype)[6:]}"
             check(ok, f"phase 18 {label}: max |err| {e}")
             errs[label] = e
@@ -4417,8 +4459,8 @@ def phase18() -> tuple:
             check(KN.plan_for(x, w).path == "vector",
                   f"phase 18 rmsnorm {rows} x {dn}: plan "
                   f"{KN.plan_for(x, w)}")
-            ok, e = close(KN.rmsnorm(x, w, 1e-5),
-                          ref.rmsnorm_ref(x, w, 1e-5), dtype)
+            ok, e = gate_9a(KN.rmsnorm(x, w, 1e-5),
+                            ref.rmsnorm_ref(x, w, 1e-5), dtype)
             label = f"rmsnorm {rows} x {dn} {str(dtype)[6:]}"
             check(ok, f"phase 18 {label}: max |err| {e}")
             errs[label] = e
@@ -4829,32 +4871,23 @@ def phase19(bib) -> dict:
     allocation over the call, the card's device ms at least DRY_ROOF_MIN
     of the roofline step time (printed: step_s / measured, the roofline
     fraction), and for the mining call each kernel's recorded calls equal
-    to the card's launches.  (b) The (1, 2) serving cells of phases 15b,
-    16d, 17d and 18d traced on dry (1, 2) meshes: their recorded
-    collectives (calls, operand bytes) of the prefill and of a decode
-    step equal the staged ones those phases counted (``MESH_COMMS``) and
-    the plans of 16d-18d.  (c) The production cells ``DRY_CELLS`` and the
-    mining ``shuffle`` cell on ``1pod-full`` through ``launch.dryrun.
-    run_cell`` / ``launch.mine_dryrun.run_cell``: each ``ok``, its report
-    row printed.  -> {run: launch counts}."""
+    to the card's launches.  (b), the (1, 2) serving cells, and (c), the
+    production cells, are host work, traced beside the card's
+    (:func:`dry_host_cells`) and checked by :func:`phase19b` and
+    :func:`phase19c`.  -> {run: launch counts}."""
     import dataclasses
     import tempfile
 
     import torch
     import torch.distributed as dist
     from repro_torch.analysis.ops import storage_bytes, trace
-    from repro_torch.analysis.report import fmt_row
     from repro_torch.analysis.roofline import roofline_from_trace
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core import DistributedMiner
     from repro_torch.data.tokens import TokenPipeline
     from repro_torch.kernels import ops
-    from repro_torch.launch import dryrun, mine_dryrun
-    from repro_torch.launch.mesh import (make_dry_mesh, make_local_mesh,
-                                         make_production_mesh)
-    from repro_torch.models import encdec as E
-    from repro_torch.models import lm as L
+    from repro_torch.launch.mesh import make_dry_mesh, make_local_mesh
     from repro_torch.models.api import get_model
     from repro_torch.models.params import ParamTree, struct_locals
     from repro_torch.sharding import MeshRules
@@ -5007,9 +5040,29 @@ def phase19(bib) -> dict:
         f"launches")
     log(f"phase 19a: {time.perf_counter() - t0:.1f} s")
 
-    # -- 19b: the (1, 2) serving cells against their staged collectives ---
-    t0 = time.perf_counter()
-    two = MeshRules(make_dry_mesh((1, 2), names, 0))
+    log(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
+    print(json.dumps({"dry_run": out}), flush=True)
+    return runs
+
+
+def dry_mesh_cells(prompt_15b: int) -> dict:
+    """19b's (1, 2) serving cells of phases 15b-18d traced on dry (1, 2)
+    meshes, no card (``prompt_15b``: 15b's prompt length) -> {cell:
+    (config name, [(calls, operand bytes) of the prefill, of a decode
+    step], the plan of 16d-18d or None)}.  The run starts it
+    ``in_background`` beside phases 19-21."""
+    import dataclasses
+
+    import torch
+    from repro_torch.analysis.ops import trace
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_dry_mesh
+    from repro_torch.models import encdec as E
+    from repro_torch.models import lm as L
+    from repro_torch.models.api import get_model
+    from repro_torch.models.params import struct_locals
+    from repro_torch.sharding import MeshRules
+    two = MeshRules(make_dry_mesh((1, 2), ("data", "model"), 0))
 
     def dry_comms(cfg_, inputs, max_len, cache_defs):
         """(calls, operand bytes) of the dry prefill and decode step."""
@@ -5035,8 +5088,7 @@ def phase19(bib) -> dict:
     cells = {}
     c15 = dataclasses.replace(get_config("granite-moe-3b-a800m"),
                               attn_impl="pallas", use_pallas=True)
-    s15 = MESH_COMMS["15b"]["prompt"]
-    cells["15b"] = (c15, {"tokens": tokens(4, s15)}, MESH_MAX_LEN,
+    cells["15b"] = (c15, {"tokens": tokens(4, prompt_15b)}, MESH_MAX_LEN,
                     L.cache_defs(c15, 4, MESH_MAX_LEN, torch.bfloat16), None)
     c16 = dataclasses.replace(get_config(ZAMBA), dtype="float32",
                               n_layers=ZAMBA_GATE_LAYERS, attn_impl="pallas",
@@ -5067,51 +5119,79 @@ def phase19(bib) -> dict:
                                        frames=SEAM_MESH_FRAMES),
                     seamless_mesh_plan(c18, SEAM_MESH_BATCH, SEAM_MESH_FRAMES,
                                        SEAM_PROMPT, 2))
-    out["mesh"] = {}
-    for name, (cfg_, inputs, max_len, defs, plan) in cells.items():
+    return {name: (cfg_.name, dry_comms(cfg_, inputs, max_len, defs),
+                   None if plan is None else [tuple(x) for x in plan])
+            for name, (cfg_, inputs, max_len, defs, plan) in cells.items()}
+
+
+def phase19b(cells: dict) -> None:
+    """19b: each cell of :func:`dry_mesh_cells`, its recorded collectives
+    of the prefill and of a decode step equal to the staged ones phases
+    15b-18d counted (``MESH_COMMS``) and to the plans of 16d-18d."""
+    for name, (cfg_name, got, plan) in cells.items():
         staged = MESH_COMMS[name]
-        got = dry_comms(cfg_, inputs, max_len, defs)
         want = [tuple(staged["prefill"]), tuple(staged["decode"])]
         check(got == want, f"phase 19b {name}: dry (calls, bytes) of the "
               f"prefill and a decode step {got}, staged {want}")
-        if plan is not None:
-            check(got == [tuple(x) for x in plan],
-                  f"phase 19b {name}: dry {got}, planned {plan}")
-        out["mesh"][name] = got
-        log(f"phase 19b {name} ({cfg_.name}, dry (1, 2) mesh): prefill "
+        check(plan is None or got == plan,
+              f"phase 19b {name}: dry {got}, planned {plan}")
+        log(f"phase 19b {name} ({cfg_name}, dry (1, 2) mesh): prefill "
             f"{got[0][0]} calls {got[0][1]} bytes, decode {got[1][0]} calls "
             f"{got[1][1]} bytes a step: equal to the staged counts of the "
             f"card run" + ("" if plan is None else " and to the plan"))
-    log(f"phase 19b: {time.perf_counter() - t0:.1f} s")
 
-    # -- 19c: production cells for one rank of the (16, 16) mesh ----------
-    t0 = time.perf_counter()
+
+def dry_host_cells(prompt_15b: int) -> tuple:
+    """19b's and 19c's traces, the host work of phase 19 (no card):
+    (:func:`dry_mesh_cells`, :func:`dry_production_cells`)."""
+    return dry_mesh_cells(prompt_15b), dry_production_cells()
+
+
+def dry_production_cells() -> list:
+    """19c's cells traced on ``meta`` for one rank of the (16, 16) mesh,
+    no card: ``DRY_CELLS`` and the mining ``shuffle`` cell on
+    ``1pod-full`` -> their rows, each with its seconds (``wall_s``)."""
+    from repro_torch.launch import dryrun, mine_dryrun
+    from repro_torch.launch.mesh import make_production_mesh
     mesh = make_production_mesh()
-    out["cells"] = []
+    rows = []
     for arch, shape in DRY_CELLS:
         t1 = time.perf_counter()
-        row = dryrun.run_cell(arch, shape, mesh, "1pod", verbose=False)
-        check(row["status"] == "ok", f"phase 19c {arch} x {shape}: "
-              f"{row.get('error')} {row.get('traceback', '')[-800:]}")
-        log(f"phase 19c {fmt_row(row)} peak {row['peak_bytes']} bytes, "
-            f"kernels {row['kernels']}, {row['by_kind']} "
-            f"({time.perf_counter() - t1:.1f} s)")
-        out["cells"].append({k: row[k] for k in (
-            "arch", "shape", "mesh", "compute_s", "memory_s", "collective_s",
-            "bound", "step_s", "peak_bytes", "fits", "trace_s")})
-    row = mine_dryrun.run_cell(mesh, "1pod-full", "shuffle", 1_000_000, 4,
-                               (6040, 3952, 5, 2048), ("data", "model"))
+        rows.append(dryrun.run_cell(arch, shape, mesh, "1pod",
+                                    verbose=False))
+        rows[-1]["wall_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    rows.append(mine_dryrun.run_cell(mesh, "1pod-full", "shuffle",
+                                     1_000_000, 4, (6040, 3952, 5, 2048),
+                                     ("data", "model")))
+    rows[-1]["wall_s"] = time.perf_counter() - t1
+    return rows
+
+
+def phase19c(rows) -> None:
+    """19c: each production cell of :func:`dry_production_cells` ``ok``,
+    the mining cell's kernels the mining path's, their report rows
+    printed."""
+    from repro_torch.analysis.report import fmt_row
+    from repro_torch.kernels import ops
+    *cells, row = rows
+    for r in cells:
+        check(r["status"] == "ok", f"phase 19c {r['arch']} x {r['shape']}: "
+              f"{r.get('error')} {r.get('traceback', '')[-800:]}")
+        log(f"phase 19c {fmt_row(r)} peak {r['peak_bytes']} bytes, "
+            f"kernels {r['kernels']}, {r['by_kind']} ({r['wall_s']:.1f} s)")
     check(row["status"] == "ok" and set(row["kernels"]) == set(
         ops.PATH_KERNELS["mining"]), f"phase 19c mining: {row}")
     log(f"phase 19c tricluster/shuffle 1pod-full: compute "
         f"{row['compute_s']:.6f} s, memory {row['memory_s']:.6f} s, "
         f"collective {row['collective_s']:.6f} s -> {row['bound']}; peak "
-        f"{row['peak_bytes']} bytes; kernels {row['kernels']}")
-    out["cells"].append(row)
-    log(f"phase 19c: {time.perf_counter() - t0:.1f} s")
-    log(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
-    print(json.dumps({"dry_run": out}), flush=True)
-    return runs
+        f"{row['peak_bytes']} bytes; kernels {row['kernels']} "
+        f"({row['wall_s']:.1f} s)")
+    print(json.dumps({"dry_run_cells": [
+        {k: r[k] for k in ("arch", "shape", "mesh", "compute_s", "memory_s",
+                           "collective_s", "bound", "step_s", "peak_bytes",
+                           "fits", "trace_s")} for r in cells] + [row]},
+        default=str), flush=True)
 
 
 #: Phase 20: the dense configs that never ran on the card, at full width
@@ -5147,13 +5227,183 @@ NEMO_GATE_PROMPT, NEMO_GATE_LAYERS = 512, 2
 #: ulp of a scaled q moves a score by ~1e-4 and the plain version errs by
 #: 1.2e-4 of max |exact| at layer 2 (phase 20a on an H100 80GB HBM3).
 PLAIN_FACTOR = 2.0
-#: 20b's peak over its generate against the dry trace's of the same calls
-NEMO_PEAK_TOL = 0.10
+#: 20b's, 21b's and 21c's peaks over their generates against the dry
+#: trace's of the same calls
+PEAK_TOL = 0.10
 #: 20c: the smoke configs held against their CPU runs, and the full-width
 #: config whose QK-norm runs ``rmsnorm`` at width 128
 SMOKE_20C = ("granite-3-8b", "mistral-nemo-12b", "internvl2-76b")
 QWEN = "qwen3-0.6b"
 QWEN_PROMPT, QWEN_NEW = 2048, 8
+
+
+def gate_9a(got, want, dtype):
+    """9a's gates of a float kernel against its plain version: fp32 rtol =
+    atol = 2e-5; bf16 one ulp of each output (rtol 2**-7) plus atol 1e-5;
+    -> (held, max |err|)."""
+    import torch
+    rtol, atol = ((2e-5, 2e-5) if dtype == torch.float32
+                  else (2 ** -7, 1e-5))
+    e = float((got.float() - want.float()).abs().max())
+    return (got.dtype == want.dtype and got.shape == want.shape
+            and bool(torch.isfinite(got).all())
+            and torch.allclose(got.float(), want.float(), rtol=rtol,
+                               atol=atol)), e
+
+
+def kernel_timings(kernel, plain, library, nbytes, nops, shape,
+                   ops_per_s=None, plain_iters=5):
+    """A kernel, its plain version (``None``: not measured) and one library
+    call computing the same function, timed by :func:`measure`, beside the
+    bound at ``ops_per_s`` (default the bf16 tensor-core rate); -> a dict
+    of what was measured."""
+    k, lib = measure(kernel, 10, 2), measure(library, 10, 2)
+    p = (measure(plain, plain_iters, 1) if plain is not None
+         else {"ms": None})
+    b_ms, b_by = bound(nbytes, nops, BF16_TENSOR_OPS_PER_S
+                       if ops_per_s is None else ops_per_s)
+    return dict(ms=k["ms"], call_ms=k["call_ms"], ms_source=k["source"],
+                plain_ms=p["ms"], library_ms=lib["ms"], bound_ms=b_ms,
+                bound_by=b_by, shape=shape)
+
+
+def flash_against_plain(tag, cases, randn):
+    """Each case (B, Hq, Hkv, Sq, Skv, D, kwargs) in fp32 and bf16: one
+    launch of the flash kernel, fp32 within 2e-5 of the plain version,
+    bf16 within the float64 gate; -> {case: max |err| from the plain
+    version}."""
+    import torch
+    from repro_torch.kernels import flash_attention as KF
+    from repro_torch.kernels import ref
+    errs = {}
+    for b_, hq_, hkv_, sq_, skv_, d_, kw in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (randn(s, dtype) for s in ((b_, hq_, sq_, d_),
+                                                 (b_, hkv_, skv_, d_),
+                                                 (b_, hkv_, skv_, d_)))
+            before = KF.flash_attention.launches
+            got = KF.flash_attention(q, k, v, **kw)
+            want = ref.flash_attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            label = (f"flash_attention {hq_}/{hkv_} D {d_} Sq {sq_} Skv "
+                     f"{skv_} {kw} {str(dtype)[6:]}")
+            e = float((got.float() - want.float()).abs().max())
+            ok = (got.dtype == dtype and got.shape == want.shape
+                  and bool(torch.isfinite(got).all())
+                  and KF.flash_attention.launches == before + 1)
+            if dtype == torch.float32:
+                ok &= torch.allclose(got, want, rtol=2e-5, atol=2e-5)
+            else:
+                ok &= ref.flash_bf16_gate(got, q, k, v, **kw) <= 1.0
+            check(ok, f"{tag} {label}: max |err| {e}")
+            errs[label] = e
+    return errs
+
+
+def decode_against_plain(tag, cases, randn):
+    """Each case (B, Hq, Hkv, ring slots, D, kv_len, window) in fp32 and
+    bf16 over a (B, Hkv, slots, D) view of a (B, slots, Hkv, D) ring: the
+    decode kernel against its plain version with 9a's gates; -> {case: max
+    |err|}."""
+    import torch
+    from repro_torch.kernels import decode_attention as KD
+    from repro_torch.kernels import ref
+    errs = {}
+    for b_, hq_, hkv_, s_, d_, kvl, win in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            qd = randn((b_, hq_, d_), dtype)
+            kd, vd = (randn((b_, s_, hkv_, d_), dtype).permute(0, 2, 1, 3)
+                      for _ in range(2))
+            ok, e = gate_9a(KD.decode_attention(qd, kd, vd, kv_len=kvl,
+                                                window=win),
+                            ref.decode_attention_ref(qd, kd, vd, kv_len=kvl,
+                                                     window=win), dtype)
+            label = (f"decode_attention {hq_}/{hkv_} D {d_} kv_len {kvl} "
+                     f"window {win} {str(dtype)[6:]}")
+            check(ok, f"{tag} {label}: max |err| {e}")
+            errs[label] = e
+    return errs
+
+
+def flash_gated(tag, name, q, k, v, **kw):
+    """One flash launch at a timed bf16 shape, held to the float64 gate
+    (``ref.flash_bf16_gate``, one batch row and KV head at a time); -> its
+    share of the gate."""
+    import torch
+    from repro_torch.kernels import flash_attention as KF
+    from repro_torch.kernels import ref
+    before = KF.flash_attention.launches
+    got = KF.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    ratio = ref.flash_bf16_gate(got, q, k, v, **kw)
+    check(KF.flash_attention.launches == before + 1
+          and got.shape == q.shape and got.dtype == torch.bfloat16
+          and ratio <= 1.0, f"{tag} flash_attention {name} at "
+          f"{tuple(q.shape)} {kw}: {ratio:.3f} of the float64 gate")
+    log(f"{tag} flash_attention {name} at the timed shape {tuple(q.shape)} "
+        f"/ {tuple(k.shape)} {kw}: {ratio:.3f} of the float64 gate 2**-7 "
+        "(|o64| + P64 |V| / l64) + 1e-5")
+    return ratio
+
+
+def decode_ring_timings(b, hq, hkv, slots, d, kv_len, randn, shape):
+    """The decode kernel over a serving ring's bf16 view, timed warm on one
+    ring and L2-cold over 6 in turn (as a step finds each layer's cache
+    after the other layers' and the weights), beside its plain version and
+    SDPA over the ``kv_len`` slice; -> :func:`kernel_timings`' dict with
+    the cold times and the split plan."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as KD
+    from repro_torch.kernels import ref
+    rings = [tuple(randn((b, slots, hkv, d), torch.bfloat16)
+                   .permute(0, 2, 1, 3) for _ in range(2)) for _ in range(6)]
+    qd = randn((b, hq, d), torch.bfloat16)
+    q4 = qd[:, :, None]
+    turn = [0]
+
+    def rotating(fn):
+        def call():
+            turn[0] = (turn[0] + 1) % len(rings)
+            return fn(*rings[turn[0]])
+        return call
+
+    def dec_kernel(k_, v_):
+        return KD.decode_attention(qd, k_, v_, kv_len=kv_len)
+
+    def dec_sdpa(k_, v_):
+        return F.scaled_dot_product_attention(
+            q4, k_[:, :, :kv_len], v_[:, :, :kv_len], enable_gqa=True)
+    kd, vd = rings[0]
+    t = kernel_timings(lambda: dec_kernel(kd, vd),
+                       lambda: ref.decode_attention_ref(qd, kd, vd,
+                                                        kv_len=kv_len),
+                       lambda: dec_sdpa(kd, vd),
+                       *KD.work(b, hq, hkv, kv_len, d, 2), shape)
+    cold, lib_cold = measure(rotating(dec_kernel), 10, 2), measure(
+        rotating(dec_sdpa), 10, 2)
+    t.update(cold_ms=cold["ms"], library_cold_ms=lib_cold["ms"],
+             split_plan=list(KD.split_plan(kv_len, None, b * hkv,
+                                           KD.sm_count(qd.device))))
+    return t
+
+
+def log_timed(tag, timed):
+    """One line for each timing of ``timed`` ({kernel: {name: dict}})."""
+    for kname, by in timed.items():
+        for name, t in by.items():
+            log(f"{tag} {kname} {name}: kernel {t['ms']:.5f} ms "
+                f"({t['ms_source']}; {t['call_ms']:.5f} per call), plain "
+                + (f"{t['plain_ms']:.5f} ms" if t["plain_ms"] is not None
+                   else t.get("plain_ms_note", "not measured"))
+                + f", library {t['library_ms']:.5f} ms"
+                + (f" ({t['library_backend']})" if "library_backend" in t
+                   else "")
+                + f", bound {t['bound_ms']:.5f} ms ({t['bound_by']}) at "
+                f"{t['shape']}"
+                + (f"; L2-cold {t['cold_ms']:.5f} ms, SDPA cold "
+                   f"{t['library_cold_ms']:.5f} ms, split plan "
+                   f"{t['split_plan']}" if "cold_ms" in t else ""))
 
 
 def _row_rel(xs, ys):
@@ -5319,15 +5569,32 @@ def _dense_serving(tag, cfg, params, prompts, n_new, max_len):
     return out
 
 
-def _dense_fp32(tag, cfg, params, prompt_len):
+def _greedy(cfg, params, prompts, patches, n_new, max_len):
+    """``n_new`` greedy tokens of each of the equal-length ``prompts``
+    after ``patches`` (what ``ServeEngine`` does for tokens alone)."""
+    import numpy as np
+    import torch
+    from repro_torch.models.api import get_model
+    m = get_model(cfg)
+    cache, lg = m.prefill(cfg, params, {"tokens": np.array(prompts),
+                                        "patches": patches}, max_len)
+    out = [torch.argmax(lg, -1)]
+    for _ in range(n_new - 1):
+        cache, lg = m.decode_step(cfg, params, cache, out[-1])
+        out.append(torch.argmax(lg, -1))
+    return torch.stack(out, 1).tolist()
+
+
+def _dense_fp32(tag, cfg, params, prompt_len, patches=None):
     """As 16b: at full depth, teacher-forced on the plain path's greedy
-    tokens over one prompt of ``prompt_len`` and 8 steps, every launch of
-    the decode and rmsnorm kernels, and of flash in a forward over the
-    prompt, against a float64 evaluation on its own inputs within 1e-4 of
-    its max |exact| (or ``PLAIN_FACTOR`` times the plain version's error),
-    and the logits kernels on against off reported; -> (the prompt, its
-    tokens, max_len, {kernel: [launches, max err, plain's]}, {run:
-    launch counts})."""
+    tokens over one prompt of ``prompt_len`` (after ``patches``, a patch
+    frontend's (1, frontend_len, frontend_dim) embeddings) and 8 steps,
+    every launch of the decode and rmsnorm kernels, and of flash in a
+    forward over the prompt, against a float64 evaluation on its own
+    inputs within 1e-4 of its max |exact| (or ``PLAIN_FACTOR`` times the
+    plain version's error), and the logits kernels on against off
+    reported; -> (the prompt, its tokens, max_len, {kernel: [launches, max
+    err, plain's]}, {run: launch counts})."""
     import dataclasses
 
     import numpy as np
@@ -5340,24 +5607,31 @@ def _dense_fp32(tag, cfg, params, prompt_len):
     on32 = dataclasses.replace(cfg, dtype="float32")
     off32 = dataclasses.replace(on32, attn_impl="blocked", use_pallas=False)
     p1 = TokenPipeline(cfg, 1, prompt_len, seed=0).prompts(1, prompt_len)
-    ml = prompt_len + 64
-    gen = ServeEngine(off32, params, max_len=ml).generate(p1, 8).tokens
+    front = 0 if patches is None else patches.shape[1]
+    ml = front + prompt_len + 64
+    if patches is None:
+        gen = ServeEngine(off32, params, max_len=ml).generate(p1, 8).tokens
+    else:                   # ServeEngine takes tokens only
+        gen = _greedy(off32, params, p1, patches, 8, ml)
     L, norms = cfg.n_layers, _dense_norms(cfg)
     rec = []
     ops.reset_launch_counts()
     lg_on, lerrs = forced_checked(f"{tag} fp32", on32, params, p1, gen, ml,
-                                  plain_factor=PLAIN_FACTOR, record=rec)
+                                  plain_factor=PLAIN_FACTOR, record=rec,
+                                  patches_=patches)
     counts = ops.launch_counts()
     check(counts["decode_attention"] == L * (len(lg_on) - 1)
           == lerrs["decode_attention"][0]
           and counts["rmsnorm"] == norms * len(lg_on) == lerrs["rmsnorm"][0],
           f"{tag} fp32: launches {counts}, checked {lerrs}")
-    lg_off = forced(off32, params, p1, gen, ml)
+    lg_off = forced(off32, params, p1, gen, ml, patches_=patches)
+    batch = {"tokens": np.array(p1)}
+    if patches is not None:
+        batch["patches"] = patches
     ops.reset_launch_counts()
     with torch.no_grad():
         _, ferrs = forced_checked(f"{tag} fp32 forward", run=lambda: model
-                                  .forward(on32, params,
-                                           {"tokens": np.array(p1)})[0],
+                                  .forward(on32, params, batch)[0],
                                   plain_factor=PLAIN_FACTOR, record=rec)
     fcounts = ops.launch_counts()
     check(fcounts["flash_attention"] == L == ferrs["flash_attention"][0]
@@ -5366,8 +5640,10 @@ def _dense_fp32(tag, cfg, params, prompt_len):
     errs = {k: [lerrs[k][0] + ferrs[k][0], max(lerrs[k][1], ferrs[k][1]),
                 max(lerrs[k][2], ferrs[k][2])] for k in lerrs}
     full_rel = max(_row_rel(lg_on, lg_off))
-    log(f"{tag} fp32, full width and depth (1 x {prompt_len} tokens + 8 "
-        f"steps, teacher-forced; a forward over the prompt): "
+    log(f"{tag} fp32, full width, {L} layers (1 x "
+        + (f"({front} patches + {prompt_len} tokens)" if front
+           else f"{prompt_len} tokens")
+        + " + 8 steps, teacher-forced; a forward over the prompt): "
         + ", ".join(f"all {n} {k} launches within {e:.3e} of max |exact| of "
                     f"float64 (plain {ep:.3e})" for k, (n, e, ep)
                     in errs.items())
@@ -5388,10 +5664,11 @@ def _dense_fp32(tag, cfg, params, prompt_len):
                                    ratios=ratios, flash_plain=flash_plain)
 
 
-def _dense_gate(tag, cfg, depth, p1, gen, ml):
+def _dense_gate(tag, cfg, depth, p1, gen, ml, patches=None):
     """At ``depth`` layers, full width, in fp32: every step's logits,
     kernels on and off, within 1e-3 of the row's max of the float64
-    compute and of each other; -> {what: worst of the steps}."""
+    compute and of each other (``patches``: a patch frontend's
+    embeddings before ``p1``); -> {what: worst of the steps}."""
     import dataclasses
 
     import torch
@@ -5404,18 +5681,18 @@ def _dense_gate(tag, cfg, depth, p1, gen, ml):
     gp = model.init(on32, torch.Generator(device=dev).manual_seed(0),
                     device=dev)
     ops.reset_launch_counts()
-    lg_on = forced(on32, gp, p1, gen, ml)
+    lg_on = forced(on32, gp, p1, gen, ml, patches_=patches)
     counts = ops.launch_counts()
     check(counts["decode_attention"] == depth * (len(lg_on) - 1)
           and counts["rmsnorm"] == _dense_norms(on32) * len(lg_on),
           f"{tag}: launches {counts}")
-    lg_off = forced(off32, gp, p1, gen, ml)
+    lg_off = forced(off32, gp, p1, gen, ml, patches_=patches)
     del gp
     torch.cuda.empty_cache()
     gp = model.init(on32, torch.Generator(device=dev).manual_seed(0),
                     dtype=torch.float64, device=dev)
     lg64 = forced(dataclasses.replace(off32, dtype="float64"), gp, p1, gen,
-                  ml)
+                  ml, patches_=patches)
     del gp
     torch.cuda.empty_cache()
     rel = {"on_off": _row_rel(lg_on, lg_off), "on_f64": _row_rel(lg_on, lg64),
@@ -5423,9 +5700,12 @@ def _dense_gate(tag, cfg, depth, p1, gen, ml):
     check(all(math.isfinite(x) and x <= 1e-3 for k in ("on_off", "on_f64")
               for x in rel[k]),
           f"{tag}: max |d logit| of the row's max, kernels on against off "
-          f"{rel['on_off']}, against float64 {rel['on_f64']} (limit 1e-3)")
+          f"{rel['on_off']}, against float64 {rel['on_f64']} (limit 1e-3; "
+          f"the plain path from float64 {rel['off_f64']})")
+    front = "" if patches is None else f"{patches.shape[1]} patches + "
     log(f"{tag} ({depth} of {cfg.n_layers} layers, full width, 1 x "
-        f"{len(p1[0])} tokens + {len(lg_on) - 1} steps, teacher-forced): "
+        f"({front}{len(p1[0])} tokens) + {len(lg_on) - 1} steps, "
+        "teacher-forced): "
         f"kernels on within {max(rel['on_f64']):.3e} of the row's max of "
         f"the float64 compute and {max(rel['on_off']):.3e} of the plain "
         f"path (limit 1e-3 each); the plain path from float64 "
@@ -5435,9 +5715,10 @@ def _dense_gate(tag, cfg, depth, p1, gen, ml):
 
 def _dry_peak(cfg, b, s, max_len):
     """The dry run's peak of a generate's calls on one rank: the larger
-    of the traced prefill's over ``b`` x ``s`` tokens and a traced decode
-    step's, over fp32 parameters (``analysis.ops.trace`` on a dry (1, 1)
-    mesh, no card)."""
+    of the traced prefill's over ``b`` x ``s`` tokens (after the
+    ``frontend_len`` patch embeddings of a patch frontend) and a traced
+    decode step's, over fp32 parameters (``analysis.ops.trace`` on a dry
+    (1, 1) mesh, no card)."""
     import torch
     from repro_torch.analysis.ops import trace
     from repro_torch.launch.mesh import make_dry_mesh
@@ -5447,9 +5728,14 @@ def _dry_peak(cfg, b, s, max_len):
     one = MeshRules(make_dry_mesh((1, 1), ("data", "model")))
     m = get_model(cfg)
     p = struct_locals(m.structs(cfg, one, dtype=torch.float32))
-    pre = trace(lambda p_, t_: m.prefill(cfg, p_, {"tokens": t_}, max_len,
-                                         one),
-                p, torch.empty((b, s), dtype=torch.int64, device="meta"))
+    inputs = {"tokens": torch.empty((b, s), dtype=torch.int64,
+                                    device="meta")}
+    if cfg.frontend == "patch":
+        inputs["patches"] = torch.empty(
+            (b, cfg.frontend_len, cfg.frontend_dim), dtype=torch.float32,
+            device="meta")
+    pre = trace(lambda p_, i_: m.prefill(cfg, p_, i_, max_len, one), p,
+                inputs)
     cache = struct_locals(m.cache_structs(cfg, b, max_len, one,
                                           dtype=torch.bfloat16))
     dec = trace(lambda p_, c_, t_: m.decode_step(cfg, p_, c_, t_, one), p,
@@ -5472,7 +5758,6 @@ def phase20() -> tuple:
     import torch.nn.functional as F
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.data.tokens import TokenPipeline
-    from repro_torch.kernels import decode_attention as KD
     from repro_torch.kernels import flash_attention as KF
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as KN
@@ -5481,7 +5766,7 @@ def phase20() -> tuple:
     dev = torch.device("cuda")
     t_phase = time.perf_counter()
     runs, timed = {}, {"flash_attention": {}, "decode_attention": {}}
-    bf16, fp32 = torch.bfloat16, torch.float32
+    bf16 = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(20)
 
     def randn(shape, dtype):
@@ -5495,110 +5780,46 @@ def phase20() -> tuple:
         except Exception as e:                 # a yardstick: log it, go on
             return f"not determined ({type(e).__name__})"
 
-    def timings(kernel, plain, library, nbytes, nops, shape, plain_iters=5):
-        k, lib = measure(kernel, 10, 2), measure(library, 10, 2)
-        p = (measure(plain, plain_iters, 1) if plain is not None
-             else {"ms": None})
-        b_ms, b_by = bound(nbytes, nops, BF16_TENSOR_OPS_PER_S)
-        return dict(ms=k["ms"], call_ms=k["call_ms"], ms_source=k["source"],
-                    plain_ms=p["ms"], library_ms=lib["ms"], bound_ms=b_ms,
-                    bound_by=b_by, shape=shape)
-
     # -- 20-kernels: every new head dim against the plain version ----------
     t0 = time.perf_counter()
-    fa_cases = [  # b, hq, hkv, sq, skv, d, kwargs
+    errs = flash_against_plain("phase 20", [  # b, hq, hkv, sq, skv, d, kw
         (2, 8, 2, 190, 190, 48, dict(causal=True)),
         (1, 8, 2, 257, 257, 80, dict(causal=True, window=100)),
         (1, 4, 4, 130, 300, 80, dict(causal=False, window=64, q_offset=100)),
         (2, 6, 3, 130, 130, 96, dict(causal=True)),
         (2, 4, 2, 130, 130, 24, dict(causal=True)),
         (1, 4, 2, 70, 200, 37, dict(causal=True, window=48)),
-    ]
-    errs = {}
-    for b_, hq_, hkv_, sq_, skv_, d_, kw in fa_cases:
-        for dtype in (fp32, bf16):
-            q, k, v = (randn(s, dtype) for s in ((b_, hq_, sq_, d_),
-                                                 (b_, hkv_, skv_, d_),
-                                                 (b_, hkv_, skv_, d_)))
-            before = KF.flash_attention.launches
-            got = KF.flash_attention(q, k, v, **kw)
-            want = ref.flash_attention_ref(q, k, v, **kw)
-            torch.cuda.synchronize()
-            label = (f"flash_attention D {d_} Sq {sq_} Skv {skv_} {kw} "
-                     f"{str(dtype)[6:]}")
-            e = float((got.float() - want.float()).abs().max())
-            ok = (got.dtype == dtype and got.shape == want.shape
-                  and bool(torch.isfinite(got).all())
-                  and KF.flash_attention.launches == before + 1)
-            if dtype == fp32:
-                ok &= torch.allclose(got, want, rtol=2e-5, atol=2e-5)
-            else:
-                ok &= ref.flash_bf16_gate(got, q, k, v, **kw) <= 1.0
-            check(ok, f"phase 20 {label}: max |err| {e}")
-            errs[label] = e
+    ], randn)
     log("phase 20 flash_attention at head dims 48, 80, 96 and the padded "
         "24 and 37, fp32 within 2e-5 of the plain version, bf16 within the "
         "float64 gate: max |err| " + ", ".join(f"{k} {v:.3e}"
                                                for k, v in errs.items()))
-    dec_cases = [  # b, hq, hkv, s, d, kv_len, window
+    derrs = decode_against_plain("phase 20", [  # b, hq, hkv, s, d, kv_len, w
         (2, 8, 2, 300, 48, 290, 100), (2, 32, 8, 4096, 80, 4096, None),
         (2, 32, 8, 2112, 128, 2049, None), (2, 12, 4, 300, 96, 250, None),
-        (2, 4, 2, 200, 24, 150, 64), (1, 6, 2, 120, 37, 100, None)]
-    derrs = {}
-    for b_, hq_, hkv_, s_, d_, kvl, win in dec_cases:
-        for dtype in (fp32, bf16):
-            qd = randn((b_, hq_, d_), dtype)
-            kd, vd = (randn((b_, s_, hkv_, d_), dtype).permute(0, 2, 1, 3)
-                      for _ in range(2))
-            got = KD.decode_attention(qd, kd, vd, kv_len=kvl, window=win)
-            want = ref.decode_attention_ref(qd, kd, vd, kv_len=kvl,
-                                            window=win)
-            rtol, atol = (2e-5, 2e-5) if dtype == fp32 else (2 ** -7, 1e-5)
-            e = float((got.float() - want.float()).abs().max())
-            label = (f"decode_attention D {d_} kv_len {kvl} window {win} "
-                     f"{str(dtype)[6:]}")
-            check(got.dtype == dtype and got.shape == want.shape
-                  and torch.allclose(got.float(), want.float(), rtol=rtol,
-                                     atol=atol), f"phase 20 {label}: max "
-                  f"|err| {e}")
-            derrs[label] = e
+        (2, 4, 2, 200, 24, 150, 64), (1, 6, 2, 120, 37, 100, None)], randn)
     log("phase 20 decode_attention at head dims 48, 80, 128, 96, 24 and the "
         "padded 37 over ring views, 9a's gates: max |err| "
         + ", ".join(f"{k} {v:.3e}" for k, v in derrs.items()))
-
-    def gated(name, q, k, v, **kw):
-        """One launch at a timed shape, held to the bf16 float64 gate
-        (``ref.flash_bf16_gate``, one batch row and kv head at a time)."""
-        before = KF.flash_attention.launches
-        got = KF.flash_attention(q, k, v, **kw)
-        torch.cuda.synchronize()
-        ratio = ref.flash_bf16_gate(got, q, k, v, **kw)
-        check(KF.flash_attention.launches == before + 1
-              and got.shape == q.shape and got.dtype == bf16
-              and ratio <= 1.0, f"phase 20 flash_attention {name} at "
-              f"{tuple(q.shape)} {kw}: {ratio:.3f} of the float64 gate")
-        log(f"phase 20 flash_attention {name} at the timed shape "
-            f"{tuple(q.shape)} / {tuple(k.shape)} {kw}: {ratio:.3f} of the "
-            "float64 gate 2**-7 (|o64| + P64 |V| / l64) + 1e-5")
-        return ratio
 
     # held and timed at the model shapes
     b_, s_, w_ = 4, 6144, 4096           # 20a's prefill, windowed, D 80
     q, k, v = randn((b_, 32, s_, 80), bf16), randn((b_, 8, s_, 80), bf16), \
         randn((b_, 8, s_, 80), bf16)
-    gate = gated("danube", q, k, v, causal=True, window=w_)
+    gate = flash_gated("phase 20", "danube", q, k, v, causal=True,
+                       window=w_)
     torch.cuda.empty_cache()
     pos = torch.arange(s_, device=dev)
     mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - w_)
     backend = sdpa_backend(q, k, v, attn_mask=mask, dropout_p=0.0,
                            is_causal=False, scale=None, enable_gqa=True)
-    t = timings(lambda: KF.flash_attention(q, k, v, causal=True, window=w_),
-                None,
-                lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=mask, enable_gqa=True),
-                *KF.work(q.shape, k.shape, 2, causal=True, window=w_),
-                f"B={b_} Hq=32 Hkv=8 S={s_} D=80 causal window {w_} bf16 "
-                "(h2o-danube-1.8b's prefill)")
+    t = kernel_timings(
+        lambda: KF.flash_attention(q, k, v, causal=True, window=w_), None,
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                               enable_gqa=True),
+        *KF.work(q.shape, k.shape, 2, causal=True, window=w_),
+        f"B={b_} Hq=32 Hkv=8 S={s_} D=80 causal window {w_} bf16 "
+        "(h2o-danube-1.8b's prefill)")
     t.update(library_backend=backend, gate=gate, plain_ms_note="not "
              "measured: its (B, Hq, S, S) fp32 scores take 19.3 GB a tensor")
     timed["flash_attention"]["danube"] = t
@@ -5606,15 +5827,15 @@ def phase20() -> tuple:
     b_, s_ = NEMO_BATCH, 2048            # 20b's prefill, causal, D 128 GQA 4
     q, k, v = randn((b_, 32, s_, 128), bf16), randn((b_, 8, s_, 128), bf16), \
         randn((b_, 8, s_, 128), bf16)
-    gate = gated("nemo", q, k, v, causal=True)
-    t = timings(lambda: KF.flash_attention(q, k, v, causal=True),
-                lambda: ref.flash_attention_ref(q, k, v, causal=True),
-                lambda: F.scaled_dot_product_attention(q, k, v,
-                                                       is_causal=True,
-                                                       enable_gqa=True),
-                *KF.work(q.shape, k.shape, 2, causal=True),
-                f"B={b_} Hq=32 Hkv=8 S={s_} D=128 causal bf16 "
-                "(mistral-nemo-12b's prefill)")
+    gate = flash_gated("phase 20", "nemo", q, k, v, causal=True)
+    t = kernel_timings(
+        lambda: KF.flash_attention(q, k, v, causal=True),
+        lambda: ref.flash_attention_ref(q, k, v, causal=True),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                               enable_gqa=True),
+        *KF.work(q.shape, k.shape, 2, causal=True),
+        f"B={b_} Hq=32 Hkv=8 S={s_} D=128 causal bf16 "
+        "(mistral-nemo-12b's prefill)")
     t.update(gate=gate, library_backend=sdpa_backend(
         q, k, v, attn_mask=None, dropout_p=0.0, is_causal=True, scale=None,
         enable_gqa=True))
@@ -5623,57 +5844,13 @@ def phase20() -> tuple:
     for name, (b_, d_, sc_, kvl) in (("danube", (4, 80, 4096, 4096)),
                                      ("nemo", (NEMO_BATCH, 128,
                                                NEMO_MAX_LEN, 2049))):
-        # decode over the serving ring's view: 6 rings in turn (L2-cold,
-        # as a step finds each layer's cache after the others' and the
-        # weights), the warm time on one
-        rings = [tuple(randn((b_, sc_, 8, d_), bf16).permute(0, 2, 1, 3)
-                       for _ in range(2)) for _ in range(6)]
-        qd = randn((b_, 32, d_), bf16)
-        q4 = qd[:, :, None]
-        turn = [0]
-
-        def rotating(fn):
-            def call():
-                turn[0] = (turn[0] + 1) % len(rings)
-                return fn(*rings[turn[0]])
-            return call
-
-        def dec_kernel(k_, v_):
-            return KD.decode_attention(qd, k_, v_, kv_len=kvl)
-
-        def dec_sdpa(k_, v_):
-            return F.scaled_dot_product_attention(
-                q4, k_[:, :, :kvl], v_[:, :, :kvl], enable_gqa=True)
-        kd, vd = rings[0]
-        t = timings(lambda: dec_kernel(kd, vd),
-                    lambda: ref.decode_attention_ref(qd, kd, vd, kv_len=kvl),
-                    lambda: dec_sdpa(kd, vd),
-                    *KD.work(b_, 32, 8, kvl, d_, 2),
-                    f"B={b_} Hq=32 Hkv=8 D={d_} kv_len={kvl} over a (B, "
-                    f"Sc={sc_}, Hkv, D) bf16 ring view"
-                    + (" (danube's wrapped window ring)" if name == "danube"
-                       else " (mistral-nemo-12b's decode)"))
-        cold, lib_cold = measure(rotating(dec_kernel), 10, 2), measure(
-            rotating(dec_sdpa), 10, 2)
-        t.update(cold_ms=cold["ms"], library_cold_ms=lib_cold["ms"],
-                 split_plan=list(KD.split_plan(kvl, None, b_ * 8,
-                                               KD.sm_count(dev))))
-        timed["decode_attention"][name] = t
-        del rings, kd, vd, qd, q4
-    for kname, by in timed.items():
-        for name, t in by.items():
-            log(f"phase 20 {kname} {name}: kernel {t['ms']:.5f} ms "
-                f"({t['ms_source']}; {t['call_ms']:.5f} per call), plain "
-                + (f"{t['plain_ms']:.5f} ms" if t["plain_ms"] is not None
-                   else t.get("plain_ms_note", "not measured"))
-                + f", SDPA {t['library_ms']:.5f} ms"
-                + (f" ({t['library_backend']})" if "library_backend" in t
-                   else "")
-                + f", bound {t['bound_ms']:.5f} ms ({t['bound_by']}) at "
-                f"{t['shape']}"
-                + (f"; L2-cold {t['cold_ms']:.5f} ms, SDPA cold "
-                   f"{t['library_cold_ms']:.5f} ms, split plan "
-                   f"{t['split_plan']}" if "cold_ms" in t else ""))
+        timed["decode_attention"][name] = decode_ring_timings(
+            b_, 32, 8, sc_, d_, kvl, randn,
+            f"B={b_} Hq=32 Hkv=8 D={d_} kv_len={kvl} over a (B, Sc={sc_}, "
+            "Hkv, D) bf16 ring view"
+            + (" (danube's wrapped window ring)" if name == "danube"
+               else " (mistral-nemo-12b's decode)"))
+    log_timed("phase 20", timed)
     timed["flash_attention"]["max_abs_err_by_case"] = errs
     timed["decode_attention"]["max_abs_err_by_case"] = derrs
     torch.cuda.empty_cache()
@@ -5733,12 +5910,12 @@ def phase20() -> tuple:
     runs[tag] = out_b.pop("counts")
     runs["phase 20b forward nemo"] = out_b.pop("forward_counts")
     ratio = out_b["peak_bytes"] / pred[0]
-    check(abs(ratio - 1.0) <= NEMO_PEAK_TOL,
+    check(abs(ratio - 1.0) <= PEAK_TOL,
           f"{tag}: peak {out_b['peak_bytes']} is {ratio:.4f} of the dry "
-          f"run's {pred[0]} (limit 1 +- {NEMO_PEAK_TOL})")
+          f"run's {pred[0]} (limit 1 +- {PEAK_TOL})")
     log(f"{tag}: peak {out_b['peak_bytes']} bytes against the dry run's "
         f"{pred[0]} (prefill {pred[1]}, a decode step {pred[2]}): "
-        f"{ratio:.4f} (limit 1 +- {NEMO_PEAK_TOL})")
+        f"{ratio:.4f} (limit 1 +- {PEAK_TOL})")
     p1, gen, ml, errs_b, c = _dense_fp32("phase 20b", cfg, params,
                                          NEMO_GATE_PROMPT)
     runs["phase 20b fp32 nemo"] = c["counts"]
@@ -5792,6 +5969,503 @@ def phase20() -> tuple:
     log(f"phase 20c: {time.perf_counter() - t0:.1f} s")
     log(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
     timed["serving"] = {"danube": out_a, "nemo": out_b, "qwen3": out_c}
+    return runs, timed
+
+
+#: Phase 21: the last two configs at their full widths, each at a cut
+#: depth (their whole fp32 parameters, 186.8 and 282.3 GB, do not fit one
+#: card; the dry run's peaks of the cut models' calls: 67.5 and 57.9 GB).
+#: mixtral-8x7b at ``MIXTRAL_LAYERS`` of 32 layers (8 experts of d_ff
+#: 14,336, top-2, window 4,096, GQA 4): (a) its routing over 4 x 6,144
+#: tokens, past the window, mined as a triadic context on the card and on
+#: the CPU; (b) served through ``ServeEngine``, 2 prompts of 4,607-4,608
+#: tokens (the 4,096-slot ring wraps in the prefill) and 32 new.
+#: internvl2-76b at ``INTERNVL_LAYERS`` of 80 (64 query heads over 8 KV
+#: heads, d_model 8,192, vocabulary 128,256, a patch frontend 3,200 ->
+#: 8,192): (c) served through ``Model.prefill`` / ``decode_step`` with its
+#: patch embeddings (``ServeEngine`` takes tokens only, as the JAX
+#: package's does): 2 requests of 256 patches and 1,792 tokens and 16
+#: steps, over a ring of frontend + prompt + new = 2,064 slots, which never
+#: wraps (a ring one slot short of that overwrites position 0 at the last
+#: step: ROADMAP C).
+MIXTRAL = "mixtral-8x7b"
+MIXTRAL_PARAMS = 46_702_792_704
+MIXTRAL_LAYERS = 8
+MIXTRAL_CUT_PARAMS = 11_872_309_248
+MIXTRAL_ROUTE_BATCH, MIXTRAL_ROUTE_SEQ = 4, 6144
+MIXTRAL_BATCH, MIXTRAL_PROMPT, MIXTRAL_NEW = 2, 4608, 32
+MIXTRAL_MAX_LEN = MIXTRAL_PROMPT + 2 * MIXTRAL_NEW
+MIXTRAL_GATE_PROMPT = 4160
+INTERNVL = "internvl2-76b"
+INTERNVL_PARAMS = 70_579_920_896
+INTERNVL_LAYERS = 12
+INTERNVL_CUT_PARAMS = 12_395_421_696
+INTERNVL_BATCH, INTERNVL_FRONT, INTERNVL_TEXT, INTERNVL_NEW = 2, 256, 1792, 16
+INTERNVL_GATE_TEXT = 256
+#: Depth of phase 21's fp32 logits gates: where float32 holds.  At 2
+#: layers the plain float32 path itself parts from float64 by up to ~1e-3
+#: of the row's max over the gates' steps (mixtral 9.84e-4, internvl
+#: 1.090e-3, past the limit; on an H100), as seamless-m4t's does at 2 + 2
+#: layers (18b); at 1 layer both stay within 4e-5 (and their prefills
+#: within 2.4e-6; ``scripts/torch_hybrid_conditioning.py``).
+GATE_LAYERS_21 = 1
+
+
+def _patch_serving(tag, cfg, params, inputs, n_new, max_len):
+    """A patch-frontend model served as ``ServeEngine`` serves tokens:
+    ``Model.prefill`` over ``inputs`` (``tokens`` and ``patches``), then
+    ``n_new`` greedy decode steps, each step's tokens read back; a warm-up,
+    then a timed run whose launches must be the plan's (nothing else may
+    launch) and in which the cache's position stays below ``max_len`` at
+    every step (the ring never wraps); then the device busy time as
+    :func:`serve_measured` takes it, and a forward over the same inputs
+    (the flash kernel's path).  -> a dict of what was measured."""
+    import gc
+
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import get_model
+    model = get_model(cfg)
+    L, norms = cfg.n_layers, _dense_norms(cfg)
+    b = len(inputs["tokens"])
+    s = cfg.frontend_len + inputs["tokens"].shape[1]
+
+    def generate(n):
+        t0 = time.perf_counter()
+        cache, lg = model.prefill(cfg, params, inputs, max_len)
+        feed = torch.argmax(lg, -1)
+        toks = [feed.cpu()]
+        t1 = time.perf_counter()
+        for _ in range(n):
+            pos = int(cache["pos"])
+            check(pos < max_len, f"{tag}: position {pos} at a step, ring of "
+                  f"{max_len} slots")
+            cache, lg = model.decode_step(cfg, params, cache, feed)
+            feed = torch.argmax(lg, -1)
+            toks.append(feed.cpu())
+        t2 = time.perf_counter()
+        return cache, torch.stack(toks, 1), t1 - t0, t2 - t1
+
+    generate(2)                                           # warm-up
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    cache, toks, pre_s, dec_s = generate(n_new)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"decode_attention": L * n_new, "rmsnorm": norms * (1 + n_new)}
+    check(counts == {k: want.get(k, 0) for k in counts},
+          f"{tag}: launches {counts} != {want}")
+    sp = cache["slot_pos"].cpu()
+    check(int(cache["pos"]) == s + n_new and sp.shape[0] == max_len
+          and torch.equal(sp[:s + n_new].long(), torch.arange(s + n_new)),
+          f"{tag}: position {int(cache['pos'])}, ring {tuple(sp.shape)}")
+    check(toks.shape == (b, 1 + n_new) and int(toks.min()) >= 0
+          and int(toks.max()) < cfg.vocab_size, f"{tag}: tokens "
+          f"{tuple(toks.shape)} in [{int(toks.min())}, {int(toks.max())}]")
+    del cache
+    box = {}
+
+    def prefill_once():
+        box["cache"], lg = model.prefill(cfg, params, inputs, max_len)
+        box["feed"] = torch.argmax(lg, -1)
+
+    def step_once():
+        box["cache"], lg = model.decode_step(cfg, params, box["cache"],
+                                             box["feed"])
+        box["feed"] = torch.argmax(lg, -1)
+        box["feed"].cpu()
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    b_pre, _ = device_busy_ms(prefill_once)
+    b_step, _, by_op, complete = device_ms(step_once, iters=2)
+    box.clear()
+    gen_ms = (pre_s + dec_s) * 1e3
+    busy = None if b_pre is None or b_step is None else b_pre + n_new * b_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        lf, _ = model.forward(cfg, params, inputs)
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        fcounts = ops.launch_counts()
+        finite = bool(torch.isfinite(lf).all()) and lf.shape[1] == s
+        del lf
+    torch.cuda.empty_cache()
+    check(fcounts["flash_attention"] == L and fcounts["rmsnorm"] == norms
+          and finite, f"{tag} forward: launches {fcounts}, finite {finite}")
+    return dict(prefill_ms=pre_s * 1e3, decode_ms=dec_s * 1e3, gen_ms=gen_ms,
+                steps=n_new, want=want, counts=counts, peak_bytes=peak,
+                live_bytes_before=live, prefill_device_ms=b_pre,
+                step_device_ms=b_step, step_by_op=by_op,
+                step_trace_complete=complete, busy_ms=busy,
+                idle_share=None if busy is None else 1 - busy / gen_ms,
+                forward_counts=fcounts, forward_ms=fwd_ms)
+
+
+def phase21() -> tuple:
+    """The last two configs at their full widths (``PHASE 21`` above):
+    (kernels) flash, decode and rmsnorm at their new shapes against their
+    plain versions, then timed at 21a's, 21b's and 21c's beside the bound
+    and the library call; (a) mixtral-8x7b's routing mined, on the card
+    against the CPU; (b) mixtral served, its peak against the dry run's;
+    (c) internvl2-76b served with its patch frontend, its peak against the
+    dry run's.  -> ({run: launch counts}, {kernel: {shape: timings}, and
+    the runs' measures})."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.core.batch import BatchMiner
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import flash_attention as KF
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rmsnorm as KN
+    from repro_torch.models.api import get_model
+    from repro_torch.models.telemetry import (collect_moe_routing,
+                                              routing_context)
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    runs = {}
+    timed = {"flash_attention": {}, "decode_attention": {}, "rmsnorm": {}}
+    bf16, fp32 = torch.bfloat16, torch.float32
+    g = torch.Generator(device=dev).manual_seed(21)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- 21-kernels: the new shapes against the plain versions --------------
+    t0 = time.perf_counter()
+    errs = flash_against_plain("phase 21", [  # b, hq, hkv, sq, skv, d, kw
+        (1, 16, 2, 200, 200, 128, dict(causal=True)),
+        (1, 16, 2, 130, 300, 128, dict(causal=True, window=100)),
+        (2, 32, 8, 257, 257, 128, dict(causal=True, window=64)),
+    ], randn)
+    derrs = decode_against_plain("phase 21", [  # b, hq, hkv, s, d, kv_len, w
+        (2, 64, 8, 2064, 128, 2064, None), (2, 16, 2, 300, 128, 290, 100),
+        (2, 32, 8, 4096, 128, 4096, None), (1, 64, 8, 700, 128, 513, None)],
+        randn)
+    nerrs = {}
+    for dn in (4096, 8192):
+        w = randn((dn,), fp32)
+        for rows in (4096, 2, 17):
+            for dtype in (bf16, fp32):
+                x = randn((rows, dn), dtype)
+                check(KN.plan_for(x, w).path == "block",
+                      f"phase 21 rmsnorm {rows} x {dn}: plan "
+                      f"{KN.plan_for(x, w)}")
+                ok, e = gate_9a(KN.rmsnorm(x, w, 1e-5),
+                                ref.rmsnorm_ref(x, w, 1e-5), dtype)
+                label = f"rmsnorm {rows} x {dn} {str(dtype)[6:]}"
+                check(ok, f"phase 21 {label}: max |err| {e}")
+                nerrs[label] = e
+    log("phase 21 flash_attention at group 8 and D 128 (windowed, ragged), "
+        "fp32 within 2e-5 of the plain version, bf16 within the float64 "
+        "gate; decode_attention at group 8 and D 128 over ring views; "
+        "rmsnorm at widths 4,096 and 8,192 (block path), 9a's gates: max "
+        "|err| " + ", ".join(f"{k} {v:.3e}" for k, v in
+                             {**errs, **derrs, **nerrs}.items()))
+
+    # flash at 21a's routing pass: D 128, GQA 4, the window biting
+    b_, s_, w_ = MIXTRAL_ROUTE_BATCH, MIXTRAL_ROUTE_SEQ, 4096
+    q, k, v = randn((b_, 32, s_, 128), bf16), randn((b_, 8, s_, 128), bf16), \
+        randn((b_, 8, s_, 128), bf16)
+    gate = flash_gated("phase 21", "mixtral", q, k, v, causal=True,
+                       window=w_)
+    pos = torch.arange(s_, device=dev)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - w_)
+    t = kernel_timings(
+        lambda: KF.flash_attention(q, k, v, causal=True, window=w_), None,
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                               enable_gqa=True),
+        *KF.work(q.shape, k.shape, 2, causal=True, window=w_),
+        f"B={b_} Hq=32 Hkv=8 S={s_} D=128 causal window {w_} bf16 "
+        "(mixtral-8x7b's routing pass)")
+    t.update(gate=gate, plain_ms_note="not measured: its (B, Hq, S, S) fp32 "
+             "scores take 19.3 GB a tensor")
+    timed["flash_attention"]["mixtral"] = t
+    del q, k, v, mask
+    # flash at 21c's forward: D 128, GQA 8
+    b_, s_ = INTERNVL_BATCH, INTERNVL_FRONT + INTERNVL_TEXT
+    q, k, v = randn((b_, 64, s_, 128), bf16), randn((b_, 8, s_, 128), bf16), \
+        randn((b_, 8, s_, 128), bf16)
+    gate = flash_gated("phase 21", "internvl", q, k, v, causal=True)
+    t = kernel_timings(
+        lambda: KF.flash_attention(q, k, v, causal=True),
+        lambda: ref.flash_attention_ref(q, k, v, causal=True),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                               enable_gqa=True),
+        *KF.work(q.shape, k.shape, 2, causal=True),
+        f"B={b_} Hq=64 Hkv=8 S={s_} D=128 causal bf16 (internvl2-76b's "
+        "forward)")
+    t.update(gate=gate)
+    timed["flash_attention"]["internvl"] = t
+    del q, k, v
+    free()
+    ring = INTERNVL_FRONT + INTERNVL_TEXT + INTERNVL_NEW
+    timed["decode_attention"]["mixtral"] = decode_ring_timings(
+        MIXTRAL_BATCH, 32, 8, 4096, 128, 4096, randn,
+        f"B={MIXTRAL_BATCH} Hq=32 Hkv=8 D=128 kv_len=4096 over a (B, "
+        "Sc=4096, Hkv, D) bf16 ring view (mixtral-8x7b's full window ring)")
+    timed["decode_attention"]["internvl"] = decode_ring_timings(
+        INTERNVL_BATCH, 64, 8, ring, 128, ring, randn,
+        f"B={INTERNVL_BATCH} Hq=64 Hkv=8 D=128 kv_len={ring} over a (B, "
+        f"Sc={ring}, Hkv, D) bf16 ring view (internvl2-76b's last step)")
+    w = randn((8192,), fp32)
+    for rows in (INTERNVL_BATCH * (INTERNVL_FRONT + INTERNVL_TEXT),
+                 INTERNVL_BATCH):
+        x = randn((rows, 8192), bf16)
+        timed["rmsnorm"][f"{rows}x8192"] = kernel_timings(
+            lambda: KN.rmsnorm(x, w, 1e-5),
+            lambda: ref.rmsnorm_ref(x, w, 1e-5),
+            lambda: F.rms_norm(x, (8192,), w, 1e-5),
+            *KN.work(rows, 8192, 2, 4),
+            f"R={rows} D=8192 bf16, fp32 weight (internvl2-76b's "
+            + ("prefill)" if rows > INTERNVL_BATCH else "decode step)"),
+            ALU_OPS_PER_S)
+        del x
+    log_timed("phase 21", timed)
+    timed["flash_attention"]["max_abs_err_by_case"] = errs
+    timed["decode_attention"]["max_abs_err_by_case"] = derrs
+    timed["rmsnorm"]["max_abs_err_by_case"] = nerrs
+    free()
+    log(f"phase 21 kernels: {time.perf_counter() - t0:.1f} s")
+
+    # -- 21a: mixtral-8x7b's routing, mined -----------------------------------
+    t0 = time.perf_counter()
+    full = dataclasses.replace(get_config(MIXTRAL), attn_impl="pallas",
+                               use_pallas=True)
+    check(full.n_params() == MIXTRAL_PARAMS and full.head_dim == 128
+          and full.window == 4096 and full.d_ff == 14336
+          and (full.n_experts, full.top_k) == (8, 2)
+          and full.n_heads // full.n_kv_heads == 4
+          and full.dtype == "bfloat16",
+          f"{MIXTRAL}: {full.n_params()} parameters, head dim "
+          f"{full.head_dim}, window {full.window}, d_ff {full.d_ff}")
+    cfg = dataclasses.replace(full, n_layers=MIXTRAL_LAYERS)
+    L = cfg.n_layers
+    params = get_model(cfg).init(cfg, torch.Generator(device=dev)
+                                 .manual_seed(0), device=dev)
+    held = sum(p.numel() for p in params.parameters())
+    check(held == cfg.n_params() == MIXTRAL_CUT_PARAMS,
+          f"{MIXTRAL} at {L} layers: {held} parameters")
+    torch.cuda.synchronize()
+    log(f"phase 21a init {MIXTRAL} at {L} of {full.n_layers} layers: {held} "
+        f"parameters fp32 ({held * 4 / 1e9:.2f} GB) in "
+        f"{time.perf_counter() - t0:.2f} s (set-up)")
+    tokens = TokenPipeline(cfg, MIXTRAL_ROUTE_BATCH, MIXTRAL_ROUTE_SEQ,
+                           seed=0).batch_at(0)["tokens"]
+    n_tok = tokens.shape[0] * tokens.shape[1]
+    check(tokens.shape[1] > cfg.window, f"routing tokens {tokens.shape}")
+    collect_moe_routing(cfg, params, tokens)             # first (cold) run
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    ta = time.perf_counter()
+    routes = collect_moe_routing(cfg, params, tokens)
+    tb = time.perf_counter()
+    ctx = routing_context(cfg, tokens, routes)
+    tc = time.perf_counter()
+    miner = BatchMiner(ctx.sizes, theta=0.2, device="cuda")
+    res = miner(ctx.tuples)
+    res.keep.cpu()
+    td = time.perf_counter()
+    counts = ops.launch_counts()
+    peak_a = torch.cuda.max_memory_allocated()
+    want = {"flash_attention": L, "rmsnorm": 2 * L,
+            **mining_launches(ctx.sizes)}
+    check(counts == {k_: want.get(k_, 0) for k_ in counts},
+          f"phase 21a routing run: launches {counts} != {want}")
+    runs["phase 21a routing mixtral"] = counts
+    check(routes.shape == (L, MIXTRAL_ROUTE_BATCH, MIXTRAL_ROUTE_SEQ,
+                           cfg.top_k)
+          and routes.min() >= 0 and routes.max() < cfg.n_experts,
+          f"routes {routes.shape} in [{routes.min()}, {routes.max()}]")
+    check(ctx.num_tuples <= routes.size
+          and tuple(ctx.sizes) == (cfg.vocab_size, cfg.n_experts, L),
+          f"routing context {ctx.sizes}, |I| = {ctx.num_tuples}")
+    check(bool(torch.isfinite(res.density).all()), "21a: density")
+    route_times, mine_times = [(tb - ta) * 1e3], [(td - tc) * 1e3]
+    t1 = time.perf_counter()
+    again = collect_moe_routing(cfg, params, tokens)
+    route_times.append((time.perf_counter() - t1) * 1e3)
+    same = bool(np.array_equal(again, routes))
+    t1 = time.perf_counter()
+    miner(ctx.tuples).keep.cpu()
+    mine_times.append((time.perf_counter() - t1) * 1e3)
+    route_ms = min(route_times)
+    busy, by_name, _, complete = device_ms(
+        lambda: collect_moe_routing(cfg, params, tokens), iters=1,
+        warm=False)
+    route_busy = busy if complete else None
+    kept = int(res.keep.sum())
+    log(f"phase 21a {MIXTRAL} routing ({L} of {full.n_layers} layers, full "
+        f"width, bf16 over fp32 weights, flash and rmsnorm; "
+        f"{MIXTRAL_ROUTE_BATCH} x {MIXTRAL_ROUTE_SEQ} tokens, window "
+        f"{cfg.window}): launches {counts} as planned; routing pass warm ms "
+        f"{[round(x, 3) for x in route_times]} (min {route_ms:.3f}; "
+        f"{n_tok / (route_ms / 1e3):.0f} tokens/s); "
+        + (f"device busy {busy:.3f} ms in a profiled pass (idle share "
+           f"{1 - busy / route_ms:.3f} of the fastest unprofiled pass; "
+           "below 0: not resolved)" if route_busy is not None
+           else "device busy not measured (trace incomplete)")
+        + f"; peak {peak_a} bytes; routing_context {(tc - tb) * 1e3:.3f} ms; "
+        f"context {ctx.sizes} |I| = {ctx.num_tuples} (density "
+        f"{ctx.density:.3e}); mining warm ms "
+        f"{[round(x, 3) for x in mine_times]}; "
+        f"{int(res.is_unique.sum())} clusters, {kept} with density >= 0.2; "
+        f"routes of two warm passes identical: {same}")
+    if busy is not None:
+        for kname, kms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            log(f"    {kms:.4f} ms  {kname[:90]}")
+    t1 = time.perf_counter()
+    res_cpu = BatchMiner(ctx.sizes, theta=0.2, device="cpu")(ctx.tuples)
+    leaves_equal(res, res_cpu, "21a routing context mining cuda vs cpu")
+    log(f"phase 21a routing context mining: CUDA result equals the CPU "
+        f"result leaf for leaf ({time.perf_counter() - t1:.1f} s on the "
+        "CPU)")
+    out_a = dict(route_ms=min(route_times), route_times=route_times,
+                 tokens_per_s=n_tok / (route_ms / 1e3), device_busy_ms=busy,
+                 trace_complete=complete,
+                 idle_share=(None if route_busy is None
+                             else 1 - route_busy / route_ms),
+                 peak_bytes=peak_a, mine_ms=min(mine_times),
+                 ctx_sizes=list(ctx.sizes), num_tuples=int(ctx.num_tuples),
+                 clusters=int(res.is_unique.sum()), kept=kept)
+    del res, res_cpu, miner, again
+    free()
+    log(f"phase 21a: {time.perf_counter() - t0:.1f} s")
+
+    # -- 21b: mixtral-8x7b served ---------------------------------------------
+    t0 = time.perf_counter()
+    prompts = TokenPipeline(cfg, MIXTRAL_BATCH, MIXTRAL_PROMPT,
+                            seed=0).prompts(MIXTRAL_BATCH, MIXTRAL_PROMPT)
+    s0 = min(len(p) for p in prompts)
+    check(s0 > cfg.window, f"prompt lengths {[len(p) for p in prompts]}")
+    pred = _dry_peak(cfg, MIXTRAL_BATCH, s0, MIXTRAL_MAX_LEN)
+    tag = "phase 21b serving mixtral"
+    out_b = _dense_serving(tag, cfg, params, prompts, MIXTRAL_NEW,
+                           MIXTRAL_MAX_LEN)
+    runs[tag] = out_b.pop("counts")
+    runs["phase 21b forward mixtral"] = out_b.pop("forward_counts")
+    ratio = out_b["peak_bytes"] / pred[0]
+    check(abs(ratio - 1.0) <= PEAK_TOL,
+          f"{tag}: peak {out_b['peak_bytes']} is {ratio:.4f} of the dry "
+          f"run's {pred[0]} (limit 1 +- {PEAK_TOL})")
+    log(f"{tag}: peak {out_b['peak_bytes']} bytes against the dry run's "
+        f"{pred[0]} (prefill {pred[1]}, a decode step {pred[2]}): "
+        f"{ratio:.4f} (limit 1 +- {PEAK_TOL})")
+    p1, gen, ml, errs_b, c = _dense_fp32("phase 21b", cfg, params,
+                                         MIXTRAL_GATE_PROMPT)
+    runs["phase 21b fp32 mixtral"] = c["counts"]
+    runs["phase 21b fp32 forward mixtral"] = c["forward_counts"]
+    del params
+    free()
+    gate_b = _dense_gate("phase 21b fp32 gate mixtral", cfg, GATE_LAYERS_21,
+                         p1, gen, ml)
+    out_b.update(dry_peak_bytes=pred[0], peak_ratio=ratio, fp32_errs=errs_b,
+                 gate=gate_b, fp32_ratios=c["ratios"],
+                 flash_plain_by_layer=c["flash_plain"])
+    log(f"phase 21b: {time.perf_counter() - t0:.1f} s")
+
+    # -- 21c: internvl2-76b served with its patch frontend --------------------
+    t0 = time.perf_counter()
+    full = dataclasses.replace(get_config(INTERNVL), attn_impl="pallas",
+                               use_pallas=True)
+    check(full.n_params() == INTERNVL_PARAMS and full.head_dim == 128
+          and (full.n_heads, full.n_kv_heads) == (64, 8)
+          and full.d_model == 8192 and full.vocab_size == 128256
+          and (full.frontend, full.frontend_len, full.frontend_dim)
+          == ("patch", INTERNVL_FRONT, 3200) and full.dtype == "bfloat16",
+          f"{INTERNVL}: {full.n_params()} parameters")
+    cfg = dataclasses.replace(full, n_layers=INTERNVL_LAYERS)
+    L = cfg.n_layers
+    max_len = cfg.frontend_len + INTERNVL_TEXT + INTERNVL_NEW
+    pred = _dry_peak(cfg, INTERNVL_BATCH, INTERNVL_TEXT, max_len)
+    t1 = time.perf_counter()
+    params = get_model(cfg).init(cfg, torch.Generator(device=dev)
+                                 .manual_seed(0), device=dev)
+    held = sum(p.numel() for p in params.parameters())
+    check(held == cfg.n_params() == INTERNVL_CUT_PARAMS,
+          f"{INTERNVL} at {L} layers: {held} parameters")
+    torch.cuda.synchronize()
+    log(f"phase 21c init {INTERNVL} at {L} of {full.n_layers} layers: "
+        f"{held} parameters fp32 ({held * 4 / 1e9:.2f} GB) in "
+        f"{time.perf_counter() - t1:.2f} s (set-up)")
+    inputs = TokenPipeline(cfg, INTERNVL_BATCH, INTERNVL_TEXT,
+                           seed=0).batch_at(0)
+    inputs = {"tokens": inputs["tokens"], "patches": inputs["patches"]}
+    tag = "phase 21c serving internvl"
+    out_c = _patch_serving(tag, cfg, params, inputs, INTERNVL_NEW, max_len)
+    runs[tag] = out_c.pop("counts")
+    runs["phase 21c forward internvl"] = out_c.pop("forward_counts")
+    ratio = out_c["peak_bytes"] / pred[0]
+    check(abs(ratio - 1.0) <= PEAK_TOL,
+          f"{tag}: peak {out_c['peak_bytes']} is {ratio:.4f} of the dry "
+          f"run's {pred[0]} (limit 1 +- {PEAK_TOL})")
+    s = cfg.frontend_len + INTERNVL_TEXT
+    steps, busy = out_c["steps"], out_c["busy_ms"]
+    log(f"{tag} ({L} of {full.n_layers} layers, full width, bf16 over fp32 "
+        f"weights, both kernels; {INTERNVL_BATCH} requests of "
+        f"{cfg.frontend_len} patches + {INTERNVL_TEXT} tokens, {steps} "
+        f"greedy steps, a ring of {max_len} slots, never wrapped): prefill "
+        f"{out_c['prefill_ms']:.3f} ms "
+        f"({INTERNVL_BATCH * s / (out_c['prefill_ms'] / 1e3):.1f} "
+        f"positions/s); decode {out_c['decode_ms']:.3f} ms over {steps} "
+        f"steps ({out_c['decode_ms'] / steps:.3f} ms a step, "
+        f"{INTERNVL_BATCH * steps / (out_c['decode_ms'] / 1e3):.1f} "
+        f"tokens/s); launches {out_c['want']} as planned; peak "
+        f"{out_c['peak_bytes']} bytes against the dry run's {pred[0]} "
+        f"(prefill {pred[1]}, a decode step {pred[2]}): {ratio:.4f} (limit "
+        f"1 +- {PEAK_TOL}; {out_c['live_bytes_before']} live as it "
+        "began); "
+        + (f"device busy {busy:.3f} ms of {out_c['gen_ms']:.3f} (the "
+           f"prefill's {out_c['prefill_device_ms']:.3f} + {steps} x a "
+           f"step's {out_c['step_device_ms']:.3f}; idle share "
+           f"{out_c['idle_share']:.3f}; the step's trace complete: "
+           f"{out_c['step_trace_complete']})" if busy is not None
+           else "device busy not measured")
+        + f"; the forward over the same inputs: "
+        f"{runs['phase 21c forward internvl']['flash_attention']} flash "
+        f"launches (group 8, D 128), {out_c['forward_ms']:.3f} ms, finite")
+    if busy is not None:
+        for oname, oms in sorted(out_c["step_by_op"].items(),
+                                 key=lambda kv: -kv[1])[:6]:
+            log(f"    {oms:.3f} ms  {oname[:90]}")
+    del out_c["step_by_op"]
+    patches1 = np.random.default_rng(21).standard_normal(
+        (1, cfg.frontend_len, cfg.frontend_dim)).astype(np.float32)
+    p1, gen, ml, errs_c, c = _dense_fp32("phase 21c", cfg, params,
+                                         INTERNVL_GATE_TEXT,
+                                         patches=patches1)
+    runs["phase 21c fp32 internvl"] = c["counts"]
+    runs["phase 21c fp32 forward internvl"] = c["forward_counts"]
+    del params
+    free()
+    gate_c = _dense_gate("phase 21c fp32 gate internvl", cfg, GATE_LAYERS_21,
+                         p1, gen, ml, patches=patches1)
+    out_c.update(dry_peak_bytes=pred[0], peak_ratio=ratio, fp32_errs=errs_c,
+                 gate=gate_c, fp32_ratios=c["ratios"],
+                 flash_plain_by_layer=c["flash_plain"])
+    free()
+    log(f"phase 21c: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
+    timed["runs"] = {"routing_mixtral": out_a, "serving_mixtral": out_b,
+                     "serving_internvl": out_c}
     return runs, timed
 
 
@@ -7223,6 +7897,7 @@ def main() -> int:
             k["seamless"] = seam[k["name"]]
 
     # -- phase 19: the dry run against the card -------------------------------
+    dry19 = in_background(dry_host_cells, MESH_COMMS["15b"]["prompt"])
     runs10.update(phase19(bib))
 
     # -- phase 20: the dense configs that never ran on the card ---------------
@@ -7231,6 +7906,19 @@ def main() -> int:
     for k in kernels:
         if k["name"] in dense:
             k["dense"] = dense[k["name"]]
+
+    # -- phase 21: the last two configs at their full widths -----------------
+    runs21, wide21 = phase21()
+    runs10.update(runs21)
+    for k in kernels:
+        if k["name"] in wide21:
+            k["full_width"] = wide21[k["name"]]
+    t0 = time.perf_counter()
+    mesh19, cells19 = dry19()
+    log(f"phase 19b-c: waited {time.perf_counter() - t0:.1f} s for the "
+        "process that traced them beside phases 19-21")
+    phase19b(mesh19)
+    phase19c(cells19)
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")

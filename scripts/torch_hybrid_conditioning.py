@@ -1,20 +1,23 @@
 """How far two correct float32 evaluations of zamba2-7b (or xlstm-125m,
-seamless-m4t-large-v2, h2o-danube-1.8b or mistral-nemo-12b) lie apart at
-full width, by depth: the ground of ``chip_smoke.py`` phases 16b's,
-17b's, 18b's and 20a/b's fp32 gates.
+seamless-m4t-large-v2, h2o-danube-1.8b, mistral-nemo-12b, mixtral-8x7b
+or internvl2-76b) lie apart at full width, by depth: the ground of
+``chip_smoke.py`` phases 16b's, 17b's, 18b's, 20a/b's and 21b/c's fp32
+gates.
 
     python scripts/torch_hybrid_conditioning.py [--device cuda|cpu]
         [--arch zamba2-7b|xlstm-125m|seamless-m4t-large-v2|
-                h2o-danube-1.8b|mistral-nemo-12b]
+                h2o-danube-1.8b|mistral-nemo-12b|mixtral-8x7b|
+                internvl2-76b]
         [--depths 7,13,25,49,81] [--seq 512]
 
 For each depth (the first n layers' pattern: groups of 6 Mamba2 layers
 and the shared block, then the tail; for xlstm-125m groups of 3 mLSTM
 blocks and an sLSTM block, then the tail; for seamless-m4t-large-v2 n
 encoder and n decoder layers, the prompt's ``--seq`` frames encoded
-beside 16 tokens; for the dense archs the first n layers, and a prompt
-64 tokens longer than a sliding window by default, so that the window is
-in force), the same seeded weights
+beside 16 tokens; for the dense and MoE archs the first n layers, and a
+prompt 64 tokens longer than a sliding window by default, so that the
+window is in force; internvl2-76b's prompt follows its 256 patch
+embeddings), the same seeded weights
 (``Model.init``, seed 0) serve one prompt of ``--seq`` tokens
 (``TokenPipeline`` seed 0) through ``prefill`` three ways: float32 with
 the kernels (``attn_impl="pallas"``, ``use_pallas=True``; on the card
@@ -63,15 +66,17 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default="zamba2-7b",
                     choices=["zamba2-7b", "xlstm-125m",
                              "seamless-m4t-large-v2", "h2o-danube-1.8b",
-                             "mistral-nemo-12b"])
+                             "mistral-nemo-12b", "mixtral-8x7b",
+                             "internvl2-76b"])
     ap.add_argument("--depths", default=None,
                     help="default: 7,13,25,49,81 (zamba2-7b), 4,8,12 "
                          "(xlstm-125m), 2,4,8,16 (mistral-nemo-12b), "
+                         "1,2,4 (mixtral-8x7b, internvl2-76b), "
                          "2,4,8,16,24 (seamless-m4t-large-v2, "
                          "h2o-danube-1.8b)")
     ap.add_argument("--seq", type=int, default=None,
                     help="default: 512, or the window + 64 where a dense "
-                         "arch has one")
+                         "or MoE arch has one")
     args = ap.parse_args(argv)
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import TokenPipeline
@@ -84,20 +89,27 @@ def main(argv=None) -> int:
     base = get_config(args.arch)
     depths = args.depths or {"zamba2-7b": "7,13,25,49,81",
                              "xlstm-125m": "4,8,12",
-                             "mistral-nemo-12b": "2,4,8,16"}.get(
+                             "mistral-nemo-12b": "2,4,8,16",
+                             "mixtral-8x7b": "1,2,4",
+                             "internvl2-76b": "1,2,4"}.get(
                                  args.arch, "2,4,8,16,24")
     if args.seq is None:
-        args.seq = (base.window + 64 if base.family == "dense"
+        args.seq = (base.window + 64 if base.family in ("dense", "moe")
                     and base.window else 512)
     encdec = base.family == "encdec"
-    inputs = TokenPipeline(base, 1, args.seq, seed=0).batch_at(0)
-    inputs = ({"tokens": inputs["tokens"][:, :16], "frames": inputs["frames"]}
-              if encdec else {"tokens": inputs["tokens"]})
-    max_len = args.seq + 64
+    batch = TokenPipeline(base, 1, args.seq, seed=0).batch_at(0)
+    inputs = ({"tokens": batch["tokens"][:, :16], "frames": batch["frames"]}
+              if encdec else {"tokens": batch["tokens"]})
+    if base.frontend == "patch":
+        inputs["patches"] = batch["patches"]
+    max_len = args.seq + 64 + (base.frontend_len
+                               if base.frontend == "patch" else 0)
     where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
              else "cpu")
+    front = (f" after {base.frontend_len} patch embeddings"
+             if base.frontend == "patch" else "")
     print(f"{args.arch} at full width, 1 x {args.seq} "
-          f"{'frames and 16 tokens' if encdec else 'tokens'}, prefill "
+          f"{'frames and 16 tokens' if encdec else 'tokens'}{front}, prefill "
           f"logits; on {where}", flush=True)
     for depth in (int(x) for x in depths.split(",")):
         t0 = time.perf_counter()

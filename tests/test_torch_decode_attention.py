@@ -43,6 +43,7 @@ def _check(got, jax_out, dtype):
     (1, 8, 8, 1024, 64, 700, None),    # padded cache
     (2, 4, 1, 512, 128, 512, 128),     # sliding window
     (1, 2, 2, 300, 32, 300, None),     # ragged skv
+    (1, 16, 2, 512, 128, 500, 256),    # GQA group 8 at D 128, windowed
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_attention_shapes(b, hq, hkv, s, d, kv_len, window, dtype):

@@ -50,6 +50,7 @@ def _check(got, jax_out, dtype):
     (1, 4, 1, 64, 128, 128),      # MQA, sq not multiple of default bq
     (1, 2, 2, 200, 200, 32),      # ragged: no multiple of any tile
     (2, 6, 2, 96, 96, 16),        # head dim 16, GQA group 3
+    (1, 16, 2, 72, 200, 128),     # GQA group 8 (internvl2-76b's), ragged
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_shapes(b, hq, hkv, sq, skv, d, dtype):
@@ -61,12 +62,13 @@ def test_flash_attention_shapes(b, hq, hkv, sq, skv, d, dtype):
     _check(got, jref.flash_attention_ref(jq, jk, jv, causal=True), dtype)
 
 
-@pytest.mark.parametrize("d", [24, 37, 48, 80, 96])
+@pytest.mark.parametrize("d", [24, 37, 48, 80, 96, 128])
 def test_flash_attention_head_dims(d):
     """Head dims the kernel takes as they are (48, 80: h2o-danube-1.8b's,
-    96) or zero-padded (24: nemo-smoke's; 37, odd), fp32, windowed, at a
-    ragged Sq: the plain version against the Pallas kernel in interpret
-    mode and the JAX reference."""
+    96, 128: mixtral-8x7b's) or zero-padded (24: nemo-smoke's; 37, odd),
+    fp32, under a window shorter than Skv, at a ragged Sq: the plain
+    version against the Pallas kernel in interpret mode and the JAX
+    reference."""
     (jq, jk, jv), (q, k, v) = _inputs(d, 1, 4, 2, 70, 70, d, "float32")
     got = ops.flash_attention(q, k, v, causal=True, window=50)
     assert got.shape == (1, 4, 70, d)

@@ -15,8 +15,10 @@ The kernels' switches (``attn_impl="pallas"``, ``use_pallas=True``) run
 the kernels' plain versions here, on CPU tensors.  The mistral-nemo and
 internvl2 smoke configs get one test of their own: a prefill and a decode
 step against the JAX package's ``prefill`` and ``decode_step``
-(internvl2 through its patch frontend; its JAX test that compares decode
-with ``forward`` fails at take-up, ROADMAP queue C)."""
+(internvl2 through its patch frontend), and internvl2's decode against
+``forward`` with a ring that holds every position and with one a slot
+short: the ring of the JAX test that fails at take-up (ROADMAP queue
+C)."""
 import dataclasses
 import functools
 
@@ -33,6 +35,7 @@ from repro.models.api import get_model as jax_get_model
 from repro.serve.engine import ServeEngine as JaxServeEngine
 
 from repro_torch import configs as tcfg
+from repro_torch.data.tokens import TokenPipeline
 from repro_torch.kernels import ops
 from repro_torch.launch import serve
 from repro_torch.models import common as C
@@ -189,6 +192,52 @@ def test_prefill_and_a_decode_step_match_at_the_larger_smoke_configs(arch):
     _check_logits(logits, jl)
     _check_cache(cache, jcache)
     assert int(cache["pos"]) == S + n_front + 1
+
+
+@pytest.mark.parametrize("ring", ["every position", "one slot short"])
+def test_patch_frontend_decode_against_the_forward(ring):
+    """The patch frontend's positions share the ring with the tokens, so a
+    decode step equals ``forward(S + 1)`` only where the ring holds
+    frontend_len + S + 1 positions.  There the port's prefill and one step
+    match its own forward and the JAX package's.  A ring of S + 8 slots
+    (``tests/test_arch_smoke.py::test_prefill_decode_matches_forward``'s,
+    at its S of 16) is filled by the prefill's 8 + 16 positions, and the
+    step writes position 24 over position 0: both packages' steps then
+    part from the forward, by the same amount."""
+    s = 16
+    jc, tc = _configs("internvl2-76b", logits_fp32=True)
+    jp, tp = _weights("internvl2-76b")
+    full = TokenPipeline(tc, B, s + 1, seed=0).batch_at(0)
+    toks, patches = full["tokens"], full["patches"]
+    jfwd, _ = jax_get_model(jc).forward(
+        jc, jp, {"tokens": jnp.asarray(toks), "patches": jnp.asarray(patches)})
+    jfwd = np.asarray(jfwd[:, -1])
+    fwd, _ = get_model(tc).forward(tc, tp, {"tokens": toks,
+                                            "patches": patches})
+    fwd = fwd[:, -1]
+    _check_logits(fwd, jfwd)
+    max_len = jc.frontend_len + s + (1 if ring == "every position" else 0)
+    assert max_len == (jc.frontend_len + s + 1 if ring == "every position"
+                       else s + 8)
+    cache, _ = get_model(tc).prefill(
+        tc, tp, {"tokens": toks[:, :s], "patches": patches}, max_len)
+    cache, dec = L.decode_step(tc, tp, cache, toks[:, -1])
+    jcache, _ = JL.prefill(jc, jp, jnp.asarray(toks[:, :s]), max_len,
+                           patches=jnp.asarray(patches))
+    jcache, jdec = JL.decode_step(jc, jp, jcache, jnp.asarray(toks[:, -1]))
+    _check_logits(dec, jdec)
+    _check_cache(cache, jcache)
+    if ring == "every position":
+        _check_logits(dec, jfwd)
+        _check_logits(dec, fwd.numpy())
+        return
+    # parted past that test's tolerance, in both packages alike
+    for got in (dec.numpy(), np.asarray(jdec)):
+        assert not np.allclose(got, jfwd, rtol=2e-3, atol=2e-3)
+    part = float((dec - fwd).abs().max())
+    jpart = float(np.abs(np.asarray(jdec) - jfwd).max())
+    scale = float(np.abs(jfwd).max())
+    assert abs(part - jpart) <= 2e-4 + 2e-5 * scale, (part, jpart)
 
 
 @pytest.mark.parametrize("arch,pos", [
