@@ -50,7 +50,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    launches — then ``routing_context`` and ``BatchMiner(theta=0.2)``: warm
    times, device idle share, the share of routes that agree with
    ``attn_impl="blocked"`` (bf16: an agreement share, not equality), and
-   the mining on the card against the mining on the CPU, leaf for leaf;
+   the mining on the card against the mining on the CPU, leaf for leaf
+   (the CPU's in a spawned process beside phases 7-8, held before 9);
 7. the granite-moe and mixtral smoke routing passes in fp32 through the
    kernel on the card: routes identical to the CPU's plain run;
 8. the dense validation path: ``BatchMiner(device="cuda")`` (prime), then
@@ -386,7 +387,26 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    over a ring that never wraps (12 decode and 25 ``rmsnorm`` launches a
    step), its peak within 10% of the dry run's, its forward (12 flash
    launches at group 8), its fp32 launch checks over 1 x (256 + 256) and
-   8 steps, and its logits gate.
+   8 steps, and its logits gate;
+22. flash and decode at every head dim the Pallas kernels take
+   (``phase22``): (kernels) the ``ptxas`` registers and spills of every
+   flash and decode kernel; flash at D 136, 192, 256 (group 8), 300
+   (padded to 304), 320 and 512 (the column split) and decode at D 136,
+   256 and 512 with groups up to 16 (the wide path where a block cannot
+   hold the group at D) over ring views, fp32 and bf16, each launch
+   against its plain version (fp32 2e-5, decode 9a's gates) and float64
+   (fp32 within 2e-5 of the row's max, bf16 flash within the float64
+   gate); then flash timed at Gemma-2-9B's attention (B 2 x 16 / 8 x
+   4,096 x D 256, causal; and its 4,096 window over 8,192), group 8 at
+   D 256, D 192, 256, 320 and 512 (B 2 x 16 / 8 x 2,048), and in fp32 at
+   D 256 and 320 (S 1,024), decode at D 256 over a 4,096-slot ring (bf16
+   at groups 2 and 8, fp32) and at group 16 x D 512, warm and L2-cold,
+   beside the bound, the plain version and SDPA; (a) granite-moe-3b-a800m
+   at its widths with ``head_dim=256``, ``HD256_LAYERS`` layers: a
+   routing pass over 4 x 2,048 tokens (2 flash launches), (b) served
+   through ``ServeEngine`` (8 greedy steps; decode and RMSNorm launches
+   exact), its fp32 launch checks (1 x 512 tokens and 8 steps; a forward)
+   and its logits gate at ``GATE_LAYERS_21``.
 
 Before the last line it prints the card's name and power limit
 (``nvidia-smi``) and one JSON line ``{"kernels": [...]}``; the last line is
@@ -406,6 +426,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -666,6 +687,16 @@ def ptxas_usage(log_text: str) -> dict:
             if "sr_onesweep" in entry:
                 entry = ("sr_onesweep<vector>" if "ILb1E" in entry
                          else "sr_onesweep<scalar>")
+            m = re.search(r"(flash_fwd_(?:bf16|f32)(?:_cols)?)"
+                          r"(?:ILi(\d+)E)?", entry)
+            if m:        # <head dim>; the column split takes any
+                entry = m.group(1) + (f"<{m.group(2)}>" if m.group(2)
+                                      else "")
+            m = re.search(r"(decode_(?:split|wide|combine))I(f|13__nv_"
+                          r"bfloat16)E", entry)
+            if m:
+                entry = "{}<{}>".format(m.group(1), "f32" if m.group(2) ==
+                                        "f" else "bf16")
             m = re.search(r"rmsnorm_vecI(f|13__nv_bfloat16)"
                           r"(f|13__nv_bfloat16|S\d*_)Li(\d+)E", entry)
             if m:        # <x, w, vectors a lane>; a bf16 w repeats x's type
@@ -714,6 +745,20 @@ def in_background(fn, *args):
         check(ok, f"{fn.__name__} in a spawned process: {value}")
         return value
     return result
+
+
+def mine_on_cpu(sizes, tuples, theta: float) -> tuple:
+    """``BatchMiner`` over a context's tuples on the CPU, host work for
+    :func:`in_background`: ({leaf: numpy array} of its result, the seconds
+    it took).  Numpy, since a tensor crosses the pipe as a handle to
+    memory that dies with this process."""
+    import dataclasses
+
+    from repro_torch.core.batch import BatchMiner
+    t0 = time.perf_counter()
+    res = BatchMiner(sizes, theta=theta, device="cpu")(tuples)
+    return ({f.name: getattr(res, f.name).numpy()
+             for f in dataclasses.fields(res)}, time.perf_counter() - t0)
 
 
 def _run_and_send(conn, fn, args) -> None:
@@ -5269,9 +5314,9 @@ def kernel_timings(kernel, plain, library, nbytes, nops, shape,
 
 def flash_against_plain(tag, cases, randn):
     """Each case (B, Hq, Hkv, Sq, Skv, D, kwargs) in fp32 and bf16: one
-    launch of the flash kernel, fp32 within 2e-5 of the plain version,
-    bf16 within the float64 gate; -> {case: max |err| from the plain
-    version}."""
+    launch of the flash kernel, fp32 within 2e-5 of the plain version and
+    2e-5 of the row's max of float64, bf16 within the float64 gate; ->
+    {case: max |err| from the plain version}."""
     import torch
     from repro_torch.kernels import flash_attention as KF
     from repro_torch.kernels import ref
@@ -5292,7 +5337,9 @@ def flash_against_plain(tag, cases, randn):
                   and bool(torch.isfinite(got).all())
                   and KF.flash_attention.launches == before + 1)
             if dtype == torch.float32:
-                ok &= torch.allclose(got, want, rtol=2e-5, atol=2e-5)
+                ok &= (torch.allclose(got, want, rtol=2e-5, atol=2e-5)
+                       and _row_rel([got], [flash_f64(q, k, v, **kw)])[0]
+                       <= 2e-5)
             else:
                 ok &= ref.flash_bf16_gate(got, q, k, v, **kw) <= 1.0
             check(ok, f"{tag} {label}: max |err| {e}")
@@ -5303,26 +5350,40 @@ def flash_against_plain(tag, cases, randn):
 def decode_against_plain(tag, cases, randn):
     """Each case (B, Hq, Hkv, ring slots, D, kv_len, window) in fp32 and
     bf16 over a (B, Hkv, slots, D) view of a (B, slots, Hkv, D) ring: the
-    decode kernel against its plain version with 9a's gates; -> {case: max
-    |err|}."""
+    decode kernel against its plain version with 9a's gates and against
+    float64 (fp32 within 2e-5 of the row's max, bf16 one ulp + 1e-5); ->
+    {case: max |err| from the plain version}."""
     import torch
-    from repro_torch.kernels import decode_attention as KD
-    from repro_torch.kernels import ref
     errs = {}
     for b_, hq_, hkv_, s_, d_, kvl, win in cases:
         for dtype in (torch.float32, torch.bfloat16):
             qd = randn((b_, hq_, d_), dtype)
             kd, vd = (randn((b_, s_, hkv_, d_), dtype).permute(0, 2, 1, 3)
                       for _ in range(2))
-            ok, e = gate_9a(KD.decode_attention(qd, kd, vd, kv_len=kvl,
-                                                window=win),
-                            ref.decode_attention_ref(qd, kd, vd, kv_len=kvl,
-                                                     window=win), dtype)
             label = (f"decode_attention {hq_}/{hkv_} D {d_} kv_len {kvl} "
                      f"window {win} {str(dtype)[6:]}")
-            check(ok, f"{tag} {label}: max |err| {e}")
-            errs[label] = e
+            errs[label] = decode_checked(f"{tag} {label}", qd, kd, vd, kvl,
+                                         win)
     return errs
+
+
+def decode_checked(label, qd, kd, vd, kv_len, window=None):
+    """One launch of the decode kernel held against its plain version with
+    9a's gates and against float64 (fp32 within 2e-5 of the row's max,
+    bf16 one ulp + 1e-5); -> max |err| from the plain version."""
+    import torch
+    from repro_torch.kernels import decode_attention as KD
+    from repro_torch.kernels import ref
+    before = KD.decode_attention.launches
+    got = KD.decode_attention(qd, kd, vd, kv_len=kv_len, window=window)
+    ok, e = gate_9a(got, ref.decode_attention_ref(
+        qd, kd, vd, kv_len=kv_len, window=window), qd.dtype)
+    w64 = decode_f64(qd, kd, vd, kv_len=kv_len, window=window)
+    ok &= KD.decode_attention.launches == before + 1 and (
+        _row_rel([got], [w64])[0] <= 2e-5 if qd.dtype == torch.float32
+        else torch.allclose(got.double(), w64, rtol=2 ** -7, atol=1e-5))
+    check(ok, f"{label}: max |err| {e}")
+    return e
 
 
 def flash_gated(tag, name, q, k, v, **kw):
@@ -5346,19 +5407,23 @@ def flash_gated(tag, name, q, k, v, **kw):
     return ratio
 
 
-def decode_ring_timings(b, hq, hkv, slots, d, kv_len, randn, shape):
-    """The decode kernel over a serving ring's bf16 view, timed warm on one
-    ring and L2-cold over 6 in turn (as a step finds each layer's cache
-    after the other layers' and the weights), beside its plain version and
-    SDPA over the ``kv_len`` slice; -> :func:`kernel_timings`' dict with
-    the cold times and the split plan."""
+def decode_ring_timings(b, hq, hkv, slots, d, kv_len, randn, shape,
+                        dtype=None):
+    """The decode kernel over a serving ring's view (bf16 unless
+    ``dtype``), timed warm on one ring and L2-cold over 6 in turn (as a
+    step finds each layer's cache after the other layers' and the
+    weights), beside its plain version and SDPA over the ``kv_len`` slice,
+    after one launch held by :func:`decode_checked`; -> the dict of
+    :func:`kernel_timings` with the cold times, the split plan and that
+    launch's max |err|."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as KD
     from repro_torch.kernels import ref
-    rings = [tuple(randn((b, slots, hkv, d), torch.bfloat16)
+    dtype = torch.bfloat16 if dtype is None else dtype
+    rings = [tuple(randn((b, slots, hkv, d), dtype)
                    .permute(0, 2, 1, 3) for _ in range(2)) for _ in range(6)]
-    qd = randn((b, hq, d), torch.bfloat16)
+    qd = randn((b, hq, d), dtype)
     q4 = qd[:, :, None]
     turn = [0]
 
@@ -5375,15 +5440,19 @@ def decode_ring_timings(b, hq, hkv, slots, d, kv_len, randn, shape):
         return F.scaled_dot_product_attention(
             q4, k_[:, :, :kv_len], v_[:, :, :kv_len], enable_gqa=True)
     kd, vd = rings[0]
+    max_err = decode_checked(f"decode_attention timed at {shape}", qd, kd,
+                             vd, kv_len)
     t = kernel_timings(lambda: dec_kernel(kd, vd),
                        lambda: ref.decode_attention_ref(qd, kd, vd,
                                                         kv_len=kv_len),
                        lambda: dec_sdpa(kd, vd),
-                       *KD.work(b, hq, hkv, kv_len, d, 2), shape)
+                       *KD.work(b, hq, hkv, kv_len, d, qd.element_size()),
+                       shape)
     cold, lib_cold = measure(rotating(dec_kernel), 10, 2), measure(
         rotating(dec_sdpa), 10, 2)
+    blocks = b * hkv * KD.blocks_per_head(hq // hkv, d, dtype)
     t.update(cold_ms=cold["ms"], library_cold_ms=lib_cold["ms"],
-             split_plan=list(KD.split_plan(kv_len, None, b * hkv,
+             max_abs_err=max_err, split_plan=list(KD.split_plan(kv_len, None, blocks,
                                            KD.sm_count(qd.device))))
     return t
 
@@ -5791,15 +5860,15 @@ def phase20() -> tuple:
         (1, 4, 2, 70, 200, 37, dict(causal=True, window=48)),
     ], randn)
     log("phase 20 flash_attention at head dims 48, 80, 96 and the padded "
-        "24 and 37, fp32 within 2e-5 of the plain version, bf16 within the "
-        "float64 gate: max |err| " + ", ".join(f"{k} {v:.3e}"
+        "24 and 37, fp32 within 2e-5 of the plain version and of float64, "
+        "bf16 within the float64 gate: max |err| " + ", ".join(f"{k} {v:.3e}"
                                                for k, v in errs.items()))
     derrs = decode_against_plain("phase 20", [  # b, hq, hkv, s, d, kv_len, w
         (2, 8, 2, 300, 48, 290, 100), (2, 32, 8, 4096, 80, 4096, None),
         (2, 32, 8, 2112, 128, 2049, None), (2, 12, 4, 300, 96, 250, None),
         (2, 4, 2, 200, 24, 150, 64), (1, 6, 2, 120, 37, 100, None)], randn)
     log("phase 20 decode_attention at head dims 48, 80, 128, 96, 24 and the "
-        "padded 37 over ring views, 9a's gates: max |err| "
+        "padded 37 over ring views, 9a's gates and float64: max |err| "
         + ", ".join(f"{k} {v:.3e}" for k, v in derrs.items()))
 
     # held and timed at the model shapes
@@ -6174,9 +6243,10 @@ def phase21() -> tuple:
                 check(ok, f"phase 21 {label}: max |err| {e}")
                 nerrs[label] = e
     log("phase 21 flash_attention at group 8 and D 128 (windowed, ragged), "
-        "fp32 within 2e-5 of the plain version, bf16 within the float64 "
-        "gate; decode_attention at group 8 and D 128 over ring views; "
-        "rmsnorm at widths 4,096 and 8,192 (block path), 9a's gates: max "
+        "fp32 within 2e-5 of the plain version and of float64, bf16 within "
+        "the float64 gate; decode_attention at group 8 and D 128 over ring "
+        "views (also held to float64); rmsnorm at widths 4,096 and 8,192 "
+        "(block path), 9a's gates: max "
         "|err| " + ", ".join(f"{k} {v:.3e}" for k, v in
                              {**errs, **derrs, **nerrs}.items()))
 
@@ -6466,6 +6536,268 @@ def phase21() -> tuple:
     log(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
     timed["runs"] = {"routing_mixtral": out_a, "serving_mixtral": out_b,
                      "serving_internvl": out_c}
+    return runs, timed
+
+
+#: Phase 22: flash and decode at every head dim the Pallas kernels take.
+#: The shapes of Gemma-2-9B's attention (16 query heads over 8 KV heads,
+#: head dim 256, a 4,096-token window on alternate layers; its config.json
+#: on the Hugging Face hub) as kernel shapes, with group 8, D 192 and the
+#: column split's D 320 and 512 beside them; then granite-moe-3b-a800m at
+#: its own widths with ``head_dim=256`` (the config's field, as both
+#: packages take it), cut to ``HD256_LAYERS`` layers: a routing pass of 4 x
+#: 2,048 tokens (flash) and a prefill with 8 greedy decode steps (decode,
+#: RMSNorm), its fp32 launch checks over 1 x ``HD256_GATE_PROMPT`` tokens
+#: and its logits gate at ``GATE_LAYERS_21``.
+HD256_ARCH = "granite-moe-3b-a800m"
+HD256_LAYERS = 2
+HD256_BATCH, HD256_SEQ, HD256_NEW = 4, 2048, 8
+HD256_GATE_PROMPT = 512
+#: Flash at phase 22's timed shapes: name -> (B, Hq, Hkv, S, D, window).
+HD_FLASH = {
+    "gemma2 causal": (2, 16, 8, 4096, 256, None),
+    "gemma2 window": (2, 16, 8, 8192, 256, 4096),
+    "group 8 D 256": (2, 32, 4, 2048, 256, None),
+    "D 192": (2, 16, 8, 2048, 192, None),
+    "D 256": (2, 16, 8, 2048, 256, None),
+    "D 320 split": (2, 16, 8, 2048, 320, None),
+    "D 512 split": (2, 16, 8, 2048, 512, None),
+}
+#: Decode at phase 22's timed shapes: name -> (B, Hq, Hkv, ring slots, D,
+#: dtype name).
+HD_DECODE = {
+    "gemma2 D 256": (4, 16, 8, 4096, 256, "bfloat16"),
+    "group 8 D 256": (4, 32, 4, 4096, 256, "bfloat16"),
+    "gemma2 D 256 fp32": (4, 16, 8, 4096, 256, "float32"),
+    "group 16 D 512": (4, 32, 2, 4096, 512, "bfloat16"),
+}
+
+
+def phase22(build_report) -> tuple:
+    """Flash and decode at every head dim (``PHASE 22`` above): (kernels)
+    both kernels at D 136-512 and groups up to 16, each launch against
+    its plain version and float64, then timed at the Gemma-2-9B shapes
+    and the column split's beside the bound and SDPA, with the
+    kernels' ``ptxas`` registers and spills; (a) granite-moe-3b-a800m at
+    head dim 256, its routing pass (flash); (b) served (decode, RMSNorm),
+    its fp32 launch checks and logits gate.  -> ({run: launch counts},
+    {kernel: {shape: timings}})."""
+    import dataclasses
+    import gc
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import decode_attention as KD
+    from repro_torch.kernels import flash_attention as KF
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.api import get_model
+    from repro_torch.models.telemetry import collect_moe_routing
+    from repro_torch.serve import ServeEngine
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    runs, timed = {}, {"flash_attention": {}, "decode_attention": {}}
+    bf16, fp32 = torch.bfloat16, torch.float32
+    g = torch.Generator(device=dev).manual_seed(22)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- 22-kernels: ptxas, then every new head dim against the plain
+    # versions and float64 ---------------------------------------------------
+    t0 = time.perf_counter()
+    usage = {}
+    for name in ("flash_attention", "decode_attention"):
+        usage.update(ptxas_usage(build_report[name]["log"]))
+    ptx = {k: v for k, v in sorted(usage.items())
+           if k.startswith(("flash_fwd", "decode_"))}
+    for k, v in ptx.items():
+        log(f"phase 22 ptxas {k}: {v}")
+    check(any(k.startswith("flash_fwd_bf16<256>") for k in ptx)
+          and any(k.startswith("flash_fwd_bf16_cols") for k in ptx)
+          and any(k.startswith("decode_wide") for k in ptx),
+          f"phase 22 ptxas entries {sorted(ptx)}")
+
+    errs = flash_against_plain("phase 22", [  # b, hq, hkv, sq, skv, d, kw
+        (2, 16, 8, 200, 200, 256, dict(causal=True)),
+        (1, 16, 8, 130, 300, 256, dict(causal=True, window=100)),
+        (1, 32, 4, 190, 190, 256, dict(causal=True)),
+        (2, 8, 2, 190, 190, 192, dict(causal=True)),
+        (1, 4, 4, 130, 300, 136, dict(causal=False, window=64, q_offset=100)),
+        (2, 8, 2, 190, 190, 320, dict(causal=True)),
+        (1, 8, 2, 257, 257, 512, dict(causal=True, window=100)),
+        (1, 4, 2, 70, 200, 300, dict(causal=True)),
+        # the shapes fp32 is timed at below
+        (2, 16, 8, 1024, 1024, 256, dict(causal=True)),
+        (2, 16, 8, 1024, 1024, 320, dict(causal=True)),
+        # 22a's routing pass (granite at head dim 256: group 3)
+        (HD256_BATCH, 24, 8, HD256_SEQ, HD256_SEQ, 256, dict(causal=True))],
+        randn)
+    derrs = decode_against_plain("phase 22", [  # b, hq, hkv, s, d, kvl, w
+        (2, 16, 8, 300, 256, 290, 100), (2, 32, 4, 2112, 256, 2049, None),
+        # 22b's first and last decode steps over its 2,112-slot ring
+        (HD256_BATCH, 24, 8, HD256_SEQ + 64, 256, HD256_SEQ + 1, None),
+        (HD256_BATCH, 24, 8, HD256_SEQ + 64, 256, HD256_SEQ + HD256_NEW,
+         None),
+        (2, 16, 2, 700, 136, 513, None), (2, 32, 2, 700, 512, 700, None),
+        (1, 16, 1, 300, 300, 290, 64), (2, 64, 4, 200, 256, 1, None)],
+        randn)
+    log("phase 22 flash_attention at D 136-512 (192 and 256 built, 300 "
+        "padded to 304, 320 and 512 the column split; groups to 8), fp32 "
+        "within 2e-5 of the plain version and of float64, bf16 within the "
+        "float64 gate: max |err| " + ", ".join(
+            f"{k_} {v_:.3e}" for k_, v_ in errs.items()))
+    log("phase 22 decode_attention at D 136-512 and groups to 16 (the wide "
+        "path where a block's shared memory cannot hold the group at D: "
+        "blocks a KV head "
+        + str({f"group {g_} D {d_} {str(dt)[6:]}": KD.blocks_per_head(
+            g_, d_, dt) for g_, d_ in ((2, 256), (8, 256), (16, 512),
+                                       (16, 304)) for dt in (fp32, bf16)})
+        + ") over ring views, 9a's gates and float64: max |err| "
+        + ", ".join(f"{k_} {v_:.3e}" for k_, v_ in derrs.items()))
+
+    # timed: flash at the Gemma-2-9B shapes and the column split's
+    for name, (b_, hq_, hkv_, s_, d_, w_) in HD_FLASH.items():
+        q, k, v = (randn(sh, bf16) for sh in (
+            (b_, hq_, s_, d_), (b_, hkv_, s_, d_), (b_, hkv_, s_, d_)))
+        kw = dict(causal=True, window=w_)
+        gate = flash_gated("phase 22", name, q, k, v, **kw)
+        mask = None
+        if w_ is not None:
+            pos = torch.arange(s_, device=dev)
+            mask = ((pos[None, :] <= pos[:, None])
+                    & (pos[None, :] > pos[:, None] - w_))
+
+        def lib():
+            return F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=True)
+
+        def plain():
+            return ref.flash_attention_ref(q, k, v, causal=True)
+        t = kernel_timings(
+            lambda: KF.flash_attention(q, k, v, **kw),
+            plain if w_ is None else None, lib,
+            *KF.work(q.shape, k.shape, 2, causal=True, window=w_),
+            f"B={b_} Hq={hq_} Hkv={hkv_} S={s_} D={d_} causal"
+            + (f" window {w_}" if w_ else "") + " bf16"
+            + (" (Gemma-2-9B's attention)" if "gemma" in name else ""),
+            plain_iters=3)
+        t.update(gate=gate, kernel_d=KF.padded_dim(d_))
+        if w_ is not None:
+            t["plain_ms_note"] = ("not measured: its (B, Hq, S, S) fp32 "
+                                  "scores take 8.6 GB a tensor")
+        timed["flash_attention"][name] = t
+        del q, k, v, mask
+        free()
+    for d_ in (256, 320):
+        q, k, v = (randn(sh, fp32) for sh in (
+            (2, 16, 1024, d_), (2, 8, 1024, d_), (2, 8, 1024, d_)))
+        name = f"D {d_} fp32"
+        t = kernel_timings(
+            lambda: KF.flash_attention(q, k, v, causal=True),
+            lambda: ref.flash_attention_ref(q, k, v, causal=True),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                   enable_gqa=True),
+            *KF.work(q.shape, k.shape, 4, causal=True),
+            f"B=2 Hq=16 Hkv=8 S=1024 D={d_} causal fp32", ALU_OPS_PER_S,
+            plain_iters=3)
+        timed["flash_attention"][name] = t
+        del q, k, v
+    free()
+    for name, (b_, hq_, hkv_, sc_, d_, dt) in HD_DECODE.items():
+        dtype = getattr(torch, dt)
+        timed["decode_attention"][name] = decode_ring_timings(
+            b_, hq_, hkv_, sc_, d_, sc_, randn,
+            f"B={b_} Hq={hq_} Hkv={hkv_} D={d_} kv_len={sc_} over a (B, "
+            f"Sc={sc_}, Hkv, D) {dt} ring view"
+            + (" (Gemma-2-9B's decode over its window)" if "gemma" in name
+               else ""), dtype=dtype)
+        timed["decode_attention"][name]["blocks_per_head"] = \
+            KD.blocks_per_head(hq_ // hkv_, d_, dtype)
+        free()
+    log_timed("phase 22", timed)
+    log("phase 22 flash_attention kernel time over its bound, by shape "
+        "(the column split's cost at D 320 and 512 against D 256 at the "
+        "same B, heads and S): " + ", ".join(
+            f"{n} {t['ms'] / t['bound_ms']:.3f}"
+            for n, t in timed["flash_attention"].items()))
+    timed["flash_attention"]["max_abs_err_by_case"] = errs
+    timed["decode_attention"]["max_abs_err_by_case"] = derrs
+    timed["ptxas"] = ptx
+    log(f"phase 22 kernels: {time.perf_counter() - t0:.1f} s")
+
+    # -- 22a: granite-moe-3b-a800m at head dim 256, its routing pass --------
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(HD256_ARCH), head_dim=256,
+                              n_layers=HD256_LAYERS, attn_impl="pallas",
+                              use_pallas=True)
+    L = cfg.n_layers
+    check(cfg.head_dim == 256 and cfg.n_heads * 256 != cfg.d_model
+          and cfg.is_moe and cfg.dtype == "bfloat16",
+          f"{HD256_ARCH} at head dim {cfg.head_dim}: {cfg.n_heads} heads, "
+          f"d_model {cfg.d_model}")
+    params = get_model(cfg).init(cfg, torch.Generator(device=dev)
+                                 .manual_seed(0), device=dev)
+    tokens = TokenPipeline(cfg, HD256_BATCH, HD256_SEQ, seed=0).batch_at(0)[
+        "tokens"]
+    ops.reset_launch_counts()
+    t1 = time.perf_counter()
+    routes = collect_moe_routing(cfg, params, tokens)
+    route_ms = (time.perf_counter() - t1) * 1e3
+    counts = ops.launch_counts()
+    want = {"flash_attention": L, "rmsnorm": 2 * L}
+    check(counts == {k_: want.get(k_, 0) for k_ in counts}
+          and routes.shape == (L, HD256_BATCH, HD256_SEQ, cfg.top_k)
+          and routes.min() >= 0 and routes.max() < cfg.n_experts,
+          f"phase 22a routing: launches {counts}, routes {routes.shape}")
+    runs["phase 22a routing granite head dim 256"] = counts
+    log(f"phase 22a {HD256_ARCH} at head dim 256 ({L} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads, bf16 over "
+        f"fp32 weights): routing pass over {HD256_BATCH} x {HD256_SEQ} "
+        f"tokens in {route_ms:.3f} ms (first, cold), launches {counts}")
+
+    # -- 22b: served, its fp32 launch checks and logits gate ----------------
+    prompts = tokens.tolist()
+    ml = HD256_SEQ + 64
+    ops.reset_launch_counts()
+    run = ServeEngine(cfg, params, max_len=ml).generate(prompts, HD256_NEW)
+    counts = ops.launch_counts()
+    want = {"decode_attention": L * run.steps,
+            "rmsnorm": (2 * L + 1) * (1 + run.steps)}
+    check(counts == {k_: want.get(k_, 0) for k_ in counts}
+          and run.steps == HD256_NEW
+          and all(len(t_) == HD256_NEW and all(0 <= x < cfg.vocab_size
+                                               for x in t_)
+                  for t_ in run.tokens),
+          f"phase 22b serving: launches {counts} != {want}, steps "
+          f"{run.steps}")
+    runs["phase 22b serving granite head dim 256"] = counts
+    log(f"phase 22b serving {HD256_ARCH} at head dim 256: prefill of "
+        f"{HD256_BATCH} x {HD256_SEQ} {run.prefill_s * 1e3:.3f} ms, "
+        f"{run.steps} greedy steps {run.decode_s * 1e3:.3f} ms (first "
+        f"run), launches {counts} as planned")
+    p1, gen, ml1, errs_b, c = _dense_fp32("phase 22b", cfg, params,
+                                          HD256_GATE_PROMPT)
+    runs["phase 22b fp32 granite head dim 256"] = c["counts"]
+    runs["phase 22b fp32 forward granite head dim 256"] = c["forward_counts"]
+    del params
+    free()
+    gate_b = _dense_gate("phase 22b fp32 gate granite head dim 256", cfg,
+                         GATE_LAYERS_21, p1, gen, ml1)
+    timed["runs"] = {"serving_granite_hd256": dict(
+        route_ms=route_ms, prefill_ms=run.prefill_s * 1e3,
+        decode_ms=run.decode_s * 1e3, steps=run.steps, fp32_errs=errs_b,
+        gate=gate_b, fp32_ratios=c["ratios"])}
+    free()
+    log(f"phase 22a-b: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 22: {time.perf_counter() - t_phase:.1f} s")
     return runs, timed
 
 
@@ -7174,11 +7506,10 @@ def main() -> int:
           f"{per_layer[0]:.4f}")
     del params
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    res_cpu = BatchMiner(ctx.sizes, theta=0.2, device="cpu")(ctx.tuples)
-    leaves_equal(res, res_cpu, "routing context mining cuda vs cpu")
-    log(f"phase 6 routing context mining: CUDA result equals the CPU result "
-        f"({time.perf_counter() - t0:.1f} s on the CPU)")
+    # the CPU's mining of the same context, host work: beside phases 7-8,
+    # held against the card's before phase 9
+    route_res, cpu_mining = res, in_background(mine_on_cpu, ctx.sizes,
+                                               ctx.tuples, 0.2)
 
     # -- phase 7: the smoke routing passes in fp32, card against CPU ----------
     for arch in ("granite-moe-3b-a800m", "mixtral-8x7b"):
@@ -7428,6 +7759,15 @@ def main() -> int:
         log(f"{label} torch._int_mm product: not measured ({e})")
     del ml_masks, td_masks, ml_tens, m0
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res_cpu, cpu_s = cpu_mining()
+    leaves_equal(route_res, types.SimpleNamespace(**{
+        k: torch.from_numpy(v) for k, v in res_cpu.items()}),
+        "routing context mining cuda vs cpu")
+    log(f"phase 6 routing context mining: CUDA result equals the CPU result "
+        f"({cpu_s:.1f} s on the CPU in a spawned process beside phases 7-8; "
+        f"{time.perf_counter() - t0:.1f} s waited for it here)")
+    del route_res, res_cpu
 
     # -- phase 9: LM serving ---------------------------------------------------
     # 9a: both serving kernels against their plain versions, at every shape
@@ -7913,6 +8253,13 @@ def main() -> int:
     for k in kernels:
         if k["name"] in wide21:
             k["full_width"] = wide21[k["name"]]
+
+    # -- phase 22: flash and decode at every head dim ------------------------
+    runs22, hd22 = phase22(report)
+    runs10.update(runs22)
+    for k in kernels:
+        if k["name"] in hd22:
+            k["head_dims"] = hd22[k["name"]]
     t0 = time.perf_counter()
     mesh19, cells19 = dry19()
     log(f"phase 19b-c: waited {time.perf_counter() - t0:.1f} s for the "

@@ -51,14 +51,17 @@
 // writes the fp32 log-sum-exp of the scaled scores, m + log l (the
 // combine: m* + log sum_s e^(m_s - m*) l_s), (B, Hq): the state ranks
 // that each hold a block of a ring's slots combine their outputs with.
-// Any D that is a multiple of 8 runs (the wrapper takes each one up to
-// 128 and zero-pads any other D <= 128 to the next): a K/V row is D / 8
-// (bf16) or D / 4 (fp32) 16-byte chunks at a stride of D + 16 bytes, and
-// the scores read q and K in 16-byte steps; nothing is a power of two.
+// Any D that is a multiple of 8 runs, and any group (the wrapper zero-pads
+// any other D to the next multiple of 8): a K/V row is D / 8 (bf16) or
+// D / 4 (fp32) 16-byte chunks at a stride of D + 16 bytes, and the scores
+// read q and K in 16-byte steps; nothing is a power of two.
 // At Zamba2's MHA decode (G = 1, D 112) a block holds one query head;
 // 2-4 ring stages take 63-124 KB in bf16, and in fp32 2-3 take 120-179 KB
 // (four would pass the 227 KB a block may use, so the launch steps down
-// to three).
+// to three).  Where even two stages and the group's state pass it (large
+// G x D: fp32 at D 256, bf16 at D 512 and G 16) the launch takes the wide
+// path below, which splits the group and O's columns over blocks and
+// streams K and V in 64-column slices, in bounded shared memory.
 // Measured by chip_smoke.py on one H100 80GB HBM3 at 700 W at granite-
 // moe's decode: 0.0224 ms with the cache in L2, 0.0246 ms with it out of
 // L2 (PyTorch's SDPA 0.0110 / 0.0147 ms), five times the bytes' bound.
@@ -190,6 +193,32 @@ __host__ __device__ inline size_t smem_bytes(int stages, int group, int d,
                           + 3 * (size_t)group);    // m, l, alpha
 }
 
+// The online softmax of a key tile for G heads: scores ps[g][0..BK)
+// become P, and m, l and alpha (the factor for acc) are updated; one warp
+// per head, two keys per lane.  A masked key weighs exactly 0, so a split
+// whose keys are all masked keeps l = 0
+__device__ __forceinline__ void heads_softmax(float* ps, float* m, float* l,
+                                              float* alpha, int G) {
+  const int lane = threadIdx.x & 31;
+  for (int g = threadIdx.x >> 5; g < G; g += NW) {
+    const float s0 = ps[g * BK + lane];
+    const float s1 = ps[g * BK + lane + 32];
+    const float m_old = m[g];
+    const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
+    const float p0 = s0 == NEG ? 0.f : expf(s0 - m_new);
+    const float p1 = s1 == NEG ? 0.f : expf(s1 - m_new);
+    ps[g * BK + lane] = p0;
+    ps[g * BK + lane + 32] = p1;
+    const float sum = warp_sum(p0 + p1);
+    if (lane == 0) {
+      const float al = expf(m_old - m_new);
+      alpha[g] = al;
+      l[g] = l[g] * al + sum;
+      m[g] = m_new;
+    }
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(NT) decode_split(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -205,8 +234,6 @@ __global__ void __launch_bounds__(NT) decode_split(Args a) {
   float* alpha = l + G;
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const int b = blockIdx.x / a.hkv;
   const int kvh = blockIdx.x - b * a.hkv;
   const int split = blockIdx.y;
@@ -302,25 +329,7 @@ __global__ void __launch_bounds__(NT) decode_split(Args a) {
     }
     __syncthreads();
 
-    // online softmax: one warp per head, two keys per lane; a masked key
-    // weighs exactly 0, so a split whose keys are all masked keeps l = 0
-    for (int g = warp; g < G; g += NW) {
-      const float s0 = ps[g * BK + lane];
-      const float s1 = ps[g * BK + lane + 32];
-      const float m_old = m[g];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      const float p0 = s0 == NEG ? 0.f : expf(s0 - m_new);
-      const float p1 = s1 == NEG ? 0.f : expf(s1 - m_new);
-      ps[g * BK + lane] = p0;
-      ps[g * BK + lane + 32] = p1;
-      const float sum = warp_sum(p0 + p1);
-      if (lane == 0) {
-        const float al = expf(m_old - m_new);
-        alpha[g] = al;
-        l[g] = l[g] * al + sum;
-        m[g] = m_new;
-      }
-    }
+    heads_softmax(ps, m, l, alpha, G);
     __syncthreads();
 
     // acc = acc * alpha + P V, (head, column) pairs
@@ -354,6 +363,228 @@ __global__ void __launch_bounds__(NT) decode_split(Args a) {
   }
 }
 
+// ---------------------------------------------------------- the wide path ---
+// Where the K/V ring (two stages of whole D-wide rows) and the group's fp32
+// state do not fit the 227 KB a block may use (fp32 at D 256 and a group of
+// 2, bf16 at D 512 and a group of 16), a block instead owns at most WG
+// query heads of its KV head (the group split: ceil(G / WG) blocks a KV
+// head) and WDV of O's columns (the column split: ceil(D / WDV) blocks),
+// and streams K and V through a two-stage ring in 64-column slices: a tile
+// is ceil(D / 64) K slices, each with the heads' q slice, then its columns'
+// V slices.  Every (head, key) score is summed in the fast path's four
+// chains in the same column order, so the column blocks' m and l agree bit
+// for bit; each reads the tile's K again.  Shared memory: 62 KB in fp32,
+// 46 KB in bf16, whatever G and D are.
+constexpr int WG = 16;               // query heads a block owns at most
+constexpr int WC = 64;               // columns of a K or V slice
+constexpr int WDV = 256;             // O columns a block owns at most
+constexpr int WR = WG * BK / NT;     // (head, key) pairs a thread
+
+__host__ __device__ inline size_t wide_slice_bytes(int es) {
+  return (size_t)BK * (WC * es + 16);
+}
+__host__ __device__ inline size_t wide_stage_bytes(int es) {
+  return wide_slice_bytes(es) + sizeof(float) * WG * WC;   // + q slice
+}
+__host__ __device__ inline size_t wide_smem_bytes(int es) {
+  return 2 * wide_stage_bytes(es) +
+         sizeof(float) * ((size_t)WG * BK + (size_t)WG * WDV + 3 * WG);
+}
+// whether a launch takes the wide path: a two-stage ring and the group's
+// state pass the 227 KB
+__host__ __device__ inline bool wide(int group, int d, int es) {
+  return smem_bytes(2, group, d, es) > MAX_SMEM;
+}
+// blocks a (batch, kv head) takes: 1 on the fast path
+__host__ __device__ inline int blocks_per_head(int group, int d, int es) {
+  return wide(group, d, es)
+             ? ((group + WG - 1) / WG) * ((d + WDV - 1) / WDV) : 1;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT) decode_wide(Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int N = Chunk<T>::N;
+  constexpr int RS = WC + N;             // slice row stride: 16 bytes padding
+  const size_t stage = wide_stage_bytes(sizeof(T));
+  float* ps = reinterpret_cast<float*>(smem + 2 * stage);   // [WG][BK]
+  float* acc = ps + WG * BK;                                // [WG][WDV]
+  float* m = acc + WG * WDV;
+  float* l = m + WG;
+  float* alpha = l + WG;
+
+  const int D = a.d;
+  const int tid = threadIdx.x;
+  const int n_g = (a.group + WG - 1) / WG;
+  const int b = blockIdx.x / (a.hkv * n_g);
+  const int rest = blockIdx.x - b * a.hkv * n_g;
+  const int kvh = rest / n_g;
+  const int g0 = (rest - kvh * n_g) * WG;
+  const int G = min(WG, a.group - g0);   // this block's heads
+  const int split = blockIdx.y;
+  const int n_split = gridDim.y;
+  const int c0 = blockIdx.z * WDV;
+  const int nv = min(WDV, D - c0);       // this block's columns
+  const long long qrow = (long long)b * a.hq + (long long)kvh * a.group + g0;
+  const T* Q = (const T*)a.q + qrow * D;
+  const T* K = (const T*)a.k + b * a.sb + kvh * a.sh;
+  const T* V = (const T*)a.v + b * a.sb + kvh * a.sh;
+
+  const int qpos = a.kv_len - 1;
+  const int t0 = a.t_first + split * a.tiles_per_split;
+  const int t1 = min(t0 + a.tiles_per_split, qpos / BK + 1);   // [t0, t1)
+  const int nkc = (D + WC - 1) / WC;     // K slices a tile
+  const int per_tile = nkc + (nv + WC - 1) / WC;
+  const int n_steps = (t1 - t0) * per_tile;
+
+  // step i's slice into ring stage i & 1 (keys at or past kv_len and
+  // columns at or past D read as zeros); a K slice also brings the heads'
+  // q slice, scaled, as fp32
+  auto load_step = [&](int i) {
+    unsigned char* st = smem + (i & 1) * stage;
+    T* kv = reinterpret_cast<T*>(st);
+    float* qsl = reinterpret_cast<float*>(st + wide_slice_bytes(sizeof(T)));
+    const int tt = i / per_tile;
+    const int j = i - tt * per_tile;
+    const int k0 = (t0 + tt) * BK;
+    const bool is_k = j < nkc;
+    const int col = is_k ? j * WC : c0 + (j - nkc) * WC;
+    const T* src = is_k ? K : V;
+    if (a.vec) {
+      constexpr int PER = WC / N;
+      for (int x = tid; x < BK * PER; x += NT) {
+        const int r = x / PER;
+        const int c = (x - r * PER) * N;
+        const bool in = k0 + r < a.kv_len && col + c < D;
+        const long long off = in ? (long long)(k0 + r) * a.ss + col + c : 0;
+        cp_async16(smem_addr(kv + r * RS + c), src + off, in);
+      }
+    } else {
+      for (int x = tid; x < BK * WC; x += NT) {
+        const int r = x / WC;
+        const int c = x - r * WC;
+        const bool in = k0 + r < a.kv_len && col + c < D;
+        kv[r * RS + c] = in ? src[(long long)(k0 + r) * a.ss + col + c]
+                            : from_f32<T>(0.f);
+      }
+    }
+    if (is_k)
+      for (int x = tid; x < WG * WC; x += NT) {
+        const int g = x / WC;
+        const int c = x - g * WC;
+        qsl[x] = g < G && col + c < D
+                     ? to_f32(Q[(long long)g * D + col + c]) * a.scale
+                     : 0.f;
+      }
+  };
+
+  for (int x = tid; x < WG * WDV; x += NT) acc[x] = 0.f;
+  for (int g = tid; g < WG; g += NT) {
+    m[g] = NEG;
+    l[g] = 0.f;
+  }
+  float sc[WR][4];
+  if (n_steps > 0) load_step(0);
+  cp_async_commit();
+  for (int i = 0; i < n_steps; ++i) {
+    cp_async_wait(0);                    // step i landed (this thread's part)
+    __syncthreads();                     // ... every thread's; stage i ^ 1
+                                         // is free
+    if (i + 1 < n_steps) load_step(i + 1);
+    cp_async_commit();
+    const unsigned char* st = smem + (i & 1) * stage;
+    const T* kv = reinterpret_cast<const T*>(st);
+    const float* qsl =
+        reinterpret_cast<const float*>(st + wide_slice_bytes(sizeof(T)));
+    const int tt = i / per_tile;
+    const int j = i - tt * per_tile;
+    if (j < nkc) {
+      // the (head, key) pairs' four chains over the slice's columns
+#pragma unroll
+      for (int r = 0; r < WR; ++r) {
+        if (j == 0) sc[r][0] = sc[r][1] = sc[r][2] = sc[r][3] = 0.f;
+        const int x = tid + r * NT;
+        const int g = x / BK;
+        const int key = x - g * BK;
+        if (g >= G) continue;
+        const float* qg = qsl + g * WC;
+        const T* kr = kv + key * RS;
+#pragma unroll
+        for (int c = 0; c < WC; c += N) {
+          float kf[N];
+          Chunk<T>::get(kr + c, kf);
+#pragma unroll
+          for (int e = 0; e < N; e += 4) {
+            const float4 qv = *reinterpret_cast<const float4*>(qg + c + e);
+            sc[r][0] = fmaf(qv.x, kf[e], sc[r][0]);
+            sc[r][1] = fmaf(qv.y, kf[e + 1], sc[r][1]);
+            sc[r][2] = fmaf(qv.z, kf[e + 2], sc[r][2]);
+            sc[r][3] = fmaf(qv.w, kf[e + 3], sc[r][3]);
+          }
+        }
+      }
+      if (j == nkc - 1) {                // the tile's scores are whole
+        const int k0 = (t0 + tt) * BK;
+#pragma unroll
+        for (int r = 0; r < WR; ++r) {
+          const int x = tid + r * NT;
+          const int g = x / BK;
+          const int kpos = k0 + x - g * BK;
+          if (g >= G) continue;
+          const float sv = (sc[r][0] + sc[r][1]) + (sc[r][2] + sc[r][3]);
+          bool keep = kpos <= qpos;
+          if (a.has_window) keep &= kpos > qpos - a.window;
+          ps[x] = keep ? sv : NEG;
+        }
+        __syncthreads();
+        heads_softmax(ps, m, l, alpha, G);
+        __syncthreads();
+      }
+    } else {
+      // acc = acc * alpha + P V over the slice's columns
+      const int cv = (j - nkc) * WC;
+      for (int x = tid; x < G * WC; x += NT) {
+        const int g = x / WC;
+        const int c = x - g * WC;
+        if (cv + c >= nv) continue;
+        const float* pg = ps + g * BK;
+        float y = 0.f;
+#pragma unroll 8
+        for (int key = 0; key < BK; ++key)
+          y = fmaf(pg[key], to_f32(kv[key * RS + c]), y);
+        float* ac = acc + g * WDV + cv + c;
+        *ac = *ac * alpha[g] + y;
+      }
+    }
+  }
+  __syncthreads();
+  if (n_split == 1) {
+    T* O = (T*)a.o + qrow * D + c0;
+    for (int x = tid; x < G * nv; x += NT) {
+      const int g = x / nv;
+      const int c = x - g * nv;
+      O[(long long)g * D + c] =
+          from_f32<T>(acc[g * WDV + c] / fmaxf(l[g], 1e-30f));
+    }
+    if (a.lse != nullptr && blockIdx.z == 0)
+      for (int g = tid; g < G; g += NT)
+        a.lse[qrow + g] = l[g] > 0.f ? m[g] + logf(l[g]) : -INFINITY;
+  } else {
+    const int W = D + 2;
+    for (int x = tid; x < G * nv; x += NT) {
+      const int g = x / nv;
+      const int c = x - g * nv;
+      a.part[((qrow + g) * n_split + split) * W + c0 + c] = acc[g * WDV + c];
+    }
+    if (blockIdx.z == 0)
+      for (int g = tid; g < G; g += NT) {
+        float* pr = a.part + ((qrow + g) * n_split + split) * W + D;
+        pr[0] = m[g];
+        pr[1] = l[g];
+      }
+  }
+}
+
 // O[row, c] from the splits' (acc, m, l): one thread per output element
 template <typename T>
 __global__ void __launch_bounds__(NT) decode_combine(const float* part, T* o,
@@ -380,23 +611,34 @@ __global__ void __launch_bounds__(NT) decode_combine(const float* part, T* o,
 
 template <typename T>
 cudaError_t launch(Args a, int batch, int n_split, cudaStream_t stream) {
-  // the deepest ring (up to the split's tile count) that fits
-  int stages = a.tiles_per_split < 2 ? 2
-               : a.tiles_per_split > MAX_STAGES ? MAX_STAGES
-                                                : a.tiles_per_split;
-  while (stages > 2 &&
-         smem_bytes(stages, a.group, a.d, sizeof(T)) > MAX_SMEM)
-    --stages;
-  const size_t bytes = smem_bytes(stages, a.group, a.d, sizeof(T));
-  if (bytes > MAX_SMEM) return cudaErrorInvalidValue;
-  a.stages = stages;
-  // The limit is a per-device attribute: set it on every launch (cheap)
-  // so that a launch on any card of the process may use it.
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_split<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (err != cudaSuccess) return err;
-  decode_split<T><<<dim3(batch * a.hkv, n_split), NT, bytes, stream>>>(a);
+  cudaError_t err;
+  if (!wide(a.group, a.d, sizeof(T))) {
+    // the deepest ring (up to the split's tile count) that fits
+    int stages = a.tiles_per_split < 2 ? 2
+                 : a.tiles_per_split > MAX_STAGES ? MAX_STAGES
+                                                  : a.tiles_per_split;
+    while (stages > 2 &&
+           smem_bytes(stages, a.group, a.d, sizeof(T)) > MAX_SMEM)
+      --stages;
+    const size_t bytes = smem_bytes(stages, a.group, a.d, sizeof(T));
+    a.stages = stages;
+    // The limit is a per-device attribute: set it on every launch (cheap)
+    // so that a launch on any card of the process may use it.
+    err = cudaFuncSetAttribute(decode_split<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes);
+    if (err != cudaSuccess) return err;
+    decode_split<T><<<dim3(batch * a.hkv, n_split), NT, bytes, stream>>>(a);
+  } else {
+    const size_t bytes = wide_smem_bytes(sizeof(T));
+    err = cudaFuncSetAttribute(decode_wide<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(batch * a.hkv * ((a.group + WG - 1) / WG), n_split,
+                    (a.d + WDV - 1) / WDV);
+    decode_wide<T><<<grid, NT, bytes, stream>>>(a);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return err;
   const int rows = batch * a.hq;
@@ -409,11 +651,12 @@ cudaError_t launch(Args a, int batch, int n_split, cudaStream_t stream) {
 
 extern "C" {
 
-// Shared memory, in bytes, that a launch with these dimensions needs at
-// the least (a two-stage ring; the wrapper refuses what exceeds the 227 KB
-// a block may use).
-long long decode_attention_smem_bytes(int group, int d, int is_bf16) {
-  return (long long)smem_bytes(2, group, d, is_bf16 ? 2 : 4);
+// Blocks a launch with these dimensions gives each (batch, kv head) for
+// each split: 1 where a two-stage ring of whole rows and the group's state
+// fit the 227 KB a block may use, else the wide path's group and column
+// blocks.  The wrapper plans the splits over that many blocks.
+int decode_attention_blocks(int group, int d, int is_bf16) {
+  return blocks_per_head(group, d, is_bf16 ? 2 : 4);
 }
 
 // q, o: (batch, hq, d) contiguous; k, v: (batch, hkv, s, d) with element

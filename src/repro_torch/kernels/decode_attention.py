@@ -10,14 +10,15 @@ The query sits at position ``kv_len - 1``: it attends to the keys
 picks between them.  This wrapper takes CUDA tensors in fp32 or bf16: a
 contiguous q, and k and v with the same strides and a unit stride on D,
 read where they lie (a permuted view of a (B, S, Hkv, D) ring cache needs
-no copy).  Head dims: any from 1 to 128, as the Pallas kernel takes.  The
-kernel runs every multiple of 8 (:data:`HEAD_DIMS`); any other D is
+no copy).  Head dims and GQA groups: any, as the Pallas kernel takes.  The
+kernel runs every multiple of 8 (:data:`HEAD_DIM_STEP`); any other D is
 zero-padded to the next multiple of 8 (``flash_attention.pad_head_dim``:
 a fresh copy of q and of the keys and values up to ``kv_len``) and the
-output sliced back, exactly, with the original D's scale.  Above 128 the
-call is refused, here and in :func:`meta` alike (:func:`check_shapes`).
-There is no backward kernel, so it refuses inputs that require a
-gradient.
+output sliced back, exactly, with the original D's scale.  Where a
+two-stage ring of whole K/V rows and the group's fp32 state do not fit a
+block's shared memory (a large group x D), the kernel splits the group
+and O's columns over more blocks (:func:`blocks_per_head`).  There is no
+backward kernel, so it refuses inputs that require a gradient.
 
 The kernel splits the key range (flash-decoding): :func:`split_plan`
 cuts ``[lo, kv_len)`` into ranges of whole 64-key tiles so that the
@@ -43,14 +44,11 @@ import torch
 
 from ..device import record_kernel, sm_count
 from . import build
-from .flash_attention import MAX_HEAD_DIM, pad_head_dim, padded_dim
+from .flash_attention import pad_head_dim
 
 _NAME = "decode_attention"
-#: Head dims the kernel runs as they are: every multiple of 8 up to
-#: :data:`MAX_HEAD_DIM`.
-HEAD_DIMS = tuple(range(8, MAX_HEAD_DIM + 1, 8))
-#: Shared memory a block may use on Hopper.
-MAX_SMEM_BYTES = 232_448
+#: The kernel runs every head dim that is a multiple of this as it is.
+HEAD_DIM_STEP = 8
 #: Keys per tile of the kernel; a split takes whole tiles.
 KEY_TILE = 64
 #: Blocks per SM that the split count aims the grid at.
@@ -82,6 +80,15 @@ def split_plan(kv_len: int, window: Optional[int], kv_blocks: int,
     return t_first, per, -(-n_tiles // per)
 
 
+def blocks_per_head(group: int, d: int, dtype: torch.dtype) -> int:
+    """Blocks the kernel gives each (batch, KV head) for each split: 1
+    where a two-stage ring of whole K/V rows and the group's fp32 state
+    fit a block's shared memory, else its wide path's ``ceil(group / 16)
+    x ceil(d / 256)`` (the group and O's columns split over blocks).  The
+    rule is the built kernel's (``decode_attention_blocks``)."""
+    return _lib().decode_attention_blocks(group, d, _DTYPES[dtype])
+
+
 def _lib() -> ctypes.CDLL:
     global _argtypes_set
     lib = build.load(_NAME)
@@ -91,8 +98,8 @@ def _lib() -> ctypes.CDLL:
             [vp] * 6 + [ci] * 5 + [ll] * 3 + [ci] * 3 + [ctypes.c_float]
             + [ci] * 5 + [vp])
         lib.decode_attention_launch.restype = ci
-        lib.decode_attention_smem_bytes.argtypes = [ci, ci, ci]
-        lib.decode_attention_smem_bytes.restype = ll
+        lib.decode_attention_blocks.argtypes = [ci, ci, ci]
+        lib.decode_attention_blocks.restype = ci
         _argtypes_set = True
     return lib
 
@@ -127,9 +134,9 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if hkv == 0 or hq % hkv != 0:
         raise ValueError(f"decode_attention: Hq={hq} is not a multiple of "
                          f"Hkv={hkv}")
-    if not 1 <= d <= MAX_HEAD_DIM:
+    if d < 1:
         raise ValueError(f"decode_attention: head dim {d} not supported "
-                         f"(1 to {MAX_HEAD_DIM})")
+                         "(1 or more)")
     if not (0 if lse else 1) <= kv_len <= s:
         raise ValueError(f"decode_attention: kv_len={kv_len} outside "
                          f"[{0 if lse else 1}, S={s}] (0 only with "
@@ -178,7 +185,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if scale is None:
         scale = q.shape[2] ** -0.5
     d = q.shape[2]
-    dp = padded_dim(d, HEAD_DIMS)
+    dp = -(-d // HEAD_DIM_STEP) * HEAD_DIM_STEP
     if dp != d:
         q, k, v = (pad_head_dim(x, dp) for x in (q, k[:, :, :kv_len],
                                                  v[:, :, :kv_len]))
@@ -189,12 +196,6 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out[..., :d].contiguous()
     b, hq, _ = q.shape
     hkv, s = k.shape[1], k.shape[2]
-    lib = _lib()
-    smem = lib.decode_attention_smem_bytes(hq // hkv, d, _DTYPES[q.dtype])
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"decode_attention: GQA group {hq // hkv} x head "
-                         f"dim {d} needs {smem} bytes of shared memory, "
-                         f"more than {MAX_SMEM_BYTES}")
     out = torch.empty_like(q)
     lse = (torch.empty((b, hq), dtype=torch.float32, device=q.device)
            if return_lse else None)
@@ -205,8 +206,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if out.numel() == 0:
         return (out, lse) if return_lse else out
     sb, sh, ss, _ = k.stride()
-    t_first, per, n_split = split_plan(int(kv_len), window, b * hkv,
-                                       sm_count(q.device))
+    lib = _lib()
+    t_first, per, n_split = split_plan(
+        int(kv_len), window, b * hkv * blocks_per_head(hq // hkv, d, q.dtype),
+        sm_count(q.device))
     # the splits' partial (acc, m, l), combined by the second kernel
     part = (torch.empty((b, hq, n_split, d + 2), dtype=torch.float32,
                         device=q.device) if n_split > 1 else None)
@@ -234,7 +237,7 @@ def work(b: int, hq: int, hkv: int, kv_len: int, d: int, elt: int,
     in its range read once, q read and o (and the fp32 log-sum-exp)
     written once, two products of 2·D operations a key and query head, at
     the head dim the kernel runs (a padded D where the call pads)."""
-    d = padded_dim(d, HEAD_DIMS)
+    d = -(-d // HEAD_DIM_STEP) * HEAD_DIM_STEP
     keys = min(kv_len, window) if window else kv_len
     nbytes = (2 * elt * b * hkv * keys * d + 2 * elt * b * hq * d
               + (4 * b * hq if return_lse else 0))

@@ -6,15 +6,16 @@ sliding-window GQA flash attention, forward only.
 The port of ``repro.kernels.flash_attention``; the plain version is
 ``kernels.ref.flash_attention_ref`` and ``kernels.ops.flash_attention``
 picks between them.  This wrapper takes contiguous CUDA tensors in fp32 or
-bf16 with any head dim from 1 to 128, as the Pallas kernel does.  The
-kernel is instantiated for every multiple of 16 up to 128
-(:data:`HEAD_DIMS`); any other D is zero-padded to the next of them
-(:func:`padded_dim`, :func:`pad_head_dim`) and the output sliced back.
-The padding is exact in both dtypes: the zero columns add exact zeros to
-every score and appear only in the output columns that are cut, and the
-scale stays the original D's ``D**-0.5``.  Above 128 the call is refused,
-here and in :func:`meta` alike (:func:`check_shapes`).  There is no
-backward kernel, so it refuses inputs that require a gradient.
+bf16 with any head dim, as the Pallas kernel does.  The kernel is
+instantiated for every multiple of 16 up to 128 and for 192 and 256
+(:data:`HEAD_DIMS`); any other D up to 256 is zero-padded to the next of
+them, and any D above 256 to a multiple of 16 (:func:`padded_dim`,
+:func:`pad_head_dim`), which runs with O's columns split over the grid,
+128 a block, each block computing the whole of S; the output is sliced
+back.  The padding is exact in both dtypes: the zero columns add exact
+zeros to every score and appear only in the output columns that are cut,
+and the scale stays the original D's ``D**-0.5``.  There is no backward
+kernel, so it refuses inputs that require a gradient.
 
 The source holds one kernel for each dtype, and the dtype picks it: bf16
 runs on the tensor cores (``mma.sync``, bf16 products with fp32 sums, P
@@ -36,10 +37,11 @@ from . import build
 
 _NAME = "flash_attention"
 #: Head dims the kernel is instantiated for: every multiple of 16 up to
-#: :data:`MAX_HEAD_DIM`.
-HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
-#: The largest head dim the attention kernels take.
-MAX_HEAD_DIM = 128
+#: 128, and 192 and 256.  Above 256 it runs any multiple of
+#: :data:`SPLIT_STEP`, O's columns split over the grid.
+HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128, 192, 256)
+#: A head dim above :data:`HEAD_DIMS` is zero-padded to a multiple of this.
+SPLIT_STEP = 16
 #: Query rows a block of either kernel takes.
 QUERY_TILE = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -58,10 +60,12 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def padded_dim(d: int, dims=HEAD_DIMS) -> int:
-    """The head dim a call at head dim ``d`` (1 <= d <= 128) runs at: the
-    least of ``dims`` at or above it."""
-    return min(x for x in dims if x >= d)
+def padded_dim(d: int) -> int:
+    """The head dim a call at head dim ``d`` (>= 1) runs at: the least of
+    :data:`HEAD_DIMS` at or above it, else ``d`` rounded up to a multiple
+    of :data:`SPLIT_STEP`."""
+    return min((x for x in HEAD_DIMS if x >= d),
+               default=-(-d // SPLIT_STEP) * SPLIT_STEP)
 
 
 def pad_head_dim(x: torch.Tensor, d: int) -> torch.Tensor:
@@ -96,9 +100,9 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if k.shape[1] == 0 or hq % k.shape[1] != 0:
         raise ValueError(f"flash_attention: Hq={hq} is not a multiple of "
                          f"Hkv={k.shape[1]}")
-    if not 1 <= d <= MAX_HEAD_DIM:
+    if d < 1:
         raise ValueError(f"flash_attention: head dim {d} not supported "
-                         f"(1 to {MAX_HEAD_DIM})")
+                         "(1 or more)")
     if k.shape[2] == 0:
         raise ValueError("flash_attention: no keys (Skv = 0)")
     if -(-q.shape[2] // QUERY_TILE) >= 2**16:
@@ -131,7 +135,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Attention computed on the card; ``q_offset`` (the key position of
     q row 0) defaults to Skv - Sq and ``scale`` to D**-0.5.  A head dim
-    that is not one of :data:`HEAD_DIMS` runs zero-padded to the next."""
+    runs zero-padded to :func:`padded_dim`'s."""
     _check(q, k, v)
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]

@@ -158,8 +158,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B, Hq, Sq, D) in q's dtype.  ``q_offset`` is the key position of q
     row 0 (default Skv - Sq); ``window`` keeps keys with
     ``kpos > qpos - window``.  The kernel takes fp32 or bf16 and any head
-    dim up to 128 (those not in ``kernels.flash_attention.HEAD_DIMS``
-    zero-padded to the next)."""
+    dim (zero-padded to ``kernels.flash_attention.padded_dim``'s)."""
     if resolve_use_kernels(use_kernels, q):
         if q.is_meta:
             return _flash.meta(q, k, v, causal=causal, window=window,
@@ -182,9 +181,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     D) in q's dtype.  The query sits at position ``kv_len - 1`` (default
     S - 1) and attends to keys ``[max(0, kv_len - window), kv_len)``.  k
     and v may be strided views (the kernel reads them where they lie);
-    the kernel takes fp32 or bf16 and any head dim up to 128 (those not in
-    ``kernels.decode_attention.HEAD_DIMS`` zero-padded to the next
-    multiple of 8).  ``return_lse``: (o, the fp32
+    the kernel takes fp32 or bf16, any head dim (zero-padded to the next
+    multiple of 8) and any GQA group.  ``return_lse``: (o, the fp32
     log-sum-exp (B, Hq) of the scaled scores), and ``kv_len`` may be 0
     (o = 0, lse = -inf)."""
     if resolve_use_kernels(use_kernels, q):

@@ -49,6 +49,13 @@ dtype) and one KV ring per invocation of the shared block.  A prompt
 longer than ``ssm_chunk`` must be a whole number of chunks, as in the JAX
 package.  ``prefill`` refuses a pattern without a group (``n_layers <
 attn_every``), which has no ring to fill (the JAX function fails there).
+A prompt shorter than ``conv_width - 1`` tokens prefills (its logits are
+right) but leaves the conv windows short, and ``decode_step`` refuses
+such a cache with a ``ValueError``, where the JAX package's decode step
+fails in its depthwise conv; the windows are not padded, which would
+answer where the JAX package cannot.  The short length travels with the
+cache as one more entry, a host scalar (:data:`SHORT_PREFILL`), so the
+leaves keep their shapes and a copy of the cache refuses too.
 
 The ``xlstm`` family is groups of ``slstm_every`` blocks, ``period - 1``
 mLSTM blocks then one sLSTM block (``models.xlstm``), then ``n_layers %
@@ -86,6 +93,10 @@ from .params import ParamDef, Struct, layer_slice, layer_views
 #: The families the port declares: ``encdec`` in ``models.encdec``, the
 #: decoder-only ones here.
 FAMILIES = ("dense", "moe", "hybrid_ssm", "xlstm", "encdec")
+#: The entry of a hybrid cache whose prefill was shorter than
+#: ``conv_width - 1`` tokens: the prompt's length, a CPU int64 scalar.
+#: Only such caches have it, and ``decode_step`` refuses them.
+SHORT_PREFILL = "short_prefill"
 
 
 # ---------------------------------------------------------------------------
@@ -800,6 +811,13 @@ def _mamba_decode(cfg, p, x, cache, name: str, idx: tuple, lay):
 
 def _hybrid_decode(cfg, params, cache, x, pos: int, lay, ring):
     """The hybrid family's decode step over its groups and tail."""
+    short = cache.get(SHORT_PREFILL)
+    if short is not None:
+        raise ValueError(
+            f"{cfg.name}: the prefill took {int(short)} tokens, fewer than "
+            f"conv_width - 1 = {cfg.conv_width - 1}: its Mamba2 conv "
+            "windows are short, so no decode step follows it (the JAX "
+            "package's fails in its depthwise conv)")
     ng, period, tail = _pattern(cfg)
     lp, shared = params["layers"], params["shared"]
     slot_pos = cache["slot_pos"]
@@ -914,6 +932,8 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int, patches=None,
         x = _xlstm_prefill(cfg, params, cache, x, lay)
     else:
         x = _ring_prefill(cfg, params, cache, x, max_len, lay)
+    if cfg.family == "hybrid_ssm" and s < cfg.conv_width - 1:
+        cache[SHORT_PREFILL] = torch.tensor(s)
     logits = lm_logits(cfg, params, x[:, -1:], lay)[:, 0]
     if lay is not None:
         logits = global_logits(cfg, logits, lay)

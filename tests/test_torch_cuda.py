@@ -398,6 +398,14 @@ FA_CASES = [  # b, hq, hkv, sq, skv, d, causal, window, q_offset
     (2, 4, 2, 130, 130, 24, True, None, None),
     (1, 4, 2, 100, 160, 24, True, 40, 60),
     (1, 3, 1, 70, 70, 37, False, None, None),
+    # head dims above 128: 136 padded to 192, 192 and 256 (Q read from
+    # shared memory), 320 and 512 (O's columns split over the grid)
+    (1, 4, 2, 130, 130, 136, True, None, None),
+    (2, 8, 2, 190, 190, 192, True, 100, None),
+    (2, 16, 8, 200, 200, 256, True, None, None),
+    (1, 32, 4, 130, 300, 256, False, 64, 100),
+    (1, 8, 2, 190, 190, 320, True, None, None),
+    (1, 8, 2, 257, 257, 512, True, 100, None),
 ]
 
 
@@ -663,6 +671,11 @@ DECODE_CASES = [  # b, hq, hkv, s, d, kv_len, window
     (2, 12, 4, 300, 96, 250, None),       # D 96
     (2, 4, 2, 200, 24, 150, 64),          # D 24 (nemo-smoke's), as it is
     (1, 6, 2, 120, 37, 100, None),        # D 37, zero-padded to 40
+    (2, 16, 8, 4096, 256, 4096, None),    # Gemma-2-9B's decode, D 256
+    (2, 32, 4, 700, 256, 513, 300),       # group 8, D 256
+    (2, 4, 2, 300, 136, 290, 100),        # D 136
+    (2, 32, 2, 700, 512, 700, None),      # group 16 x D 512: the wide path
+    (1, 16, 1, 300, 512, 290, 64),        # the wide path, windowed
 ]
 
 

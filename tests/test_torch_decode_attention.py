@@ -75,7 +75,24 @@ def test_decode_attention_head_dims(d):
                                           window=100), "float32")
 
 
-@pytest.mark.parametrize("d", [37, 100])
+@pytest.mark.parametrize("d,hq,hkv", [(192, 4, 2), (256, 16, 8),
+                                      (320, 16, 1)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_head_dims_above_128(d, hq, hkv, dtype):
+    """Head dims above 128 (Gemma-2-9B's 256 at its 16 / 8 heads) and a
+    GQA group of 16 at D 320 (where the kernel splits the group and O's
+    columns over blocks), windowed: the plain version against the Pallas
+    kernel in interpret mode and the JAX reference."""
+    (jq, jk, jv), (q, k, v) = _inputs(d, 1, hq, hkv, 128, d, dtype)
+    got = ops.decode_attention(q, k, v, kv_len=120, window=100)
+    assert got.shape == (1, hq, d)
+    _check(got, jops.decode_attention(jq, jk, jv, kv_len=120, window=100,
+                                      bk=256), dtype)
+    _check(got, jref.decode_attention_ref(jq, jk, jv, kv_len=120,
+                                          window=100), dtype)
+
+
+@pytest.mark.parametrize("d", [37, 100, 300])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_padding_the_head_dim_is_exact(d, dtype):
     """The wrapper's padding, on the plain version: q and the keys and
@@ -84,8 +101,8 @@ def test_padding_the_head_dim_is_exact(d, dtype):
     output bit for bit, and its log-sum-exp up to the order of the host's
     float32 sums."""
     _, (q, k, v) = _inputs(d, 2, 4, 2, 90, d, dtype)
-    dp = KD.padded_dim(d, KD.HEAD_DIMS)
-    assert dp == {37: 40, 100: 104}[d]
+    dp = -(-d // KD.HEAD_DIM_STEP) * KD.HEAD_DIM_STEP
+    assert dp == {37: 40, 100: 104, 300: 304}[d]
     for kv_len, window in ((90, None), (60, 25)):
         padded = [KD.pad_head_dim(x, dp) for x in (q, k[:, :, :kv_len],
                                                    v[:, :, :kv_len])]
@@ -100,8 +117,10 @@ def test_padding_the_head_dim_is_exact(d, dtype):
 
 
 def test_meta_refuses_what_the_card_refuses():
-    """The dry trace's decode call applies the wrapper's shape rules:
-    above head dim 128 both refuse alike; at 24 both accept."""
+    """The dry trace's decode call applies the wrapper's shape rules: a
+    head dim of 0 both refuse alike; 24, 136, 256 and 320 both take (the
+    card's rules, ``check_shapes``, pass; on the CPU the kernel then
+    refuses the tensors for lying there)."""
     from repro_torch.analysis.ops import Trace
 
     def args(d, device):
@@ -110,10 +129,15 @@ def test_meta_refuses_what_the_card_refuses():
                 torch.zeros(1, 2, 8, d, device=device))
     for call in (lambda d: KD.decode_attention(*args(d, "cpu")),
                  lambda d: KD.meta(*args(d, "meta"))):
-        with pytest.raises(ValueError, match="head dim 136 not supported"):
-            call(136)
+        with pytest.raises(ValueError, match="head dim 0 not supported"):
+            call(0)
+    for d in (24, 136, 256, 320):
+        KD.check_shapes(*args(d, "cpu"), kv_len=8, window=None)
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            KD.decode_attention(*args(d, "cpu"))
     with Trace():
-        assert KD.meta(*args(24, "meta")).shape == (1, 4, 24)
+        for d in (24, 136, 256, 320):
+            assert KD.meta(*args(d, "meta")).shape == (1, 4, d)
         with pytest.raises(ValueError, match="kv_len=9"):
             KD.meta(*args(64, "meta"), kv_len=9)
 
@@ -159,10 +183,10 @@ def test_decode_attention_kernel_refuses_what_it_does_not_take():
         KD.decode_attention(q, k, k)
     with pytest.raises(ValueError, match="backward"):
         KD.decode_attention(q.clone().requires_grad_(), k, k)
-    with pytest.raises(ValueError, match="head dim 136"):
-        KD.decode_attention(torch.zeros(1, 4, 136),
-                            torch.zeros(1, 2, 8, 136),
-                            torch.zeros(1, 2, 8, 136))
+    with pytest.raises(ValueError, match="head dim 0"):
+        KD.decode_attention(torch.zeros(1, 4, 0),
+                            torch.zeros(1, 2, 8, 0),
+                            torch.zeros(1, 2, 8, 0))
     with pytest.raises(ValueError, match="not supported"):
         KD.decode_attention(q.half(), k.half(), k.half())
     with pytest.raises(ValueError, match="multiple"):
@@ -179,7 +203,7 @@ def test_decode_attention_kernel_refuses_what_it_does_not_take():
         KD.decode_attention(q, k, torch.zeros(1, 2, 64, 8).transpose(2, 3))
     with pytest.raises(ValueError, match="must be torch.float32"):
         KD.decode_attention(q, k.bfloat16(), k)
-    assert KD.HEAD_DIMS == tuple(range(8, 129, 8))
+    assert KD.HEAD_DIM_STEP == 8
     assert KD.decode_attention.launches == 0
 
 

@@ -124,10 +124,10 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="backward"):
         KF.flash_attention(q.requires_grad_(), k, k)
     q = q.detach()
-    with pytest.raises(ValueError, match="head dim 136"):
-        KF.flash_attention(torch.zeros(1, 4, 8, 136),
-                           torch.zeros(1, 2, 8, 136),
-                           torch.zeros(1, 2, 8, 136))
+    with pytest.raises(ValueError, match="head dim 0"):
+        KF.flash_attention(torch.zeros(1, 4, 8, 0),
+                           torch.zeros(1, 2, 8, 0),
+                           torch.zeros(1, 2, 8, 0))
     with pytest.raises(ValueError, match="not supported"):
         KF.flash_attention(q.half(), k.half(), k.half())
     with pytest.raises(ValueError, match="multiple"):
@@ -140,16 +140,17 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take():
     assert KF.flash_attention.launches == 0
 
 
-@pytest.mark.parametrize("d", [24, 37])
+@pytest.mark.parametrize("d", [24, 37, 200, 300])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_padding_the_head_dim_is_exact(d, dtype):
     """The wrapper's padding, on the plain version: q, k and v with zero
-    columns up to the next instantiated head dim, at the original D's
-    scale, sliced back, give the unpadded call's output bit for bit (the
-    zero columns add exact zeros to every score)."""
+    columns up to the next instantiated head dim (above 256 the next
+    multiple of 16), at the original D's scale, sliced back, give the
+    unpadded call's output bit for bit (the zero columns add exact zeros
+    to every score)."""
     _, (q, k, v) = _inputs(d, 2, 4, 2, 70, 90, d, dtype)
     dp = KF.padded_dim(d)
-    assert dp == {24: 32, 37: 48}[d]
+    assert dp == {24: 32, 37: 48, 200: 256, 300: 304}[d]
     for kw in (dict(causal=True), dict(causal=False, window=20),
                dict(causal=True, q_offset=5, window=30)):
         padded = [KF.pad_head_dim(x, dp) for x in (q, k, v)]
@@ -161,18 +162,25 @@ def test_padding_the_head_dim_is_exact(d, dtype):
 
 
 def test_meta_refuses_what_the_card_refuses():
-    """The dry trace's flash call applies the wrapper's shape rules: above
-    head dim 128 both refuse alike; at 24 both accept."""
+    """The dry trace's flash call applies the wrapper's shape rules: a
+    head dim of 0 both refuse alike; 24, 136, 256 and 320 both take (the
+    card's rules, ``check_shapes``, pass; on the CPU the kernel then
+    refuses the tensors for lying there)."""
     def args(d, device):
         return (torch.zeros(1, 4, 8, d, device=device),
                 torch.zeros(1, 2, 8, d, device=device),
                 torch.zeros(1, 2, 8, d, device=device))
     for call in (lambda d: KF.flash_attention(*args(d, "cpu")),
                  lambda d: KF.meta(*args(d, "meta"))):
-        with pytest.raises(ValueError, match="head dim 136 not supported"):
-            call(136)
+        with pytest.raises(ValueError, match="head dim 0 not supported"):
+            call(0)
+    for d in (24, 136, 256, 320):
+        KF.check_shapes(*args(d, "cpu"))
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            KF.flash_attention(*args(d, "cpu"))
     with Trace():
-        assert KF.meta(*args(24, "meta")).shape == (1, 4, 8, 24)
+        for d in (24, 136, 256, 320):
+            assert KF.meta(*args(d, "meta")).shape == (1, 4, 8, d)
         with pytest.raises(ValueError, match="multiple"):
             KF.meta(torch.zeros(1, 3, 8, 64, device="meta"),
                     *args(64, "meta")[1:])
@@ -195,6 +203,48 @@ def test_dry_trace_records_the_flash_call_at_head_dim_80():
     assert nops == 4 * b * hq * pairs * d
     assert nbytes == 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d)
     assert KF.work((1, 1, 8, 24), (1, 1, 8, 24), 4)[0] == 4 * 4 * 8 * 32
+
+
+@pytest.mark.parametrize("d", [192, 256, 320])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_head_dims_above_128(d, dtype):
+    """Head dims the kernel takes above 128 (192 and 256 as they are, 320
+    with O's columns split over the grid; Gemma-2-9B's is 256), GQA
+    group 2, causal under a window and not: the plain version against the
+    Pallas kernel in interpret mode and the JAX reference."""
+    (jq, jk, jv), (q, k, v) = _inputs(d, 1, 4, 2, 72, 100, d, dtype)
+    for kw in (dict(causal=True, window=48), dict(causal=False)):
+        got = ops.flash_attention(q, k, v, **kw)
+        assert got.shape == (1, 4, 72, d)
+        _check(got, jops.flash_attention(jq, jk, jv, bq=64, bk=64, **kw),
+               dtype)
+        _check(got, jref.flash_attention_ref(jq, jk, jv, **kw), dtype)
+
+
+@pytest.mark.parametrize("d,dp", [(1, 16), (129, 192), (192, 192),
+                                  (193, 256), (256, 256), (257, 272),
+                                  (320, 320), (511, 512), (1000, 1008)])
+def test_padded_dim_has_no_upper_end(d, dp):
+    """Every head dim runs: up to 256 at the next instantiated one, above
+    at the next multiple of 16 (the column split)."""
+    assert KF.padded_dim(d) == dp
+
+
+def test_dry_trace_records_the_flash_call_at_head_dim_256():
+    """A dry trace records one flash call at Gemma-2-9B's shapes cut to
+    size (16 query heads over 8, D 256, a window), with its ``work`` at D
+    256."""
+    b, hq, hkv, s, d, w = 1, 16, 8, 80, 256, 32
+    q = torch.empty((b, hq, s, d), dtype=torch.bfloat16, device="meta")
+    kv = torch.empty((b, hkv, s, d), dtype=torch.bfloat16, device="meta")
+    art = trace(lambda q_, k_, v_: ops.flash_attention(
+        q_, k_, v_, causal=True, window=w), q, kv, kv)
+    assert art.profile.kernel_calls() == {"flash_attention": 1}
+    _, nbytes, nops = art.profile.kernels["flash_attention"]
+    pairs = sum(min(i + 1, w) for i in range(s))
+    assert (nbytes, nops) == KF.work(q.shape, kv.shape, 2, window=w)
+    assert nops == 4 * b * hq * pairs * d
+    assert nbytes == 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d)
 
 
 def _emulate_bf16_kernel(q, k, v, *, scale_err=1.0, drop_tile=None):

@@ -297,3 +297,60 @@ def test_a_pattern_without_a_group_is_refused_by_prefill():
         L.prefill(tc, tp, toks, MAX_LEN)
     with pytest.raises(IndexError):
         JL.prefill(jc, jp, jnp.asarray(toks), MAX_LEN)
+
+
+@pytest.mark.parametrize("s", [1, 2])
+def test_a_prompt_shorter_than_the_conv_window_never_decodes(s):
+    """A prefill of fewer than ``conv_width - 1`` tokens gives its logits
+    (the JAX package's), but no decode step follows it: the port refuses
+    with a ``ValueError`` where the JAX package's step fails in its
+    depthwise conv on the short window it kept.  The port's cache keeps
+    its leaves' shapes and carries the short length as one more entry,
+    so a copy of the cache refuses too."""
+    jc, tc = _configs()
+    jp, tp = _weights()
+    assert tc.conv_width - 1 == 3
+    toks = _tokens()[:, :s]
+    jcache, jl = JL.prefill(jc, jp, jnp.asarray(toks), MAX_LEN)
+    cache, tl = L.prefill(tc, tp, toks, MAX_LEN)
+    assert _row_err(tl.numpy(), np.asarray(jl)) <= ROW_CAP
+    fresh = L.init_cache(tc, B, MAX_LEN, torch.float32, device="cpu")
+    assert int(cache.pop(L.SHORT_PREFILL)) == s
+    assert {k: v.shape for k, v in cache.items()} == {
+        k: v.shape for k, v in fresh.items()}
+    cache[L.SHORT_PREFILL] = torch.tensor(s)
+    nxt = toks[:, 0]
+    for c in (cache, {k: v.clone() for k, v in cache.items()}):
+        with pytest.raises(ValueError, match=f"prefill took {s} tokens, "
+                           "fewer than conv_width - 1 = 3"):
+            L.decode_step(tc, tp, c, torch.from_numpy(nxt))
+    assert int(cache["pos"]) == s
+    with pytest.raises(ValueError, match="label 'w'"):
+        JL.decode_step(jc, jp, jcache, jnp.asarray(nxt))
+
+
+def test_serve_engine_refuses_a_ragged_batch_with_a_short_prompt():
+    """Prompts of 2 and 5 tokens: both engines prefill at the shortest, 2,
+    and both refuse the replay's first decode step (a ``ValueError``)."""
+    jc, tc = _configs()
+    jp, tp = _weights()
+    prompts = [[7, 9], [3, 4, 5, 6, 8]]
+    with pytest.raises(ValueError, match="label 'w'"):
+        JaxServeEngine(jc, jp, max_len=16).generate(prompts, 4)
+    with pytest.raises(ValueError, match="prefill took 2 tokens"):
+        ServeEngine(tc, tp, max_len=16).generate(prompts, 4)
+
+
+def test_a_prompt_of_conv_width_minus_one_tokens_decodes():
+    """At ``conv_width - 1`` = 3 tokens the window is whole: the prefill
+    and a decode step give the logits of the port's own forward over the 4
+    tokens, within 1e-5 of the row's max."""
+    _, tc = _configs()
+    _, tp = _weights()
+    toks = _tokens()[:, :4]
+    full = L.forward(tc, tp, toks)[0].numpy()
+    cache, tl = L.prefill(tc, tp, toks[:, :3], MAX_LEN)
+    assert L.SHORT_PREFILL not in cache
+    _, dl = L.decode_step(tc, tp, cache, torch.from_numpy(toks[:, 3]))
+    assert _row_err(tl.numpy(), full[:, 2]) <= 1e-5
+    assert _row_err(dl.numpy(), full[:, 3]) <= 1e-5

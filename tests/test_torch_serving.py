@@ -194,6 +194,37 @@ def test_prefill_and_a_decode_step_match_at_the_larger_smoke_configs(arch):
     assert int(cache["pos"]) == S + n_front + 1
 
 
+def test_head_dim_256_forward_prefill_and_decode_match():
+    """granite-moe's smoke config at ``head_dim=256`` (Gemma-2-9B's head
+    dim; the config's own field, which both packages take): the forward,
+    the prefill and 2 decode steps in fp32 against the JAX package's, the
+    port with the kernels' switches on (their plain versions here, at D
+    256): logits and cache leaves within the file's tolerance, integer
+    leaves equal."""
+    arch = "granite-moe-3b-a800m"
+    jc, tc = _configs(arch, head_dim=256)
+    tc = dataclasses.replace(tc, attn_impl="pallas", use_pallas=True)
+    assert tc.head_dim == 256 and tc.n_heads * 256 != tc.d_model
+    jp = jax_get_model(jc).init(jc, jax.random.PRNGKey(0))
+    tp = from_jax_params(jp, device="cpu")
+    toks = _prompt_tokens(7)
+    _check_logits(L.forward(tc, tp, toks)[0],
+                  JL.forward(jc, jp, jnp.asarray(toks))[0])
+    jcache, jl = JL.prefill(jc, jp, jnp.asarray(toks), MAX_LEN)
+    cache, logits = L.prefill(tc, tp, toks, MAX_LEN)
+    _check_logits(logits, jl)
+    _check_cache(cache, jcache)
+    assert cache["k"].shape[-1] == 256
+    rng = np.random.default_rng(8)
+    for _ in range(2):
+        step_toks = rng.integers(1, 255, B).astype(np.int32)
+        cache, logits = L.decode_step(tc, tp, cache, step_toks)
+        jcache, jl = JL.decode_step(jc, jp, jcache, jnp.asarray(step_toks))
+        _check_logits(logits, jl)
+        _check_cache(cache, jcache)
+    assert int(cache["pos"]) == S + 2
+
+
 @pytest.mark.parametrize("ring", ["every position", "one slot short"])
 def test_patch_frontend_decode_against_the_forward(ring):
     """The patch frontend's positions share the ring with the tokens, so a
@@ -454,14 +485,18 @@ def test_unported_families_name_their_roadmap_item(arch, item):
             (1, 4), np.int32)}, 8)[1].shape == (1, tc.vocab_size)
         return
     if item == "A13d":
-        # ported: the same entries serve the hybrid family
+        # ported: the same entries serve the hybrid family; a prompt
+        # shorter than conv_width - 1 = 3 prefills but never decodes
         tc = dataclasses.replace(tc, dtype="float32")
         params = get_model(tc).init(tc, torch.Generator().manual_seed(0),
                                     device="cpu")
         cache, logits = L.prefill(tc, params, np.zeros((1, 2), np.int32), 8)
         assert logits.shape == (1, tc.vocab_size)
+        with pytest.raises(ValueError, match="fewer than conv_width - 1"):
+            L.decode_step(tc, params, cache, np.zeros(1))
+        cache, logits = L.prefill(tc, params, np.zeros((1, 3), np.int32), 8)
         cache, logits = L.decode_step(tc, params, cache, np.zeros(1))
-        assert int(cache["pos"]) == 3 and bool(torch.isfinite(logits).all())
+        assert int(cache["pos"]) == 4 and bool(torch.isfinite(logits).all())
         assert L.init_cache(tc, 1, 8, device="cpu")["ssm_main"].shape == (
             2, 3, 1, tc.ssm_heads, tc.ssm_head_dim, tc.ssm_state)
         assert get_model(tc).prefill(tc, params, {"tokens": np.ones(
